@@ -1,0 +1,482 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one NVIDIA H100; check it.
+
+    python3 chip_smoke.py
+
+Phases:
+
+1. Header and build: the card's name and power limit as ``nvidia-smi`` gives
+   them, then the build of ``src/repro_torch/csrc`` (nvcc, sm_90a) and its
+   time.
+2. Main path, with every kernel's launch count set to 0 before and read
+   after: the public ops (``repro_torch.ops``) at 2^24 elements and at the
+   model's shapes, then the engine of ``repro_torch.launch.serve`` serving
+   mamba2-1.3b FULL (48 layers, random weights from seed 0) to four
+   requests of up to 512 prompt tokens, 16 new tokens each. Every kernel
+   must have run; the serve run must show 48 SSD launches per prefill and
+   97 RMSNorm launches per forward. The prefill's last-token logits are held
+   against the same model on the kernels' plain versions.
+3. Per kernel: the kernel against its plain version on the card at the main
+   path's shapes, with the error and its tolerance, the times of the kernel,
+   the plain version and one library call where PyTorch has one, and the
+   least time the card could take (bytes over 3.35 TB/s or operations over
+   the peak rate of the input type, whichever is larger).
+4. A ``kernels`` JSON line, the ``nvidia-smi`` line, and last the ``ok`` line.
+
+Exits non-zero and prints no result when there is no CUDA device or no
+``src/repro_torch`` beside this script; exits 1 when any phase failed.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory
+PEAK_OPS = {"float16": 989e12, "bfloat16": 989e12,   # dense tensor cores
+            "float32": 67e12}                          # CUDA cores
+N_ELEMS = 1 << 24
+
+
+class Smoke:
+    def __init__(self, torch):
+        self.torch = torch
+        self.failures: list[str] = []
+        self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+    def fail(self, msg: str) -> None:
+        self.failures.append(msg)
+        print(f"FAIL {msg}", flush=True)
+
+    def time_ms(self, fn, *, budget_ms: float = 300.0,
+                max_iters: int = 20) -> float:
+        """Median device time of ``fn`` with a cold L2: a 64 MB write and a
+        spin on the card precede every timed launch, so that neither the
+        cache nor the host's enqueue time enters the reading."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(max_iters):
+            self.flush.zero_()
+            torch.cuda._sleep(200_000)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            if len(times) >= 3 and sum(times) > budget_ms:
+                break
+        return statistics.median(times)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def bound(nbytes: float, ops: float, dtype) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[str(dtype).split(".")[-1]] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# ---------------------------------------------------------------------------
+# per-kernel cases: (label, inputs, kernel call, plain call, library call,
+# tolerance, bytes, ops, input dtype)
+
+
+def reduce_scan_cases(torch, kops, ref, gen):
+    out = []
+    for dtype, n in ((torch.float16, 16), (torch.float16, 256),
+                     (torch.float16, 4096), (torch.float32, 256)):
+        x = torch.randn(N_ELEMS // n, n, generator=gen, device="cuda",
+                        dtype=torch.float32).to(dtype)
+        rows = x.shape[0]
+        tag = f"{str(dtype).split('.')[-1]} rows={rows} n={n}"
+        out.append(dict(
+            kernel="tcu_reduce", label=tag, primary=(dtype, n) == (
+                torch.float16, 256),
+            run=lambda x=x: kops.segmented_reduce(x),
+            plain=lambda x=x: ref.segmented_reduce_ref(x),
+            library=lambda x=x: torch.sum(x, dim=-1, dtype=torch.float32),
+            rtol=2e-4, nbytes=nbytes(x) + 4 * rows, ops=x.numel(),
+            dtype=dtype))
+        out.append(dict(
+            kernel="tcu_scan", label=tag, primary=(dtype, n) == (
+                torch.float16, 256),
+            run=lambda x=x: kops.segmented_scan(x),
+            plain=lambda x=x: ref.segmented_scan_ref(x),
+            library=lambda x=x: torch.cumsum(x, dim=-1, dtype=torch.float32),
+            rtol=1e-3, nbytes=nbytes(x) + 4 * x.numel(), ops=x.numel(),
+            dtype=dtype))
+    return out
+
+
+def ssd_inputs(torch, gen, bsz, seqlen, nheads, hdim, ngroups, nstate,
+               dtype):
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    x = rn(bsz, seqlen, nheads, hdim).to(dtype)
+    dt = torch.nn.functional.softplus(rn(bsz, seqlen, nheads) - 4.0)
+    a = -(1.0 + 15.0 * torch.rand(nheads, generator=gen, device="cuda"))
+    b = (rn(bsz, seqlen, ngroups, nstate) / nstate ** 0.5).to(dtype)
+    c = (rn(bsz, seqlen, ngroups, nstate) / nstate ** 0.5).to(dtype)
+    return x, dt, a, b, c
+
+
+def ssd_flops(bsz, seqlen, nheads, hdim, nstate, q=64):
+    tri = q * (q + 1) // 2
+    per_chunk = 2 * (tri * nstate + tri * hdim + 2 * q * nstate * hdim)
+    return bsz * nheads * (-(-seqlen // q)) * per_chunk
+
+
+def ssd_cases(torch, kops, ref, gen):
+    out = []
+    # mamba2-1.3b FULL prefill: B=4 prompts of 512, 64 heads of 64, N=128
+    for shape, dtype, primary in (((4, 512, 64, 64, 1, 128), torch.bfloat16,
+                                   True),
+                                  ((2, 300, 8, 64, 2, 128), torch.float32,
+                                   False)):
+        ins = ssd_inputs(torch, gen, *shape, dtype)
+        bsz, seqlen, nheads, hdim, ngroups, nstate = shape
+        y_bytes = bsz * seqlen * nheads * hdim * ins[0].element_size()
+        st_bytes = bsz * nheads * hdim * nstate * 4
+        out.append(dict(
+            kernel="ssd_scan", label=f"{str(dtype).split('.')[-1]} "
+            f"B={bsz} L={seqlen} H={nheads} P={hdim} G={ngroups} N={nstate}",
+            primary=primary,
+            run=lambda ins=ins: kops.ssd_scan(*ins, return_state=True),
+            plain=lambda ins=ins: ref.ssd_scan_ref(*ins, return_state=True),
+            library=None, rtol=8e-3 if dtype == torch.bfloat16 else 2e-3,
+            nbytes=nbytes(*ins) + y_bytes + st_bytes,
+            ops=ssd_flops(bsz, seqlen, nheads, hdim, nstate), dtype=dtype))
+    rows, n = 64, 4096
+    x = torch.randn(rows, n, generator=gen, device="cuda")
+    la = -0.5 * torch.rand(rows, n, generator=gen, device="cuda")
+    out.append(dict(
+        kernel="ssd_scan", label=f"weighted_scan f32 rows={rows} n={n}",
+        primary=False, run=lambda: kops.weighted_scan(x, la),
+        plain=lambda: ref.weighted_scan_ref(x, la), library=None, rtol=2e-3,
+        nbytes=nbytes(x, la) + 4 * x.numel(), ops=2 * x.numel(),
+        dtype=torch.float32))
+    return out
+
+
+def rmsnorm_cases(torch, kops, ref, gen):
+    import torch.nn.functional as F
+
+    out = []
+    for rows, d in ((2048, 2048), (2048, 4096)):
+        x = torch.randn(rows, d, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(
+            torch.bfloat16)
+        lib = (lambda x=x, w=w, d=d: F.rms_norm(x, (d,), w, eps=1e-5)) \
+            if hasattr(F, "rms_norm") else None
+        out.append(dict(
+            kernel="rmsnorm", label=f"bf16 rows={rows} d={d}",
+            primary=d == 4096,
+            run=lambda x=x, w=w: kops.rmsnorm(x, w, eps=1e-5),
+            plain=lambda x=x, w=w: ref.rmsnorm_ref(x, w, eps=1e-5),
+            library=lib, rtol=1e-2, nbytes=2 * nbytes(x) + nbytes(w),
+            ops=4 * x.numel(), dtype=torch.bfloat16))
+    return out
+
+
+def max_err(got, want):
+    """(max abs error, max |want|) over every output tensor."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    errs = [(g.float() - w.float()).abs().max().item()
+            for g, w in zip(got, want)]
+    scales = [w.float().abs().max().item() for w in want]
+    return errs, scales
+
+
+def check_kernels(smoke: Smoke, kops, ref) -> dict:
+    """Each kernel against its plain version; returns per-kernel rows."""
+    torch = smoke.torch
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = (reduce_scan_cases(torch, kops, ref, gen)
+             + ssd_cases(torch, kops, ref, gen)
+             + rmsnorm_cases(torch, kops, ref, gen))
+    rows: dict[str, dict] = {}
+    for case in cases:
+        name = case["kernel"]
+        try:
+            got = case["run"]()
+            want = case["plain"]()
+            torch.cuda.synchronize()
+            errs, scales = max_err(got, want)
+            tols = [case["rtol"] * max(1.0, s) for s in scales]
+            ok = all(e <= t for e, t in zip(errs, tols))
+            ms = smoke.time_ms(case["run"])
+            plain_ms = smoke.time_ms(case["plain"], max_iters=5)
+            lib_ms = (smoke.time_ms(case["library"])
+                      if case["library"] is not None else None)
+        except Exception as exc:  # a phase that raises is a failed phase
+            smoke.fail(f"{name} [{case['label']}]: {exc!r}")
+            continue
+        bound_ms, bound_by = bound(case["nbytes"], case["ops"],
+                                   case["dtype"])
+        rec = dict(label=case["label"], max_abs_err=max(errs),
+                   tol=max(tols), ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+        print(f"kernel {name} [{case['label']}]: max_abs_err="
+              f"{[f'{e:.3e}' for e in errs]} tol={[f'{t:.3e}' for t in tols]}"
+              f" ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+              f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} "
+              f"bound_ms={bound_ms:.4f} ({bound_by})"
+              f"{'' if ok else '  <-- OUT OF TOLERANCE'}", flush=True)
+        if not ok:
+            smoke.fail(f"{name} [{case['label']}] disagrees with its plain "
+                       f"version: {errs} > {tols}")
+        row = rows.setdefault(name, {"cases": []})
+        row["cases"].append(rec)
+        if case["primary"]:
+            row.update({k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                            "library_ms", "bound_ms",
+                                            "bound_by")})
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# main path
+
+
+def ops_pass(smoke: Smoke, ops):
+    """The public ops once each, at the sizes the paper and the model use."""
+    torch = smoke.torch
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(N_ELEMS // 256, 256, generator=gen, device="cuda").half()
+    red = ops.reduce(x)
+    sc = ops.scan(x, exclusive=True)
+    la = -0.5 * torch.rand(64, 4096, generator=gen, device="cuda")
+    ws = ops.weighted_scan(torch.randn(64, 4096, generator=gen,
+                                       device="cuda"), la)
+    h = torch.randn(2048, 2048, generator=gen, device="cuda").bfloat16()
+    nrm = ops.rmsnorm(h, torch.ones(2048, device="cuda",
+                                    dtype=torch.bfloat16), eps=1e-5)
+    y, st = ops.ssd(*ssd_inputs(torch, gen, 4, 512, 64, 64, 1, 128,
+                                torch.bfloat16), return_state=True)
+    torch.cuda.synchronize()
+    for name, t, shape in (("reduce", red, (N_ELEMS // 256,)),
+                           ("scan", sc, (N_ELEMS // 256, 256)),
+                           ("weighted_scan", ws, (64, 4096)),
+                           ("rmsnorm", nrm, (2048, 2048)),
+                           ("ssd.y", y, (4, 512, 64, 64)),
+                           ("ssd.state", st, (4, 64, 64, 128))):
+        if tuple(t.shape) != shape or not torch.isfinite(t).all():
+            smoke.fail(f"ops.{name}: shape {tuple(t.shape)} (want {shape})"
+                       " or non-finite values")
+    if sc[:, 0].abs().max().item() != 0.0:
+        smoke.fail("ops.scan(exclusive=True) does not start at 0")
+
+
+def serve_pass(smoke: Smoke, serve, kops):
+    """mamba2-1.3b FULL through the serving engine; returns its numbers."""
+    from repro_torch.models import build_lm
+    from repro_torch.models.common import cast_tree
+
+    torch = smoke.torch
+    engine = serve.build_engine("mamba2-1.3b", "full", device="cuda",
+                                slots=4, max_new=16, seed=0)
+    cfg = engine.bundle.cfg
+    print(f"serve: {cfg.name} {cfg.n_layers} layers d_model={cfg.d_model} "
+          f"{engine.bundle.n_params / 1e9:.3f}B params {cfg.dtype}, "
+          f"scheduler=wave, 4 slots", flush=True)
+    # warm-up: one short request (cuBLAS handles, allocator)
+    engine.run(serve.make_requests(1, 16, cfg.vocab, seed=1))
+    reqs = serve.make_requests(4, 512, cfg.vocab, seed=0)
+    for r in reqs:
+        r.max_new = 16
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine.prefills = engine.decodes = 0
+    kops.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_tok = sum(len(r.tokens) for r in results)
+    first = min(r.first_token_s for r in results)
+    last = max(r.finish_s for r in results)
+    stats = dict(
+        requests=len(results), prompt_lens=[r.prompt_len for r in results],
+        tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
+        first_token_s=first,
+        decode_ms_per_token=(1e3 * (last - first) / max(engine.decodes, 1)),
+        prefills=engine.prefills, decodes=engine.decodes,
+        peak_mem_gb=peak_gb, launches=counts)
+    print(f"serve: {len(results)} requests, prompt lens "
+          f"{stats['prompt_lens']}, {n_tok} tokens in {wall:.3f}s "
+          f"({stats['tok_per_s']:.2f} tok/s), first token at "
+          f"{1e3 * first:.1f} ms, decode {stats['decode_ms_per_token']:.2f} "
+          f"ms/step, peak memory {peak_gb:.2f} GB", flush=True)
+    print(f"serve: launches {counts} over {engine.prefills} prefill(s) and "
+          f"{engine.decodes} decode step(s)", flush=True)
+    if any(len(r.tokens) == 0 for r in results):
+        smoke.fail("serve: a request produced no tokens")
+    want_ssd = cfg.n_layers * engine.prefills
+    want_norm = (2 * cfg.n_layers + 1) * (engine.prefills + engine.decodes)
+    if counts["ssd_scan"] < want_ssd or engine.prefills < 1:
+        smoke.fail(f"serve: {counts['ssd_scan']} SSD launches, want >= "
+                   f"{want_ssd} ({cfg.n_layers} per prefill)")
+    if counts["rmsnorm"] < want_norm:
+        smoke.fail(f"serve: {counts['rmsnorm']} RMSNorm launches, want >= "
+                   f"{want_norm} ({2 * cfg.n_layers + 1} per forward)")
+
+    # prefill, kernels against plain versions, on the served wave's batch
+    plen = max(r.prompt_len for r in results)
+    tokens = torch.zeros((4, plen), dtype=torch.long)
+    for i, r in enumerate(reqs):
+        tokens[i, plen - len(r.prompt):] = torch.from_numpy(
+            r.prompt.astype("int64"))
+    batch = {"tokens": tokens.cuda()}
+
+    def prefill_fn(policy, dtype):
+        bundle = build_lm(dataclasses.replace(cfg, policy=policy,
+                                              dtype=dtype))
+        params = cast_tree(engine.params, dtype)
+        return lambda: bundle.prefill_last(params, batch)[0].float()
+
+    kern_bf16 = prefill_fn(None, torch.bfloat16)
+    plain_bf16 = prefill_fn("baseline", torch.bfloat16)
+    prefill_ms = smoke.time_ms(kern_bf16, max_iters=5)
+    plain_prefill_ms = smoke.time_ms(plain_bf16, max_iters=3)
+    got, want = kern_bf16(), plain_bf16()
+    # the same weights in f32 on both paths: kernels and plain versions
+    # agree to about 1e-6 per op, so 48 layers stay within 1e-3 of the
+    # largest logit
+    got32 = prefill_fn(None, torch.float32)()
+    want32 = prefill_fn("baseline", torch.float32)()
+    err32 = (got32 - want32).abs().max().item()
+    tol32 = 1e-3 * want32.abs().max().item()
+    # bf16: every one of the 97 norms and 48 SSD outputs per forward rounds
+    # to bf16, and the two paths may round a value one ulp apart. The bf16
+    # tolerance is the bf16 error of the plain path itself, measured against
+    # its f32 run, twice over: two bf16 results each that far from the f32
+    # one are at most twice that far apart.
+    noise = (want - want32).abs().max().item()
+    err = (got - want).abs().max().item()
+    tol = 2.0 * noise
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    print(f"serve: prefill B=4 L={plen}: {prefill_ms:.2f} ms on the kernels, "
+          f"{plain_prefill_ms:.2f} ms on the plain versions", flush=True)
+    print(f"serve: last-token logits, kernels vs plain versions: f32 "
+          f"max_abs_err={err32:.4e} (tol {tol32:.4e}); bf16 max_abs_err="
+          f"{err:.4e} (tol {tol:.4e} = 2 x the plain bf16 run's distance "
+          f"from f32); kernels bf16 vs plain f32 "
+          f"{(got - want32).abs().max().item():.4e}; max |logit| "
+          f"{want32.abs().max().item():.3f}; argmax agreement {agree:.2f}",
+          flush=True)
+    finite = bool(torch.isfinite(got).all() and torch.isfinite(got32).all())
+    if not (err32 <= tol32 and err <= tol and finite):
+        smoke.fail(f"serve: prefill logits disagree with the plain model: "
+                   f"f32 {err32} (tol {tol32}), bf16 {err} (tol {tol})")
+    stats.update(prefill_ms=prefill_ms, plain_prefill_ms=plain_prefill_ms,
+                 logits_f32_max_abs_err=err32, logits_f32_tol=tol32,
+                 logits_bf16_max_abs_err=err, logits_bf16_tol=tol)
+    return stats
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 2
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: no {src / 'repro_torch'} beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    from repro_torch import ops
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve
+
+    # references compute in full f32 (cuDNN would take TF32 by default)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    smi = smi_line()
+    print(smi, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+          f"{torch.cuda.get_device_name(0)} capability "
+          f"{torch.cuda.get_device_capability(0)}", flush=True)
+    t0 = time.perf_counter()
+    lib_path = build.library_path()
+    build.load()
+    print(f"build: {lib_path} in {time.perf_counter() - t0:.1f}s "
+          f"({'built' if build.build_seconds is not None else 'cached'})",
+          flush=True)
+    smoke = Smoke(torch)
+
+    with torch.inference_mode():
+        kops.reset_launches()
+        try:
+            ops_pass(smoke, ops)
+        except Exception as exc:
+            smoke.fail(f"ops pass: {exc!r}")
+        ops_counts = kops.launch_counts()
+        print(f"main path, ops: launches {ops_counts}", flush=True)
+        for name, count in ops_counts.items():
+            if count < 1:
+                smoke.fail(f"ops pass launched {name} no time")
+        try:
+            stats = serve_pass(smoke, serve, kops)
+        except Exception as exc:
+            smoke.fail(f"serve pass: {exc!r}")
+            stats = {"launches": {k: 0 for k in ops_counts}}
+        launches = {k: ops_counts[k] + stats["launches"][k]
+                    for k in ops_counts}
+        rows = check_kernels(smoke, kops, ref)
+
+    kernels = []
+    for name, k in kops.KERNELS.items():
+        row = rows.get(name, {})
+        kernels.append({
+            "name": name, "route": "cuda", "source": k.source,
+            "replaces": k.replaces, "launches": launches[name],
+            **{key: row.get(key) for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")},
+            "cases": row.get("cases", [])})
+    print(json.dumps({"serve": stats}))
+    if smoke.failures:
+        print(f"chip_smoke: {len(smoke.failures)} failure(s):",
+              file=sys.stderr)
+        for f in smoke.failures:
+            print(f"  {f}", file=sys.stderr)
+        print(json.dumps({"kernels": kernels}))
+        return 1
+    print(smi_line(), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,42 @@
+// Shared helpers of the repro_torch kernels: element types and conversions.
+//
+// Every launcher in this directory has a plain C interface (loaded with
+// ctypes by repro_torch/kernels/build.py), launches on the stream it is
+// given, allocates nothing, never synchronises, and returns
+// cudaGetLastError() so that a refused launch reaches the Python wrapper.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace rt {
+
+// dtype codes; kernels/build.py holds the same table
+enum DType : int { kF32 = 0, kF16 = 1, kBF16 = 2 };
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+}  // namespace rt

@@ -1,0 +1,36 @@
+"""Layout and padding glue, and the one home of Hopper kernel geometry.
+
+The CUDA kernels zero-fill their ragged edges in shared memory, so the glue
+pads nothing: it flattens leading dims and hands over strides. The SSD
+kernel needs no fold either: it reads the model
+layout ``(B, L, H, P)`` through strides, indexes B and C by group
+``h // (H / G)`` instead of repeating them per head, and writes ``y`` and the
+final state in the model layout.
+
+:data:`HOPPER` holds the geometry the CUDA kernels of ``csrc/`` run with.
+These numbers are chosen for an H100 (16x16x16 tensor-core fragments, at
+most 227 KB of shared memory per block); none is carried over from the TPU.
+"""
+from __future__ import annotations
+
+MMA_TILE = 16          # tensor-core fragment edge (wmma 16x16x16)
+
+HOPPER = {
+    # SSD chunk: the (N, P) state, the chunk's B, C, X.dt and the q x q
+    # C.B^T block stay in shared memory; q = 64 keeps that near 128 KB at
+    # N = 128, P = 64, under the card's 227 KB per block
+    "ssd": {"q": 64},
+    "weighted_scan": {"q": 64},
+}
+
+# Largest dynamic shared memory a block may use on an H100 (bytes).
+MAX_SMEM = 232448
+
+
+def fit_block(size: int, block: int, multiple: int) -> int:
+    """Clamp a block size against the axis it tiles: round ``block`` down to
+    the hardware ``multiple`` (never below it) and cap it at the padded
+    extent of ``size``."""
+    b = max(multiple, (int(block) // multiple) * multiple)
+    ext = -(-max(int(size), 1) // multiple) * multiple
+    return min(b, ext)

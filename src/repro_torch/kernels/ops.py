@@ -1,0 +1,286 @@
+"""Wrappers of the Hopper kernels in ``csrc/``: glue, launch counts, autograd.
+
+Each wrapper takes the model layout, does the glue (flatten leading dims,
+make the last dim contiguous, allocate the outputs) and launches its kernel
+on the current stream. It runs the kernel's plain version, the oracle in
+``kernels/ref.py`` listed in :data:`KERNELS`, only because the tensor it was
+given lies on the CPU. For a CUDA tensor it launches the kernel or raises:
+there is no fallback.
+
+Every wrapper is a ``torch.autograd.Function`` whose backward goes through
+the plain version (the counterpart of ``_diff_via_ref`` in
+``repro.kernels.ops``): each kernel agrees with its oracle to tolerance, so
+the oracle's gradient is the kernel's.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch import device as devmod
+from repro_torch.kernels import build, layout, ref
+from repro_torch.kernels.layout import MMA_TILE
+
+
+@dataclasses.dataclass
+class Kernel:
+    """One hand-written kernel: where it lives, what it replaces, its plain
+    version, and how many times its wrapper has launched it."""
+
+    name: str
+    source: str          # path in the repository
+    replaces: str        # file:line of the TPU kernel's pallas_call
+    plain: Callable
+    launches: int = 0
+
+
+KERNELS = {
+    "tcu_reduce": Kernel(
+        "tcu_reduce", "src/repro_torch/csrc/tcu_reduce.cu",
+        "src/repro/kernels/tcu_reduce.py:80", ref.segmented_reduce_ref),
+    "tcu_scan": Kernel(
+        "tcu_scan", "src/repro_torch/csrc/tcu_scan.cu",
+        "src/repro/kernels/tcu_scan.py:82", ref.segmented_scan_ref),
+    "ssd_scan": Kernel(
+        "ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan.py:116", ref.ssd_scan_ref),
+    "rmsnorm": Kernel(
+        "rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
+        "src/repro/kernels/fused_rmsnorm.py:56", ref.rmsnorm_ref),
+}
+
+
+def reset_launches() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def _dtype_code(t: torch.Tensor, name: str) -> int:
+    code = build.DTYPE_CODE.get(t.dtype)
+    if code is None:
+        raise TypeError(f"{name}: the kernel takes float32, float16 or "
+                        f"bfloat16, got {t.dtype}")
+    return code
+
+
+def _library(t: torch.Tensor):
+    """The kernels' library, after checking that ``t`` is on a Hopper card."""
+    devmod.require_hopper(t.device)
+    return build.load()
+
+
+# ---------------------------------------------------------------------------
+# backward through the plain version
+
+
+class _ViaPlain(torch.autograd.Function):
+    """Forward: the kernel (or its plain version on the CPU). Backward: the
+    gradient of the plain version at the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, fwd, plain, kwargs, *tensors):
+        ctx.plain, ctx.kwargs = plain, kwargs
+        ctx.save_for_backward(*tensors)
+        return fwd(*tensors, **kwargs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = [t.detach().requires_grad_(t.is_floating_point())
+                  for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ctx.plain(*inputs, **ctx.kwargs)
+        outs = out if isinstance(out, tuple) else (out,)
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if g is not None and o.requires_grad]
+        wrt = [t for t in inputs if t.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                       [g for _, g in pairs],
+                                       allow_unused=True))
+        return (None, None, None,
+                *[next(got) if t.requires_grad else None for t in inputs])
+
+
+def _via_plain(fwd, plain, *tensors, **kwargs):
+    return _ViaPlain.apply(fwd, plain, kwargs, *tensors)
+
+
+# ---------------------------------------------------------------------------
+# segmented reduce / scan (tcu_reduce.cu, tcu_scan.cu)
+
+
+def _rows_view(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(-1, x.shape[-1]).contiguous()
+
+
+def _reduce_fwd(x: torch.Tensor) -> torch.Tensor:
+    if not x.is_cuda:
+        return ref.segmented_reduce_ref(x)
+    lead, n = x.shape[:-1], x.shape[-1]
+    code = _dtype_code(x, "tcu_reduce")
+    lib = _library(x)
+    if x.numel() == 0:
+        return torch.zeros(lead, dtype=torch.float32, device=x.device)
+    flat = _rows_view(x)
+    out = torch.empty(flat.shape[0], dtype=torch.float32, device=x.device)
+    build.check(lib.tcu_reduce_launch(
+        flat.data_ptr(), out.data_ptr(), flat.shape[0], n, code,
+        build.stream_ptr(x)), "tcu_reduce")
+    KERNELS["tcu_reduce"].launches += 1
+    return out.reshape(lead)
+
+
+def segmented_reduce(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis of ``x (..., n)`` -> f32 ``(...,)``."""
+    return _via_plain(_reduce_fwd, ref.segmented_reduce_ref, x)
+
+
+def _scan_fwd(x: torch.Tensor) -> torch.Tensor:
+    if not x.is_cuda:
+        return ref.segmented_scan_ref(x)
+    code = _dtype_code(x, "tcu_scan")
+    lib = _library(x)
+    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    if x.numel() == 0:
+        return out
+    flat = _rows_view(x)
+    build.check(lib.tcu_scan_launch(
+        flat.data_ptr(), out.data_ptr(), flat.shape[0], x.shape[-1], code,
+        build.stream_ptr(x)), "tcu_scan")
+    KERNELS["tcu_scan"].launches += 1
+    return out
+
+
+def segmented_scan(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum over the last axis -> f32, same shape."""
+    return _via_plain(_scan_fwd, ref.segmented_scan_ref, x)
+
+
+# ---------------------------------------------------------------------------
+# SSD chunk scan (ssd_scan.cu), and the weighted scan riding it
+
+
+def _strides(t: torch.Tensor, dims: int) -> list[int]:
+    return list(t.stride()[:dims])
+
+
+def _launch_ssd(x, dt, lam, b, c, *, q: int, x_strides, dt_strides,
+                lam_strides, b_strides, c_strides, dims):
+    """Launch ssd_scan.cu; x, b, c share a dtype. Returns (y, state)."""
+    bsz, seqlen, nheads, ngroups, hdim, nstate = dims
+    code = _dtype_code(x, "ssd_scan")
+    lib = _library(x)
+    smem = lib.ssd_scan_smem_bytes(q, hdim, nstate)
+    if smem > layout.MAX_SMEM:
+        raise ValueError(f"ssd_scan: chunk {q} with P={hdim}, N={nstate} "
+                         f"needs {smem} bytes of shared memory, more than "
+                         f"the {layout.MAX_SMEM} a block may use")
+    y = torch.empty((bsz, seqlen, nheads, hdim), dtype=x.dtype,
+                    device=x.device)
+    state = torch.empty((bsz, nheads, hdim, nstate), dtype=torch.float32,
+                        device=x.device)
+    build.check(lib.ssd_scan_launch(
+        x.data_ptr(), dt.data_ptr(), lam.data_ptr(), b.data_ptr(),
+        c.data_ptr(), y.data_ptr(), state.data_ptr(), code,
+        bsz, seqlen, nheads, ngroups, hdim, nstate, q,
+        *x_strides, *dt_strides, *lam_strides, *b_strides, *c_strides,
+        build.stream_ptr(x)), "ssd_scan")
+    KERNELS["ssd_scan"].launches += 1
+    return y, state
+
+
+def _last_contiguous(t: torch.Tensor) -> torch.Tensor:
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def _ssd_fwd(x, dt, a, b, c, *, return_state: bool = True):
+    if not x.is_cuda:
+        return ref.ssd_scan_ref(x, dt, a, b, c, return_state=True)
+    bsz, seqlen, nheads, hdim = x.shape
+    ngroups, nstate = b.shape[2], b.shape[3]
+    if nheads % ngroups:
+        raise ValueError(f"ssd_scan: H={nheads} is not a multiple of "
+                         f"G={ngroups}")
+    if not (x.dtype == b.dtype == c.dtype):
+        x, b, c = x.float(), b.float(), c.float()
+    x, b, c = (_last_contiguous(t) for t in (x, b, c))
+    dt = dt.float()
+    lam = dt * a.float()                                  # (B, L, H) f32
+    q = layout.fit_block(seqlen, layout.HOPPER["ssd"]["q"], MMA_TILE)
+    return _launch_ssd(
+        x, dt, lam, b, c, q=q, x_strides=_strides(x, 3),
+        dt_strides=_strides(dt, 3), lam_strides=_strides(lam, 3),
+        b_strides=_strides(b, 3), c_strides=_strides(c, 3),
+        dims=(bsz, seqlen, nheads, ngroups, hdim, nstate))
+
+
+def ssd_scan(x, dt, a, b, c, *, return_state: bool = False):
+    """Mamba-2 SSD scan: ``x (B, L, H, P)``, ``dt (B, L, H)``, ``a (H,)``,
+    ``b``/``c`` ``(B, L, G, N)`` -> ``y (B, L, H, P)`` in x's dtype; with
+    ``return_state=True`` also the final state ``(B, H, P, N)`` f32."""
+    y, state = _via_plain(_ssd_fwd, ref.ssd_scan_ref, x, dt, a, b, c,
+                          return_state=True)
+    return (y, state) if return_state else y
+
+
+def _weighted_fwd(x: torch.Tensor, log_a: torch.Tensor) -> torch.Tensor:
+    if not x.is_cuda:
+        return ref.weighted_scan_ref(x, log_a)
+    # the SSD kernel with H = G = P = N = 1, dt = b = c = 1 and
+    # lambda = log_a: h_t = exp(log_a_t) h_{t-1} + x_t, y_t = h_t
+    lead, n = x.shape[:-1], x.shape[-1]
+    if x.numel() == 0:
+        return x.float()
+    xf = _rows_view(x.float())
+    la = _rows_view(log_a.float())
+    rows = xf.shape[0]
+    one = torch.ones((), dtype=torch.float32, device=x.device)
+    q = layout.fit_block(n, layout.HOPPER["weighted_scan"]["q"], MMA_TILE)
+    y, _ = _launch_ssd(
+        xf, one, la, one, one, q=q, x_strides=[n, 1, 0],
+        dt_strides=[0, 0, 0], lam_strides=[n, 1, 0], b_strides=[0, 0, 0],
+        c_strides=[0, 0, 0], dims=(rows, n, 1, 1, 1, 1))
+    return y.reshape(*lead, n)
+
+
+def weighted_scan(x: torch.Tensor, log_a: torch.Tensor) -> torch.Tensor:
+    """Decayed scan ``y_i = exp(log_a_i) * y_{i-1} + x_i`` -> f32."""
+    return _via_plain(_weighted_fwd, ref.weighted_scan_ref, x, log_a)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm (rmsnorm.cu)
+
+
+def _rmsnorm_fwd(x: torch.Tensor, w: torch.Tensor, *,
+                 eps: float = 1e-6) -> torch.Tensor:
+    if not x.is_cuda:
+        return ref.rmsnorm_ref(x, w, eps=eps)
+    code = _dtype_code(x, "rmsnorm")
+    lib = _library(x)
+    d = x.shape[-1]
+    if w.shape != (d,):
+        raise ValueError(f"rmsnorm: weight shape {tuple(w.shape)} != ({d},)")
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    if w.dtype != x.dtype:
+        w = w.float()
+    w = w.contiguous()
+    flat = _rows_view(x)
+    out = torch.empty_like(flat)
+    build.check(lib.rmsnorm_launch(
+        flat.data_ptr(), w.data_ptr(), out.data_ptr(), flat.shape[0], d,
+        code, int(w.dtype != x.dtype), eps, build.stream_ptr(x)), "rmsnorm")
+    KERNELS["rmsnorm"].launches += 1
+    return out.reshape(x.shape)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
+            eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis, in x's dtype (differentiable)."""
+    return _via_plain(_rmsnorm_fwd, ref.rmsnorm_ref, x, w, eps=eps)

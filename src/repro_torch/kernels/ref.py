@@ -1,0 +1,82 @@
+"""Plain PyTorch oracles for every kernel of this package.
+
+The ground truth each kernel is held against (on the card by
+``chip_smoke.py`` and ``tests/test_torch_*``), the version a kernel wrapper
+runs for a CPU tensor, and the formulation every kernel's backward goes
+through. Keep them boring and obviously correct.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def segmented_reduce_ref(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, f32 accumulation. x: (..., n) -> (...,)."""
+    return torch.sum(x.float(), dim=-1)
+
+
+def segmented_scan_ref(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix-sum over the last axis, f32 accumulation."""
+    return torch.cumsum(x.float(), dim=-1)
+
+
+def weighted_scan_ref(x: torch.Tensor, log_a: torch.Tensor) -> torch.Tensor:
+    """Decayed scan ``y_i = exp(log_a_i) * y_{i-1} + x_i`` along the last
+    axis, f32 accumulation (sequential)."""
+    a = torch.exp(log_a.float())
+    xf = x.float()
+    ys = []
+    y = torch.zeros_like(xf[..., 0])
+    for i in range(xf.shape[-1]):
+        y = a[..., i] * y + xf[..., i]
+        ys.append(y)
+    if not ys:
+        return xf
+    return torch.stack(ys, dim=-1)
+
+
+def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, *,
+                eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis: x * rsqrt(mean(x^2) + eps) * w."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+def ssd_scan_ref(
+    x: torch.Tensor,       # (B, L, H, P)
+    dt: torch.Tensor,      # (B, L, H)      softplus'd step sizes, > 0
+    a: torch.Tensor,       # (H,)           negative decay rates
+    b: torch.Tensor,       # (B, L, G, N)
+    c: torch.Tensor,       # (B, L, G, N)
+    *,
+    return_state: bool = False,
+):
+    """Sequential reference of the Mamba-2 SSD recurrence.
+
+    state_t = exp(a * dt_t) * state_{t-1} + dt_t * x_t b_t^T
+    y_t     = state_t . c_t
+    Heads within a group share B/C (H % G == 0). With ``return_state=True``
+    also returns the final state (B, H, P, N) f32.
+    """
+    bsz, seqlen, nheads, hdim = x.shape
+    ngroups, nstate = b.shape[2], b.shape[3]
+    rep = nheads // ngroups
+    bf = torch.repeat_interleave(b.float(), rep, dim=2)      # (B, L, H, N)
+    cf = torch.repeat_interleave(c.float(), rep, dim=2)
+    xf = x.float()
+    dtf = dt.float()
+    decay = torch.exp(dtf * a.float())                       # (B, L, H)
+    state = torch.zeros((bsz, nheads, hdim, nstate), dtype=torch.float32,
+                        device=x.device)
+    ys = []
+    for t in range(seqlen):
+        state = decay[:, t, :, None, None] * state + (
+            dtf[:, t, :, None, None] * bf[:, t, :, None, :]
+            * xf[:, t, :, :, None])
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, cf[:, t]))
+    if ys:
+        y = torch.stack(ys, dim=1).to(x.dtype)               # (B, L, H, P)
+    else:
+        y = x.clone()
+    return (y, state) if return_state else y

@@ -1,0 +1,23 @@
+"""``repro_torch.ops`` — the public API for the paper's ops on PyTorch.
+
+Counterpart of ``repro.ops``. Every op takes ``policy=``: None (the Hopper
+kernel, ``tile``), a bare path label (``"tile"``, ``"fused"``,
+``"baseline"``), or a comma list of ``op=path`` overrides; see
+:mod:`repro_torch.core.policy`. On a CPU tensor the ``tile`` path runs each
+kernel's plain version::
+
+    import repro_torch.ops as ops
+
+    ops.reduce(x)                       # tcu_reduce.cu on a CUDA tensor
+    ops.scan(x, exclusive=True)         # tcu_scan.cu, then a shift
+    ops.ssd(x, dt, a, b, c, policy="fused")
+"""
+from repro_torch.core.dispatch import (  # noqa: F401  (the public API)
+    reduce,
+    rmsnorm,
+    scan,
+    ssd,
+    weighted_scan,
+)
+
+__all__ = ["reduce", "rmsnorm", "scan", "ssd", "weighted_scan"]
