@@ -8,14 +8,17 @@ Phases:
 1. Header and build: the card's name and power limit as ``nvidia-smi`` gives
    them, then the build of ``src/repro_torch/csrc`` (nvcc, sm_90a) and its
    time.
-2. Main path, with every kernel's launch count set to 0 before and read
-   after: the public ops (``repro_torch.ops``) at 2^24 elements and at the
-   model's shapes, then the engine of ``repro_torch.launch.serve`` serving
-   mamba2-1.3b FULL (48 layers, random weights from seed 0) to four
-   requests of up to 512 prompt tokens, 16 new tokens each. Every kernel
-   must have run; the serve run must show 48 SSD launches per prefill and
-   97 RMSNorm launches per forward. The prefill's last-token logits are held
-   against the same model on the kernels' plain versions.
+2. Main path, three runs, each with every kernel's launch count set to 0
+   just before it and read just after: the public ops (``repro_torch.ops``)
+   at 2^24 elements and at the models' shapes, where every kernel must run;
+   then the engine of ``repro_torch.launch.serve`` serving mamba2-1.3b FULL
+   (48 layers) and then llama3.2-1b FULL (16 layers), random weights from
+   seed 0, to four requests of up to 512 prompt tokens, 16 new tokens each.
+   Each serve run must show its layer kernel once per layer per prefill
+   (48 SSD, 16 flash-attention launches) and 2 x layers + 1 RMSNorm
+   launches per forward (97, 33). Each prefill's last-token logits are held
+   against the same model on the kernels' plain versions, and its device
+   time is split by kind of kernel with ``torch.profiler``.
 3. Per kernel: the kernel against its plain version on the card at the main
    path's shapes, with the error and its tolerance, the times of the kernel,
    the plain version and one library call where PyTorch has one, and the
@@ -198,6 +201,72 @@ def rmsnorm_cases(torch, kops, ref, gen):
     return out
 
 
+def attention_pairs(lq, lk, causal, window):
+    """(query, key) pairs the mask leaves visible, ends aligned by lk - lq:
+    the work this input needs, not the full lq x lk."""
+    total = 0
+    for i in range(lq):
+        qpos = i + lk - lq
+        hi = min(lk, qpos + 1) if causal else lk
+        lo = max(0, qpos - window + 1) if window is not None else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def attention_cases(torch, kops, gen):
+    import torch.nn.functional as F
+
+    gqa = "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or "")
+    out = []
+    for (bsz, lq, lk, hq, hkv, dh, causal, window, dtype, primary) in (
+            (4, 512, 512, 32, 8, 64, True, None, torch.bfloat16, True),
+            (1, 4096, 4096, 32, 8, 64, True, None, torch.bfloat16, False),
+            (1, 4096, 4096, 32, 8, 64, True, 1024, torch.bfloat16, False),
+            (1, 100, 1000, 4, 2, 64, True, None, torch.float32, False)):
+        def rn(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+        q, k, v = rn(bsz, lq, hq, dh), rn(bsz, lk, hkv, dh), rn(bsz, lk, hkv,
+                                                               dh)
+        # the library call: torch's SDPA in its (B, H, S, D) layout, with
+        # the same mask (bottom-right aligned, window) where is_causal's
+        # top-left alignment or the window differ; K/V repeated outside the
+        # timed call where this torch has no enable_gqa
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if not gqa:
+            kt, vt = (t.repeat_interleave(hq // hkv, dim=1) for t in (kt, vt))
+        mask = None
+        if lq != lk or window is not None:
+            qpos = torch.arange(lq, device="cuda")[:, None] + (lk - lq)
+            kpos = torch.arange(lk, device="cuda")[None, :]
+            mask = kpos <= qpos if causal else torch.ones_like(kpos > qpos)
+            if window is not None:
+                mask &= kpos > qpos - window
+        kw = {"enable_gqa": True} if gqa else {}
+
+        def lib(qt=qt, kt=kt, vt=vt, mask=mask, kw=kw, causal=causal):
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask,
+                is_causal=causal and mask is None, **kw)
+
+        pairs = attention_pairs(lq, lk, causal, window)
+        tag = (f"{str(dtype).split('.')[-1]} B={bsz} Lq={lq} Lk={lk} "
+               f"Hq={hq} Hkv={hkv} D={dh} causal={causal} window={window}")
+        out.append(dict(
+            kernel="flash_attention", label=tag, primary=primary,
+            run=lambda q=q, k=k, v=v, c=causal, w=window: kops.attention(
+                q, k, v, causal=c, window=w),
+            plain=lambda q=q, k=k, v=v, c=causal, w=window:
+                kops.attention_plain(q, k, v, causal=c, window=w),
+            library=lib,
+            # bf16/f16: P is rounded to the input type before P V and the
+            # output once more; f32: three-part bf16 operands, f32 sums
+            rtol=2e-2 if dtype != torch.float32 else 2e-4,
+            nbytes=nbytes(q, k, v) + nbytes(q),
+            ops=4 * dh * pairs * bsz * hq, dtype=dtype))
+    return out
+
+
 def max_err(got, want):
     """(max abs error, max |want|) over every output tensor."""
     got = got if isinstance(got, tuple) else (got,)
@@ -214,7 +283,8 @@ def check_kernels(smoke: Smoke, kops, ref) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = (reduce_scan_cases(torch, kops, ref, gen)
              + ssd_cases(torch, kops, ref, gen)
-             + rmsnorm_cases(torch, kops, ref, gen))
+             + rmsnorm_cases(torch, kops, ref, gen)
+             + attention_cases(torch, kops, gen))
     rows: dict[str, dict] = {}
     for case in cases:
         name = case["kernel"]
@@ -274,13 +344,17 @@ def ops_pass(smoke: Smoke, ops):
                                     dtype=torch.bfloat16), eps=1e-5)
     y, st = ops.ssd(*ssd_inputs(torch, gen, 4, 512, 64, 64, 1, 128,
                                 torch.bfloat16), return_state=True)
+    att = ops.attention(*(torch.randn(4, 512, h, 64, generator=gen,
+                                      device="cuda").bfloat16()
+                          for h in (32, 8, 8)))
     torch.cuda.synchronize()
     for name, t, shape in (("reduce", red, (N_ELEMS // 256,)),
                            ("scan", sc, (N_ELEMS // 256, 256)),
                            ("weighted_scan", ws, (64, 4096)),
                            ("rmsnorm", nrm, (2048, 2048)),
                            ("ssd.y", y, (4, 512, 64, 64)),
-                           ("ssd.state", st, (4, 64, 64, 128))):
+                           ("ssd.state", st, (4, 64, 64, 128)),
+                           ("attention", att, (4, 512, 32, 64))):
         if tuple(t.shape) != shape or not torch.isfinite(t).all():
             smoke.fail(f"ops.{name}: shape {tuple(t.shape)} (want {shape})"
                        " or non-finite values")
@@ -288,13 +362,60 @@ def ops_pass(smoke: Smoke, ops):
         smoke.fail("ops.scan(exclusive=True) does not start at 0")
 
 
-def serve_pass(smoke: Smoke, serve, kops):
-    """mamba2-1.3b FULL through the serving engine; returns its numbers."""
+KINDS = ("flash_attention", "ssd_scan", "rmsnorm", "gemm")
+
+
+def device_split(torch, fn) -> dict | None:
+    """Device time of one call of ``fn`` by kind of kernel, from
+    ``torch.profiler``: this repository's kernels by name, matrix products
+    (cuBLAS/CUTLASS kernels) as ``gemm``, the rest as ``other``. A
+    diagnostic: None, printed as not measured, when the profiler sees no
+    device time here."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+    except RuntimeError as exc:
+        print(f"profiler: {exc!r}", flush=True)
+        return None
+    split = dict.fromkeys((*KINDS, "other"), 0.0)
+    for e in events:
+        if e.device_type != DeviceType.CUDA:   # kernels only: a host op's
+            continue                           # device time repeats them
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us <= 0:
+            continue
+        name = e.key.lower()
+        kind = next((k for k in KINDS if k in name), None)
+        if kind is None and any(t in name for t in ("gemm", "xmma",
+                                                     "cutlass", "nvjet")):
+            kind = "gemm"
+        split[kind or "other"] += us / 1e3
+    if sum(split.values()) <= 0:
+        return None
+    return {k: round(v, 4) for k, v in split.items()}
+
+
+# the models the main path serves, each with its counts read on their own
+SERVED = ("mamba2-1.3b", "llama3.2-1b")
+# the kernel each served family runs once per layer per prefill
+PREFILL_KERNEL = {"ssm": "ssd_scan", "dense": "flash_attention"}
+
+
+def serve_pass(smoke: Smoke, serve, kops, arch: str):
+    """``arch`` FULL through the serving engine; returns its numbers."""
     from repro_torch.models import build_lm
     from repro_torch.models.common import cast_tree
+    from repro_torch.models.lm import pad_cache_seq
 
     torch = smoke.torch
-    engine = serve.build_engine("mamba2-1.3b", "full", device="cuda",
+    engine = serve.build_engine(arch, "full", device="cuda",
                                 slots=4, max_new=16, seed=0)
     cfg = engine.bundle.cfg
     print(f"serve: {cfg.name} {cfg.n_layers} layers d_model={cfg.d_model} "
@@ -334,11 +455,12 @@ def serve_pass(smoke: Smoke, serve, kops):
           f"{engine.decodes} decode step(s)", flush=True)
     if any(len(r.tokens) == 0 for r in results):
         smoke.fail("serve: a request produced no tokens")
-    want_ssd = cfg.n_layers * engine.prefills
+    per_layer = PREFILL_KERNEL[cfg.family]
+    want_layer = cfg.n_layers * engine.prefills
     want_norm = (2 * cfg.n_layers + 1) * (engine.prefills + engine.decodes)
-    if counts["ssd_scan"] < want_ssd or engine.prefills < 1:
-        smoke.fail(f"serve: {counts['ssd_scan']} SSD launches, want >= "
-                   f"{want_ssd} ({cfg.n_layers} per prefill)")
+    if counts[per_layer] < want_layer or engine.prefills < 1:
+        smoke.fail(f"serve: {counts[per_layer]} {per_layer} launches, want "
+                   f">= {want_layer} ({cfg.n_layers} per prefill)")
     if counts["rmsnorm"] < want_norm:
         smoke.fail(f"serve: {counts['rmsnorm']} RMSNorm launches, want >= "
                    f"{want_norm} ({2 * cfg.n_layers + 1} per forward)")
@@ -361,25 +483,28 @@ def serve_pass(smoke: Smoke, serve, kops):
     plain_bf16 = prefill_fn("baseline", torch.bfloat16)
     prefill_ms = smoke.time_ms(kern_bf16, max_iters=5)
     plain_prefill_ms = smoke.time_ms(plain_bf16, max_iters=3)
+    split = device_split(torch, kern_bf16)
     got, want = kern_bf16(), plain_bf16()
     # the same weights in f32 on both paths: kernels and plain versions
-    # agree to about 1e-6 per op, so 48 layers stay within 1e-3 of the
-    # largest logit
+    # agree to about 1e-6 per op, so every layer stack of the port stays
+    # within 1e-3 of the largest logit
     got32 = prefill_fn(None, torch.float32)()
     want32 = prefill_fn("baseline", torch.float32)()
     err32 = (got32 - want32).abs().max().item()
     tol32 = 1e-3 * want32.abs().max().item()
-    # bf16: every one of the 97 norms and 48 SSD outputs per forward rounds
-    # to bf16, and the two paths may round a value one ulp apart. The bf16
-    # tolerance is the bf16 error of the plain path itself, measured against
-    # its f32 run, twice over: two bf16 results each that far from the f32
-    # one are at most twice that far apart.
+    # bf16: every norm and every SSD or attention output of a forward
+    # rounds to bf16, and the two paths may round a value one ulp apart. The
+    # bf16 tolerance is the bf16 error of the plain path itself, measured
+    # against its f32 run, twice over: two bf16 results each that far from
+    # the f32 one are at most twice that far apart.
     noise = (want - want32).abs().max().item()
     err = (got - want).abs().max().item()
     tol = 2.0 * noise
     agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
     print(f"serve: prefill B=4 L={plen}: {prefill_ms:.2f} ms on the kernels, "
-          f"{plain_prefill_ms:.2f} ms on the plain versions", flush=True)
+          f"{plain_prefill_ms:.2f} ms on the plain versions; device time by "
+          f"kind (torch.profiler, one prefill): "
+          f"{split if split else 'not measured'}", flush=True)
     print(f"serve: last-token logits, kernels vs plain versions: f32 "
           f"max_abs_err={err32:.4e} (tol {tol32:.4e}); bf16 max_abs_err="
           f"{err:.4e} (tol {tol:.4e} = 2 x the plain bf16 run's distance "
@@ -391,7 +516,31 @@ def serve_pass(smoke: Smoke, serve, kops):
     if not (err32 <= tol32 and err <= tol and finite):
         smoke.fail(f"serve: prefill logits disagree with the plain model: "
                    f"f32 {err32} (tol {tol32}), bf16 {err} (tol {tol})")
+    # one decode step of the served model: its time on the host clock
+    # against the device time of its kernels, which gives the card's idle
+    # share during decode
+    _, cache = engine.bundle.prefill_last(engine.params, batch)
+    cache = pad_cache_seq(cache, 3)
+    step = {"tokens": batch["tokens"][:, -1:]}
+
+    def decode():
+        engine.bundle.decode(engine.params, cache, step)
+
+    decode()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode()
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    dsplit = device_split(torch, decode)
+    idle = 1.0 - sum(dsplit.values()) / step_ms if dsplit else None
+    print(f"serve: one decode step {step_ms:.3f} ms on the host clock; "
+          f"device time by kind {dsplit if dsplit else 'not measured'}; "
+          f"idle share of the card "
+          f"{'not measured' if idle is None else f'{idle:.3f}'}", flush=True)
     stats.update(prefill_ms=prefill_ms, plain_prefill_ms=plain_prefill_ms,
+                 prefill_device_ms_by_kind=split, decode_step_ms=step_ms,
+                 decode_device_ms_by_kind=dsplit, decode_idle_share=idle,
                  logits_f32_max_abs_err=err32, logits_f32_tol=tol32,
                  logits_bf16_max_abs_err=err, logits_bf16_tol=tol)
     return stats
@@ -443,13 +592,17 @@ def main() -> int:
         for name, count in ops_counts.items():
             if count < 1:
                 smoke.fail(f"ops pass launched {name} no time")
-        try:
-            stats = serve_pass(smoke, serve, kops)
-        except Exception as exc:
-            smoke.fail(f"serve pass: {exc!r}")
-            stats = {"launches": {k: 0 for k in ops_counts}}
-        launches = {k: ops_counts[k] + stats["launches"][k]
-                    for k in ops_counts}
+        stats = {}
+        launches = dict(ops_counts)
+        for arch in SERVED:
+            try:
+                stats[arch] = serve_pass(smoke, serve, kops, arch)
+            except Exception as exc:
+                smoke.fail(f"serve pass {arch}: {exc!r}")
+                stats[arch] = {"launches": {k: 0 for k in ops_counts}}
+            torch.cuda.empty_cache()
+            for k in launches:
+                launches[k] += stats[arch]["launches"][k]
         rows = check_kernels(smoke, kops, ref)
 
     kernels = []

@@ -1,17 +1,18 @@
 """Architecture registry: ``get(arch_id)`` -> config module with FULL / SMOKE.
 
-Only mamba2-1.3b is ported so far; the reference's other architectures are
-listed so that asking for one names the plan instead of failing obscurely.
+mamba2-1.3b and llama3.2-1b are ported so far; the reference's other
+architectures are listed so that asking for one names the plan instead of
+failing obscurely.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCHS = {"mamba2-1.3b": "mamba2_1_3b"}
+ARCHS = {"mamba2-1.3b": "mamba2_1_3b", "llama3.2-1b": "llama3_2_1b"}
 
 NOT_PORTED = (
     "zamba2-2.7b", "qwen3-moe-235b-a22b", "grok-1-314b", "internvl2-76b",
-    "llama3.2-1b", "internlm2-20b", "deepseek-67b", "h2o-danube-3-4b",
+    "internlm2-20b", "deepseek-67b", "h2o-danube-3-4b",
     "seamless-m4t-medium",
 )
 

@@ -1,10 +1,11 @@
-"""One switch for every reduce/scan/SSD formulation of the port.
+"""One switch for every reduce/scan/attention/SSD formulation of the port.
 
 Every op takes ``policy=`` (see :mod:`repro_torch.core.policy`) and runs:
 
   ``tile``      the Hopper kernel through ``repro_torch.kernels.ops``
-  ``fused``     the matmul forms of ``repro_torch.core`` (torch matmuls)
-  ``baseline``  ``torch.sum`` / ``torch.cumsum`` / the sequential oracles
+  ``fused``     the matmul forms of ``repro_torch.core`` (torch matmuls);
+                for attention the blocked ``chunked_attention``
+  ``baseline``  ``torch.sum`` / ``torch.cumsum`` / the plain oracles
 """
 from __future__ import annotations
 
@@ -63,6 +64,26 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
     if resolve(policy, "rmsnorm") == "tile":
         return kops.rmsnorm(x, w, eps=eps)
     return ref.rmsnorm_ref(x, w, eps=eps)
+
+
+def attention(q, k, v, *, causal: bool = True, window: int | None = None,
+              scale: float | None = None,
+              policy: str | None = None) -> torch.Tensor:
+    """Attention in the model layout: ``q (B, Sq, Hq, D)``, ``k``/``v``
+    ``(B, Sk, Hkv, D)`` -> ``(B, Sq, Hq, D)``. ``tile`` reads the model
+    layout through strides, so no transposed copy is made; ``fused`` takes
+    only the lengths the reference's ``chunked_attention`` takes."""
+    p = resolve(policy, "attention")
+    if p == "fused":
+        # lazy: repro_torch.models imports this module
+        from repro_torch.models.xla_attention import chunked_attention
+
+        return chunked_attention(q, k, v, causal=causal, window=window,
+                                 scale=scale)
+    if p == "baseline":
+        return kops.attention_plain(q, k, v, causal=causal, window=window,
+                                    scale=scale)
+    return kops.attention(q, k, v, causal=causal, window=window, scale=scale)
 
 
 def ssd(x, dt, a, b, c, *, policy: str | None = None, chunk: int | None = None,

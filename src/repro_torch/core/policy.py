@@ -17,7 +17,7 @@ from __future__ import annotations
 import functools
 
 PATHS = ("tile", "fused", "baseline")
-OPS = ("reduce", "scan", "weighted_scan", "rmsnorm", "ssd")
+OPS = ("reduce", "scan", "weighted_scan", "rmsnorm", "attention", "ssd")
 DEFAULT_PATH = "tile"
 
 

@@ -49,6 +49,9 @@ KERNELS = {
     "rmsnorm": Kernel(
         "rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
         "src/repro/kernels/fused_rmsnorm.py:56", ref.rmsnorm_ref),
+    "flash_attention": Kernel(
+        "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:124", ref.flash_attention_ref),
 }
 
 
@@ -284,3 +287,72 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
             eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last axis, in x's dtype (differentiable)."""
     return _via_plain(_rmsnorm_fwd, ref.rmsnorm_ref, x, w, eps=eps)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (flash_attention.cu)
+
+
+def attention_plain(q, k, v, *, causal: bool = True,
+                    window: int | None = None, scale: float | None = None):
+    """The kernel's plain version in the model layout: the oracle on the
+    ``(B, H, S, D)`` views of ``q (B, Sq, Hq, D)`` and ``k``/``v``
+    ``(B, Sk, Hkv, D)``."""
+    def t(a):
+        return a.transpose(1, 2)
+
+    return t(ref.flash_attention_ref(t(q), t(k), t(v), causal=causal,
+                                     window=window, scale=scale))
+
+
+def _attention_fwd(q, k, v, *, causal: bool = True,
+                   window: int | None = None, scale: float | None = None):
+    if not q.is_cuda:
+        return attention_plain(q, k, v, causal=causal, window=window,
+                               scale=scale)
+    bsz, lq, hq, dh = q.shape
+    lk, hkv = k.shape[1], k.shape[2]
+    if k.shape != v.shape or k.shape[0] != bsz or k.shape[3] != dh:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not "
+                         "match as (B, Sq, Hq, D), (B, Sk, Hkv, D)")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"flash_attention: q, k, v dtypes differ: "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if hq % hkv:
+        raise ValueError(f"flash_attention: Hq={hq} is not a multiple of "
+                         f"Hkv={hkv}")
+    if dh % MMA_TILE or dh > 128:
+        raise ValueError(f"flash_attention: head dim {dh} must be a "
+                         f"multiple of {MMA_TILE} and at most 128")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window {window} must be >= 1")
+    code = _dtype_code(q, "flash_attention")
+    lib = _library(q)
+    out = torch.empty((bsz, lq, hq, dh), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    if lk == 0:                     # nothing to attend: the l > 0 guard
+        return out.zero_()
+    q, k, v = (_last_contiguous(t) for t in (q, k, v))
+    geom = layout.HOPPER["attention"]
+    sc = scale if scale is not None else 1.0 / (dh ** 0.5)
+    build.check(lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), code,
+        bsz, lq, lk, hq, hkv, dh, int(causal), window or 0, sc,
+        geom["block_q"], geom["block_k"], *_strides(q, 3), *_strides(k, 3),
+        *_strides(v, 3), build.stream_ptr(q)), "flash_attention")
+    KERNELS["flash_attention"].launches += 1
+    return out
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int | None = None,
+              scale: float | None = None) -> torch.Tensor:
+    """Attention in the model layout: ``q (B, Sq, Hq, D)``, ``k``/``v``
+    ``(B, Sk, Hkv, D)`` -> ``(B, Sq, Hq, D)`` in q's dtype. GQA by head
+    index, ends aligned by ``Sk - Sq``; ``scale`` defaults to ``D**-0.5``.
+    Any lengths; on a CUDA tensor it raises on a head dim that is not a
+    multiple of 16 or above 128 (differentiable)."""
+    return _via_plain(_attention_fwd, attention_plain, q, k, v,
+                      causal=causal, window=window, scale=scale)

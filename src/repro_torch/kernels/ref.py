@@ -43,6 +43,39 @@ def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, *,
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
 
 
+def flash_attention_ref(
+    q: torch.Tensor,       # (B, Hq, Lq, D)
+    k: torch.Tensor,       # (B, Hkv, Lk, D)
+    v: torch.Tensor,       # (B, Hkv, Lk, D)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Plain softmax attention in kernel layout, f32 math, output in q's
+    dtype. GQA by repeating each KV head over its ``Hq / Hkv`` query heads;
+    query positions are offset by ``Lk - Lq`` so the sequence ends align;
+    masked logits are ``-inf`` (a row with nothing visible is NaN, as in the
+    reference oracle)."""
+    lq, d = q.shape[2], q.shape[3]
+    hkv, lk = k.shape[1], k.shape[2]
+    rep = q.shape[1] // hkv
+    kf = torch.repeat_interleave(k.float(), rep, dim=1)
+    vf = torch.repeat_interleave(v.float(), rep, dim=1)
+    s = scale if scale is not None else 1.0 / (d ** 0.5)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * s
+    qpos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
+    kpos = torch.arange(lk, device=q.device)[None, :]
+    mask = torch.ones((lq, lk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
 def ssd_scan_ref(
     x: torch.Tensor,       # (B, L, H, P)
     dt: torch.Tensor,      # (B, L, H)      softplus'd step sizes, > 0

@@ -1,13 +1,14 @@
 """Serving entry point of the port: greedy generation, wave scheduler.
 
     python -m repro_torch.launch.serve                  # mamba2-1.3b FULL
+    python -m repro_torch.launch.serve --arch llama3.2-1b
     python -m repro_torch.launch.serve --config smoke --device cpu
 
 Randomly initialised weights from a ``torch.Generator`` seeded with
 ``--seed``; synthetic prompts from a numpy generator with the same seed. By
 default the model runs on the CUDA card through the Hopper kernels (SSD
-chunk scan and RMSNorm in every layer); ``--device cpu`` runs the same path
-on each kernel's plain version.
+chunk scan or flash attention, and RMSNorm, in every layer); ``--device
+cpu`` runs the same path on each kernel's plain version.
 """
 from __future__ import annotations
 
@@ -51,7 +52,8 @@ def make_requests(n: int, prompt_len: int, vocab: int,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2-1.3b")
+    ap.add_argument("--arch", default="mamba2-1.3b",
+                    help="mamba2-1.3b or llama3.2-1b")
     ap.add_argument("--config", choices=("smoke", "full"), default="full")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)

@@ -1,4 +1,5 @@
-"""Shared model machinery: parameter declaration and init, norms, embeddings.
+"""Shared model machinery: parameter declaration and init, norms, rope,
+SwiGLU, embeddings.
 
 Parameters are declared as trees (dicts and lists) of :class:`PSpec` and
 materialised by :func:`init_params` from an explicit ``torch.Generator``
@@ -140,3 +141,26 @@ def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 def unembed(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     """``x (..., d)`` against ``head (vocab, d)`` -> ``(..., vocab)``."""
     return x @ head.T
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embedding on halves (not interleaved pairs), as the
+    reference. x: (..., S, H, Dh); positions: (..., S). Angles in f32, the
+    result in x's dtype."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., None].float() * freqs              # (..., S, half)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def swiglu(x, w_in, w_gate, w_out):
+    """SwiGLU MLP: (..., d) -> (..., d). ``silu`` runs in the native
+    compute dtype, as in the reference (f32 only where the operands are)."""
+    h = x @ w_in
+    g = x @ w_gate
+    return (F.silu(g) * h) @ w_out

@@ -1,10 +1,12 @@
-"""Layer implementations, SSM part: the Mamba-2 (SSD) mixer.
+"""Layer implementations: GQA attention, SwiGLU MLP, the Mamba-2 (SSD)
+mixer.
 
-Functional, as in the reference: ``mamba_pspec(cfg)`` declares one layer's
-parameters, ``mamba_apply`` runs the full sequence, ``mamba_decode`` steps a
-cache. The SSD and the gated RMSNorm go through ``repro_torch.core.dispatch``
-under ``ModelConfig.policy`` (None: the Hopper kernels). Parameter layouts
-are the reference's, e.g. ``in_proj`` is ``(d, e)`` and ``y = x @ W``.
+Functional, as in the reference: ``<layer>_pspec(cfg)`` declares one
+layer's parameters, ``<layer>_apply`` runs the full sequence,
+``<layer>_decode`` steps a cache. Attention, the SSD and the norms go
+through ``repro_torch.core.dispatch`` under ``ModelConfig.policy`` (None:
+the Hopper kernels). Parameter layouts are the reference's, e.g.
+``in_proj`` is ``(d, e)`` and ``y = x @ W``.
 """
 from __future__ import annotations
 
@@ -15,17 +17,24 @@ import torch.nn.functional as F
 
 from repro_torch.core import dispatch
 from repro_torch.core.ssd import ssd_decode_step
-from repro_torch.models.common import PSpec, rmsnorm
+from repro_torch.models.common import PSpec, rmsnorm, rope, swiglu
+from repro_torch.models.xla_attention import decode_attention
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # only "ssm" is ported
+    family: str                    # "ssm" and "dense" are ported
     n_layers: int
     d_model: int
     vocab: int
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    d_ff: int = 0
+    head_dim: int = 0              # 0 -> d_model // n_heads
+    rope_theta: float = 1e6
     norm_eps: float = 1e-5
+    swa_window: int | None = None
     tie_embeddings: bool = False
     # SSM (Mamba-2)
     ssm_state: int = 0
@@ -39,12 +48,82 @@ class ModelConfig:
     policy: str | None = None
 
     @property
+    def dh(self) -> int:
+        return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    @property
     def d_inner(self) -> int:
         return self.expand * self.d_model
 
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
+
+
+# ---------------------------------------------------------------------------
+# attention
+
+
+def attn_pspec(cfg: ModelConfig):
+    """One attention layer's parameters."""
+    d, dh, hq, hkv = cfg.d_model, cfg.dh, cfg.n_heads, cfg.n_kv_heads
+    return {
+        "wq": PSpec((d, hq * dh)),
+        "wk": PSpec((d, hkv * dh)),
+        "wv": PSpec((d, hkv * dh)),
+        "wo": PSpec((hq * dh, d)),
+    }
+
+
+def attn_apply(p, cfg: ModelConfig, x, *, positions, causal=True,
+               window=None):
+    """Self-attention. x (B,S,d), positions (B,S) -> (out (B,S,d), (k, v))
+    with k, v (B,S,Hkv,Dh) after rope, for the cache."""
+    b, s, _ = x.shape
+    dh, hq, hkv = cfg.dh, cfg.n_heads, cfg.n_kv_heads
+    q = rope((x @ p["wq"]).reshape(b, s, hq, dh), positions, cfg.rope_theta)
+    k = rope((x @ p["wk"]).reshape(b, s, hkv, dh), positions, cfg.rope_theta)
+    v = (x @ p["wv"]).reshape(b, s, hkv, dh)
+    o = dispatch.attention(q, k, v, causal=causal, window=window,
+                           policy=cfg.policy)
+    return o.reshape(b, s, hq * dh) @ p["wo"], (k, v)
+
+
+def attn_decode(p, cfg: ModelConfig, x, cache, *, pos: int):
+    """x (B,1,d); cache {k, v: (B,Smax,Hkv,Dh)} -> out (B,1,d).
+
+    Writes this token's k, v at row ``pos`` of the cache in place and
+    attends rows ``[0, pos]`` (the reference's scalar-position decode; its
+    sliding-window ring is not ported)."""
+    b = x.shape[0]
+    dh, hq, hkv = cfg.dh, cfg.n_heads, cfg.n_kv_heads
+    posv = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    q = rope((x @ p["wq"]).reshape(b, 1, hq, dh), posv, cfg.rope_theta)
+    k = rope((x @ p["wk"]).reshape(b, 1, hkv, dh), posv, cfg.rope_theta)
+    v = (x @ p["wv"]).reshape(b, 1, hkv, dh)
+    kc, vc = cache["k"], cache["v"]
+    kc[:, pos] = k[:, 0].to(kc.dtype)
+    vc[:, pos] = v[:, 0].to(vc.dtype)
+    o = decode_attention(q, kc, vc, pos + 1)
+    return o.reshape(b, 1, hq * dh) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# dense MLP
+
+
+def mlp_pspec(cfg: ModelConfig):
+    d, f = cfg.d_model, cfg.d_ff
+    return {"w_in": PSpec((d, f)), "w_gate": PSpec((d, f)),
+            "w_out": PSpec((f, d))}
+
+
+def mlp_apply(p, cfg: ModelConfig, x):
+    return swiglu(x, p["w_in"], p["w_gate"], p["w_out"])
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 mixer
 
 
 def mamba_pspec(cfg: ModelConfig):

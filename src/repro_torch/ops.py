@@ -11,8 +11,10 @@ kernel's plain version::
     ops.reduce(x)                       # tcu_reduce.cu on a CUDA tensor
     ops.scan(x, exclusive=True)         # tcu_scan.cu, then a shift
     ops.ssd(x, dt, a, b, c, policy="fused")
+    ops.attention(q, k, v, window=128)  # flash_attention.cu
 """
 from repro_torch.core.dispatch import (  # noqa: F401  (the public API)
+    attention,
     reduce,
     rmsnorm,
     scan,
@@ -20,4 +22,4 @@ from repro_torch.core.dispatch import (  # noqa: F401  (the public API)
     weighted_scan,
 )
 
-__all__ = ["reduce", "rmsnorm", "scan", "ssd", "weighted_scan"]
+__all__ = ["attention", "reduce", "rmsnorm", "scan", "ssd", "weighted_scan"]

@@ -1,9 +1,11 @@
 """Serving engine over a fixed slot grid: the wave scheduler, greedy.
 
 Requests are admitted in waves of up to ``slots``; prompts are left-padded
-to the wave's longest prompt (one scalar cache position); the wave prefills
-once through ``Bundle.prefill_last`` and then decodes one token per step
-until every member has its budget or emitted EOS. Sampling is greedy
+to the wave's longest prompt (one scalar cache position; the padding is
+attended, as in the reference); the wave prefills once through
+``Bundle.prefill_last``, grows the KV cache's sequence axis by the wave's
+budget, and then decodes one token per step, writing each token's k, v in
+place, until every member has its budget or emitted EOS. Sampling is greedy
 (argmax). Counterpart of the wave path of ``repro.serving.engine``; the
 reference's continuous scheduler and paged cache are not ported yet
 (ROADMAP.md).
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import cast_tree
-from repro_torch.models.lm import Bundle, build_lm
+from repro_torch.models.lm import Bundle, build_lm, pad_cache_seq
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +117,7 @@ class ServingEngine:
             t0 = time.perf_counter()
         nb, live = self.cfg.slots, len(wave)
         budgets = [self._budget(r) for r in wave]
+        wave_budget = max(budgets)
         plen = max(len(r.prompt) for r in wave)
         tokens = np.zeros((nb, plen), np.int64)
         for i, r in enumerate(wave):                # left-pad prompts
@@ -122,6 +125,7 @@ class ServingEngine:
         logits, cache = self.bundle.prefill_last(
             self.params, {"tokens": torch.from_numpy(tokens).to(self.device)})
         self.prefills += 1
+        cache = pad_cache_seq(cache, wave_budget)
         nxt = self._sample(logits)
         now = time.perf_counter() - t0
 
@@ -132,7 +136,7 @@ class ServingEngine:
         done = np.ones(nb, bool)
         for i in range(live):
             done[i] = int(nxt[i]) == self.cfg.eos_token or budgets[i] <= 1
-        for _ in range(max(budgets) - 1):
+        for _ in range(wave_budget - 1):
             if done.all():
                 break
             step = torch.from_numpy(nxt.reshape(nb, 1).astype(np.int64))

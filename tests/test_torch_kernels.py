@@ -111,3 +111,62 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         kops.rmsnorm(torch.ones(4, 16, device=cuda), torch.ones(8,
                                                                 device=cuda))
+
+
+def attention_inputs(bsz, lq, lk, hq, hkv, dh, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=device).to(dtype)
+
+    return rn(bsz, lq, hq, dh), rn(bsz, lk, hkv, dh), rn(bsz, lk, hkv, dh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shape,causal,window", [
+    ((2, 256, 256, 4, 2, 64), True, None),      # block-aligned, GQA 4/2
+    ((2, 256, 256, 4, 2, 64), False, None),
+    ((1, 512, 512, 2, 2, 64), True, 128),       # sliding window
+    ((3, 100, 1000, 4, 2, 32), True, None),     # ragged, Lq < Lk
+    ((2, 468, 468, 8, 2, 64), True, None),      # a left-padded wave
+    ((1, 77, 77, 6, 3, 128), False, 40),        # D = 128, window, no causal
+])
+def test_flash_attention_kernel_matches_plain(cuda, shape, causal, window,
+                                              dtype):
+    q, k, v = attention_inputs(*shape, dtype, cuda)
+    before = kops.launch_counts()["flash_attention"]
+    got = kops.attention(q, k, v, causal=causal, window=window)
+    want = kops.attention_plain(q, k, v, causal=causal, window=window)
+    assert kops.launch_counts()["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    # f32: three-part bf16 operands, f32 accumulation; f16/bf16: P rounded
+    # to the input type before P V, one rounding of the output
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_reads_strided_model_layout(cuda):
+    """q, k, v as views of one fused projection, as a model makes them."""
+    qkv = torch.randn(2, 130, 6 * 64, device=cuda, dtype=torch.bfloat16)
+    q = qkv[..., :256].unflatten(-1, (4, 64))
+    k = qkv[..., 256:320].unflatten(-1, (1, 64))
+    v = qkv[..., 320:].unflatten(-1, (1, 64))
+    torch.testing.assert_close(kops.attention(q, k, v),
+                               kops.attention_plain(q, k, v), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_raises_on_shapes_it_does_not_take(cuda):
+    q, k, v = attention_inputs(1, 32, 32, 2, 2, 100, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        kops.attention(q, k, v)
+    q, k, v = attention_inputs(1, 32, 32, 3, 2, 64, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        kops.attention(q, k, v)
+    q, k, v = attention_inputs(1, 32, 32, 2, 2, 256, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        kops.attention(q, k, v)

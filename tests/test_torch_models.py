@@ -16,12 +16,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import llama3_2_1b as jllama
 from repro.configs import mamba2_1_3b as jmamba
 from repro.models import build as jbuild
 from repro.models import layers as jlayers
 from repro.models import lm as jlm
 from repro.models.common import count_pspec_params, init_params
 from repro_torch import configs as tconfigs
+from repro_torch.configs import llama3_2_1b as tllama
 from repro_torch.configs import mamba2_1_3b as tmamba
 from repro_torch.models import build_lm
 from repro_torch.models import layers as tlayers
@@ -197,23 +199,39 @@ def test_init_params_follows_the_reference_rules(ref_model):
     assert torch.equal(again["embed"], params["embed"])
 
 
-@pytest.mark.parametrize("size", ["FULL", "SMOKE"])
-def test_configs_have_the_reference_numbers(size):
-    jc, tc = getattr(jmamba, size), getattr(tmamba, size)
+def assert_reference_numbers(jc, tc):
     for f in ("name", "family", "n_layers", "d_model", "vocab", "norm_eps",
               "tie_embeddings", "ssm_state", "ssm_head_dim", "ssm_groups",
-              "conv_kernel", "expand", "ssd_chunk", "d_inner", "ssm_heads"):
+              "conv_kernel", "expand", "ssd_chunk", "d_inner", "ssm_heads",
+              "n_heads", "n_kv_heads", "d_ff", "head_dim", "dh",
+              "rope_theta", "swa_window"):
         assert getattr(tc, f) == getattr(jc, f), f
     assert str(tc.dtype).split(".")[-1] == jnp.dtype(jc.dtype).name
     assert build_lm(tc).n_params == count_pspec_params(
         jbuild(jc).params_pspec)
 
 
+@pytest.mark.parametrize("size", ["FULL", "SMOKE"])
+def test_configs_have_the_reference_numbers(size):
+    assert_reference_numbers(getattr(jmamba, size), getattr(tmamba, size))
+
+
+@pytest.mark.parametrize("size", ["FULL", "SMOKE"])
+def test_llama_configs_have_the_reference_numbers(size):
+    assert_reference_numbers(getattr(jllama, size), getattr(tllama, size))
+    if size == "FULL":   # about 1.24 B parameters, the embedding tied
+        assert build_lm(tllama.FULL).n_params == 1_235_814_400
+
+
 def test_unported_archs_and_families_name_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconfigs.get("llama3.2-1b")
+        tconfigs.get("zamba2-2.7b")
     with pytest.raises(KeyError):
         tconfigs.get("no-such-arch")
-    dense = dataclasses.replace(tmamba.SMOKE, family="dense")
+    assert tconfigs.get("llama3.2-1b").FULL.family == "dense"
+    moe = dataclasses.replace(tllama.SMOKE, family="moe")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_lm(dense)
+        build_lm(moe)
+    swa = dataclasses.replace(tllama.SMOKE, swa_window=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_lm(swa)
