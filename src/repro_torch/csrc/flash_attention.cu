@@ -330,18 +330,17 @@ static int launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace rt
 
 // q (B, Lq, Hq, D), k/v (B, Lk, Hkv, D) with their strides (the last dim
-// contiguous), out (B, Lq, Hq, D) contiguous, all of one dtype. block_q and
-// block_k must be the kernel's tiles (64, 64); D a multiple of 16 and at
-// most 128; Hq a multiple of Hkv; window 0 for none.
+// contiguous), out (B, Lq, Hq, D) contiguous, all of one dtype. D a
+// multiple of 16 and at most 128; Hq a multiple of Hkv; window 0 for none.
+// The tiles are the kernel's own (kFaBQ x kFaBK = 64 x 64).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int dtype,
     int B, int Lq, int Lk, int Hq, int Hkv, int D, int causal, int window,
-    float scale, int block_q, int block_k, long long sqb, long long sqs,
+    float scale, long long sqb, long long sqs,
     long long sqh, long long skb, long long sks, long long skh,
     long long svb, long long svs, long long svh, void* stream) {
   if (B < 1 || Lq < 1 || Lk < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv ||
-      D < 16 || D % 16 || D > rt::kFaMaxD || window < 0 ||
-      block_q != rt::kFaBQ || block_k != rt::kFaBK || Hq > 65535 ||
+      D < 16 || D % 16 || D > rt::kFaMaxD || window < 0 || Hq > 65535 ||
       B > 65535)
     return (int)cudaErrorInvalidValue;
   const rt::FaDims d{B,   Lq,  Lk,  Hq,  Hkv, D,   window, causal != 0,

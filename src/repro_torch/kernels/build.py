@@ -42,7 +42,7 @@ SIGNATURES = {
     "ssd_scan_launch": (_P,) * 7 + (_I,) * 8 + (_LL,) * 15 + (_P,),
     "rmsnorm_launch": (_P, _P, _P, _LL, _I, _I, _I, ctypes.c_float, _P),
     "flash_attention_launch": (_P,) * 4 + (_I,) * 9 + (ctypes.c_float,)
-                              + (_I,) * 2 + (_LL,) * 9 + (_P,),
+                              + (_LL,) * 9 + (_P,),
 }
 
 _lock = threading.Lock()

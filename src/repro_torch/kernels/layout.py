@@ -21,13 +21,12 @@ HOPPER = {
     # N = 128, P = 64, under the card's 227 KB per block
     "ssd": {"q": 64},
     "weighted_scan": {"q": 64},
-    # flash attention: four warps of 16 query rows (one wmma row each) and
-    # KV tiles of 64. At D = 64 in bf16 a block stages Q, K, V, the scores,
-    # P and the f32 accumulators, rows padded against bank conflicts, in
-    # about 74 KB, so three blocks share an SM; f32 inputs (three bf16 parts
-    # each) at D = 128 stay under 227 KB.
-    # The kernel is compiled for this geometry and refuses any other.
-    "attention": {"block_q": 64, "block_k": 64},
+    # flash attention has no entry: csrc/flash_attention.cu is compiled for
+    # its one geometry (kFaBQ = 64 query rows, four warps of 16, and
+    # kFaBK = 64 key rows per tile) and owns it. At D = 64 in bf16 a block
+    # stages Q, K, V, the scores, P and the f32 accumulators, rows padded
+    # against bank conflicts, in about 74 KB, so three blocks share an SM;
+    # f32 inputs (three bf16 parts each) at D = 128 stay under 227 KB.
 }
 
 # Largest dynamic shared memory a block may use on an H100 (bytes).

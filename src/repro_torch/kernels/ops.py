@@ -335,13 +335,12 @@ def _attention_fwd(q, k, v, *, causal: bool = True,
     if lk == 0:                     # nothing to attend: the l > 0 guard
         return out.zero_()
     q, k, v = (_last_contiguous(t) for t in (q, k, v))
-    geom = layout.HOPPER["attention"]
     sc = scale if scale is not None else 1.0 / (dh ** 0.5)
     build.check(lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), code,
         bsz, lq, lk, hq, hkv, dh, int(causal), window or 0, sc,
-        geom["block_q"], geom["block_k"], *_strides(q, 3), *_strides(k, 3),
-        *_strides(v, 3), build.stream_ptr(q)), "flash_attention")
+        *_strides(q, 3), *_strides(k, 3), *_strides(v, 3),
+        build.stream_ptr(q)), "flash_attention")
     KERNELS["flash_attention"].launches += 1
     return out
 

@@ -6,7 +6,8 @@ port's dependencies are installed:
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels.py
 
 Without a CUDA device every test skips: a CUDA kernel has no CPU mode. The
-tolerances are those of ``tests/test_kernels.py`` for the same op.
+tolerances are those of ``tests/test_kernels.py`` for the same op; flash
+attention is held row by row, against each output row's RMS.
 """
 from __future__ import annotations
 
@@ -122,6 +123,30 @@ def attention_inputs(bsz, lq, lk, hq, hkv, dh, dtype, device, seed=0):
     return rn(bsz, lq, hq, dh), rn(bsz, lk, hkv, dh), rn(bsz, lk, hkv, dh)
 
 
+def row_rel_err(got, want) -> float:
+    """Largest error in any output row over that row's RMS in ``want``: an
+    error confined to late rows, whose values are small, counts as much as
+    one in the first rows."""
+    got, want = got.float(), want.float()
+    rms = want.pow(2).mean(-1).sqrt().clamp_min(1e-30)
+    return ((got - want).abs().amax(-1) / rms).max().item()
+
+
+def assert_attention_close(q, k, v, got, **kw):
+    """The kernel against the plain version run in f32 on the same inputs,
+    row by row. f16/bf16: within twice the plain version's own distance from
+    that f32 run (both round the output; the kernel also rounds P before
+    P V, 1.0 to 1.35 times that distance in a CPU emulation of these
+    shapes). f32: within 1e-4 (three-part bf16 operands, f32 sums)."""
+    want = kops.attention_plain(q.float(), k.float(), v.float(), **kw)
+    if q.dtype == torch.float32:
+        tol = 1e-4
+    else:
+        tol = 2.0 * row_rel_err(kops.attention_plain(q, k, v, **kw), want)
+    err = row_rel_err(got, want)
+    assert err <= tol, f"row-relative error {err:.3e} > {tol:.3e}"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
@@ -138,13 +163,12 @@ def test_flash_attention_kernel_matches_plain(cuda, shape, causal, window,
     q, k, v = attention_inputs(*shape, dtype, cuda)
     before = kops.launch_counts()["flash_attention"]
     got = kops.attention(q, k, v, causal=causal, window=window)
-    want = kops.attention_plain(q, k, v, causal=causal, window=window)
     assert kops.launch_counts()["flash_attention"] == before + 1
     assert got.dtype == dtype and got.shape == q.shape
-    # f32: three-part bf16 operands, f32 accumulation; f16/bf16: P rounded
-    # to the input type before P V, one rounding of the output
-    tol = 2e-4 if dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    if dtype == torch.float32:
+        want = kops.attention_plain(q, k, v, causal=causal, window=window)
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    assert_attention_close(q, k, v, got, causal=causal, window=window)
 
 
 @pytest.mark.cuda
@@ -154,9 +178,7 @@ def test_flash_attention_kernel_reads_strided_model_layout(cuda):
     q = qkv[..., :256].unflatten(-1, (4, 64))
     k = qkv[..., 256:320].unflatten(-1, (1, 64))
     v = qkv[..., 320:].unflatten(-1, (1, 64))
-    torch.testing.assert_close(kops.attention(q, k, v),
-                               kops.attention_plain(q, k, v), rtol=2e-2,
-                               atol=2e-2)
+    assert_attention_close(q, k, v, kops.attention(q, k, v))
 
 
 @pytest.mark.cuda
