@@ -8,25 +8,32 @@ Phases:
 1. Header and build: the card's name and power limit as ``nvidia-smi`` gives
    them, then the build of ``src/repro_torch/csrc`` (nvcc, sm_90a) and its
    time.
-2. Main path, three runs, each with every kernel's launch count set to 0
+2. Main path, four runs, each with every kernel's launch count set to 0
    just before it and read just after: the public ops (``repro_torch.ops``)
-   at 2^24 elements and at the models' shapes, where every kernel must run;
-   then the engine of ``repro_torch.launch.serve`` serving mamba2-1.3b FULL
-   (48 layers) and then llama3.2-1b FULL (16 layers), random weights from
-   seed 0, to four requests of up to 512 prompt tokens, 16 new tokens each.
-   Each serve run must show its layer kernel once per layer per prefill
-   (48 SSD, 16 flash-attention launches) and 2 x layers + 1 RMSNorm
-   launches per forward (97, 33). Each prefill's last-token logits are held
-   against the same model on the kernels' plain versions, and its device
-   time is split by kind of kernel with ``torch.profiler``; 15 decode steps
-   on the host clock against their device time give the card's idle share.
+   at 2^24 elements and at the models' shapes, on the linear kernels and
+   on the log-depth family (``policy="tile_logdepth"``), where every kernel
+   must run; then the engine of ``repro_torch.launch.serve`` serving
+   mamba2-1.3b FULL (48 layers), llama3.2-1b FULL (16 layers), and
+   mamba2-1.3b FULL again under ``policy="ssd=tile_logdepth"``, random
+   weights from seed 0, to four requests of up to 512 prompt tokens, 16 new
+   tokens each. Each serve run must show its layer kernel once per layer
+   per prefill (48 SSD, 16 flash-attention, 48 local SSD launches, and no
+   linear SSD launch in the log-depth run) and 2 x layers + 1 RMSNorm
+   launches per forward (97, 33). Each prefill's last-token logits, and
+   the logits of two decode steps from its cache, are held against the
+   same model on the kernels' plain versions, and its device time is split
+   by kind of kernel with ``torch.profiler``; 15 decode steps on the host
+   clock against their device time give the card's idle share.
 3. Per kernel: the kernel against its plain version on the card at the main
    path's shapes, with the error and its tolerance (flash attention row by
    row, against each output row's RMS), the times of the kernel,
    the plain version and one library call where PyTorch has one, and the
    least time the card could take (bytes over 3.35 TB/s or operations over
-   the peak rate of the input type, whichever is larger).
-4. A ``kernels`` JSON line, the ``nvidia-smi`` line, and last the ``ok`` line.
+   the peak rate of the input type, whichever is larger). Then each
+   log-depth op whole (local kernel, tree and glue) beside the linear
+   kernel's op at the same shapes.
+4. A JSON line of the serve runs and whole-op times, a ``kernels`` JSON
+   line, the ``nvidia-smi`` line, and last the ``ok`` line.
 
 Exits non-zero and prints no result when there is no CUDA device or no
 ``src/repro_torch`` beside this script; exits 1 when any phase failed.
@@ -219,6 +226,73 @@ def ssd_cases(torch, kops, ref, gen):
     return out
 
 
+def local_ssd_flops(bsz, seqlen, nheads, hdim, nstate, q=64):
+    """The chunk products without the carried state: C B^T and G X on the
+    kept triangle, and the chunk state (B w)^T X."""
+    tri = q * (q + 1) // 2
+    per_chunk = 2 * (tri * nstate + tri * hdim + q * nstate * hdim)
+    return bsz * nheads * (-(-seqlen // q)) * per_chunk
+
+
+def logdepth_cases(torch, kops, ref, gen):
+    """The three local passes of csrc/matmul_scan.cu, each with its block
+    size from ``layout.HOPPER`` as the log-depth ops run it."""
+    from repro_torch.kernels.layout import HOPPER
+
+    out = []
+    bn = HOPPER["scan_logdepth"]["block_n"]
+    for dtype, rows, n in ((torch.float16, N_ELEMS // 256, 256),
+                           (torch.float32, N_ELEMS // 256, 256),
+                           (torch.float32, 16, 1 << 20)):
+        x = torch.randn(rows, n, generator=gen, device="cuda",
+                        dtype=torch.float32).to(dtype)
+        out.append(dict(
+            kernel="matmul_local_scan",
+            label=f"{str(dtype).split('.')[-1]} rows={rows} n={n} "
+                  f"block_n={bn}",
+            primary=dtype == torch.float16,
+            run=lambda x=x: kops.matmul_local_scan(x, bn),
+            plain=lambda x=x: ref.local_scan_ref(x, bn),
+            library=lambda x=x: torch.cumsum(x.view(x.shape[0], -1, bn), -1,
+                                             dtype=torch.float32),
+            rtol=1e-3, nbytes=nbytes(x) + 4 * x.numel(), ops=x.numel(),
+            dtype=dtype))
+    q = HOPPER["weighted_scan_logdepth"]["q"]
+    rows, n = 64, 4096
+    x = torch.randn(rows, n, generator=gen, device="cuda")
+    la = -0.5 * torch.rand(rows, n, generator=gen, device="cuda")
+    out.append(dict(
+        kernel="matmul_local_weighted", label=f"f32 rows={rows} n={n} q={q}",
+        primary=True, run=lambda: kops.matmul_local_weighted(x, la, q),
+        plain=lambda: ref.local_weighted_ref(x, la, q), library=None,
+        rtol=1e-4, nbytes=nbytes(x, la) + 4 * x.numel(),
+        # one multiply-add per kept entry of each block's q x q mask
+        ops=rows * (n // q) * q * (q + 1), dtype=torch.float32))
+    q = HOPPER["ssd_logdepth"]["q"]
+    for shape, dtype, primary in (((4, 512, 64, 64, 1, 128), torch.bfloat16,
+                                   True),
+                                  # the served wave, left-padded to 468
+                                  ((4, 468, 64, 64, 1, 128), torch.bfloat16,
+                                   False),
+                                  ((2, 300, 8, 64, 2, 128), torch.float32,
+                                   False)):
+        ins = ssd_inputs(torch, gen, *shape, dtype)
+        bsz, seqlen, nheads, hdim, ngroups, nstate = shape
+        y_bytes = 4 * bsz * seqlen * nheads * hdim
+        s_bytes = 4 * bsz * nheads * (-(-seqlen // q)) * nstate * hdim
+        out.append(dict(
+            kernel="matmul_local_ssd", label=f"{str(dtype).split('.')[-1]} "
+            f"B={bsz} L={seqlen} H={nheads} P={hdim} G={ngroups} N={nstate}"
+            f" q={q}", primary=primary,
+            run=lambda ins=ins: kops.matmul_local_ssd(*ins, q),
+            plain=lambda ins=ins: ref.local_ssd_ref(*ins, q), library=None,
+            # both sides compute in f32 from the same inputs and write f32
+            rtol=1e-4, nbytes=nbytes(*ins) + y_bytes + s_bytes,
+            ops=local_ssd_flops(bsz, seqlen, nheads, hdim, nstate, q),
+            dtype=dtype))
+    return out
+
+
 def rmsnorm_cases(torch, kops, ref, gen):
     import torch.nn.functional as F
 
@@ -352,7 +426,8 @@ def check_kernels(smoke: Smoke, kops, ref) -> dict:
     cases = (reduce_scan_cases(torch, kops, ref, gen)
              + ssd_cases(torch, kops, ref, gen)
              + rmsnorm_cases(torch, kops, ref, gen)
-             + attention_cases(torch, kops, gen))
+             + attention_cases(torch, kops, gen)
+             + logdepth_cases(torch, kops, ref, gen))
     rows: dict[str, dict] = {}
     for case in cases:
         name = case["kernel"]
@@ -408,28 +483,104 @@ def check_kernels(smoke: Smoke, kops, ref) -> dict:
     return rows
 
 
+def compare_whole_ops(smoke: Smoke, ops, ref) -> list[dict]:
+    """Each log-depth op whole (local kernel, tree and glue) beside the
+    linear kernel's op and, for the scan, ``torch.cumsum``, at the shapes of
+    the local-kernel cases; the log-depth op is held against the plain
+    version of the whole op."""
+    torch = smoke.torch
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = []
+    for dtype, rows, n in ((torch.float16, N_ELEMS // 256, 256),
+                           (torch.float32, N_ELEMS // 256, 256),
+                           (torch.float32, 16, 1 << 20)):
+        x = torch.randn(rows, n, generator=gen, device="cuda",
+                        dtype=torch.float32).to(dtype)
+        cases.append((f"scan {str(dtype).split('.')[-1]} rows={rows} n={n}",
+                      lambda p, x=x: ops.scan(x, policy=p),
+                      lambda x=x: ref.segmented_scan_ref(x),
+                      lambda x=x: torch.cumsum(x, -1, dtype=torch.float32),
+                      1e-3))
+    x = torch.randn(64, 4096, generator=gen, device="cuda")
+    la = -0.5 * torch.rand(64, 4096, generator=gen, device="cuda")
+    cases.append(("weighted_scan f32 rows=64 n=4096",
+                  lambda p: ops.weighted_scan(x, la, policy=p),
+                  lambda: ref.weighted_scan_ref(x, la), None, 2e-3))
+    for shape, dtype in (((4, 512, 64, 64, 1, 128), torch.bfloat16),
+                         ((4, 468, 64, 64, 1, 128), torch.bfloat16),
+                         ((2, 300, 8, 64, 2, 128), torch.float32)):
+        ins = ssd_inputs(torch, gen, *shape, dtype)
+        cases.append((
+            f"ssd {str(dtype).split('.')[-1]} B={shape[0]} L={shape[1]} "
+            f"H={shape[2]} P={shape[3]} G={shape[4]} N={shape[5]}",
+            lambda p, ins=ins: ops.ssd(*ins, policy=p, return_state=True),
+            lambda ins=ins: ref.ssd_scan_ref(*ins, return_state=True), None,
+            8e-3 if dtype == torch.bfloat16 else 2e-3))
+    out = []
+    for label, run, plain, library, rtol in cases:
+        try:
+            errs, scales = max_err(run("tile_logdepth"), plain())
+            tols = [rtol * max(1.0, sc) for sc in scales]
+            times = {}
+            for key, fn in (("logdepth", lambda: run("tile_logdepth")),
+                            ("linear", lambda: run("tile")),
+                            ("library", library)):
+                if fn is not None:
+                    times[key] = (smoke.time_ms(fn),
+                                  smoke.spread["host_bound"])
+        except Exception as exc:  # a phase that raises is a failed phase
+            smoke.fail(f"whole op [{label}]: {exc!r}")
+            continue
+        ok = all(e <= t for e, t in zip(errs, tols))
+        rec = dict(label=label, max_abs_err=max(errs), tol=max(tols),
+                   **{f"{k}_ms": v[0] for k, v in times.items()},
+                   host_bound=[k for k, v in times.items() if v[1]])
+        rec.setdefault("library_ms", None)
+        out.append(rec)
+        lib, host = rec["library_ms"], rec["host_bound"]
+        print(f"whole op [{label}]: tile_logdepth {rec['logdepth_ms']:.4f} "
+              f"ms, linear tile {rec['linear_ms']:.4f} ms, library "
+              f"{'null' if lib is None else f'{lib:.4f}'} ms; log-depth vs "
+              f"plain max_abs_err={max(errs):.3e} (tol {max(tols):.3e})"
+              f"{f' HOST-BOUND {host}' if host else ''}"
+              f"{'' if ok else '  <-- OUT OF TOLERANCE'}", flush=True)
+        if not ok:
+            smoke.fail(f"whole op [{label}] under tile_logdepth disagrees "
+                       f"with the plain version: {errs} > {tols}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # main path
 
 
 def ops_pass(smoke: Smoke, ops):
-    """The public ops once each, at the sizes the paper and the model use."""
+    """The public ops once each, at the sizes the paper and the model use,
+    on the default kernels and under ``tile_logdepth``."""
     torch = smoke.torch
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn(N_ELEMS // 256, 256, generator=gen, device="cuda").half()
     red = ops.reduce(x)
     sc = ops.scan(x, exclusive=True)
     la = -0.5 * torch.rand(64, 4096, generator=gen, device="cuda")
-    ws = ops.weighted_scan(torch.randn(64, 4096, generator=gen,
-                                       device="cuda"), la)
+    ws_x = torch.randn(64, 4096, generator=gen, device="cuda")
+    ws = ops.weighted_scan(ws_x, la)
     h = torch.randn(2048, 2048, generator=gen, device="cuda").bfloat16()
     nrm = ops.rmsnorm(h, torch.ones(2048, device="cuda",
                                     dtype=torch.bfloat16), eps=1e-5)
-    y, st = ops.ssd(*ssd_inputs(torch, gen, 4, 512, 64, 64, 1, 128,
-                                torch.bfloat16), return_state=True)
+    ssd_in = ssd_inputs(torch, gen, 4, 512, 64, 64, 1, 128, torch.bfloat16)
+    y, st = ops.ssd(*ssd_in, return_state=True)
     att = ops.attention(*(torch.randn(4, 512, h, 64, generator=gen,
                                       device="cuda").bfloat16()
                           for h in (32, 8, 8)))
+    # the log-depth family on the same inputs, and on one long row, where
+    # the linear scan's carry walks 4096 blocks in order
+    ld = "tile_logdepth"
+    ld_sc = ops.scan(x, exclusive=True, policy=ld)
+    long_row = torch.randn(16, 1 << 20, generator=gen, device="cuda")
+    ld_long = ops.scan(long_row, policy=ld)
+    ld_ws = ops.weighted_scan(ws_x, la, policy=ld)
+    ld_y, ld_st = ops.ssd(*ssd_in, policy=ld, return_state=True)
     torch.cuda.synchronize()
     for name, t, shape in (("reduce", red, (N_ELEMS // 256,)),
                            ("scan", sc, (N_ELEMS // 256, 256)),
@@ -437,15 +588,38 @@ def ops_pass(smoke: Smoke, ops):
                            ("rmsnorm", nrm, (2048, 2048)),
                            ("ssd.y", y, (4, 512, 64, 64)),
                            ("ssd.state", st, (4, 64, 64, 128)),
-                           ("attention", att, (4, 512, 32, 64))):
+                           ("attention", att, (4, 512, 32, 64)),
+                           ("scan[tile_logdepth]", ld_sc,
+                            (N_ELEMS // 256, 256)),
+                           ("scan[tile_logdepth] long row", ld_long,
+                            (16, 1 << 20)),
+                           ("weighted_scan[tile_logdepth]", ld_ws,
+                            (64, 4096)),
+                           ("ssd[tile_logdepth].y", ld_y, (4, 512, 64, 64)),
+                           ("ssd[tile_logdepth].state", ld_st,
+                            (4, 64, 64, 128))):
         if tuple(t.shape) != shape or not torch.isfinite(t).all():
             smoke.fail(f"ops.{name}: shape {tuple(t.shape)} (want {shape})"
                        " or non-finite values")
-    if sc[:, 0].abs().max().item() != 0.0:
-        smoke.fail("ops.scan(exclusive=True) does not start at 0")
+    for name, t in (("scan", sc), ("scan[tile_logdepth]", ld_sc)):
+        if t[:, 0].abs().max().item() != 0.0:
+            smoke.fail(f"ops.{name}(exclusive=True) does not start at 0")
+    # the two families on the same inputs: the same function, summed in
+    # another order (the SSD output rounds to bf16 once on each side)
+    for name, got, want, rtol in (
+            ("scan", ld_sc, sc, 1e-3),
+            ("scan long row", ld_long,
+             ops.scan(long_row, policy="baseline"), 1e-3),
+            ("weighted_scan", ld_ws, ws, 2e-3), ("ssd.y", ld_y, y, 8e-3),
+            ("ssd.state", ld_st, st, 2e-3)):
+        err = (got.float() - want.float()).abs().max().item()
+        tol = rtol * max(1.0, want.float().abs().max().item())
+        if not err <= tol:
+            smoke.fail(f"ops.{name}: tile_logdepth and tile differ by {err}"
+                       f" (tol {tol})")
 
 
-KINDS = ("flash_attention", "ssd_scan", "rmsnorm", "gemm")
+KINDS = ("flash_attention", "ssd_scan", "local_ssd", "rmsnorm", "gemm")
 
 
 def device_split(torch, fn) -> dict | None:
@@ -485,25 +659,30 @@ def device_split(torch, fn) -> dict | None:
     return {k: round(v, 4) for k, v in split.items()}
 
 
-# the models the main path serves, each with its counts read on their own
-SERVED = ("mamba2-1.3b", "llama3.2-1b")
-# the kernel each served family runs once per layer per prefill
-PREFILL_KERNEL = {"ssm": "ssd_scan", "dense": "flash_attention"}
+# the runs of the served main path, each with its counts read on their own:
+# (model, policy, the kernel it runs once per layer per prefill, a kernel
+# the run must not launch)
+SERVED = (("mamba2-1.3b", None, "ssd_scan", "matmul_local_ssd"),
+          ("llama3.2-1b", None, "flash_attention", None),
+          ("mamba2-1.3b", "ssd=tile_logdepth", "matmul_local_ssd",
+           "ssd_scan"))
 
 
-def serve_pass(smoke: Smoke, serve, kops, arch: str):
-    """``arch`` FULL through the serving engine; returns its numbers."""
+def serve_pass(smoke: Smoke, serve, kops, arch: str, policy: str | None,
+               per_layer: str, absent: str | None):
+    """``arch`` FULL through the serving engine under ``policy``; returns
+    its numbers."""
     from repro_torch.models import build_lm
     from repro_torch.models.common import cast_tree
     from repro_torch.models.lm import pad_cache_seq
 
     torch = smoke.torch
-    engine = serve.build_engine(arch, "full", device="cuda",
+    engine = serve.build_engine(arch, "full", device="cuda", policy=policy,
                                 slots=4, max_new=16, seed=0)
     cfg = engine.bundle.cfg
     print(f"serve: {cfg.name} {cfg.n_layers} layers d_model={cfg.d_model} "
           f"{engine.bundle.n_params / 1e9:.3f}B params {cfg.dtype}, "
-          f"scheduler=wave, 4 slots", flush=True)
+          f"policy={policy}, scheduler=wave, 4 slots", flush=True)
     # warm-up: one short request (cuBLAS handles, allocator)
     engine.run(serve.make_requests(1, 16, cfg.vocab, seed=1))
     reqs = serve.make_requests(4, 512, cfg.vocab, seed=0)
@@ -538,12 +717,14 @@ def serve_pass(smoke: Smoke, serve, kops, arch: str):
           f"{engine.decodes} decode step(s)", flush=True)
     if any(len(r.tokens) == 0 for r in results):
         smoke.fail("serve: a request produced no tokens")
-    per_layer = PREFILL_KERNEL[cfg.family]
     want_layer = cfg.n_layers * engine.prefills
     want_norm = (2 * cfg.n_layers + 1) * (engine.prefills + engine.decodes)
-    if counts[per_layer] < want_layer or engine.prefills < 1:
+    if counts[per_layer] != want_layer or engine.prefills < 1:
         smoke.fail(f"serve: {counts[per_layer]} {per_layer} launches, want "
-                   f">= {want_layer} ({cfg.n_layers} per prefill)")
+                   f"{want_layer} ({cfg.n_layers} per prefill)")
+    if absent is not None and counts[absent]:
+        smoke.fail(f"serve: {counts[absent]} {absent} launches under "
+                   f"policy {policy!r}, want 0")
     if counts["rmsnorm"] < want_norm:
         smoke.fail(f"serve: {counts['rmsnorm']} RMSNorm launches, want >= "
                    f"{want_norm} ({2 * cfg.n_layers + 1} per forward)")
@@ -556,13 +737,30 @@ def serve_pass(smoke: Smoke, serve, kops, arch: str):
             r.prompt.astype("int64"))
     batch = {"tokens": tokens.cuda()}
 
-    def prefill_fn(policy, dtype):
-        bundle = build_lm(dataclasses.replace(cfg, policy=policy,
-                                              dtype=dtype))
-        params = cast_tree(engine.params, dtype)
+    params_by_dtype = {}
+
+    def model(path, dtype):
+        if dtype not in params_by_dtype:
+            params_by_dtype[dtype] = cast_tree(engine.params, dtype)
+        bundle = build_lm(dataclasses.replace(cfg, policy=path, dtype=dtype))
+        return bundle, params_by_dtype[dtype]
+
+    def prefill_fn(path, dtype):
+        bundle, params = model(path, dtype)
         return lambda: bundle.prefill_last(params, batch)[0].float()
 
-    kern_bf16 = prefill_fn(None, torch.bfloat16)
+    def decoded(path, steps=2):
+        """Logits of ``steps`` f32 decode steps from the prefill's cache:
+        the state handed from prefill to decode is in them."""
+        bundle, params = model(path, torch.float32)
+        _, cache = bundle.prefill_last(params, batch)
+        cache = pad_cache_seq(cache, steps)
+        for _ in range(steps):
+            logits, cache = bundle.decode(
+                params, cache, {"tokens": batch["tokens"][:, -1:]})
+        return logits.float()
+
+    kern_bf16 = prefill_fn(policy, torch.bfloat16)
     plain_bf16 = prefill_fn("baseline", torch.bfloat16)
     prefill_ms = smoke.time_ms(kern_bf16, max_iters=5)
     prefill_spread = smoke.spread
@@ -572,10 +770,14 @@ def serve_pass(smoke: Smoke, serve, kops, arch: str):
     # the same weights in f32 on both paths: kernels and plain versions
     # agree to about 1e-6 per op, so every layer stack of the port stays
     # within 1e-3 of the largest logit
-    got32 = prefill_fn(None, torch.float32)()
+    got32 = prefill_fn(policy, torch.float32)()
     want32 = prefill_fn("baseline", torch.float32)()
     err32 = (got32 - want32).abs().max().item()
     tol32 = 1e-3 * want32.abs().max().item()
+    dec_got, dec_want = decoded(policy), decoded("baseline")
+    params_by_dtype.pop(torch.float32)
+    dec_err = (dec_got - dec_want).abs().max().item()
+    dec_tol = 1e-3 * dec_want.abs().max().item()
     # bf16: every norm and every SSD or attention output of a forward
     # rounds to bf16, and the two paths may round a value one ulp apart. The
     # bf16 tolerance is the bf16 error of the plain path itself, measured
@@ -597,12 +799,16 @@ def serve_pass(smoke: Smoke, serve, kops, arch: str):
           f"{err:.4e} (tol {tol:.4e} = 2 x the plain bf16 run's distance "
           f"from f32); kernels bf16 vs plain f32 "
           f"{(got - want32).abs().max().item():.4e}; max |logit| "
-          f"{want32.abs().max().item():.3f}; argmax agreement {agree:.2f}",
-          flush=True)
-    finite = bool(torch.isfinite(got).all() and torch.isfinite(got32).all())
-    if not (err32 <= tol32 and err <= tol and finite):
-        smoke.fail(f"serve: prefill logits disagree with the plain model: "
-                   f"f32 {err32} (tol {tol32}), bf16 {err} (tol {tol})")
+          f"{want32.abs().max().item():.3f}; argmax agreement {agree:.2f}; "
+          f"f32 logits after 2 decode steps from the prefill's cache "
+          f"max_abs_err={dec_err:.4e} (tol {dec_tol:.4e})", flush=True)
+    finite = bool(torch.isfinite(got).all() and torch.isfinite(got32).all()
+                  and torch.isfinite(dec_got).all())
+    if not (err32 <= tol32 and err <= tol and dec_err <= dec_tol
+            and finite):
+        smoke.fail(f"serve: logits disagree with the plain model: prefill "
+                   f"f32 {err32} (tol {tol32}), bf16 {err} (tol {tol}); "
+                   f"decode f32 {dec_err} (tol {dec_tol})")
     # decode steps of the served model, each on the host clock, against the
     # device time of their kernels: the card's idle share during decode
     n_steps, n_prof = 15, 5
@@ -643,7 +849,9 @@ def serve_pass(smoke: Smoke, serve, kops, arch: str):
                  decode_idle_share=None if idle is None else idle[0],
                  decode_idle_share_range=None if idle is None else idle[1:],
                  logits_f32_max_abs_err=err32, logits_f32_tol=tol32,
-                 logits_bf16_max_abs_err=err, logits_bf16_tol=tol)
+                 logits_bf16_max_abs_err=err, logits_bf16_tol=tol,
+                 decode_logits_f32_max_abs_err=dec_err,
+                 decode_logits_f32_tol=dec_tol)
     return stats
 
 
@@ -695,16 +903,19 @@ def main() -> int:
                 smoke.fail(f"ops pass launched {name} no time")
         stats = {}
         launches = dict(ops_counts)
-        for arch in SERVED:
+        for arch, policy, per_layer, absent in SERVED:
+            run = arch if policy is None else f"{arch} {policy}"
             try:
-                stats[arch] = serve_pass(smoke, serve, kops, arch)
+                stats[run] = serve_pass(smoke, serve, kops, arch, policy,
+                                        per_layer, absent)
             except Exception as exc:
-                smoke.fail(f"serve pass {arch}: {exc!r}")
-                stats[arch] = {"launches": {k: 0 for k in ops_counts}}
+                smoke.fail(f"serve pass {run}: {exc!r}")
+                stats[run] = {"launches": {k: 0 for k in ops_counts}}
             torch.cuda.empty_cache()
             for k in launches:
-                launches[k] += stats[arch]["launches"][k]
+                launches[k] += stats[run]["launches"][k]
         rows = check_kernels(smoke, kops, ref)
+        whole_ops = compare_whole_ops(smoke, ops, ref)
 
     kernels = []
     for name, k in kops.KERNELS.items():
@@ -716,7 +927,7 @@ def main() -> int:
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},
             "cases": row.get("cases", [])})
-    print(json.dumps({"serve": stats}))
+    print(json.dumps({"serve": stats, "whole_ops": whole_ops}))
     if smoke.failures:
         print(f"chip_smoke: {len(smoke.failures)} failure(s):",
               file=sys.stderr)

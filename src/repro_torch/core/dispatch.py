@@ -6,6 +6,9 @@ Every op takes ``policy=`` (see :mod:`repro_torch.core.policy`) and runs:
   ``fused``     the matmul forms of ``repro_torch.core`` (torch matmuls);
                 for attention the blocked ``chunked_attention``
   ``baseline``  ``torch.sum`` / ``torch.cumsum`` / the plain oracles
+  ``tile_logdepth``  scan, weighted_scan and ssd only: the carry-free local
+                kernels of ``csrc/matmul_scan.cu`` and the log-depth tree of
+                ``kernels/matmul_scan.py`` (the other ops raise)
 """
 from __future__ import annotations
 
@@ -37,6 +40,8 @@ def scan(x: torch.Tensor, *, policy: str | None = None,
         return tcu_scan(x, exclusive=exclusive)
     if p == "baseline":
         out = torch.cumsum(x.float(), dim=-1)
+    elif p == "tile_logdepth":
+        out = kops.segmented_scan_logdepth(x)
     else:
         out = kops.segmented_scan(x)
     if exclusive:
@@ -55,6 +60,8 @@ def weighted_scan(x: torch.Tensor, log_a: torch.Tensor, *,
         return tcu_weighted_scan(x, log_a)
     if p == "baseline":
         return ref.weighted_scan_ref(x, log_a)
+    if p == "tile_logdepth":
+        return kops.weighted_scan_logdepth(x, log_a)
     return kops.weighted_scan(x, log_a)
 
 
@@ -91,8 +98,9 @@ def ssd(x, dt, a, b, c, *, policy: str | None = None, chunk: int | None = None,
     """Mamba-2 SSD scan -> ``y (B, L, H, P)``; with ``return_state=True``
     also the final state ``(B, H, P, N)`` f32.
 
-    ``chunk``/``matmul_dtype`` tune the ``fused`` form only; the kernel's
-    chunk is ``kernels/layout.HOPPER["ssd"]["q"]``.
+    ``chunk``/``matmul_dtype`` tune the ``fused`` form only; the kernels'
+    chunks are ``kernels/layout.HOPPER["ssd"]["q"]`` and
+    ``HOPPER["ssd_logdepth"]["q"]``.
     """
     p = resolve(policy, "ssd")
     if p == "fused":
@@ -101,4 +109,7 @@ def ssd(x, dt, a, b, c, *, policy: str | None = None, chunk: int | None = None,
         return (y, h) if return_state else y
     if p == "baseline":
         return ref.ssd_scan_ref(x, dt, a, b, c, return_state=return_state)
+    if p == "tile_logdepth":
+        return kops.ssd_scan_logdepth(x, dt, a, b, c,
+                                      return_state=return_state)
     return kops.ssd_scan(x, dt, a, b, c, return_state=return_state)

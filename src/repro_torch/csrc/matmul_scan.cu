@@ -1,0 +1,284 @@
+// The carry-free local passes of the log-depth MatMulScan family.
+//
+// Replaces the three Pallas kernels of src/repro/kernels/matmul_scan.py
+// (and their Pallas-Triton twins in src/repro/kernels/triton/
+// matmul_scan.py): matmul_local_scan, matmul_local_weighted and
+// matmul_local_ssd. Each scans blocks of its input independently, with no
+// carry from one block to the next; kernels/matmul_scan.py then stitches
+// the blocks with a tree of O(log_radix nblocks) batched matmuls against
+// constant matrices. The linear kernels (tcu_scan.cu, ssd_scan.cu) walk a
+// row's blocks in order; here every block is an independent block of the
+// grid, so a long row fills the card.
+//
+//   local_scan      out = per block_n block of a row, inclusive scan: a
+//                   warp owns 16 rows x block_n columns and runs
+//                   tcu_tile.cuh's A @ U tiles (f32 as three bf16 parts)
+//                   with a carry that restarts at the block.
+//                   Bound: bytes (one read, one f32 write).
+//   local_weighted  y = exp(segsum(lambda)) x per q block of a row: a warp
+//                   owns one (row, block), scans lambda in shared memory
+//                   and sums y_t = sum_{s<=t} exp(Lambda_t - Lambda_s) x_s
+//                   with FMA loops; masked entries are never exponentiated.
+//                   Bound: bytes; the q/2 exps per element are the
+//                   practical limit.
+//   local_ssd       per (batch, head, chunk of q steps): y_local =
+//                   ((C B^T) o M) (dt o X) and the chunk state S = (B o
+//                   w)^T (dt o X), the chunk body of ssd_scan.cu without
+//                   the carried H (ssd_chunk.cuh). One block per chunk, so
+//                   the grid is fully parallel. It writes more than it
+//                   reads: S is N x P f32 per chunk against q x (P + 2N)
+//                   inputs. Bound: bytes.
+//
+// Ragged edges are zero-filled in shared memory (steps past L or n load
+// lambda = 0, x = 0, b = c = 0), so the glue pads nothing; shapes a kernel
+// does not take return cudaErrorInvalidValue.
+#include "ssd_chunk.cuh"
+#include "tcu_tile.cuh"
+
+namespace rt {
+
+// ---------------------------------------------------------------------------
+// local scan
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kWarps * 32)
+    local_scan_kernel(const T* __restrict__ x, float* __restrict__ out,
+                      long long rows, long long n, int block_n,
+                      long long items) {
+  using FT = typename Operand<T>::type;
+  __shared__ __align__(32) FT stage_s[kWarps][Operand<T>::parts * kPlane];
+  __shared__ __align__(32) float tile_s[kWarps][kTile * kTile];
+  __shared__ __align__(32) FT u_s[kTile * kTile];
+  __shared__ float carry_s[kWarps][kTile];
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int i = threadIdx.x; i < kTile * kTile; i += blockDim.x)
+    u_s[i] = from_f32<FT>((i / kTile) <= (i % kTile) ? 1.f : 0.f);
+  __syncthreads();
+
+  const long long item = (long long)blockIdx.x * kWarps + warp;
+  if (item >= items) return;
+  // neighbouring warps take neighbouring column blocks of the same rows
+  const long long nb = (n + block_n - 1) / block_n;
+  const long long row0 = (item / nb) * kTile;
+  const long long lo = (item % nb) * block_n;
+  const long long hi = lo + block_n < n ? lo + block_n : n;
+  if (lane < kTile) carry_s[warp][lane] = 0.f;
+  __syncwarp();
+  FragB<FT> u;
+  wmma::load_matrix_sync(u, u_s, kTile);
+  scan_range<T, VEC>(x, out, rows, n, row0, lo, hi, stage_s[warp],
+                     tile_s[warp], carry_s[warp], u, lane);
+}
+
+template <typename T>
+static int launch_scan(const void* x, void* out, long long rows, long long n,
+                       int block_n, cudaStream_t stream) {
+  const long long items = (rows + kTile - 1) / kTile *
+                          ((n + block_n - 1) / block_n);
+  const unsigned blocks = (unsigned)((items + kWarps - 1) / kWarps);
+  const T* xp = static_cast<const T*>(x);
+  float* op = static_cast<float*>(out);
+  if (vec_ok(x, n, sizeof(T)))
+    local_scan_kernel<T, true><<<blocks, kWarps * 32, 0, stream>>>(
+        xp, op, rows, n, block_n, items);
+  else
+    local_scan_kernel<T, false><<<blocks, kWarps * 32, 0, stream>>>(
+        xp, op, rows, n, block_n, items);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// local weighted scan
+
+constexpr int kWtWarps = 8;
+constexpr int kWtMaxQ = 128;
+
+__global__ void __launch_bounds__(kWtWarps * 32)
+    local_weighted_kernel(const float* __restrict__ x,
+                          const float* __restrict__ lam,
+                          float* __restrict__ y, long long n, int q,
+                          long long items) {
+  __shared__ float cum_s[kWtWarps][kWtMaxQ];
+  __shared__ float x_s[kWtWarps][kWtMaxQ];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long item = (long long)blockIdx.x * kWtWarps + warp;
+  if (item >= items) return;
+  const long long nb = (n + q - 1) / q;
+  const long long base = (item / nb) * n, c0 = (item % nb) * q;
+  float* cum = cum_s[warp];
+  float* xs = x_s[warp];
+  for (int t = lane; t < q; t += 32) {
+    const bool ok = c0 + t < n;
+    cum[t] = ok ? lam[base + c0 + t] : 0.f;
+    xs[t] = ok ? x[base + c0 + t] : 0.f;
+  }
+  __syncwarp();
+  chunk_cumsum(cum, nullptr, q, lane);
+  __syncwarp();
+  for (int t = lane; t < q && c0 + t < n; t += 32) {
+    const float ct = cum[t];
+    float acc = 0.f;
+    for (int s = 0; s <= t; ++s) acc += expf(ct - cum[s]) * xs[s];
+    y[base + c0 + t] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// local SSD chunk pass
+
+inline size_t local_ssd_smem_bytes(int q, int P, int N) {
+  const size_t pp = round4(P), np = round4(N);
+  return sizeof(float) *
+         (2 * np * q + (size_t)q * pp + (size_t)q * q + 2 * q);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSsdThreads)
+    local_ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                     const float* __restrict__ lam, const T* __restrict__ bm,
+                     const T* __restrict__ cm, float* __restrict__ y,
+                     float* __restrict__ s, SsdDims d, int nchunks) {
+  extern __shared__ __align__(16) float smem[];
+  const int q = d.q, pp = round4(d.P), np = round4(d.N);
+  float* bt = smem;              // (np, q)   B^T of the chunk
+  float* cs = bt + np * q;       // (q, np)   C of the chunk
+  float* xs = cs + q * np;       // (q, pp)   dt * x
+  float* gs = xs + q * pp;       // (q, q)    masked C B^T
+  float* cum = gs + q * q;       // (q)       Lambda
+  float* wv = cum + q;           // (q)       exp(Lambda_last - Lambda)
+
+  const int chunk = blockIdx.x % nchunks, bh = blockIdx.x / nchunks;
+  const int bi = bh / d.H, h = bh % d.H, g = h / (d.H / d.G);
+  const int c0 = chunk * q, tid = threadIdx.x;
+  const int nt = q / 4, ntp = pp / 4, ntn = np / 4;
+
+  stage_chunk<T>(x, dt, lam, bm, cm, d, bi, h, g, c0, bt, cs, xs, cum, tid);
+  __syncthreads();
+  if (tid < 32) chunk_cumsum(cum, wv, q, tid);
+  __syncthreads();
+  masked_cb(bt, cs, cum, gs, q, np, tid);
+  __syncthreads();
+
+  // y_local = G (dt o X), f32 in the model layout (B, L, H, P)
+  for (int tile = tid; tile < nt * ntp; tile += kSsdThreads) {
+    const int t0 = (tile / ntp) * 4, p0 = (tile % ntp) * 4;
+    float yi[4][4] = {};
+    intra_tile(gs, xs, q, pp, t0, p0, yi);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int l = c0 + t0 + i;
+      if (l >= d.L) continue;
+      float* yrow = y + (((long long)bi * d.L + l) * d.H + h) * d.P;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (p0 + j < d.P) yrow[p0 + j] = yi[i][j];
+    }
+  }
+
+  // S = (B o w)^T (dt o X), f32 (B, H, nchunks, N, P)
+  float* sc = s + ((long long)bh * nchunks + chunk) * d.N * d.P;
+  for (int tile = tid; tile < ntn * ntp; tile += kSsdThreads) {
+    const int n0 = (tile / ntp) * 4, p0 = (tile % ntp) * 4;
+    float acc[4][4] = {};
+    state_tile(bt, xs, wv, q, pp, n0, p0, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (n0 + i >= d.N) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (p0 + j < d.P) sc[(n0 + i) * d.P + p0 + j] = acc[i][j];
+    }
+  }
+}
+
+template <typename T>
+static int launch_ssd(const void* x, const void* dt, const void* lam,
+                      const void* b, const void* c, void* y, void* s,
+                      const SsdDims& d, cudaStream_t stream) {
+  const size_t smem = local_ssd_smem_bytes(d.q, d.P, d.N);
+  cudaError_t err = cudaFuncSetAttribute(
+      local_ssd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nchunks = (d.L + d.q - 1) / d.q;
+  local_ssd_kernel<T><<<d.B * d.H * nchunks, kSsdThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(lam), static_cast<const T*>(b),
+      static_cast<const T*>(c), static_cast<float*>(y),
+      static_cast<float*>(s), d, nchunks);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace rt
+
+// x: (rows, n) contiguous, dtype code; out: (rows, n) f32. block_n must be
+// a positive multiple of 32 (two staged 16-column fragments).
+extern "C" int matmul_local_scan_launch(const void* x, void* out,
+                                        long long rows, long long n,
+                                        int block_n, int dtype,
+                                        void* stream) {
+  if (rows < 1 || n < 1 || block_n < rt::kCols || block_n % rt::kCols)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case rt::kF32: return rt::launch_scan<float>(x, out, rows, n, block_n, st);
+    case rt::kF16:
+      return rt::launch_scan<__half>(x, out, rows, n, block_n, st);
+    case rt::kBF16:
+      return rt::launch_scan<__nv_bfloat16>(x, out, rows, n, block_n, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// x, lam, y: (rows, n) f32 contiguous. q must be a multiple of 32, at most
+// 128.
+extern "C" int matmul_local_weighted_launch(const void* x, const void* lam,
+                                            void* y, long long rows,
+                                            long long n, int q,
+                                            void* stream) {
+  if (rows < 1 || n < 1 || q < 32 || q % 32 || q > rt::kWtMaxQ)
+    return (int)cudaErrorInvalidValue;
+  const long long items = rows * ((n + q - 1) / q);
+  const unsigned blocks =
+      (unsigned)((items + rt::kWtWarps - 1) / rt::kWtWarps);
+  rt::local_weighted_kernel<<<blocks, rt::kWtWarps * 32, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(lam),
+      static_cast<float*>(y), n, q, items);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory the local SSD pass needs at chunk q (bytes).
+extern "C" long long matmul_local_ssd_smem_bytes(int q, int P, int N) {
+  return (long long)rt::local_ssd_smem_bytes(q, P, N);
+}
+
+// x, b, c share the dtype code; dt, lam f32; y (B, L, H, P) and s
+// (B, H, ceil(L / q), N, P) f32 contiguous. q must be a multiple of 16 and
+// H of G.
+extern "C" int matmul_local_ssd_launch(
+    const void* x, const void* dt, const void* lam, const void* b,
+    const void* c, void* y, void* s, int dtype, int B, int L, int H, int G,
+    int P, int N, int q, long long sxb, long long sxl, long long sxh,
+    long long sdb, long long sdl, long long sdh, long long slb,
+    long long sll, long long slh, long long sbb, long long sbl,
+    long long sbg, long long scb, long long scl, long long scg,
+    void* stream) {
+  if (B < 1 || L < 1 || H < 1 || G < 1 || H % G || P < 1 || N < 1 ||
+      q < 16 || q % 16)
+    return (int)cudaErrorInvalidValue;
+  const rt::SsdDims d{B,   L,   H,   G,   P,   N,   q,   sxb, sxl, sxh, sdb,
+                      sdl, sdh, slb, sll, slh, sbb, sbl, sbg, scb, scl, scg};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case rt::kF32:
+      return rt::launch_ssd<float>(x, dt, lam, b, c, y, s, d, st);
+    case rt::kF16:
+      return rt::launch_ssd<__half>(x, dt, lam, b, c, y, s, d, st);
+    case rt::kBF16:
+      return rt::launch_ssd<__nv_bfloat16>(x, dt, lam, b, c, y, s, d, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}

@@ -28,51 +28,14 @@
 // read in the model layout through strides, and y and the final state are
 // written in the model layout (B, L, H, P) and (B, H, P, N). Steps past L in
 // the last chunk load lambda = 0, x = 0, b = c = 0, which leaves H exact.
-#include "common.cuh"
+#include "ssd_chunk.cuh"
 
 namespace rt {
-
-constexpr int kSsdThreads = 256;
-
-struct SsdDims {
-  int B, L, H, G, P, N, q;
-  long long sxb, sxl, sxh;   // x (B, L, H, P), p contiguous
-  long long sdb, sdl, sdh;   // dt (B, L, H)
-  long long slb, sll, slh;   // lambda (B, L, H)
-  long long sbb, sbl, sbg;   // b (B, L, G, N), n contiguous
-  long long scb, scl, scg;   // c (B, L, G, N), n contiguous
-};
-
-__host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
 
 inline size_t ssd_smem_bytes(int q, int P, int N) {
   const size_t pp = round4(P), np = round4(N);
   return sizeof(float) *
          (np * pp + 2 * np * q + (size_t)q * pp + (size_t)q * q + 2 * q);
-}
-
-// Inclusive scan of cum[0:q) in place by one warp, then
-// wv[t] = exp(cum[q-1] - cum[t]).
-__device__ __forceinline__ void chunk_cumsum(float* cum, float* wv, int q,
-                                             int lane) {
-  const int per = (q + 31) / 32;
-  const int s = lane * per, e = min(q, s + per);
-  float run = 0.f;
-  for (int t = s; t < e; ++t) {
-    run += cum[t];
-    cum[t] = run;
-  }
-  float incl = run;
-  for (int off = 1; off < 32; off <<= 1) {
-    const float v = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += v;
-  }
-  float excl = __shfl_up_sync(0xffffffffu, incl, 1);  // shift, not subtract
-  if (lane == 0) excl = 0.f;
-  for (int t = s; t < e; ++t) cum[t] += excl;
-  __syncwarp();
-  const float last = cum[q - 1];
-  for (int t = lane; t < q; t += 32) wv[t] = expf(last - cum[t]);
 }
 
 template <typename T>
@@ -100,70 +63,21 @@ __global__ void __launch_bounds__(kSsdThreads)
 
   for (int c0 = 0; c0 < d.L; c0 += q) {
     __syncthreads();  // previous chunk is done with the staged arrays
-    for (int i = tid; i < q * np; i += kSsdThreads) {
-      const int t = i / np, n = i % np, l = c0 + t;
-      const bool ok = l < d.L && n < d.N;
-      bt[n * q + t] =
-          ok ? to_f32(bm[bi * d.sbb + l * d.sbl + g * d.sbg + n]) : 0.f;
-      cs[i] = ok ? to_f32(cm[bi * d.scb + l * d.scl + g * d.scg + n]) : 0.f;
-    }
-    for (int i = tid; i < q * pp; i += kSsdThreads) {
-      const int t = i / pp, p = i % pp, l = c0 + t;
-      xs[i] = (l < d.L && p < d.P)
-                  ? to_f32(x[bi * d.sxb + l * d.sxl + h * d.sxh + p]) *
-                        dt[bi * d.sdb + l * d.sdl + h * d.sdh]
-                  : 0.f;
-    }
-    for (int t = tid; t < q; t += kSsdThreads) {
-      const int l = c0 + t;
-      cum[t] = l < d.L ? lam[bi * d.slb + l * d.sll + h * d.slh] : 0.f;
-    }
+    stage_chunk<T>(x, dt, lam, bm, cm, d, bi, h, g, c0, bt, cs, xs, cum,
+                   tid);
     __syncthreads();
     if (tid < 32) chunk_cumsum(cum, wv, q, tid);
     __syncthreads();
 
     // G = (C B^T) o exp(Lambda_t - Lambda_s), zero above the diagonal
-    for (int tile = tid; tile < nt * nt; tile += kSsdThreads) {
-      const int t0 = (tile / nt) * 4, s0 = (tile % nt) * 4;
-      float acc[4][4] = {};
-      if (s0 <= t0 + 3) {
-        for (int k = 0; k < np; ++k) {
-          const float4 bv = *reinterpret_cast<const float4*>(bt + k * q + s0);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float a = cs[(t0 + i) * np + k];
-            acc[i][0] += a * bv.x;
-            acc[i][1] += a * bv.y;
-            acc[i][2] += a * bv.z;
-            acc[i][3] += a * bv.w;
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int t = t0 + i, s = s0 + j;
-          gs[t * q + s] = s <= t ? acc[i][j] * expf(cum[t] - cum[s]) : 0.f;
-        }
-    }
+    masked_cb(bt, cs, cum, gs, q, np, tid);
     __syncthreads();
 
     // y = G (dt o X) + exp(Lambda) (C H), with H from before this chunk
     for (int tile = tid; tile < nt * ntp; tile += kSsdThreads) {
       const int t0 = (tile / ntp) * 4, p0 = (tile % ntp) * 4;
       float yi[4][4] = {}, yo[4][4] = {};
-      for (int k = 0; k < t0 + 4; ++k) {  // G is zero for k > t
-        const float4 xv = *reinterpret_cast<const float4*>(xs + k * pp + p0);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float gv = gs[(t0 + i) * q + k];
-          yi[i][0] += gv * xv.x;
-          yi[i][1] += gv * xv.y;
-          yi[i][2] += gv * xv.z;
-          yi[i][3] += gv * xv.w;
-        }
-      }
+      intra_tile(gs, xs, q, pp, t0, p0, yi);
       for (int k = 0; k < np; ++k) {
         const float4 hv = *reinterpret_cast<const float4*>(hs + k * pp + p0);
 #pragma unroll
@@ -194,18 +108,7 @@ __global__ void __launch_bounds__(kSsdThreads)
     for (int tile = tid; tile < ntn * ntp; tile += kSsdThreads) {
       const int n0 = (tile / ntp) * 4, p0 = (tile % ntp) * 4;
       float acc[4][4] = {};
-      for (int k = 0; k < q; ++k) {
-        const float4 xv = *reinterpret_cast<const float4*>(xs + k * pp + p0);
-        const float w = wv[k];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float bv = bt[(n0 + i) * q + k] * w;
-          acc[i][0] += bv * xv.x;
-          acc[i][1] += bv * xv.y;
-          acc[i][2] += bv * xv.z;
-          acc[i][3] += bv * xv.w;
-        }
-      }
+      state_tile(bt, xs, wv, q, pp, n0, p0, acc);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll

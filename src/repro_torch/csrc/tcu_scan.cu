@@ -76,29 +76,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   FragB<FT> u;
   wmma::load_matrix_sync(u, u_s, kTile);
   if (!live) return;
-  for (long long col0 = lo; col0 < hi; col0 += kCols) {
-    stage<T, VEC>(x, rows, n, hi, row0, col0, stage_s[warp], lane);
-    __syncwarp();
-    for (int f = 0; f < kCols / kTile; ++f) {
-      const long long c0 = col0 + f * kTile;
-      if (c0 >= hi) break;
-      FragC acc;
-      wmma::fill_fragment(acc, 0.f);
-      mma_staged<T>(acc, stage_s[warp], f, u);
-      wmma::store_matrix_sync(tile_s[warp], acc, kTile, wmma::mem_row_major);
-      __syncwarp();
-      for (int i = lane; i < kTile * kTile; i += 32) {
-        const int r = i / kTile;
-        const long long gr = row0 + r, gc = c0 + i % kTile;
-        if (gr < rows && gc < hi)
-          out[gr * n + gc] = tile_s[warp][i] + carry_s[warp][r];
-      }
-      __syncwarp();
-      if (lane < kTile)
-        carry_s[warp][lane] += tile_s[warp][lane * kTile + kTile - 1];
-      __syncwarp();
-    }
-  }
+  scan_range<T, VEC>(x, out, rows, n, row0, lo, hi, stage_s[warp],
+                     tile_s[warp], carry_s[warp], u, lane);
 }
 
 template <typename T>

@@ -1,4 +1,5 @@
-// Tensor-core tile machinery shared by tcu_reduce.cu and tcu_scan.cu.
+// Tensor-core tile machinery shared by tcu_reduce.cu, tcu_scan.cu and
+// matmul_scan.cu.
 //
 // A warp owns 16 segments (rows of the row-major (rows, n) input) and walks
 // their columns kCols at a time: it stages a 16 x kCols block in shared
@@ -115,6 +116,41 @@ __device__ __forceinline__ void mma_staged(
   for (int p = 0; p < Operand<T>::parts; ++p) {
     wmma::load_matrix_sync(a, s + p * kPlane + f * kTile, kCols);
     wmma::mma_sync(acc, a, b, acc);
+  }
+}
+
+// Inclusive scan of rows [row0, row0 + 16) over columns [lo, hi) of x (row
+// stride n) into out, by one warp: each 16-wide tile times U (tile @ U is a
+// row-wise scan on the tensor cores), plus the running per-row carry, which
+// then advances by the tile's last column. carry (16 floats, shared) holds
+// the sums before lo on entry and the sums up to hi on exit. lo is a
+// multiple of kCols.
+template <typename T, bool VEC>
+__device__ __forceinline__ void scan_range(
+    const T* __restrict__ x, float* __restrict__ out, long long rows,
+    long long n, long long row0, long long lo, long long hi,
+    typename Operand<T>::type* stage_s, float* tile_s, float* carry,
+    const FragB<typename Operand<T>::type>& u, int lane) {
+  for (long long col0 = lo; col0 < hi; col0 += kCols) {
+    stage<T, VEC>(x, rows, n, hi, row0, col0, stage_s, lane);
+    __syncwarp();
+    for (int f = 0; f < kCols / kTile; ++f) {
+      const long long c0 = col0 + f * kTile;
+      if (c0 >= hi) break;
+      FragC acc;
+      wmma::fill_fragment(acc, 0.f);
+      mma_staged<T>(acc, stage_s, f, u);
+      wmma::store_matrix_sync(tile_s, acc, kTile, wmma::mem_row_major);
+      __syncwarp();
+      for (int i = lane; i < kTile * kTile; i += 32) {
+        const int r = i / kTile;
+        const long long gr = row0 + r, gc = c0 + i % kTile;
+        if (gr < rows && gc < hi) out[gr * n + gc] = tile_s[i] + carry[r];
+      }
+      __syncwarp();
+      if (lane < kTile) carry[lane] += tile_s[lane * kTile + kTile - 1];
+      __syncwarp();
+    }
   }
 }
 

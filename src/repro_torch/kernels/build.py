@@ -43,6 +43,9 @@ SIGNATURES = {
     "rmsnorm_launch": (_P, _P, _P, _LL, _I, _I, _I, ctypes.c_float, _P),
     "flash_attention_launch": (_P,) * 4 + (_I,) * 9 + (ctypes.c_float,)
                               + (_LL,) * 9 + (_P,),
+    "matmul_local_scan_launch": (_P, _P, _LL, _LL, _I, _I, _P),
+    "matmul_local_weighted_launch": (_P, _P, _P, _LL, _LL, _I, _P),
+    "matmul_local_ssd_launch": (_P,) * 7 + (_I,) * 8 + (_LL,) * 15 + (_P,),
 }
 
 _lock = threading.Lock()
@@ -131,8 +134,10 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = list(args)
             fn.restype = ctypes.c_int
-        lib.ssd_scan_smem_bytes.argtypes = [_I, _I, _I]
-        lib.ssd_scan_smem_bytes.restype = _LL
+        for name in ("ssd_scan_smem_bytes", "matmul_local_ssd_smem_bytes"):
+            fn = getattr(lib, name)
+            fn.argtypes = [_I, _I, _I]
+            fn.restype = _LL
         lib.kernel_error_string.argtypes = [_I]
         lib.kernel_error_string.restype = ctypes.c_char_p
         _lib = lib

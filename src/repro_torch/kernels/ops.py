@@ -21,7 +21,8 @@ import torch
 
 from repro_torch import device as devmod
 from repro_torch.kernels import build, layout, ref
-from repro_torch.kernels.layout import MMA_TILE
+from repro_torch.kernels.layout import MMA_TILE, WARP
+from repro_torch.kernels.matmul_scan import tree_scan, tree_weighted
 
 
 @dataclasses.dataclass
@@ -52,6 +53,15 @@ KERNELS = {
     "flash_attention": Kernel(
         "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:124", ref.flash_attention_ref),
+    "matmul_local_scan": Kernel(
+        "matmul_local_scan", "src/repro_torch/csrc/matmul_scan.cu",
+        "src/repro/kernels/matmul_scan.py:211", ref.local_scan_ref),
+    "matmul_local_weighted": Kernel(
+        "matmul_local_weighted", "src/repro_torch/csrc/matmul_scan.cu",
+        "src/repro/kernels/matmul_scan.py:255", ref.local_weighted_ref),
+    "matmul_local_ssd": Kernel(
+        "matmul_local_ssd", "src/repro_torch/csrc/matmul_scan.cu",
+        "src/repro/kernels/matmul_scan.py:325", ref.local_ssd_ref),
 }
 
 
@@ -355,3 +365,181 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     multiple of 16 or above 128 (differentiable)."""
     return _via_plain(_attention_fwd, attention_plain, q, k, v,
                       causal=causal, window=window, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# the log-depth MatMulScan family (matmul_scan.cu + the tree of
+# kernels/matmul_scan.py): carry-free local passes on a fully parallel
+# grid, then O(log_radix nblocks) batched matmuls over the block totals.
+# On a CPU tensor the local pass is its plain version and the tree the same.
+
+def matmul_local_scan(x: torch.Tensor, block_n: int) -> torch.Tensor:
+    """Per-block inclusive scan of ``x (rows, n)`` -> f32, each ``block_n``
+    block of a row restarted from zero (matmul_scan.cu's local_scan)."""
+    if not x.is_cuda:
+        return ref.local_scan_ref(x, block_n)
+    code = _dtype_code(x, "matmul_local_scan")
+    lib = _library(x)
+    rows, n = x.shape
+    out = torch.empty((rows, n), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    x = x.contiguous()
+    build.check(lib.matmul_local_scan_launch(
+        x.data_ptr(), out.data_ptr(), rows, n, block_n, code,
+        build.stream_ptr(x)), "matmul_local_scan")
+    KERNELS["matmul_local_scan"].launches += 1
+    return out
+
+
+def _scan_logdepth_fwd(x: torch.Tensor) -> torch.Tensor:
+    geo = layout.HOPPER["scan_logdepth"]
+    lead, n = x.shape[:-1], x.shape[-1]
+    # whole 32-column staging steps: two 16-column wmma fragments
+    bn = layout.fit_block(n, geo["block_n"], 2 * MMA_TILE)
+    local = matmul_local_scan(x.reshape(-1, n), bn)
+    nb = -(-n // bn)
+    if nb > 1:
+        # only the totals of blocks 0 .. nb-2 carry into a later block, so
+        # nothing past n is read: block j >= 1 adds the scan of totals
+        # 0 .. j-1
+        full = (nb - 1) * bn
+        carry = tree_scan(local[:, bn - 1:full:bn], radix=geo["radix"],
+                          fan_in=geo["fan_in"])           # (rows, nb - 1)
+        local[:, bn:full].unflatten(1, (nb - 2, bn)).add_(
+            carry[:, :-1, None])
+        local[:, full:].add_(carry[:, -1:])
+    return local.reshape(*lead, n)
+
+
+def segmented_scan_logdepth(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum over the last axis -> f32, by local block scans
+    and a log-depth tree over the block totals (differentiable)."""
+    return _via_plain(_scan_logdepth_fwd, ref.segmented_scan_ref, x)
+
+
+def matmul_local_weighted(x: torch.Tensor, log_a: torch.Tensor,
+                          q: int) -> torch.Tensor:
+    """Per-block weighted scan of ``x, log_a (rows, n)`` -> f32,
+    ``h_t = exp(log_a_t) h_{t-1} + x_t`` restarted at every ``q`` block
+    (matmul_scan.cu's local_weighted)."""
+    if not x.is_cuda:
+        return ref.local_weighted_ref(x, log_a, q)
+    if x.shape != log_a.shape:
+        raise ValueError(f"matmul_local_weighted: x {tuple(x.shape)} and "
+                         f"log_a {tuple(log_a.shape)} differ")
+    lib = _library(x)
+    rows, n = x.shape
+    out = torch.empty((rows, n), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    xf, la = x.float().contiguous(), log_a.float().contiguous()
+    build.check(lib.matmul_local_weighted_launch(
+        xf.data_ptr(), la.data_ptr(), out.data_ptr(), rows, n, q,
+        build.stream_ptr(x)), "matmul_local_weighted")
+    KERNELS["matmul_local_weighted"].launches += 1
+    return out
+
+
+def _weighted_logdepth_fwd(x: torch.Tensor,
+                           log_a: torch.Tensor) -> torch.Tensor:
+    geo = layout.HOPPER["weighted_scan_logdepth"]
+    lead, n = x.shape[:-1], x.shape[-1]
+    la = log_a.reshape(-1, n).float()
+    q = layout.fit_block(n, geo["q"], WARP)
+    local = matmul_local_weighted(x.reshape(-1, n), la, q)
+    nb = -(-n // q)
+    if nb > 1:
+        full = (nb - 1) * q
+        lg = ref.pad_blocks(la, q)                        # (rows, nb, q)
+        # boundary states H_j = exp(sum lambda_j) H_{j-1} + h_j[last] of
+        # blocks 0 .. nb-2; block j >= 1 adds exp(Lambda_j) H_{j-1}
+        carry = tree_weighted(lg[:, :-1].sum(-1),
+                              local[:, q - 1:full:q, None],
+                              radix=geo["radix"], fan_in=geo["fan_in"])
+        decay = torch.exp(torch.cumsum(lg[:, 1:], -1))   # (rows, nb-1, q)
+        local[:, q:].add_((decay * carry).flatten(1)[:, :n - q])
+    return local.reshape(*lead, n)
+
+
+def weighted_scan_logdepth(x: torch.Tensor,
+                           log_a: torch.Tensor) -> torch.Tensor:
+    """Decayed scan ``y_i = exp(log_a_i) y_{i-1} + x_i`` -> f32, by local
+    block passes and a log-depth weighted tree (differentiable)."""
+    return _via_plain(_weighted_logdepth_fwd, ref.weighted_scan_ref, x,
+                      log_a)
+
+
+def matmul_local_ssd(x, dt, a, b, c, q: int):
+    """The SSD of every chunk of ``q`` steps on its own (matmul_scan.cu's
+    local_ssd): ``x (B, L, H, P)``, ``dt (B, L, H)``, ``a (H,)``,
+    ``b``/``c`` ``(B, L, G, N)`` -> ``y_local (B, L, H, P)`` f32 and the
+    chunk states ``S (B, H, ceil(L / q), N, P)`` f32."""
+    if not x.is_cuda:
+        return ref.local_ssd_ref(x, dt, a, b, c, q)
+    bsz, seqlen, nheads, hdim = x.shape
+    ngroups, nstate = b.shape[2], b.shape[3]
+    if nheads % ngroups:
+        raise ValueError(f"matmul_local_ssd: H={nheads} is not a multiple "
+                         f"of G={ngroups}")
+    if not (x.dtype == b.dtype == c.dtype):
+        x, b, c = x.float(), b.float(), c.float()
+    code = _dtype_code(x, "matmul_local_ssd")
+    lib = _library(x)
+    smem = lib.matmul_local_ssd_smem_bytes(q, hdim, nstate)
+    if smem > layout.MAX_SMEM:
+        raise ValueError(f"matmul_local_ssd: chunk {q} with P={hdim}, "
+                         f"N={nstate} needs {smem} bytes of shared memory, "
+                         f"more than the {layout.MAX_SMEM} a block may use")
+    nchunks = -(-seqlen // q)
+    y = torch.empty((bsz, seqlen, nheads, hdim), dtype=torch.float32,
+                    device=x.device)
+    s = torch.empty((bsz, nheads, nchunks, nstate, hdim),
+                    dtype=torch.float32, device=x.device)
+    x, b, c = (_last_contiguous(t) for t in (x, b, c))
+    dt = dt.float()
+    lam = dt * a.float()                                  # (B, L, H) f32
+    build.check(lib.matmul_local_ssd_launch(
+        x.data_ptr(), dt.data_ptr(), lam.data_ptr(), b.data_ptr(),
+        c.data_ptr(), y.data_ptr(), s.data_ptr(), code,
+        bsz, seqlen, nheads, ngroups, hdim, nstate, q,
+        *_strides(x, 3), *_strides(dt, 3), *_strides(lam, 3),
+        *_strides(b, 3), *_strides(c, 3), build.stream_ptr(x)),
+        "matmul_local_ssd")
+    KERNELS["matmul_local_ssd"].launches += 1
+    return y, s
+
+
+def _ssd_logdepth_fwd(x, dt, a, b, c, *, return_state: bool = True):
+    geo = layout.HOPPER["ssd_logdepth"]
+    bsz, seqlen, nheads, hdim = x.shape
+    ngroups, nstate = b.shape[2], b.shape[3]
+    q = layout.fit_block(seqlen, geo["q"], MMA_TILE)
+    y, s = matmul_local_ssd(x, dt, a, b, c, q)
+    lam = (dt.float() * a.float()).transpose(1, 2)        # (B, H, L)
+    lg = ref.pad_blocks(lam, q)                           # (B, H, nc, q)
+    # chunk states H_j = exp(sum lambda_j) H_{j-1} + S_j, the weighted tree
+    # over the flat (N * P) features; a padded tail step is the identity
+    h_inc = tree_weighted(lg.sum(-1), s.flatten(-2), radix=geo["radix"],
+                          fan_in=geo["fan_in"])           # (B, H, nc, N*P)
+    if s.shape[2] > 1:
+        # chunk j >= 1 adds exp(Lambda_t) C_t H_{j-1}, C read per group:
+        # (B, nc-1, q, G, N) x (B, G, R, nc-1, N, P) -> (B, nc-1, q, G, R, P)
+        h_prev = h_inc[:, :, :-1].unflatten(-1, (nstate, hdim))
+        inter = torch.einsum(
+            "bjqgn,bgrjnp->bjqgrp", ref.pad_chunks(c.float(), q)[:, 1:],
+            h_prev.unflatten(1, (ngroups, nheads // ngroups)))
+        inter = inter.flatten(3, 4).flatten(1, 2)[:, :seqlen - q]
+        decay = torch.exp(torch.cumsum(lg[:, :, 1:], -1)).flatten(-2)
+        y[:, q:] += inter * decay[..., :seqlen - q].transpose(1, 2)[..., None]
+    state = h_inc[:, :, -1].unflatten(-1, (nstate, hdim)).transpose(-1, -2)
+    return y.to(x.dtype), state.contiguous()
+
+
+def ssd_scan_logdepth(x, dt, a, b, c, *, return_state: bool = False):
+    """Mamba-2 SSD scan by carry-free chunk passes and a log-depth tree over
+    the chunk states: the arguments and results of :func:`ssd_scan`
+    (differentiable)."""
+    y, state = _via_plain(_ssd_logdepth_fwd, ref.ssd_scan_ref, x, dt, a, b,
+                          c, return_state=True)
+    return (y, state) if return_state else y

@@ -113,3 +113,75 @@ def ssd_scan_ref(
     else:
         y = x.clone()
     return (y, state) if return_state else y
+
+
+# ---------------------------------------------------------------------------
+# the log-depth family's local passes: each block restarts from zero
+
+
+def pad_blocks(x: torch.Tensor, block: int) -> torch.Tensor:
+    """``x (..., n)`` zero-padded to whole blocks, as ``(..., nb, block)``."""
+    n = x.shape[-1]
+    pad = -(-n // block) * block - n
+    return torch.nn.functional.pad(x, (0, pad)).unflatten(-1, (-1, block))
+
+
+def pad_chunks(t: torch.Tensor, q: int) -> torch.Tensor:
+    """``t (B, L, ...)`` zero-padded to whole chunks, as
+    ``(B, nchunks, q, ...)``."""
+    pad = -(-t.shape[1] // q) * q - t.shape[1]
+    t = torch.nn.functional.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
+    return t.unflatten(1, (-1, q))
+
+
+def local_scan_ref(x: torch.Tensor, block_n: int) -> torch.Tensor:
+    """Inclusive prefix sum of every ``block_n`` block of the last axis, each
+    block restarted from zero, f32."""
+    n = x.shape[-1]
+    y = torch.cumsum(pad_blocks(x.float(), block_n), -1)
+    return y.flatten(-2)[..., :n]
+
+
+def local_weighted_ref(x: torch.Tensor, log_a: torch.Tensor,
+                       q: int) -> torch.Tensor:
+    """:func:`weighted_scan_ref` of every ``q`` block of the last axis, each
+    block restarted from zero, f32."""
+    n = x.shape[-1]
+    y = weighted_scan_ref(pad_blocks(x.float(), q),
+                          pad_blocks(log_a.float(), q))
+    return y.flatten(-2)[..., :n]
+
+
+def local_ssd_ref(
+    x: torch.Tensor,       # (B, L, H, P)
+    dt: torch.Tensor,      # (B, L, H)
+    a: torch.Tensor,       # (H,)
+    b: torch.Tensor,       # (B, L, G, N)
+    c: torch.Tensor,       # (B, L, G, N)
+    q: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The SSD of every chunk of ``q`` steps on its own, in matmul form with
+    explicit masks. Returns ``y_local (B, L, H, P)`` f32, the intra-chunk
+    outputs ``((C B^T) o M) (dt o X)`` with ``M[t, s] = exp(Lambda_t -
+    Lambda_s)`` for ``s <= t`` (masked before the exp), and the chunk states
+    ``S (B, H, nchunks, N, P)`` f32, ``S = (B o w)^T (dt o X)`` with
+    ``w_s = exp(Lambda_last - Lambda_s)``. A ragged last chunk is padded
+    with zero steps, which leave both exact."""
+    bsz, seqlen, nheads, hdim = x.shape
+    ngroups = b.shape[2]
+    rep = nheads // ngroups
+
+    dtf = dt.float()
+    xdt = pad_chunks(x.float() * dtf[..., None], q)         # (B,nc,q,H,P)
+    cum = torch.cumsum(pad_chunks(dtf * a.float(), q), 2)   # (B,nc,q,H)
+    bh = torch.repeat_interleave(pad_chunks(b.float(), q), rep, dim=3)
+    ch = torch.repeat_interleave(pad_chunks(c.float(), q), rep, dim=3)
+    idx = torch.arange(q, device=x.device)
+    causal = (idx[:, None] >= idx[None, :])[:, :, None]     # (t, s, 1)
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]    # (B,nc,t,s,H)
+    m = torch.where(causal, torch.exp(torch.where(causal, diff, 0.0)), 0.0)
+    cb = torch.einsum("bjthn,bjshn->bjtsh", ch, bh)
+    y = torch.einsum("bjtsh,bjshp->bjthp", cb * m, xdt)
+    w = torch.exp(cum[:, :, -1:] - cum)                     # (B,nc,q,H)
+    s = torch.einsum("bjshn,bjshp->bhjnp", bh * w[..., None], xdt)
+    return y.flatten(1, 2)[:, :seqlen], s

@@ -2,13 +2,19 @@
 
     python -m repro_torch.launch.serve                  # mamba2-1.3b FULL
     python -m repro_torch.launch.serve --arch llama3.2-1b
+    python -m repro_torch.launch.serve --policy ssd=tile_logdepth
     python -m repro_torch.launch.serve --config smoke --device cpu
 
 Randomly initialised weights from a ``torch.Generator`` seeded with
 ``--seed``; synthetic prompts from a numpy generator with the same seed. By
 default the model runs on the CUDA card through the Hopper kernels (SSD
 chunk scan or flash attention, and RMSNorm, in every layer); ``--device
-cpu`` runs the same path on each kernel's plain version.
+cpu`` runs the same path on each kernel's plain version. ``--policy
+ssd=tile_logdepth`` prefills every Mamba layer through the log-depth
+MatMulScan family instead: the carry-free chunk kernel of
+``csrc/matmul_scan.cu`` and a tree of batched matmuls over the chunk
+states. A bare ``--policy tile_logdepth`` raises on the model's RMSNorm,
+which has no log-depth form.
 """
 from __future__ import annotations
 
@@ -65,7 +71,8 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--policy", default=None,
                     help="path policy: tile (the kernels, default), fused, "
-                         "baseline, or op=path overrides")
+                         "baseline, or op=path overrides; ssd=tile_logdepth "
+                         "prefills the SSD through the log-depth family")
     ap.add_argument("--seed", type=int, default=0,
                     help="weight and synthetic-request seed")
     args = ap.parse_args(argv)

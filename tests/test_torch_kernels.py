@@ -192,3 +192,78 @@ def test_flash_attention_kernel_raises_on_shapes_it_does_not_take(cuda):
     q, k, v = attention_inputs(1, 32, 32, 2, 2, 256, torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="head dim"):
         kops.attention(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# the log-depth family: each local kernel against its plain version, then
+# the whole op (local kernel + tree) against the plain version of the op
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("shape,block_n", [((37, 100), 128),
+                                           ((33, 1000), 64),
+                                           ((16, 8192), 256),
+                                           ((3, (1 << 20) + 3), 256)])
+def test_local_scan_kernel_matches_plain(cuda, shape, block_n, dtype):
+    x = torch.randn(*shape, device=cuda).to(dtype)
+    before = kops.launch_counts()["matmul_local_scan"]
+    torch.testing.assert_close(kops.matmul_local_scan(x, block_n),
+                               ref.local_scan_ref(x, block_n), rtol=1e-3,
+                               atol=1e-2)
+    assert kops.launch_counts()["matmul_local_scan"] == before + 1
+    torch.testing.assert_close(kops.segmented_scan_logdepth(x),
+                               ref.segmented_scan_ref(x), rtol=1e-3,
+                               atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,q", [((2, 77), 32), ((5, 300), 64),
+                                     ((64, 4096), 64), ((3, 1000), 128)])
+def test_local_weighted_kernel_matches_plain(cuda, shape, q):
+    x = torch.randn(*shape, device=cuda)
+    la = -0.5 * torch.rand(*shape, device=cuda)
+    before = kops.launch_counts()["matmul_local_weighted"]
+    torch.testing.assert_close(kops.matmul_local_weighted(x, la, q),
+                               ref.local_weighted_ref(x, la, q), rtol=1e-4,
+                               atol=1e-4)
+    assert kops.launch_counts()["matmul_local_weighted"] == before + 1
+    torch.testing.assert_close(kops.weighted_scan_logdepth(x, la),
+                               ref.weighted_scan_ref(x, la), rtol=2e-3,
+                               atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 100, 4, 16, 2, 8),
+                                   (1, 200, 2, 64, 1, 128),
+                                   (2, 468, 4, 64, 1, 128)])
+def test_local_ssd_kernel_matches_plain(cuda, shape, dtype):
+    ins = ssd_inputs(*shape, dtype, cuda)
+    before = kops.launch_counts()["matmul_local_ssd"]
+    # both sides compute in f32 from the same inputs and return f32
+    for got, want in zip(kops.matmul_local_ssd(*ins, 64),
+                         ref.local_ssd_ref(*ins, 64)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert kops.launch_counts()["matmul_local_ssd"] == before + 1
+    y, st = kops.ssd_scan_logdepth(*ins, return_state=True)
+    yr, sr = ref.ssd_scan_ref(*ins, return_state=True)
+    assert y.dtype == dtype and st.dtype == torch.float32
+    tol = 2e-3 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(y, yr, rtol=tol, atol=tol)
+    torch.testing.assert_close(st, sr, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_local_kernels_raise_on_what_they_do_not_take(cuda):
+    x = torch.randn(4, 100, device=cuda)
+    with pytest.raises(RuntimeError, match="matmul_local_scan"):
+        kops.matmul_local_scan(x, 48)             # not a multiple of 32
+    with pytest.raises(RuntimeError, match="matmul_local_weighted"):
+        kops.matmul_local_weighted(x, -x.abs(), 256)   # above 128
+    with pytest.raises(TypeError):
+        kops.matmul_local_scan(x.double(), 64)
+    ins = ssd_inputs(1, 64, 3, 16, 2, 8, torch.float32, cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        kops.matmul_local_ssd(*ins, 64)           # H = 3, G = 2

@@ -43,11 +43,12 @@ def prompts(n, seed):
                          dtype=np.int32) for _ in range(n)]
 
 
-def serve_both(ref_weights, reqs, *, slots, max_new, eos, policy):
+def serve_both(ref_weights, reqs, *, slots, max_new, eos, policy,
+               jax_policy="fused"):
     bundle, params, np_params = ref_weights
     jeng = JServingEngine(bundle, params, JServeConfig(
         slots=slots, max_new=max_new, eos_token=eos, scheduler="wave",
-        policy="fused"))
+        policy=jax_policy))
     want = jeng.run([JRequest(uid=i, prompt=p, max_new=m)
                      for i, (p, m) in enumerate(reqs)])
     cfg = dataclasses.replace(tmamba.SMOKE, policy=policy)
@@ -60,18 +61,25 @@ def serve_both(ref_weights, reqs, *, slots, max_new, eos, policy):
     return want, got, teng
 
 
-@pytest.mark.parametrize("policy", [None, "fused"])
+@pytest.mark.parametrize("policy", [None, "fused", "ssd=tile_logdepth"])
 def test_wave_greedy_tokens_identical_to_jax(ref_weights, policy):
     """Three requests in one wave; None is the port's default (the kernels,
-    their plain versions on the CPU)."""
+    their plain versions on the CPU). Under ``ssd=tile_logdepth`` both
+    engines prefill through their log-depth SSD (the reference's local
+    kernels interpreted), so every decode step after the first token runs
+    on the state that path handed over."""
     reqs = [(p, None) for p in prompts(3, seed=0)]
+    logdepth = policy is not None and "tile_logdepth" in policy
     want, got, eng = serve_both(ref_weights, reqs, slots=4, max_new=8,
-                                eos=2, policy=policy)
+                                eos=2, policy=policy,
+                                jax_policy=policy if logdepth else "fused")
     assert [r.uid for r in got] == [0, 1, 2]
     for w, g in zip(want, got):
         assert g.tokens == w.tokens, (g.uid, g.tokens, w.tokens)
         assert g.prompt_len == w.prompt_len
     assert eng.prefills == 1 and eng.decodes >= 1
+    if logdepth:
+        assert eng.decodes >= 4 and max(len(g.tokens) for g in got) >= 5
 
 
 def test_several_waves_and_budgets_identical_to_jax(ref_weights):
