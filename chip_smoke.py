@@ -7,7 +7,9 @@ Phases:
 
 1. Header and build: the card's name and power limit as ``nvidia-smi`` gives
    them, then the build of ``src/repro_torch/csrc`` (nvcc, sm_90a) and its
-   time.
+   time, the registers and spills ``nvcc -Xptxas -v`` gave each instance of
+   the flash-attention (wgmma) and RMSNorm kernels, and flash attention's
+   dynamic shared memory per block.
 2. Main path, four runs, each with every kernel's launch count set to 0
    just before it and read just after: the public ops (``repro_torch.ops``)
    at 2^24 elements and at the models' shapes, on the linear kernels and
@@ -25,8 +27,10 @@ Phases:
    by kind of kernel with ``torch.profiler``; 15 decode steps on the host
    clock against their device time give the card's idle share.
 3. Per kernel: the kernel against its plain version on the card at the main
-   path's shapes, with the error and its tolerance (flash attention row by
-   row, against each output row's RMS), the times of the kernel,
+   path's shapes (RMSNorm also at the served decode and prefill shapes,
+   flash attention also on its D = 128 instance), with the error and its
+   tolerance (flash attention row by row, against each output row's RMS),
+   the times of the kernel,
    the plain version and one library call where PyTorch has one, and the
    least time the card could take (bytes over 3.35 TB/s or operations over
    the peak rate of the input type, whichever is larger). Then each
@@ -123,6 +127,24 @@ class Smoke:
                            dropped=dropped, spin_ms=spin_ms,
                            host_bound=host_bound)
         return statistics.median(times)
+
+
+def ptxas_report(build_log: Path, names=("flash_attention_wgmma_kernel",
+                                          "rmsnorm_kernel")) -> list[str]:
+    """Registers, shared memory and spills that ``nvcc -Xptxas -v`` gave
+    each instance of the named kernels, one line per instance."""
+    out, cur = [], None
+    for line in build_log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            cur = mangled if any(n in mangled for n in names) else None
+        elif cur and "spill stores" in line:
+            spill = line.strip()
+        elif cur and "Used" in line and "registers" in line:
+            out.append(f"ptxas {cur}: {line.split(':', 1)[1].strip()}; "
+                       f"{spill}")
+            cur = None
+    return out
 
 
 def smi_line() -> str:
@@ -297,7 +319,11 @@ def rmsnorm_cases(torch, kops, ref, gen):
     import torch.nn.functional as F
 
     out = []
-    for rows, d in ((2048, 2048), (2048, 4096)):
+    # the ops pass's shapes, then the served ones: a decode step's 4 rows
+    # (llama d 2048, mamba's inner norm d 4096) and the mamba prefill's
+    # 1872 rows (4 x 468)
+    for rows, d in ((2048, 2048), (2048, 4096), (4, 2048), (4, 4096),
+                    (1872, 2048), (1872, 4096)):
         x = torch.randn(rows, d, generator=gen, device="cuda").to(
             torch.bfloat16)
         w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(
@@ -306,7 +332,7 @@ def rmsnorm_cases(torch, kops, ref, gen):
             if hasattr(F, "rms_norm") else None
         out.append(dict(
             kernel="rmsnorm", label=f"bf16 rows={rows} d={d}",
-            primary=d == 4096,
+            primary=(rows, d) == (2048, 4096),
             run=lambda x=x, w=w: kops.rmsnorm(x, w, eps=1e-5),
             plain=lambda x=x, w=w: ref.rmsnorm_ref(x, w, eps=1e-5),
             library=lib, rtol=1e-2, nbytes=2 * nbytes(x) + nbytes(w),
@@ -367,6 +393,8 @@ def attention_cases(torch, kops, gen):
             (4, 468, 468, 32, 8, 64, True, None, torch.bfloat16, False),
             (1, 4096, 4096, 32, 8, 64, True, None, torch.bfloat16, False),
             (1, 4096, 4096, 32, 8, 64, True, 1024, torch.bfloat16, False),
+            # the kernel's D = 128 instance
+            (4, 512, 512, 32, 8, 128, True, None, torch.bfloat16, False),
             (1, 100, 1000, 4, 2, 64, True, None, torch.float32, False)):
         def rn(*shape):
             return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
@@ -888,6 +916,14 @@ def main() -> int:
     print(f"build: {lib_path} in {time.perf_counter() - t0:.1f}s "
           f"({'built' if build.build_seconds is not None else 'cached'})",
           flush=True)
+    for line in ptxas_report(lib_path.parent / "build.log"):
+        print(line, flush=True)
+    lib = build.load()
+    print("flash_attention.cu dynamic shared memory per block: " + ", ".join(
+        f"{name} D={dh} Lk={lk} "
+        f"{lib.flash_attention_smem_bytes(dh, lk, code)} B"
+        for name, code in (("bf16", 2), ("f32", 0)) for dh in (64, 128)
+        for lk in (512, 4096)), flush=True)
     smoke = Smoke(torch)
 
     with torch.inference_mode():

@@ -40,7 +40,7 @@ SIGNATURES = {
     "tcu_reduce_launch": (_P, _P, _LL, _LL, _I, _P),
     "tcu_scan_launch": (_P, _P, _LL, _LL, _I, _P),
     "ssd_scan_launch": (_P,) * 7 + (_I,) * 8 + (_LL,) * 15 + (_P,),
-    "rmsnorm_launch": (_P, _P, _P, _LL, _I, _I, _I, ctypes.c_float, _P),
+    "rmsnorm_launch": (_P, _P, _P, _LL, _I, _I, _I, ctypes.c_float, _I, _P),
     "flash_attention_launch": (_P,) * 4 + (_I,) * 9 + (ctypes.c_float,)
                               + (_LL,) * 9 + (_P,),
     "matmul_local_scan_launch": (_P, _P, _LL, _LL, _I, _I, _P),
@@ -138,6 +138,8 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [_I, _I, _I]
             fn.restype = _LL
+        lib.flash_attention_smem_bytes.argtypes = [_I, _I, _I]
+        lib.flash_attention_smem_bytes.restype = _LL
         lib.kernel_error_string.argtypes = [_I]
         lib.kernel_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -41,12 +41,24 @@ HOPPER = {
     "scan_logdepth": {"block_n": 256, "radix": 16, "fan_in": 16},
     "weighted_scan_logdepth": {"q": 64, "radix": 16, "fan_in": 16},
     "ssd_logdepth": {"q": 64, "radix": 16, "fan_in": 16},
+    # RMSNorm: threads per row from the row count (rmsnorm_threads below).
+    # Many rows (at least ``many_rows``, four warps for each of the card's
+    # SMs): ``vectors_many`` 16-byte vectors per thread, a warp per row up
+    # to 1024 bf16 values and 4 warps at 4096. A warp per row at 4096 would
+    # hold 16 vectors a thread, which ptxas spills; at 8 vectors (two warps)
+    # a block needs 166 registers a thread and runs alone on its SM, slower
+    # on the card. Few rows: a block of up to 256 threads per row, one
+    # vector each, so that a decode step's 4 rows spread over 4 SMs. No
+    # thread holds more than ``max_vectors``; a longer row is streamed.
+    "rmsnorm": {"many_rows": 4 * 132, "vectors_many": 4, "max_vectors": 8,
+                "max_threads": 256},
     # flash attention has no entry: csrc/flash_attention.cu is compiled for
-    # its one geometry (kFaBQ = 64 query rows, four warps of 16, and
-    # kFaBK = 64 key rows per tile) and owns it. At D = 64 in bf16 a block
-    # stages Q, K, V, the scores, P and the f32 accumulators, rows padded
-    # against bank conflicts, in about 74 KB, so three blocks share an SM;
-    # f32 inputs (three bf16 parts each) at D = 128 stay under 227 KB.
+    # its geometries and owns them. f16/bf16: one warpgroup of 64 query
+    # rows per block and a two-stage TMA ring of K/V tiles; D = 64 takes
+    # 64-key tiles at four blocks per SM up to Lk = 1024 and 128-key tiles
+    # at three beyond (about 74 KB of shared memory each), D = 128 64-key
+    # tiles at two blocks (about 82 KB). f32: 64 query rows of four warps
+    # and 64-key tiles staged through shared memory.
 }
 
 # Largest dynamic shared memory a block may use on an H100 (bytes).
@@ -60,3 +72,22 @@ def fit_block(size: int, block: int, multiple: int) -> int:
     b = max(multiple, (int(block) // multiple) * multiple)
     ext = -(-max(int(size), 1) // multiple) * multiple
     return min(b, ext)
+
+
+def rmsnorm_threads(rows: int, d: int, itemsize: int) -> int:
+    """Threads per row of ``csrc/rmsnorm.cu`` for ``rows`` rows of ``d``
+    elements of ``itemsize`` bytes: a power of two from 32 to 256. Many rows
+    get ``vectors_many`` 16-byte vectors per thread; few rows one vector per
+    thread where the row allows. No thread holds more than ``max_vectors``
+    vectors unless the row exceeds 256 threads' worth, which the kernel
+    then streams."""
+    geo = HOPPER["rmsnorm"]
+    nvec = -(-max(int(d), 1) // (16 // int(itemsize)))
+    per = geo["vectors_many"] if rows >= geo["many_rows"] else 1
+    tpr = max(WARP, _pow2_at_least(-(-nvec // per)),
+              _pow2_at_least(-(-nvec // geo["max_vectors"])))
+    return min(tpr, geo["max_threads"])
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()

@@ -286,9 +286,11 @@ def _rmsnorm_fwd(x: torch.Tensor, w: torch.Tensor, *,
     w = w.contiguous()
     flat = _rows_view(x)
     out = torch.empty_like(flat)
+    tpr = layout.rmsnorm_threads(flat.shape[0], d, x.element_size())
     build.check(lib.rmsnorm_launch(
         flat.data_ptr(), w.data_ptr(), out.data_ptr(), flat.shape[0], d,
-        code, int(w.dtype != x.dtype), eps, build.stream_ptr(x)), "rmsnorm")
+        code, int(w.dtype != x.dtype), eps, tpr, build.stream_ptr(x)),
+        "rmsnorm")
     KERNELS["rmsnorm"].launches += 1
     return out.reshape(x.shape)
 
@@ -313,6 +315,16 @@ def attention_plain(q, k, v, *, causal: bool = True,
 
     return t(ref.flash_attention_ref(t(q), t(k), t(v), causal=causal,
                                      window=window, scale=scale))
+
+
+def _tma_ready(t: torch.Tensor) -> bool:
+    """A TMA tensor map needs a 16-byte aligned base and strides that are
+    multiples of 16 bytes (a dimension of extent 1 has no stride to
+    check)."""
+    es = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        s * es % 16 == 0 for n, s in zip(t.shape[:-1], t.stride()[:-1])
+        if n > 1)
 
 
 def _attention_fwd(q, k, v, *, causal: bool = True,
@@ -345,6 +357,9 @@ def _attention_fwd(q, k, v, *, causal: bool = True,
     if lk == 0:                     # nothing to attend: the l > 0 guard
         return out.zero_()
     q, k, v = (_last_contiguous(t) for t in (q, k, v))
+    if q.element_size() == 2:       # the f16/bf16 kernel reads through TMA
+        q, k, v = (t if _tma_ready(t) else t.clone(
+            memory_format=torch.contiguous_format) for t in (q, k, v))
     sc = scale if scale is not None else 1.0 / (dh ** 0.5)
     build.check(lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), code,

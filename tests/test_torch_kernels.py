@@ -105,6 +105,27 @@ def test_rmsnorm_kernel_matches_plain(cuda, d, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("w_f32", [False, True])
+@pytest.mark.parametrize("d", [8, 100, 2048, 4096, 20000])
+@pytest.mark.parametrize("rows", [1, 4, 33, 527, 528, 1872])
+def test_rmsnorm_kernel_at_each_threads_per_row(cuda, rows, d, w_f32):
+    """bf16 rows on both sides of the warp-per-row / block-per-row switch
+    (527 and 528 rows), at widths that fill whole 16-byte vectors (2048,
+    4096), a part of one (8), none evenly (100), and more than a block's
+    registers hold (20000, streamed), with the weight in bf16 or f32.
+    Tolerance: the output rounds once to bf16 on both sides."""
+    g = torch.Generator(device=cuda).manual_seed(rows * d)
+    x = torch.randn(rows, d, generator=g, device=cuda).to(torch.bfloat16)
+    w = torch.rand(d, generator=g, device=cuda) + 0.5
+    w = w if w_f32 else w.to(torch.bfloat16)
+    before = kops.launch_counts()["rmsnorm"]
+    torch.testing.assert_close(kops.rmsnorm(x, w, eps=1e-5),
+                               ref.rmsnorm_ref(x, w, eps=1e-5), rtol=5e-2,
+                               atol=5e-2)
+    assert kops.launch_counts()["rmsnorm"] == before + 1
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         kops.segmented_reduce(torch.ones(4, 16, device=cuda,
@@ -157,6 +178,12 @@ def assert_attention_close(q, k, v, got, **kw):
     ((3, 100, 1000, 4, 2, 32), True, None),     # ragged, Lq < Lk
     ((2, 468, 468, 8, 2, 64), True, None),      # a left-padded wave
     ((1, 77, 77, 6, 3, 128), False, 40),        # D = 128, window, no causal
+    ((2, 200, 200, 4, 2, 16), True, None),      # D below the 64 instance
+    ((2, 200, 200, 4, 2, 48), True, None),
+    ((2, 130, 130, 4, 1, 96), True, None),      # D below the 128 instance
+    ((2, 40, 40, 4, 2, 64), True, None),        # Lk below one KV tile
+    ((3, 1, 300, 8, 2, 64), True, None),        # one query row
+    ((1, 2048, 2048, 4, 1, 64), True, 256),     # long, windowed
 ])
 def test_flash_attention_kernel_matches_plain(cuda, shape, causal, window,
                                               dtype):
@@ -179,6 +206,22 @@ def test_flash_attention_kernel_reads_strided_model_layout(cuda):
     k = qkv[..., 256:320].unflatten(-1, (1, 64))
     v = qkv[..., 320:].unflatten(-1, (1, 64))
     assert_attention_close(q, k, v, kops.attention(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_attention_kernel_copies_views_tma_cannot_read(cuda, dtype):
+    """Row strides of 388 elements (776 bytes) and a base 8 bytes past a
+    16-byte boundary: TMA cannot read them, so the wrapper copies the views
+    and still launches the kernel, once."""
+    qkv = torch.randn(2, 130, 388, device=cuda, dtype=dtype)
+    q = qkv[..., 4:260].unflatten(-1, (4, 64))
+    k = qkv[..., 260:324].unflatten(-1, (1, 64))
+    v = qkv[..., 324:388].unflatten(-1, (1, 64))
+    before = kops.launch_counts()["flash_attention"]
+    got = kops.attention(q, k, v)
+    assert kops.launch_counts()["flash_attention"] == before + 1
+    assert_attention_close(q, k, v, got)
 
 
 @pytest.mark.cuda

@@ -250,6 +250,54 @@ def test_layout_fit_block_matches_jax(size, block, mult):
         size, block, mult)
 
 
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("d", [1, 8, 100, 2048, 4096, 100_000])
+@pytest.mark.parametrize("rows", [1, 4, 33, 527, 528, 1872])
+def test_rmsnorm_threads_per_row_fit_rows_and_cover_d(rows, d, itemsize):
+    """rmsnorm.cu's threads per row: a power of two from a warp to 256;
+    below ``many_rows`` rows a block per row (one 16-byte vector a thread
+    where the row allows, so that 4 decode rows use 4 SMs), from there a
+    warp or a few per row; and the row always fits the threads' registers
+    unless it is longer than 256 threads' worth."""
+    geo = tlayout.HOPPER["rmsnorm"]
+    tpr = tlayout.rmsnorm_threads(rows, d, itemsize)
+    assert tpr & (tpr - 1) == 0 and 32 <= tpr <= 256
+    nvec = -(-d // (16 // itemsize))
+    if tpr < 256:
+        assert -(-nvec // tpr) <= geo["max_vectors"]
+    else:
+        assert nvec > 128 or rows < geo["many_rows"]
+    if rows < geo["many_rows"]:
+        assert tpr == max(32, min(256, 1 << (nvec - 1).bit_length()))
+    else:
+        assert -(-nvec // tpr) <= geo["vectors_many"] or tpr == 256
+
+
+def test_flash_wrapper_copies_only_views_tma_cannot_read():
+    """The f16/bf16 flash kernel reads q, k, v through TMA tensor maps: a
+    16-byte aligned base, and strides that are multiples of 16 bytes
+    wherever the extent is above 1. The wrapper copies any other view."""
+    qkv = torch.zeros(2, 130, 388, dtype=torch.bfloat16)
+    assert tkops._tma_ready(qkv[..., :256].unflatten(-1, (4, 64))) is False
+    fused = torch.zeros(2, 130, 384, dtype=torch.bfloat16)
+    assert tkops._tma_ready(fused[..., 256:320].unflatten(-1, (1, 64)))
+    assert not tkops._tma_ready(fused[..., 4:260].unflatten(-1, (4, 64)))
+    # a dimension of extent 1 has no stride to check
+    one = torch.zeros(1, 7, 1, 64, dtype=torch.bfloat16).as_strided(
+        (1, 7, 1, 64), (3, 64, 5, 1))
+    assert tkops._tma_ready(one)
+
+
+def test_rmsnorm_threads_switch_at_the_decode_and_prefill_rows():
+    assert tlayout.rmsnorm_threads(4, 2048, 2) == 256      # block per row
+    assert tlayout.rmsnorm_threads(4, 4096, 2) == 256
+    assert tlayout.rmsnorm_threads(1872, 1024, 2) == 32    # warp per row
+    assert tlayout.rmsnorm_threads(1872, 2048, 2) == 64
+    assert tlayout.rmsnorm_threads(1872, 4096, 2) == 128
+    assert tlayout.rmsnorm_threads(527, 4096, 2) == 256
+    assert tlayout.rmsnorm_threads(528, 4096, 2) == 128
+
+
 # ---------------------------------------------------------------------------
 # policy, kernel wrappers, autograd, package boundary
 
