@@ -8,8 +8,9 @@ Phases:
 1. Header and build: the card's name and power limit as ``nvidia-smi`` gives
    them, then the build of ``src/repro_torch/csrc`` (nvcc, sm_90a) and its
    time, the registers and spills ``nvcc -Xptxas -v`` gave each instance of
-   the flash-attention (wgmma) and RMSNorm kernels, and flash attention's
-   dynamic shared memory per block.
+   the flash-attention (wgmma), RMSNorm and tensor-core SSD (``ssd_scan``,
+   ``local_ssd``) kernels, and flash attention's dynamic shared memory per
+   block.
 2. Main path, four runs, each with every kernel's launch count set to 0
    just before it and read just after: the public ops (``repro_torch.ops``)
    at 2^24 elements and at the models' shapes, on the linear kernels and
@@ -20,15 +21,18 @@ Phases:
    weights from seed 0, to four requests of up to 512 prompt tokens, 16 new
    tokens each. Each serve run must show its layer kernel once per layer
    per prefill (48 SSD, 16 flash-attention, 48 local SSD launches, and no
-   linear SSD launch in the log-depth run) and 2 x layers + 1 RMSNorm
-   launches per forward (97, 33). Each prefill's last-token logits, and
-   the logits of two decode steps from its cache, are held against the
-   same model on the kernels' plain versions, and its device time is split
-   by kind of kernel with ``torch.profiler``; 15 decode steps on the host
-   clock against their device time give the card's idle share.
+   linear SSD launch in the log-depth run), every SSD launch on the
+   tensor-core instance of the chunk body (the served type is bf16), and
+   2 x layers + 1 RMSNorm launches per forward (97, 33). Each prefill's
+   last-token logits, and the logits of two decode steps from its cache,
+   are held against the same model on the kernels' plain versions, and its
+   device time is split by kind of kernel with ``torch.profiler``; 15
+   decode steps on the host clock against their device time give the
+   card's idle share.
 3. Per kernel: the kernel against its plain version on the card at the main
    path's shapes (RMSNorm also at the served decode and prefill shapes,
-   flash attention also on its D = 128 instance), with the error and its
+   flash attention also on its D = 128 instance, the SSD scan also at the
+   served wave and on a 64-chunk chain), with the error and its
    tolerance (flash attention row by row, against each output row's RMS),
    the times of the kernel,
    the plain version and one library call where PyTorch has one, and the
@@ -130,7 +134,10 @@ class Smoke:
 
 
 def ptxas_report(build_log: Path, names=("flash_attention_wgmma_kernel",
-                                          "rmsnorm_kernel")) -> list[str]:
+                                          "rmsnorm_kernel",
+                                          "ssd_scan_mma_kernel",
+                                          "local_ssd_mma_kernel")
+                 ) -> list[str]:
     """Registers, shared memory and spills that ``nvcc -Xptxas -v`` gave
     each instance of the named kernels, one line per instance."""
     out, cur = [], None
@@ -145,6 +152,13 @@ def ptxas_report(build_log: Path, names=("flash_attention_wgmma_kernel",
                        f"{spill}")
             cur = None
     return out
+
+
+def instance_text(instances: dict) -> str:
+    """Launches by instance of the SSD chunk body: mma (tensor cores) or
+    fma."""
+    return ", ".join(f"{k}/{i} {n}" for (k, i), n in
+                     sorted(instances.items())) or "none"
 
 
 def smi_line() -> str:
@@ -218,9 +232,16 @@ def ssd_flops(bsz, seqlen, nheads, hdim, nstate, q=64):
 
 def ssd_cases(torch, kops, ref, gen):
     out = []
-    # mamba2-1.3b FULL prefill: B=4 prompts of 512, 64 heads of 64, N=128
+    # mamba2-1.3b FULL prefill: B=4 prompts of 512, 64 heads of 64, N=128;
+    # the served wave (left-padded to 468, a ragged last chunk); one
+    # sequence of 4096 (a chain of 64 chunks through the two-stage ring);
+    # f32 on the FMA instance
     for shape, dtype, primary in (((4, 512, 64, 64, 1, 128), torch.bfloat16,
                                    True),
+                                  ((4, 468, 64, 64, 1, 128), torch.bfloat16,
+                                   False),
+                                  ((1, 4096, 64, 64, 1, 128), torch.bfloat16,
+                                   False),
                                   ((2, 300, 8, 64, 2, 128), torch.float32,
                                    False)):
         ins = ssd_inputs(torch, gen, *shape, dtype)
@@ -725,6 +746,7 @@ def serve_pass(smoke: Smoke, serve, kops, arch: str, policy: str | None,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kops.launch_counts()
+    instances = kops.instance_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_tok = sum(len(r.tokens) for r in results)
     first = min(r.first_token_s for r in results)
@@ -742,7 +764,12 @@ def serve_pass(smoke: Smoke, serve, kops, arch: str, policy: str | None,
           f"{1e3 * first:.1f} ms, decode {stats['decode_ms_per_token']:.2f} "
           f"ms/step, peak memory {peak_gb:.2f} GB", flush=True)
     print(f"serve: launches {counts} over {engine.prefills} prefill(s) and "
-          f"{engine.decodes} decode step(s)", flush=True)
+          f"{engine.decodes} decode step(s); SSD instances "
+          f"{instance_text(instances)}", flush=True)
+    fma = {k: n for (k, i), n in instances.items() if i == "fma"}
+    if fma:
+        smoke.fail(f"serve: {fma} SSD launches on the FMA instance, want "
+                   f"every {cfg.dtype} launch on the tensor cores")
     if any(len(r.tokens) == 0 for r in results):
         smoke.fail("serve: a request produced no tokens")
     want_layer = cfg.n_layers * engine.prefills
@@ -933,7 +960,8 @@ def main() -> int:
         except Exception as exc:
             smoke.fail(f"ops pass: {exc!r}")
         ops_counts = kops.launch_counts()
-        print(f"main path, ops: launches {ops_counts}", flush=True)
+        print(f"main path, ops: launches {ops_counts}; SSD instances "
+              f"{instance_text(kops.instance_counts())}", flush=True)
         for name, count in ops_counts.items():
             if count < 1:
                 smoke.fail(f"ops pass launched {name} no time")

@@ -1,6 +1,8 @@
 // Hopper building blocks of flash_attention.cu: mbarriers, TMA loads
 // through tensor maps, shared-memory matrix descriptors, and the warpgroup
-// matrix multiply (wgmma) for the shapes the kernel issues. sm_90a only.
+// matrix multiply (wgmma) for the shapes the kernel issues; and of the SSD
+// chunk body (ssd_chunk.cuh): the warp-level product mma.sync m16n8k16,
+// ldmatrix and cp.async. sm_90a only.
 //
 // wgmma reads its B operand (and A, for the _ss forms) from shared memory
 // through a 64-bit descriptor, and keeps the f32 sum in registers spread
@@ -343,6 +345,88 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
         "n"(TRANS_B));
+}
+
+// ---------------------------------------------------------------------------
+// warp-level tensor-core products (mma.sync), ldmatrix, cp.async
+//
+// mma.sync m16n8k16 keeps both operands in registers: A (16 x 16, four
+// 32-bit registers of two 16-bit values) holds, for g = lane / 4 and
+// c = 2 * (lane % 4), rows g and g + 8 at columns c, c + 1 (registers 0, 1)
+// and c + 8, c + 9 (registers 2, 3); B (16 x 8, two registers) holds rows
+// c, c + 1 (register 0) and c + 8, c + 9 (register 1) of column g; the f32
+// sum D (16 x 8) rows g (values 0, 1) and g + 8 (values 2, 3) at columns
+// c, c + 1. So the accumulators of two neighbouring 8-column tiles are, in
+// the same thread, the A operand of a 16-deep k-step, and an accumulator
+// row of 8 columns is the B operand of the transposed product.
+
+// Four 8x8 16-bit matrices from shared memory: lanes 8i .. 8i + 7 give the
+// addresses of matrix i's rows (16 bytes each); register i receives matrix
+// i in the fragment layout (row lane / 4, columns 2 * (lane % 4) + 0, 1),
+// or with TRANS its transpose.
+template <int TRANS>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  if constexpr (TRANS)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)));
+}
+
+// d += a b, m16n8k16, f32 accumulation
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1,
+                                          __nv_bfloat16) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1, __half) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Asynchronous copies global -> shared of 16 bytes (cached in L2 only) or
+// 4 bytes; with valid false nothing is read and the bytes are zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed copy groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace rt

@@ -24,14 +24,29 @@
 //   local_ssd       per (batch, head, chunk of q steps): y_local =
 //                   ((C B^T) o M) (dt o X) and the chunk state S = (B o
 //                   w)^T (dt o X), the chunk body of ssd_scan.cu without
-//                   the carried H (ssd_chunk.cuh). One block per chunk, so
-//                   the grid is fully parallel. It writes more than it
-//                   reads: S is N x P f32 per chunk against q x (P + 2N)
-//                   inputs. Bound: bytes.
+//                   the carried H (ssd_chunk.cuh), in its two instances.
+//                   Every chunk is independent, so the grid is fully
+//                   parallel. It writes more than it reads: S is N x P f32
+//                   per chunk against q x (P + 2N) 16-bit inputs, 119 MB in
+//                   all at B=4 L=512 H=64 of which the f32 outputs are
+//                   100 MB. Bound: bytes. f16 / bf16 (ssd_mma_fits):
+//                   tc_chunk_loop without the carry, two blocks of four
+//                   warps per SM, each walking the chunks strided by the
+//                   grid with the next chunk's loads in flight (a two-stage
+//                   cp.async ring); the products on the tensor cores
+//                   (mma.sync, hi/lo pairs for the f32-formed operands);
+//                   each warp stages its rows p of y_local and S through its
+//                   own columns of the consumed C tile (transposed from its
+//                   accumulators) and writes them as 16-byte coalesced rows
+//                   of the model layout. f32 and other shapes: one block
+//                   per chunk, FMA loops.
 //
 // Ragged edges are zero-filled in shared memory (steps past L or n load
 // lambda = 0, x = 0, b = c = 0), so the glue pads nothing; shapes a kernel
 // does not take return cudaErrorInvalidValue.
+#include <algorithm>
+#include <type_traits>
+
 #include "ssd_chunk.cuh"
 #include "tcu_tile.cuh"
 
@@ -129,8 +144,9 @@ __global__ void __launch_bounds__(kWtWarps * 32)
 
 inline size_t local_ssd_smem_bytes(int q, int P, int N) {
   const size_t pp = round4(P), np = round4(N);
-  return sizeof(float) *
-         (2 * np * q + (size_t)q * pp + (size_t)q * q + 2 * q);
+  return sizeof(float) * (np * (size_t)bt_stride(q) +
+                          (size_t)q * cs_stride(np) + (size_t)q * pp +
+                          (size_t)q * q + 2 * q);
 }
 
 template <typename T>
@@ -142,8 +158,8 @@ __global__ void __launch_bounds__(kSsdThreads)
   extern __shared__ __align__(16) float smem[];
   const int q = d.q, pp = round4(d.P), np = round4(d.N);
   float* bt = smem;              // (np, q)   B^T of the chunk
-  float* cs = bt + np * q;       // (q, np)   C of the chunk
-  float* xs = cs + q * np;       // (q, pp)   dt * x
+  float* cs = bt + np * bt_stride(q);  // (q, np)   C of the chunk
+  float* xs = cs + q * cs_stride(np);  // (q, pp)   dt * x
   float* gs = xs + q * pp;       // (q, q)    masked C B^T
   float* cum = gs + q * q;       // (q)       Lambda
   float* wv = cum + q;           // (q)       exp(Lambda_last - Lambda)
@@ -192,17 +208,52 @@ __global__ void __launch_bounds__(kSsdThreads)
   }
 }
 
+// f16 / bf16: the tensor-core chunk loop of ssd_chunk.cuh without the carry,
+// a block per pair of SM slots walking the chunks strided by the grid
+
+template <typename T>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    local_ssd_mma_kernel(const T* __restrict__ x,
+                         const float* __restrict__ dt,
+                         const float* __restrict__ lam,
+                         const T* __restrict__ bm, const T* __restrict__ cm,
+                         float* __restrict__ y, float* __restrict__ s,
+                         SsdDims d) {
+  extern __shared__ __align__(128) unsigned char ls_raw[];
+  tc_chunk_loop<T, false>(x, dt, lam, bm, cm, y, s, d, ls_raw);
+}
+
 template <typename T>
 static int launch_ssd(const void* x, const void* dt, const void* lam,
                       const void* b, const void* c, void* y, void* s,
-                      const SsdDims& d, cudaStream_t stream) {
+                      const SsdDims& d, int dtype, cudaStream_t stream) {
+  const int nchunks = (d.L + d.q - 1) / d.q;
+  const long long blocks = (long long)d.B * d.H * nchunks;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if constexpr (!std::is_same<T, float>::value) {
+    if (ssd_mma_fits(dtype, d.q, d.P, d.N)) {
+      if (!tc_rows_aligned(x, b, c, d)) return (int)cudaErrorInvalidValue;
+      cudaError_t err = cudaFuncSetAttribute(
+          local_ssd_mma_kernel<T>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
+      if (err != cudaSuccess) return (int)err;
+      // two blocks per SM, each walking its share of the chunks
+      const long long grid = std::min(blocks, 2LL * sm_count());
+      local_ssd_mma_kernel<T><<<(unsigned)grid, kTcThreads, kTcSmem,
+                                stream>>>(
+          static_cast<const T*>(x), static_cast<const float*>(dt),
+          static_cast<const float*>(lam), static_cast<const T*>(b),
+          static_cast<const T*>(c), static_cast<float*>(y),
+          static_cast<float*>(s), d);
+      return (int)cudaGetLastError();
+    }
+  }
   const size_t smem = local_ssd_smem_bytes(d.q, d.P, d.N);
   cudaError_t err = cudaFuncSetAttribute(
       local_ssd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int nchunks = (d.L + d.q - 1) / d.q;
-  local_ssd_kernel<T><<<d.B * d.H * nchunks, kSsdThreads, smem, stream>>>(
+  local_ssd_kernel<T><<<(unsigned)blocks, kSsdThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(lam), static_cast<const T*>(b),
       static_cast<const T*>(c), static_cast<float*>(y),
@@ -249,14 +300,16 @@ extern "C" int matmul_local_weighted_launch(const void* x, const void* lam,
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory the local SSD pass needs at chunk q (bytes).
+// Dynamic shared memory the local SSD pass's FMA instance needs at chunk q
+// (bytes).
 extern "C" long long matmul_local_ssd_smem_bytes(int q, int P, int N) {
   return (long long)rt::local_ssd_smem_bytes(q, P, N);
 }
 
 // x, b, c share the dtype code; dt, lam f32; y (B, L, H, P) and s
 // (B, H, ceil(L / q), N, P) f32 contiguous. q must be a multiple of 16 and
-// H of G.
+// H of G. The tensor-core instance (ssd_uses_mma) also needs 16-byte
+// aligned x, b, c and strides that are multiples of 8 elements.
 extern "C" int matmul_local_ssd_launch(
     const void* x, const void* dt, const void* lam, const void* b,
     const void* c, void* y, void* s, int dtype, int B, int L, int H, int G,
@@ -273,11 +326,12 @@ extern "C" int matmul_local_ssd_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case rt::kF32:
-      return rt::launch_ssd<float>(x, dt, lam, b, c, y, s, d, st);
+      return rt::launch_ssd<float>(x, dt, lam, b, c, y, s, d, dtype, st);
     case rt::kF16:
-      return rt::launch_ssd<__half>(x, dt, lam, b, c, y, s, d, st);
+      return rt::launch_ssd<__half>(x, dt, lam, b, c, y, s, d, dtype, st);
     case rt::kBF16:
-      return rt::launch_ssd<__nv_bfloat16>(x, dt, lam, b, c, y, s, d, st);
+      return rt::launch_ssd<__nv_bfloat16>(x, dt, lam, b, c, y, s, d, dtype,
+                                           st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -10,32 +10,59 @@
 // with lambda = dt * a, state H (N, P) carried across chunks.
 //
 // Bound on an H100: bytes at the model's shapes (B=4, L=512, H=64, P=64,
-// N=128: about 7 GFLOP of chunked products against about 50 MB of traffic,
-// so the tensor-core floor is below the memory floor). This first version
-// does the four products as f32 FMA loops on the CUDA cores, so in practice
-// it is bound by those loops; wmma/wgmma for the products is later work.
+// N=128: about 6 GFLOP of chunked products, doubled by the hi/lo operand
+// pairs, against about 43 MB of traffic, 13 us at 3.35 TB/s). What bounds
+// it in practice is the serial chain: each (batch, head) walks its chunks
+// in order, the TPU kernel's sequential grid axis, and a chunk's four
+// dependent products, its splits into hi/lo pairs, its loads and its two
+// barriers run on four warps; with only two chains per SM at the served
+// shape, their latency is the limit, not the tensor pipe (PERF.md).
 //
-// Design: one thread block per (batch, head). The TPU kernel's sequential
-// grid axis over chunks becomes a loop inside the block, and H stays in
-// shared memory across chunks. At q = 64, N = 128, P = 64 the chunk's B^T,
-// C, dt.X, the q x q masked C B^T and H take about 128 KB of shared memory,
-// above the 48 KB static limit, so it is dynamic shared memory raised with
-// cudaFuncSetAttribute. Each product gives every thread a 4x4 register tile
-// whose column operand is read as float4 from a [k][col] array. The mask
-// tau > t is applied before the exp (the TPU code exponentiates everywhere
-// and masks afterwards; here an inf * 0 would poison the row). B and C are
-// read by group index h / (H / G) instead of being repeated per head, x is
-// read in the model layout through strides, and y and the final state are
-// written in the model layout (B, L, H, P) and (B, H, P, N). Steps past L in
-// the last chunk load lambda = 0, x = 0, b = c = 0, which leaves H exact.
+// f16 / bf16 (the served types; ssd_chunk.cuh's ssd_mma_fits): one block of
+// four warps per (batch, head) running ssd_chunk.cuh's tc_chunk_loop with
+// the carry, 108 KB of shared memory, so that two blocks share an SM and
+// the 256 chains of the served shape run in one wave of the 132 SMs. Per
+// chunk the four products run on the tensor cores (mma.sync m16n8k16),
+// while cp.async loads the next chunk's B, C, X, dt and lambda into the
+// other stage of a two-stage ring. The state H stays in f32 registers for
+// the whole chain, transposed (P x N) as the warps' mma accumulators, and
+// enters C H as their A operand; the decay mask, the row scale
+// exp(Lambda_t) and the chunk decay are applied to accumulators in
+// registers. Each warp writes its rows p of y through its own columns of
+// the consumed X tile as 16-byte rows of the model layout; the final state
+// is written from the registers at the end. wgmma was not used: its B
+// operand is read from shared memory, where the three f32 operands formed
+// in the kernel would have to be written as hi/lo tiles first; mma.sync
+// splits them in registers.
+//
+// f32 and every other shape: the first version's design. One block of 256
+// threads per (batch, head); the chunk's B^T, C, dt.X, the q x q masked
+// C B^T and H in about 130 KB of f32 shared memory; each product gives
+// every thread a 4x4 register tile whose column operand is read as float4
+// from a [k][col] array. The weighted scan rides this instance as H = G =
+// P = N = 1 with stride-0 dt, b and c.
+//
+// Both: the mask s > t is applied before the exp (the TPU code
+// exponentiates everywhere and masks afterwards; here an inf * 0 would
+// poison the row). B and C are read by group index h / (H / G) instead of
+// being repeated per head, x is read in the model layout through strides,
+// and y and the final state are written in the model layout (B, L, H, P)
+// and (B, H, P, N). Steps past L in the last chunk load lambda = 0, x = 0,
+// b = c = 0, which leaves H exact.
+#include <type_traits>
+
 #include "ssd_chunk.cuh"
 
 namespace rt {
 
+// ---------------------------------------------------------------------------
+// f32 and other shapes: FMA loops
+
 inline size_t ssd_smem_bytes(int q, int P, int N) {
   const size_t pp = round4(P), np = round4(N);
-  return sizeof(float) *
-         (np * pp + 2 * np * q + (size_t)q * pp + (size_t)q * q + 2 * q);
+  return sizeof(float) * (np * pp + np * (size_t)bt_stride(q) +
+                          (size_t)q * cs_stride(np) + (size_t)q * pp +
+                          (size_t)q * q + 2 * q);
 }
 
 template <typename T>
@@ -48,8 +75,8 @@ __global__ void __launch_bounds__(kSsdThreads)
   const int q = d.q, pp = round4(d.P), np = round4(d.N);
   float* hs = smem;              // (np, pp)  state H[n][p]
   float* bt = hs + np * pp;      // (np, q)   B^T of the chunk
-  float* cs = bt + np * q;       // (q, np)   C of the chunk
-  float* xs = cs + q * np;       // (q, pp)   dt * x
+  float* cs = bt + np * bt_stride(q);  // (q, np)   C of the chunk
+  float* xs = cs + q * cs_stride(np);  // (q, pp)   dt * x
   float* gs = xs + q * pp;       // (q, q)    masked C B^T
   float* cum = gs + q * q;       // (q)       Lambda
   float* wv = cum + q;           // (q)       exp(Lambda_last - Lambda)
@@ -82,7 +109,7 @@ __global__ void __launch_bounds__(kSsdThreads)
         const float4 hv = *reinterpret_cast<const float4*>(hs + k * pp + p0);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const float cv = cs[(t0 + i) * np + k];
+          const float cv = cs[(t0 + i) * cs_stride(np) + k];
           yo[i][0] += cv * hv.x;
           yo[i][1] += cv * hv.y;
           yo[i][2] += cv * hv.z;
@@ -125,10 +152,45 @@ __global__ void __launch_bounds__(kSsdThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// f16 / bf16: tensor cores, a two-stage cp.async ring
+
+template <typename T>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    ssd_scan_mma_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                        const float* __restrict__ lam,
+                        const T* __restrict__ bm, const T* __restrict__ cm,
+                        T* __restrict__ y, float* __restrict__ state,
+                        SsdDims d) {
+  extern __shared__ __align__(128) unsigned char sc_raw[];
+  tc_chunk_loop<T, true>(x, dt, lam, bm, cm, y, state, d, sc_raw);
+}
+
+template <typename T>
+static int launch_mma(const void* x, const void* dt, const void* lam,
+                      const void* b, const void* c, void* y, void* state,
+                      const SsdDims& d, cudaStream_t stream) {
+  if (!tc_rows_aligned(x, b, c, d)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_scan_mma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kTcSmem);
+  if (err != cudaSuccess) return (int)err;
+  ssd_scan_mma_kernel<T><<<d.B * d.H, kTcThreads, kTcSmem, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(lam), static_cast<const T*>(b),
+      static_cast<const T*>(c), static_cast<T*>(y),
+      static_cast<float*>(state), d);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 static int launch(const void* x, const void* dt, const void* lam,
                   const void* b, const void* c, void* y, void* state,
-                  const SsdDims& d, cudaStream_t stream) {
+                  const SsdDims& d, int dtype, cudaStream_t stream) {
+  if constexpr (!std::is_same<T, float>::value) {
+    if (ssd_mma_fits(dtype, d.q, d.P, d.N))
+      return launch_mma<T>(x, dt, lam, b, c, y, state, d, stream);
+  }
   const size_t smem = ssd_smem_bytes(d.q, d.P, d.N);
   cudaError_t err = cudaFuncSetAttribute(
       ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -144,13 +206,21 @@ static int launch(const void* x, const void* dt, const void* lam,
 
 }  // namespace rt
 
-// Dynamic shared memory the kernel needs at chunk q (bytes).
+// Dynamic shared memory the FMA instance needs at chunk q (bytes).
 extern "C" long long ssd_scan_smem_bytes(int q, int P, int N) {
   return (long long)rt::ssd_smem_bytes(q, P, N);
 }
 
+// 1 when ssd_scan_launch and matmul_local_ssd_launch run the tensor-core
+// instance for this dtype code and shape, 0 when they run the FMA instance.
+extern "C" int ssd_uses_mma(int dtype, int q, int P, int N) {
+  return rt::ssd_mma_fits(dtype, q, P, N) ? 1 : 0;
+}
+
 // x, b, c and y share the dtype code; dt, lam f32; y (B, L, H, P) and state
-// (B, H, P, N) f32 contiguous. q must be a multiple of 16 and H of G.
+// (B, H, P, N) f32 contiguous. q must be a multiple of 16 and H of G. The
+// tensor-core instance (ssd_uses_mma) also needs 16-byte aligned x, b, c
+// and strides that are multiples of 8 elements.
 extern "C" int ssd_scan_launch(
     const void* x, const void* dt, const void* lam, const void* b,
     const void* c, void* y, void* state, int dtype, int B, int L, int H,
@@ -167,11 +237,12 @@ extern "C" int ssd_scan_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case rt::kF32:
-      return rt::launch<float>(x, dt, lam, b, c, y, state, d, st);
+      return rt::launch<float>(x, dt, lam, b, c, y, state, d, dtype, st);
     case rt::kF16:
-      return rt::launch<__half>(x, dt, lam, b, c, y, state, d, st);
+      return rt::launch<__half>(x, dt, lam, b, c, y, state, d, dtype, st);
     case rt::kBF16:
-      return rt::launch<__nv_bfloat16>(x, dt, lam, b, c, y, state, d, st);
+      return rt::launch<__nv_bfloat16>(x, dt, lam, b, c, y, state, d, dtype,
+                                       st);
     default:
       return (int)cudaErrorInvalidValue;
   }

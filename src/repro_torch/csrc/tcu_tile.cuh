@@ -158,14 +158,8 @@ __device__ __forceinline__ void scan_range(
 // when there are too few row groups to give every SM its 64 resident warps,
 // keeping at least 64 columns per warp.
 inline int warps_per_group(long long rows, long long n) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
   const long long groups = (rows + kTile - 1) / kTile;
-  const long long target = 64LL * sms;
+  const long long target = 64LL * sm_count();
   int wpg = 1;
   while (wpg < kWarps && groups * wpg < target && 2LL * wpg * 64 <= n)
     wpg *= 2;

@@ -138,6 +138,8 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [_I, _I, _I]
             fn.restype = _LL
+        lib.ssd_uses_mma.argtypes = [_I, _I, _I, _I]
+        lib.ssd_uses_mma.restype = _I
         lib.flash_attention_smem_bytes.argtypes = [_I, _I, _I]
         lib.flash_attention_smem_bytes.restype = _LL
         lib.kernel_error_string.argtypes = [_I]

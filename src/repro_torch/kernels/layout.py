@@ -19,9 +19,14 @@ MMA_TILE = 16          # tensor-core fragment edge (wmma 16x16x16)
 WARP = 32              # threads of a warp
 
 HOPPER = {
-    # SSD chunk: the (N, P) state, the chunk's B, C, X.dt and the q x q
-    # C.B^T block stay in shared memory; q = 64 keeps that near 128 KB at
-    # N = 128, P = 64, under the card's 227 KB per block
+    # SSD chunk, q = 64 steps. f16/bf16 (the tensor-core instance of
+    # csrc/ssd_chunk.cuh, q <= 64, P <= 64, N <= 128): four warps per
+    # (batch, head), each owning 16 rows p of the transposed state, which
+    # stays in f32 registers; a two-stage ring of 16-bit B, C, X tiles of
+    # 64 steps and the hi/lo G tiles take 108 KB of shared memory, so two
+    # chains share an SM and the served 256 chains run in one wave. f32
+    # (the FMA instance): the (N, P) state, B^T, C, X.dt and the q x q
+    # C.B^T block in about 130 KB of f32 shared memory, one block per SM.
     "ssd": {"q": 64},
     "weighted_scan": {"q": 64},
     # the log-depth family (tile_logdepth): the local passes of
@@ -33,8 +38,10 @@ HOPPER = {
     #   row in three levels.
     # - weighted_scan: a warp owns one (row, q-block); q = 64 keeps the q/2
     #   exps per element low and 64 x 4096 rows at 4096 warps.
-    # - ssd: the chunk of ssd_scan.cu, whose shared-memory budget holds at
-    #   q = 64 (about 99 KB at N = 128, P = 64 without the carried state).
+    # - ssd: the chunk body of ssd_scan.cu without the carried state.
+    #   f16/bf16 at q <= 64: the same 108 KB ring, two blocks per SM, each
+    #   walking the chunks strided by the grid; f32: one block per chunk,
+    #   about 100 KB of f32 tiles at N = 128, P = 64.
     # ``radix`` and ``fan_in`` are the tree's branching factor and base-case
     # width: algorithm constants taken from the reference's layout (16 and
     # 16 on both of its backends), not timings of any chip.

@@ -14,6 +14,7 @@ the oracle's gradient is the kernel's.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Callable
 
@@ -65,13 +66,24 @@ KERNELS = {
 }
 
 
+# launches of each instance of the SSD chunk body, by (kernel, instance):
+# "mma" (f16/bf16 on the tensor cores) or "fma" (f32 FMA loops); see
+# _ssd_instance
+INSTANCES: collections.Counter = collections.Counter()
+
+
 def reset_launches() -> None:
     for k in KERNELS.values():
         k.launches = 0
+    INSTANCES.clear()
 
 
 def launch_counts() -> dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def instance_counts() -> dict[tuple[str, str], int]:
+    return dict(INSTANCES)
 
 
 def _dtype_code(t: torch.Tensor, name: str) -> int:
@@ -182,17 +194,37 @@ def _strides(t: torch.Tensor, dims: int) -> list[int]:
     return list(t.stride()[:dims])
 
 
+def _ssd_instance(lib, name: str, code: int, q: int, hdim: int, nstate: int,
+                  x, b, c):
+    """Which instance of the SSD chunk body ``name`` launches, chosen by dtype
+    and shape before the launch, as ``ssd_uses_mma`` in ``csrc/`` decides:
+    f16/bf16 with ``q <= 64``, ``P <= 64``, ``N <= 128`` and P, N multiples
+    of 8 run on the tensor cores ("mma"); f32, mixed dtypes (upcast by the
+    caller) and every other shape run the FMA loops ("fma"). The "mma"
+    instance reads x, b, c in 16-byte copies, so views whose rows are not
+    16-byte aligned are copied first. Returns ``(instance, x, b, c)``."""
+    if lib.ssd_uses_mma(code, q, hdim, nstate):
+        x, b, c = (t if _tma_ready(t) else t.clone(
+            memory_format=torch.contiguous_format) for t in (x, b, c))
+        return "mma", x, b, c
+    smem = getattr(lib, f"{name}_smem_bytes")(q, hdim, nstate)
+    if smem > layout.MAX_SMEM:
+        raise ValueError(f"{name}: chunk {q} with P={hdim}, N={nstate} "
+                         f"needs {smem} bytes of shared memory, more than "
+                         f"the {layout.MAX_SMEM} a block may use")
+    return "fma", x, b, c
+
+
 def _launch_ssd(x, dt, lam, b, c, *, q: int, x_strides, dt_strides,
                 lam_strides, b_strides, c_strides, dims):
     """Launch ssd_scan.cu; x, b, c share a dtype. Returns (y, state)."""
     bsz, seqlen, nheads, ngroups, hdim, nstate = dims
     code = _dtype_code(x, "ssd_scan")
     lib = _library(x)
-    smem = lib.ssd_scan_smem_bytes(q, hdim, nstate)
-    if smem > layout.MAX_SMEM:
-        raise ValueError(f"ssd_scan: chunk {q} with P={hdim}, N={nstate} "
-                         f"needs {smem} bytes of shared memory, more than "
-                         f"the {layout.MAX_SMEM} a block may use")
+    inst, x, b, c = _ssd_instance(lib, "ssd_scan", code, q, hdim, nstate, x,
+                                  b, c)
+    if inst == "mma":
+        x_strides, b_strides, c_strides = (_strides(t, 3) for t in (x, b, c))
     y = torch.empty((bsz, seqlen, nheads, hdim), dtype=x.dtype,
                     device=x.device)
     state = torch.empty((bsz, nheads, hdim, nstate), dtype=torch.float32,
@@ -204,6 +236,7 @@ def _launch_ssd(x, dt, lam, b, c, *, q: int, x_strides, dt_strides,
         *x_strides, *dt_strides, *lam_strides, *b_strides, *c_strides,
         build.stream_ptr(x)), "ssd_scan")
     KERNELS["ssd_scan"].launches += 1
+    INSTANCES["ssd_scan", inst] += 1
     return y, state
 
 
@@ -318,8 +351,9 @@ def attention_plain(q, k, v, *, causal: bool = True,
 
 
 def _tma_ready(t: torch.Tensor) -> bool:
-    """A TMA tensor map needs a 16-byte aligned base and strides that are
-    multiples of 16 bytes (a dimension of extent 1 has no stride to
+    """A TMA tensor map, and the 16-byte cp.async row copies of the
+    tensor-core SSD kernels, need a 16-byte aligned base and strides that
+    are multiples of 16 bytes (a dimension of extent 1 has no stride to
     check)."""
     es = t.element_size()
     return t.data_ptr() % 16 == 0 and all(
@@ -501,17 +535,14 @@ def matmul_local_ssd(x, dt, a, b, c, q: int):
         x, b, c = x.float(), b.float(), c.float()
     code = _dtype_code(x, "matmul_local_ssd")
     lib = _library(x)
-    smem = lib.matmul_local_ssd_smem_bytes(q, hdim, nstate)
-    if smem > layout.MAX_SMEM:
-        raise ValueError(f"matmul_local_ssd: chunk {q} with P={hdim}, "
-                         f"N={nstate} needs {smem} bytes of shared memory, "
-                         f"more than the {layout.MAX_SMEM} a block may use")
+    x, b, c = (_last_contiguous(t) for t in (x, b, c))
+    inst, x, b, c = _ssd_instance(lib, "matmul_local_ssd", code, q, hdim,
+                                  nstate, x, b, c)
     nchunks = -(-seqlen // q)
     y = torch.empty((bsz, seqlen, nheads, hdim), dtype=torch.float32,
                     device=x.device)
     s = torch.empty((bsz, nheads, nchunks, nstate, hdim),
                     dtype=torch.float32, device=x.device)
-    x, b, c = (_last_contiguous(t) for t in (x, b, c))
     dt = dt.float()
     lam = dt * a.float()                                  # (B, L, H) f32
     build.check(lib.matmul_local_ssd_launch(
@@ -522,6 +553,7 @@ def matmul_local_ssd(x, dt, a, b, c, q: int):
         *_strides(b, 3), *_strides(c, 3), build.stream_ptr(x)),
         "matmul_local_ssd")
     KERNELS["matmul_local_ssd"].launches += 1
+    INSTANCES["matmul_local_ssd", inst] += 1
     return y, s
 
 

@@ -92,6 +92,118 @@ def test_weighted_scan_kernel_matches_plain(cuda):
                                atol=2e-3)
 
 
+# the tensor-core instance of the SSD chunk body (f16/bf16, q <= 64,
+# P <= 64, N <= 128): every product on mma.sync with hi/lo operand pairs,
+# a two-stage cp.async ring in ssd_scan.cu
+
+
+def assert_ssd_close(ins, dtype):
+    """ssd_scan against its plain version at the tolerances of
+    test_ssd_kernel_matches_plain: y within one rounding of the same f32
+    value (1e-2 in f16/bf16, 2e-3 in f32), the f32 state within 2e-3."""
+    y, st = kops.ssd_scan(*ins, return_state=True)
+    yr, sr = ref.ssd_scan_ref(*ins, return_state=True)
+    assert y.dtype == dtype and st.dtype == torch.float32
+    tol = 2e-3 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(y, yr, rtol=tol, atol=tol)
+    torch.testing.assert_close(st, sr, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", [
+    (2, 468, 8, 64, 1, 128),      # the served wave: a ragged last chunk
+    (2, 5, 4, 64, 1, 128),        # L < 64: fit_block gives q = 16
+    (1, 17, 2, 64, 1, 128),       # q = 32
+    (3, 40, 2, 64, 1, 128),       # q = 48
+    (2, 100, 4, 16, 2, 8),        # N = 8 and P = 16 padded up to the tile
+    (2, 130, 4, 64, 2, 128),      # G = 2 with H = 4
+    (1, 4096, 8, 64, 1, 128),     # a 64-chunk chain through the ring
+])
+def test_ssd_mma_instance_matches_plain(cuda, shape, dtype):
+    before = kops.instance_counts().get(("ssd_scan", "mma"), 0)
+    assert_ssd_close(ssd_inputs(*shape, dtype, cuda), dtype)
+    assert kops.instance_counts()[("ssd_scan", "mma")] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_ssd_mma_instance_closed_form(cuda, dtype):
+    """lambda = 0 (a = 0) and B = C = 1/4 with N = 16, so C_t B_s = 1: y is
+    the plain cumulative sum of dt o x over the whole sequence, and the
+    final state H[p, n] = sum_s dt_s x_s[p] / 4, across 16 chunks."""
+    bsz, seqlen, nheads, hdim, nstate = 2, 1000, 2, 16, 16
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = (0.2 * torch.randn(bsz, seqlen, nheads, hdim, generator=g,
+                           device=cuda)).to(dtype)
+    dt = torch.rand(bsz, seqlen, nheads, generator=g, device=cuda)
+    a = torch.zeros(nheads, device=cuda)
+    b = torch.full((bsz, seqlen, 1, nstate), 0.25, device=cuda, dtype=dtype)
+    y, st = kops.ssd_scan(x, dt, a, b, b.clone(), return_state=True)
+    xdt = x.double() * dt.double()[..., None]
+    want = torch.cumsum(xdt, 1)
+    torch.testing.assert_close(y.double(), want.to(dtype).double(),
+                               rtol=1e-2, atol=1e-2)
+    want_st = (0.25 * xdt.sum(1))[..., None].expand(-1, -1, -1, nstate)
+    torch.testing.assert_close(st.double(), want_st, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_f32_and_weighted_scan_launch_the_fma_instance(cuda):
+    """The instance is chosen by dtype and shape before the launch: f32,
+    mixed dtypes, the weighted scan (H = G = P = N = 1) and a state wider
+    than the tile run the FMA loops; f16/bf16 at the served shape the
+    tensor cores."""
+    def launched(fn):
+        before = kops.instance_counts()
+        fn()
+        after = kops.instance_counts()
+        return {k: after[k] - before.get(k, 0) for k in after
+                if after[k] != before.get(k, 0)}
+
+    ins = ssd_inputs(1, 100, 2, 64, 1, 128, torch.float32, cuda)
+    assert launched(lambda: kops.ssd_scan(*ins)) == {("ssd_scan", "fma"): 1}
+    mixed = (ins[0].bfloat16(), *ins[1:])
+    assert launched(lambda: kops.ssd_scan(*mixed)) == {
+        ("ssd_scan", "fma"): 1}
+    wide = ssd_inputs(1, 100, 2, 64, 1, 136, torch.bfloat16, cuda)
+    assert launched(lambda: assert_ssd_close(wide, torch.bfloat16)) == {
+        ("ssd_scan", "fma"): 1}
+    x = torch.randn(3, 200, device=cuda)
+    la = -0.5 * torch.rand(3, 200, device=cuda)
+    assert launched(lambda: kops.weighted_scan(x, la)) == {
+        ("ssd_scan", "fma"): 1}
+    assert launched(lambda: kops.matmul_local_ssd(*ins, 64)) == {
+        ("matmul_local_ssd", "fma"): 1}
+    ins16 = ssd_inputs(1, 100, 2, 64, 1, 128, torch.bfloat16, cuda)
+    assert launched(lambda: kops.ssd_scan(*ins16)) == {("ssd_scan", "mma"): 1}
+    assert launched(lambda: kops.matmul_local_ssd(*ins16, 64)) == {
+        ("matmul_local_ssd", "mma"): 1}
+
+
+@pytest.mark.cuda
+def test_ssd_mma_instance_reads_strided_model_layout(cuda):
+    """x, b, c as views of one fused projection (rows 16-byte aligned), and
+    as views whose rows are not (the wrapper copies them first); both run
+    the tensor-core instance."""
+    bsz, seqlen, nheads, hdim, nstate = 2, 150, 4, 64, 128
+    for width, off in ((nheads * hdim + 2 * nstate, 0),
+                       (nheads * hdim + 2 * nstate + 4, 4)):
+        g = torch.Generator(device=cuda).manual_seed(width)
+        xbc = (0.2 * torch.randn(bsz, seqlen, width + off, generator=g,
+                                 device=cuda)).to(torch.bfloat16)
+        d0 = off + nheads * hdim
+        x = xbc[..., off:d0].unflatten(-1, (nheads, hdim))
+        b = xbc[..., d0:d0 + nstate].unflatten(-1, (1, nstate))
+        c = xbc[..., d0 + nstate:d0 + 2 * nstate].unflatten(-1, (1, nstate))
+        dt = torch.nn.functional.softplus(
+            torch.randn(bsz, seqlen, nheads, generator=g, device=cuda))
+        a = -torch.exp(0.2 * torch.randn(nheads, generator=g, device=cuda))
+        before = kops.instance_counts().get(("ssd_scan", "mma"), 0)
+        assert_ssd_close((x, dt, a, b, c), torch.bfloat16)
+        assert kops.instance_counts()[("ssd_scan", "mma")] == before + 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [100, 2048])
@@ -296,6 +408,25 @@ def test_local_ssd_kernel_matches_plain(cuda, shape, dtype):
     tol = 2e-3 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(y, yr, rtol=tol, atol=tol)
     torch.testing.assert_close(st, sr, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("shape,q", [((2, 468, 4, 64, 1, 128), 64),
+                                     ((2, 100, 4, 16, 2, 8), 64),
+                                     ((2, 130, 4, 64, 2, 128), 64),
+                                     ((2, 40, 2, 64, 1, 128), 48),
+                                     ((1, 100, 2, 64, 1, 128), 16)])
+def test_local_ssd_mma_instance_matches_plain(cuda, shape, q, dtype):
+    """The tensor-core local pass at a ragged wave, N = 8, G = 2 and chunks
+    below 64, against its plain version at 1e-4 (both return f32 from the
+    same inputs)."""
+    ins = ssd_inputs(*shape, dtype, cuda)
+    before = kops.instance_counts().get(("matmul_local_ssd", "mma"), 0)
+    for got, want in zip(kops.matmul_local_ssd(*ins, q),
+                         ref.local_ssd_ref(*ins, q)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert kops.instance_counts()[("matmul_local_ssd", "mma")] == before + 1
 
 
 @pytest.mark.cuda
