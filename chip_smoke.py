@@ -8,17 +8,21 @@ Phases:
 1. Header and build: the card's name and power limit as ``nvidia-smi`` gives
    them, then the build of ``src/repro_torch/csrc`` (nvcc, sm_90a) and its
    time, the registers and spills ``nvcc -Xptxas -v`` gave each instance of
-   the flash-attention (wgmma), RMSNorm and tensor-core SSD (``ssd_scan``,
-   ``local_ssd``) kernels, and flash attention's dynamic shared memory per
+   the flash-attention (wgmma), RMSNorm, tensor-core SSD (``ssd_scan``,
+   ``local_ssd``) and reduce/scan (``piece_totals``, ``piece_scan`` and the
+   combine passes) kernels, and flash attention's dynamic shared memory per
    block.
 2. Main path, four runs, each with every kernel's launch count set to 0
    just before it and read just after: the public ops (``repro_torch.ops``)
    at 2^24 elements and at the models' shapes, on the linear kernels and
    on the log-depth family (``policy="tile_logdepth"``), where every kernel
-   must run; then the engine of ``repro_torch.launch.serve`` serving
-   mamba2-1.3b FULL (48 layers), llama3.2-1b FULL (16 layers), and
-   mamba2-1.3b FULL again under ``policy="ssd=tile_logdepth"``, random
-   weights from seed 0, to four requests of up to 512 prompt tokens, 16 new
+   must run, with the linear reduce and scan of 16 rows of 2^20 held
+   against ``policy="baseline"`` and a mixed-dtype SSD (bf16 x, f32 b, c)
+   returning y in bf16 on both families; then the engine of
+   ``repro_torch.launch.serve`` serving mamba2-1.3b FULL (48 layers),
+   llama3.2-1b FULL (16 layers), and mamba2-1.3b FULL again under
+   ``policy="ssd=tile_logdepth"``, random weights from seed 0, to four
+   requests of up to 512 prompt tokens, 16 new
    tokens each. Each serve run must show its layer kernel once per layer
    per prefill (48 SSD, 16 flash-attention, 48 local SSD launches, and no
    linear SSD launch in the log-depth run), every SSD launch on the
@@ -30,7 +34,8 @@ Phases:
    decode steps on the host clock against their device time give the
    card's idle share.
 3. Per kernel: the kernel against its plain version on the card at the main
-   path's shapes (RMSNorm also at the served decode and prefill shapes,
+   path's shapes (the reduce and scan at 2^24 elements from 2^20 rows of 16
+   to one row, RMSNorm also at the served decode and prefill shapes,
    flash attention also on its D = 128 instance, the SSD scan also at the
    served wave and on a 64-chunk chain), with the error and its
    tolerance (flash attention row by row, against each output row's RMS),
@@ -136,7 +141,11 @@ class Smoke:
 def ptxas_report(build_log: Path, names=("flash_attention_wgmma_kernel",
                                           "rmsnorm_kernel",
                                           "ssd_scan_mma_kernel",
-                                          "local_ssd_mma_kernel")
+                                          "local_ssd_mma_kernel",
+                                          "piece_totals_kernel",
+                                          "piece_scan_kernel",
+                                          "tcu_reduce_combine_kernel",
+                                          "tcu_scan_carry_kernel")
                  ) -> list[str]:
     """Registers, shared memory and spills that ``nvcc -Xptxas -v`` gave
     each instance of the named kernels, one line per instance."""
@@ -185,29 +194,38 @@ def nbytes(*tensors) -> int:
 
 
 def reduce_scan_cases(torch, kops, ref, gen):
+    """The 2^24-element cases of both kernels, many short rows to few long
+    ones: (dtype, rows, kernels)."""
     out = []
-    for dtype, n in ((torch.float16, 16), (torch.float16, 256),
-                     (torch.float16, 4096), (torch.float32, 256)):
-        x = torch.randn(N_ELEMS // n, n, generator=gen, device="cuda",
+    f16, f32 = torch.float16, torch.float32
+    for dtype, rows, kernels in (
+            (f16, N_ELEMS // 16, "rs"), (f16, N_ELEMS // 256, "rs"),
+            (f16, N_ELEMS // 4096, "rs"), (f32, N_ELEMS // 256, "rs"),
+            # few long rows: cut into pieces across the card
+            (f32, 16, "rs"), (f32, 1, "r")):
+        n = N_ELEMS // rows
+        x = torch.randn(rows, n, generator=gen, device="cuda",
                         dtype=torch.float32).to(dtype)
-        rows = x.shape[0]
         tag = f"{str(dtype).split('.')[-1]} rows={rows} n={n}"
-        out.append(dict(
-            kernel="tcu_reduce", label=tag, primary=(dtype, n) == (
-                torch.float16, 256),
-            run=lambda x=x: kops.segmented_reduce(x),
-            plain=lambda x=x: ref.segmented_reduce_ref(x),
-            library=lambda x=x: torch.sum(x, dim=-1, dtype=torch.float32),
-            rtol=2e-4, nbytes=nbytes(x) + 4 * rows, ops=x.numel(),
-            dtype=dtype))
-        out.append(dict(
-            kernel="tcu_scan", label=tag, primary=(dtype, n) == (
-                torch.float16, 256),
-            run=lambda x=x: kops.segmented_scan(x),
-            plain=lambda x=x: ref.segmented_scan_ref(x),
-            library=lambda x=x: torch.cumsum(x, dim=-1, dtype=torch.float32),
-            rtol=1e-3, nbytes=nbytes(x) + 4 * x.numel(), ops=x.numel(),
-            dtype=dtype))
+        primary = (dtype, n) == (f16, 256)
+        if "r" in kernels:
+            out.append(dict(
+                kernel="tcu_reduce", label=tag, primary=primary,
+                run=lambda x=x: kops.segmented_reduce(x),
+                plain=lambda x=x: ref.segmented_reduce_ref(x),
+                library=lambda x=x: torch.sum(x, dim=-1,
+                                              dtype=torch.float32),
+                rtol=2e-4, nbytes=nbytes(x) + 4 * rows, ops=x.numel(),
+                dtype=dtype))
+        if "s" in kernels:
+            out.append(dict(
+                kernel="tcu_scan", label=tag, primary=primary,
+                run=lambda x=x: kops.segmented_scan(x),
+                plain=lambda x=x: ref.segmented_scan_ref(x),
+                library=lambda x=x: torch.cumsum(x, dim=-1,
+                                                 dtype=torch.float32),
+                rtol=1e-3, nbytes=nbytes(x) + 4 * x.numel(), ops=x.numel(),
+                dtype=dtype))
     return out
 
 
@@ -603,7 +621,7 @@ def compare_whole_ops(smoke: Smoke, ops, ref) -> list[dict]:
 # main path
 
 
-def ops_pass(smoke: Smoke, ops):
+def ops_pass(smoke: Smoke, ops, ref):
     """The public ops once each, at the sizes the paper and the model use,
     on the default kernels and under ``tile_logdepth``."""
     torch = smoke.torch
@@ -653,6 +671,29 @@ def ops_pass(smoke: Smoke, ops):
     for name, t in (("scan", sc), ("scan[tile_logdepth]", ld_sc)):
         if t[:, 0].abs().max().item() != 0.0:
             smoke.fail(f"ops.{name}(exclusive=True) does not start at 0")
+    # the linear kernels on the long row, where each row is cut into pieces
+    # across the card, against torch.sum / torch.cumsum
+    for name, op, rtol in (("reduce", ops.reduce, 2e-4),
+                           ("scan", ops.scan, 1e-3)):
+        got, want = op(long_row), op(long_row, policy="baseline")
+        err = (got - want).abs().max().item()
+        tol = rtol * max(1.0, want.abs().max().item())
+        if got.shape != want.shape or not err <= tol:
+            smoke.fail(f"ops.{name} long row: tile and baseline differ by "
+                       f"{err} (tol {tol})")
+    # mixed dtypes: bf16 x with f32 b, c computes in f32 and returns y in
+    # x's dtype, on both families, as the plain version does
+    mx, mdt, ma, mb, mc = ssd_inputs(torch, gen, 2, 130, 4, 64, 1, 128,
+                                     torch.float32)
+    mx = mx.bfloat16()
+    my_ref = ref.ssd_scan_ref(mx, mdt, ma, mb, mc)
+    for p in ("tile", ld):
+        my = ops.ssd(mx, mdt, ma, mb, mc, policy=p)
+        err = (my.float() - my_ref.float()).abs().max().item()
+        if my.dtype != torch.bfloat16 or not err <= 1e-2 * max(
+                1.0, my_ref.float().abs().max().item()):
+            smoke.fail(f"ops.ssd[{p}] mixed dtypes: y {my.dtype} (want "
+                       f"bfloat16), max_abs_err {err}")
     # the two families on the same inputs: the same function, summed in
     # another order (the SSD output rounds to bf16 once on each side)
     for name, got, want, rtol in (
@@ -956,7 +997,7 @@ def main() -> int:
     with torch.inference_mode():
         kops.reset_launches()
         try:
-            ops_pass(smoke, ops)
+            ops_pass(smoke, ops, ref)
         except Exception as exc:
             smoke.fail(f"ops pass: {exc!r}")
         ops_counts = kops.launch_counts()

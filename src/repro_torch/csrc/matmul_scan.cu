@@ -10,10 +10,11 @@
 // row's blocks in order; here every block is an independent block of the
 // grid, so a long row fills the card.
 //
-//   local_scan      out = per block_n block of a row, inclusive scan: a
-//                   warp owns 16 rows x block_n columns and runs
-//                   tcu_tile.cuh's A @ U tiles (f32 as three bf16 parts)
-//                   with a carry that restarts at the block.
+//   local_scan      out = per block_n block of a row, inclusive scan:
+//                   tcu_tile.cuh's streaming A @ U loop (mma.sync from
+//                   registers, f32 as three bf16 parts) with every block
+//                   a piece whose carry starts at zero; a warp owns 16
+//                   blocks.
 //                   Bound: bytes (one read, one f32 write).
 //   local_weighted  y = exp(segsum(lambda)) x per q block of a row: a warp
 //                   owns one (row, block), scans lambda in shared memory
@@ -53,53 +54,19 @@
 namespace rt {
 
 // ---------------------------------------------------------------------------
-// local scan
-
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(kWarps * 32)
-    local_scan_kernel(const T* __restrict__ x, float* __restrict__ out,
-                      long long rows, long long n, int block_n,
-                      long long items) {
-  using FT = typename Operand<T>::type;
-  __shared__ __align__(32) FT stage_s[kWarps][Operand<T>::parts * kPlane];
-  __shared__ __align__(32) float tile_s[kWarps][kTile * kTile];
-  __shared__ __align__(32) FT u_s[kTile * kTile];
-  __shared__ float carry_s[kWarps][kTile];
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int i = threadIdx.x; i < kTile * kTile; i += blockDim.x)
-    u_s[i] = from_f32<FT>((i / kTile) <= (i % kTile) ? 1.f : 0.f);
-  __syncthreads();
-
-  const long long item = (long long)blockIdx.x * kWarps + warp;
-  if (item >= items) return;
-  // neighbouring warps take neighbouring column blocks of the same rows
-  const long long nb = (n + block_n - 1) / block_n;
-  const long long row0 = (item / nb) * kTile;
-  const long long lo = (item % nb) * block_n;
-  const long long hi = lo + block_n < n ? lo + block_n : n;
-  if (lane < kTile) carry_s[warp][lane] = 0.f;
-  __syncwarp();
-  FragB<FT> u;
-  wmma::load_matrix_sync(u, u_s, kTile);
-  scan_range<T, VEC>(x, out, rows, n, row0, lo, hi, stage_s[warp],
-                     tile_s[warp], carry_s[warp], u, lane);
-}
+// local scan: tcu_tile.cuh's piece scan with one piece per block_n columns
+// and no carry into a piece
 
 template <typename T>
-static int launch_scan(const void* x, void* out, long long rows, long long n,
-                       int block_n, cudaStream_t stream) {
-  const long long items = (rows + kTile - 1) / kTile *
-                          ((n + block_n - 1) / block_n);
-  const unsigned blocks = (unsigned)((items + kWarps - 1) / kWarps);
-  const T* xp = static_cast<const T*>(x);
-  float* op = static_cast<float*>(out);
-  if (vec_ok(x, n, sizeof(T)))
-    local_scan_kernel<T, true><<<blocks, kWarps * 32, 0, stream>>>(
-        xp, op, rows, n, block_n, items);
-  else
-    local_scan_kernel<T, false><<<blocks, kWarps * 32, 0, stream>>>(
-        xp, op, rows, n, block_n, items);
+static int launch_local_scan(const void* x, void* out, long long rows,
+                             long long n, int block_n, cudaStream_t stream) {
+  const long long pieces = (n + block_n - 1) / block_n;
+  const Pieces geo{rows, n, pieces, pieces == 1 ? n : block_n, 1};
+  const long long by_items = (geo.groups() + kWarps - 1) / kWarps;
+  const unsigned blocks = (unsigned)std::min<long long>(
+      by_items, 8LL * sm_count());
+  launch_scan<T>(static_cast<const T*>(x), static_cast<float*>(out),
+                 nullptr, geo, (int)blocks, stream);
   return (int)cudaGetLastError();
 }
 
@@ -264,20 +231,21 @@ static int launch_ssd(const void* x, const void* dt, const void* lam,
 }  // namespace rt
 
 // x: (rows, n) contiguous, dtype code; out: (rows, n) f32. block_n must be
-// a positive multiple of 32 (two staged 16-column fragments).
+// a positive multiple of 32 (whole steps of the streaming loop).
 extern "C" int matmul_local_scan_launch(const void* x, void* out,
                                         long long rows, long long n,
                                         int block_n, int dtype,
                                         void* stream) {
-  if (rows < 1 || n < 1 || block_n < rt::kCols || block_n % rt::kCols)
+  if (rows < 1 || n < 1 || block_n < 32 || block_n % 32)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case rt::kF32: return rt::launch_scan<float>(x, out, rows, n, block_n, st);
+    case rt::kF32:
+      return rt::launch_local_scan<float>(x, out, rows, n, block_n, st);
     case rt::kF16:
-      return rt::launch_scan<__half>(x, out, rows, n, block_n, st);
+      return rt::launch_local_scan<__half>(x, out, rows, n, block_n, st);
     case rt::kBF16:
-      return rt::launch_scan<__nv_bfloat16>(x, out, rows, n, block_n, st);
+      return rt::launch_local_scan<__nv_bfloat16>(x, out, rows, n, block_n, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -7,110 +7,83 @@
 // Bound on an H100: bytes. One read of the input and one f32 write of the
 // output; the arithmetic is one addition per element.
 //
-// Design: a warp owns 16 segments and walks n in 16-wide tiles. Each tile is
-// staged in shared memory (zero-filled edges) and multiplied by U, the 16x16
-// upper-triangular ones matrix, on a wmma fragment: a row-wise inclusive
-// scan. The paper's Broadcast(LastColumn(R)) carry becomes a per-row running
-// sum in shared memory, added as the tile is written out and then advanced
-// by the tile's last column. When there are too few 16-row groups to fill
-// the card, up to 8 warps split a group's columns into contiguous ranges:
-// each first reduces its range (A @ ones), the partial totals give each
-// warp its starting carry, and then every range is scanned in parallel.
-// f32 input goes through the three-part bf16 split of tcu_tile.cuh. The
-// exclusive scan is made by a shift in the Python glue, never here as
+// Design: the streaming loop of tcu_tile.cuh. A warp owns 16 pieces (rows,
+// or column ranges of rows) and walks them a step at a time: each lane's
+// 16-byte loads of pieces g and g + 8 are the A fragment of mma.sync as
+// they are, times the triangle U with its rows permuted to the order the
+// registers hold (f32 as three exact bf16 parts). The accumulators stay in
+// registers: the step's row totals (its last column) reach each quad by
+// one shuffle, the per-row carry is added there, and the f32 prefix is
+// written as 8-byte streaming stores. The paper's Broadcast(LastColumn(R))
+// carry is that running register sum.
+//
+// The launch plan (kernels/layout.py, reduce_scan_plan) keeps one piece per
+// row when the rows' 16-row groups fill the card. Few long rows (and fewer
+// than 16 rows) are cut into pieces. With 2 to 16 pieces a row, the warp
+// that holds them walks its group twice in one launch: the pieces' totals,
+// their fixed-order prefix over the row by shuffles, then the scan from
+// those carries (the second read mostly hits L2). With more, three
+// launches: the pieces' totals (piece_totals_kernel) into a workspace, each
+// row's exclusive prefix over its pieces in a fixed order
+// (combine_pieces), then every piece scanned from its carry
+// (piece_scan_kernel). Each piece is read twice and written once; no
+// atomics, so the same input gives the same bits on every launch.
+// The exclusive scan is made by a shift in the Python glue, never here as
 // inclusive - x.
 #include "tcu_tile.cuh"
 
 namespace rt {
 
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(kWarps * 32)
-    tcu_scan_kernel(const T* __restrict__ x, float* __restrict__ out,
-                    long long rows, long long n, int wpg, long long span) {
-  using FT = typename Operand<T>::type;
-  __shared__ __align__(32) FT stage_s[kWarps][Operand<T>::parts * kPlane];
-  __shared__ __align__(32) float tile_s[kWarps][kTile * kTile];
-  __shared__ __align__(32) FT u_s[kTile * kTile];
-  __shared__ float total_s[kWarps][kTile];
-  __shared__ float carry_s[kWarps][kTile];
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int groups = kWarps / wpg, g = warp / wpg, part = warp % wpg;
-  const long long row0 = ((long long)blockIdx.x * groups + g) * kTile;
-  const long long lo = (long long)part * span;
-  const long long hi = lo + span < n ? lo + span : n;
-  const bool live = row0 < rows;
-
-  for (int i = threadIdx.x; i < kTile * kTile; i += blockDim.x)
-    u_s[i] = from_f32<FT>((i / kTile) <= (i % kTile) ? 1.f : 0.f);
-  __syncthreads();
-
-  if (lane < kTile) carry_s[warp][lane] = 0.f;
-  if (wpg > 1) {
-    // phase 1: each warp's range total per row, then the starting carries
-    FragB<FT> ones;
-    wmma::fill_fragment(ones, from_f32<FT>(1.f));
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-    if (live) {
-      for (long long col0 = lo; col0 < hi; col0 += kCols) {
-        stage<T, VEC>(x, rows, n, hi, row0, col0, stage_s[warp], lane);
-        __syncwarp();
-        mma_staged<T>(acc, stage_s[warp], 0, ones);
-        mma_staged<T>(acc, stage_s[warp], 1, ones);
-        __syncwarp();
-      }
-    }
-    wmma::store_matrix_sync(tile_s[warp], acc, kTile, wmma::mem_row_major);
-    __syncwarp();
-    if (lane < kTile) total_s[warp][lane] = tile_s[warp][lane * kTile];
-    __syncthreads();
-    if (lane < kTile) {
-      float c = 0.f;
-      for (int p = 0; p < part; ++p) c += total_s[g * wpg + p][lane];
-      carry_s[warp][lane] = c;
-    }
-  }
-  __syncwarp();
-
-  FragB<FT> u;
-  wmma::load_matrix_sync(u, u_s, kTile);
-  if (!live) return;
-  scan_range<T, VEC>(x, out, rows, n, row0, lo, hi, stage_s[warp],
-                     tile_s[warp], carry_s[warp], u, lane);
+__global__ void tcu_scan_carry_kernel(const float* __restrict__ totals,
+                                      float* __restrict__ carry,
+                                      long long pieces) {
+  combine_pieces<true>(totals, carry, pieces);
 }
 
 template <typename T>
-static int launch(const void* x, void* out, long long rows, long long n,
-                  cudaStream_t stream) {
-  const int wpg = warps_per_group(rows, n);
-  // contiguous column ranges, each a whole number of staged blocks
-  const long long per = (n + wpg - 1) / wpg;
-  const long long span = (per + kCols - 1) / kCols * kCols;
-  const long long per_block = (long long)(kWarps / wpg) * kTile;
-  const unsigned blocks = (unsigned)((rows + per_block - 1) / per_block);
+static int launch(const void* x, void* out, void* ws, const Pieces& geo,
+                  int blocks, int combine_threads, cudaStream_t stream) {
   const T* xp = static_cast<const T*>(x);
   float* op = static_cast<float*>(out);
-  if (vec_ok(x, n, sizeof(T)))
-    tcu_scan_kernel<T, true>
-        <<<blocks, kWarps * 32, 0, stream>>>(xp, op, rows, n, wpg, span);
-  else
-    tcu_scan_kernel<T, false>
-        <<<blocks, kWarps * 32, 0, stream>>>(xp, op, rows, n, wpg, span);
+  const float* carry = nullptr;
+  if (geo.pieces > geo.fold) {
+    float* totals = static_cast<float*>(ws);
+    float* cin = totals + geo.count();
+    launch_totals<T>(xp, totals, geo, blocks, stream);
+    tcu_scan_carry_kernel<<<(unsigned)geo.rows, combine_threads, 0,
+                            stream>>>(totals, cin, geo.pieces);
+    carry = cin;
+  }
+  launch_scan<T>(xp, op, carry, geo, blocks, stream);
   return (int)cudaGetLastError();
 }
 
 }  // namespace rt
 
-// x: (rows, n) contiguous, dtype code; out: (rows, n) f32.
-extern "C" int tcu_scan_launch(const void* x, void* out, long long rows,
-                               long long n, int dtype, void* stream) {
-  if (rows < 1 || n < 1) return (int)cudaErrorInvalidValue;
+// x: (rows, n) contiguous, dtype code; out: (rows, n) f32; ws: 2 * rows *
+// pieces f32 (unused when a row's pieces fold into one group). pieces, len,
+// blocks, combine_threads: the plan of kernels/layout.py::reduce_scan_plan.
+extern "C" int tcu_scan_launch(const void* x, void* out, void* ws,
+                               long long rows, long long n, long long pieces,
+                               long long len, int blocks, int combine_threads,
+                               int dtype, void* stream) {
+  const rt::Pieces geo{rows, n, pieces, len,
+                       rt::Pieces::fold_for(pieces, false)};
+  if (rows < 1 || n < 1 || pieces < 1 || len < 1 || blocks < 1 ||
+      pieces * len < n ||
+      (pieces > geo.fold &&
+       (ws == nullptr || combine_threads < 32 || combine_threads > 1024 ||
+        combine_threads % 32)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case rt::kF32: return rt::launch<float>(x, out, rows, n, st);
-    case rt::kF16: return rt::launch<__half>(x, out, rows, n, st);
-    case rt::kBF16: return rt::launch<__nv_bfloat16>(x, out, rows, n, st);
+    case rt::kF32:
+      return rt::launch<float>(x, out, ws, geo, blocks, combine_threads, st);
+    case rt::kF16:
+      return rt::launch<__half>(x, out, ws, geo, blocks, combine_threads, st);
+    case rt::kBF16:
+      return rt::launch<__nv_bfloat16>(x, out, ws, geo, blocks,
+                                       combine_threads, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -34,3 +34,15 @@ def require_hopper(device: torch.device | None = None) -> None:
         raise RuntimeError(
             f"kernels are built for sm_90a; cuda:{index} has compute "
             f"capability {cap[0]}.{cap[1]}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (the kernels' launch plans
+    take it)."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())

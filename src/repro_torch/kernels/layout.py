@@ -15,7 +15,9 @@ algorithm, not a chip's timing.
 """
 from __future__ import annotations
 
-MMA_TILE = 16          # tensor-core fragment edge (wmma 16x16x16)
+import dataclasses
+
+MMA_TILE = 16          # tensor-core tile edge (rows of an mma, wmma edge)
 WARP = 32              # threads of a warp
 
 HOPPER = {
@@ -31,11 +33,11 @@ HOPPER = {
     "weighted_scan": {"q": 64},
     # the log-depth family (tile_logdepth): the local passes of
     # csrc/matmul_scan.cu, then a tree over the block totals.
-    # - scan: a warp owns one block of 16 rows (the wmma fragment's edge,
-    #   fixed in the kernel) x ``block_n`` columns. 256 columns are eight
-    #   staged 32-column steps; a 2^20-long row is 4096 independent blocks,
-    #   about 31 warps per SM, and the tree then combines 4096 totals per
-    #   row in three levels.
+    # - scan: every ``block_n`` columns of a row are one piece of the
+    #   reduce/scan streaming loop (csrc/tcu_tile.cuh), scanned from zero; a
+    #   warp owns 16 pieces. 256 columns are eight f16 or sixteen f32 steps;
+    #   a 2^20-long row is 4096 independent pieces, and the tree then
+    #   combines 4096 totals per row in three levels.
     # - weighted_scan: a warp owns one (row, q-block); q = 64 keeps the q/2
     #   exps per element low and 64 x 4096 rows at 4096 warps.
     # - ssd: the chunk body of ssd_scan.cu without the carried state.
@@ -48,6 +50,18 @@ HOPPER = {
     "scan_logdepth": {"block_n": 256, "radix": 16, "fan_in": 16},
     "weighted_scan_logdepth": {"q": 64, "radix": 16, "fan_in": 16},
     "ssd_logdepth": {"q": 64, "radix": 16, "fan_in": 16},
+    # segmented reduce and scan (csrc/tcu_reduce.cu, tcu_scan.cu): a warp
+    # owns 16 pieces (rows, or column ranges of rows) and walks them in
+    # steps of 64 bytes per piece (16 f32 or 32 f16/bf16 columns), eight
+    # warps a block. reduce_scan_plan keeps one piece per row when the
+    # rows' 16-row groups give every SM ``warps_per_sm`` warps, and cuts
+    # longer rows into pieces of at least ``min_steps`` steps otherwise.
+    # 16 warps an SM with 4 steps of 16-byte loads in flight per lane are
+    # 64 KB of loads in flight per SM, about what 3.35 TB/s over 132 SMs
+    # needs at a microsecond of latency. A grid-stride loop caps the grid
+    # at ``max_blocks_per_sm`` blocks an SM.
+    "reduce_scan": {"warps_per_sm": 16, "min_steps": 8,
+                    "max_blocks_per_sm": 8, "block_warps": 8},
     # RMSNorm: threads per row from the row count (rmsnorm_threads below).
     # Many rows (at least ``many_rows``, four warps for each of the card's
     # SMs): ``vectors_many`` 16-byte vectors per thread, a warp per row up
@@ -94,6 +108,67 @@ def rmsnorm_threads(rows: int, d: int, itemsize: int) -> int:
     tpr = max(WARP, _pow2_at_least(-(-nvec // per)),
               _pow2_at_least(-(-nvec // geo["max_vectors"])))
     return min(tpr, geo["max_threads"])
+
+
+@dataclasses.dataclass(frozen=True)
+class ReduceScanPlan:
+    """Launch plan of ``csrc/tcu_reduce.cu`` and ``csrc/tcu_scan.cu``.
+
+    Row r is cut into ``pieces`` column ranges of ``length`` columns (the
+    last one shorter when n is ragged, or empty); piece p of row r is the
+    kernels' piece ``r * pieces + p``, and a warp owns 16 consecutive
+    pieces. With 2 to 16 pieces (a power of two) a row's pieces share one
+    warp, which combines them in the same launch; with more, a second
+    launch combines each row's sums from the workspace: the reduce's warps
+    first add runs of 16 pieces (so its pieces are a multiple of 16), the
+    scan's combine writes every piece's carry.
+    ``blocks`` is the grid of the streaming kernels, ``combine_threads`` the
+    block of the fixed-order pass over each row's pieces (with more than
+    one piece), and ``workspace`` the f32 scratch the wrapper allocates:
+    the pieces' totals, and for the scan also their carries."""
+
+    pieces: int
+    length: int
+    blocks: int
+    combine_threads: int
+    workspace: int
+
+
+def reduce_scan_plan(rows: int, n: int, itemsize: int, sms: int, *,
+                     scan: bool) -> ReduceScanPlan:
+    """The plan for ``rows`` rows of ``n`` elements of ``itemsize`` bytes on
+    a card of ``sms`` streaming multiprocessors."""
+    geo = HOPPER["reduce_scan"]
+    rows, n = max(1, int(rows)), max(1, int(n))
+    step = 64 // int(itemsize)                     # columns per step
+    target = int(sms) * geo["warps_per_sm"]        # warps that fill the card
+    pieces, length = 1, n
+    if -(-rows // MMA_TILE) < target:
+        want = -(-target * MMA_TILE // rows)
+        length = max(-(-n // want), geo["min_steps"] * step)
+        length = -(-length // step) * step
+        if length < n:
+            pieces = -(-n // length)
+        else:
+            length = n
+    if 1 < pieces <= MMA_TILE:
+        # 2, 4, 8 or 16 pieces, so that a row's pieces share a warp's
+        # group, which combines them itself (tail pieces may be empty)
+        pieces = _pow2_at_least(pieces)
+    elif pieces > MMA_TILE and not scan:
+        # whole runs of 16, which each warp adds before writing
+        pieces = -(-pieces // MMA_TILE) * MMA_TILE
+    if pieces > 1:
+        length = -(-(-(-n // pieces)) // step) * step
+    groups = -(-rows * pieces // MMA_TILE)
+    blocks = min(-(-groups // geo["block_warps"]),
+                 int(sms) * geo["max_blocks_per_sm"])
+    # the sums of a row the combine pass adds: one warp per 256 of them
+    sums = 1 if pieces <= MMA_TILE else (pieces if scan
+                                         else pieces // MMA_TILE)
+    combine = _pow2_at_least(min(1024, max(WARP, WARP * -(-sums // 256))))
+    work = 0 if sums == 1 else rows * sums * (2 if scan else 1)
+    return ReduceScanPlan(pieces, length, blocks, combine, work)
 
 
 def _pow2_at_least(n: int) -> int:

@@ -143,20 +143,34 @@ def _rows_view(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1, x.shape[-1]).contiguous()
 
 
+def _reduce_scan_launch(lib, code: int, x: torch.Tensor, out: torch.Tensor,
+                        name: str, *, scan: bool) -> None:
+    """Launch tcu_reduce.cu or tcu_scan.cu on ``x (rows, n)`` contiguous with
+    the plan of ``layout.reduce_scan_plan`` and its workspace."""
+    rows, n = x.shape
+    plan = layout.reduce_scan_plan(rows, n, x.element_size(),
+                                   devmod.sm_count(x.device), scan=scan)
+    ws = (torch.empty(plan.workspace, dtype=torch.float32, device=x.device)
+          if plan.workspace else None)
+    fn = lib.tcu_scan_launch if scan else lib.tcu_reduce_launch
+    build.check(fn(x.data_ptr(), out.data_ptr(),
+                   None if ws is None else ws.data_ptr(), rows, n,
+                   plan.pieces, plan.length, plan.blocks,
+                   plan.combine_threads, code, build.stream_ptr(x)), name)
+    KERNELS[name].launches += 1
+
+
 def _reduce_fwd(x: torch.Tensor) -> torch.Tensor:
     if not x.is_cuda:
         return ref.segmented_reduce_ref(x)
-    lead, n = x.shape[:-1], x.shape[-1]
+    lead = x.shape[:-1]
     code = _dtype_code(x, "tcu_reduce")
     lib = _library(x)
     if x.numel() == 0:
         return torch.zeros(lead, dtype=torch.float32, device=x.device)
     flat = _rows_view(x)
     out = torch.empty(flat.shape[0], dtype=torch.float32, device=x.device)
-    build.check(lib.tcu_reduce_launch(
-        flat.data_ptr(), out.data_ptr(), flat.shape[0], n, code,
-        build.stream_ptr(x)), "tcu_reduce")
-    KERNELS["tcu_reduce"].launches += 1
+    _reduce_scan_launch(lib, code, flat, out, "tcu_reduce", scan=False)
     return out.reshape(lead)
 
 
@@ -173,11 +187,7 @@ def _scan_fwd(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     if x.numel() == 0:
         return out
-    flat = _rows_view(x)
-    build.check(lib.tcu_scan_launch(
-        flat.data_ptr(), out.data_ptr(), flat.shape[0], x.shape[-1], code,
-        build.stream_ptr(x)), "tcu_scan")
-    KERNELS["tcu_scan"].launches += 1
+    _reduce_scan_launch(lib, code, _rows_view(x), out, "tcu_scan", scan=True)
     return out
 
 
@@ -252,17 +262,19 @@ def _ssd_fwd(x, dt, a, b, c, *, return_state: bool = True):
     if nheads % ngroups:
         raise ValueError(f"ssd_scan: H={nheads} is not a multiple of "
                          f"G={ngroups}")
+    y_dtype = x.dtype               # y comes back in the caller's x dtype
     if not (x.dtype == b.dtype == c.dtype):
         x, b, c = x.float(), b.float(), c.float()
     x, b, c = (_last_contiguous(t) for t in (x, b, c))
     dt = dt.float()
     lam = dt * a.float()                                  # (B, L, H) f32
     q = layout.fit_block(seqlen, layout.HOPPER["ssd"]["q"], MMA_TILE)
-    return _launch_ssd(
+    y, state = _launch_ssd(
         x, dt, lam, b, c, q=q, x_strides=_strides(x, 3),
         dt_strides=_strides(dt, 3), lam_strides=_strides(lam, 3),
         b_strides=_strides(b, 3), c_strides=_strides(c, 3),
         dims=(bsz, seqlen, nheads, ngroups, hdim, nstate))
+    return y.to(y_dtype), state
 
 
 def ssd_scan(x, dt, a, b, c, *, return_state: bool = False):
@@ -444,7 +456,7 @@ def matmul_local_scan(x: torch.Tensor, block_n: int) -> torch.Tensor:
 def _scan_logdepth_fwd(x: torch.Tensor) -> torch.Tensor:
     geo = layout.HOPPER["scan_logdepth"]
     lead, n = x.shape[:-1], x.shape[-1]
-    # whole 32-column staging steps: two 16-column wmma fragments
+    # whole 32-column steps of the streaming loop (f16/bf16; f32: two)
     bn = layout.fit_block(n, geo["block_n"], 2 * MMA_TILE)
     local = matmul_local_scan(x.reshape(-1, n), bn)
     nb = -(-n // bn)

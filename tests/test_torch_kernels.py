@@ -14,8 +14,9 @@ from __future__ import annotations
 import pytest
 import torch
 
+from repro_torch import device as devmod
+from repro_torch.kernels import layout, ref
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels import ref
 
 
 @pytest.fixture
@@ -40,12 +41,9 @@ def ssd_inputs(bsz, seqlen, nheads, hdim, ngroups, nstate, dtype, device):
     return x, dt, a, b, c
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
-                                   torch.bfloat16])
-@pytest.mark.parametrize("n", [16, 100, 4096])
-def test_reduce_scan_kernels_match_plain(cuda, n, dtype):
-    x = torch.randn(37, n, device=cuda).to(dtype)
+def assert_reduce_scan_close(x):
+    """Both kernels against their plain versions, one launch each, at the
+    tolerances of tests/test_kernels.py for the same ops."""
     before = kops.launch_counts()
     torch.testing.assert_close(kops.segmented_reduce(x),
                                ref.segmented_reduce_ref(x), rtol=1e-4,
@@ -59,13 +57,87 @@ def test_reduce_scan_kernels_match_plain(cuda, n, dtype):
 
 
 @pytest.mark.cuda
-def test_scan_carry_across_tiles_and_warps(cuda):
-    """Constant input: the scan is i + 1 everywhere, across every tile and
-    every warp's column range."""
-    x = torch.ones(16, 8192, device=cuda)
-    want = torch.arange(1, 8193, device=cuda,
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("n", [16, 100, 4096])
+def test_reduce_scan_kernels_match_plain(cuda, n, dtype):
+    assert_reduce_scan_close(torch.randn(37, n, device=cuda).to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8192, 1 << 20])
+def test_scan_carry_across_tiles_and_warps(cuda, n):
+    """Constant input: the scan is i + 1 everywhere, across every step,
+    every warp's pieces and, at 16 x 2^20, every piece of the split path
+    (each row cut into column ranges, carried by the fixed-order pass).
+    Sums up to 2^20 are exact in f32, so the tolerance is 0."""
+    x = torch.ones(16, n, device=cuda)
+    want = torch.arange(1, n + 1, device=cuda,
                         dtype=torch.float32).expand(16, -1)
     torch.testing.assert_close(kops.segmented_scan(x), want, rtol=0, atol=0)
+    torch.testing.assert_close(kops.segmented_reduce(x),
+                               torch.full((16,), float(n), device=cuda),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("shape", [(16, 1 << 20), (1, 1 << 24),
+                                   (3, 1_000_003), (4096, 4096),
+                                   (1 << 20, 16)])
+def test_reduce_scan_long_rows_match_plain(cuda, shape, dtype):
+    """Few long rows (cut into pieces across the card), one row of 2^24
+    (folded into full 16-row tiles), a row length that is not a multiple of
+    the vector width (the element-by-element load path) and the many-row
+    shapes."""
+    g = torch.Generator(device=cuda).manual_seed(shape[1])
+    assert_reduce_scan_close(
+        torch.randn(*shape, generator=g, device=cuda).to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1 << 20, 8), (1 << 18, 4), (1001, 16),
+                                   (6, 8)])
+def test_reduce_scan_short_rows_match_plain(cuda, shape, dtype):
+    """Rows shorter than a step (a quad's 64 bytes): the rest of the step
+    reads as zero; n = 4 in 16 bits is not a whole vector and takes the
+    element-by-element loads."""
+    g = torch.Generator(device=cuda).manual_seed(shape[0])
+    assert_reduce_scan_close(
+        torch.randn(*shape, generator=g, device=cuda).to(dtype))
+
+
+def _piece_len(rows, n, itemsize):
+    return layout.reduce_scan_plan(rows, n, itemsize, devmod.sm_count(
+        torch.device("cuda")), scan=True).length
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("rows", list(range(1, 18)))
+def test_reduce_scan_rows_and_piece_edges(cuda, rows, dtype):
+    """Rows 1..17 (fewer than a tile, a tile, one past it) at an n that is
+    cut into pieces, and n at, one under and one over a whole number of
+    pieces."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    length = _piece_len(rows, 20000, size)
+    for n in (20000, 3 * length - 1, 3 * length, 3 * length + 1):
+        g = torch.Generator(device=cuda).manual_seed(rows * n)
+        assert_reduce_scan_close(
+            torch.randn(rows, n, generator=g, device=cuda).to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 1 << 20), (1, 1 << 24),
+                                   (65536, 256), (3, 1_000_003)])
+def test_reduce_scan_are_deterministic(cuda, shape):
+    """No atomics: two launches on the same input give the same bits."""
+    x = torch.randn(*shape, device=cuda)
+    assert torch.equal(kops.segmented_reduce(x), kops.segmented_reduce(x))
+    assert torch.equal(kops.segmented_scan(x), kops.segmented_scan(x))
 
 
 @pytest.mark.cuda
@@ -179,6 +251,24 @@ def test_f32_and_weighted_scan_launch_the_fma_instance(cuda):
     assert launched(lambda: kops.ssd_scan(*ins16)) == {("ssd_scan", "mma"): 1}
     assert launched(lambda: kops.matmul_local_ssd(*ins16, 64)) == {
         ("matmul_local_ssd", "mma"): 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["tile", "tile_logdepth"])
+def test_ssd_mixed_dtypes_return_y_in_x_dtype(cuda, policy):
+    """bf16 x with f32 b, c: the kernels compute in f32 and y comes back in
+    the caller's x dtype, as the reference and the plain version return it,
+    within the bf16 tolerance of assert_ssd_close."""
+    from repro_torch import ops
+
+    x, dt, a, b, c = ssd_inputs(2, 130, 4, 64, 1, 128, torch.float32, cuda)
+    x = x.bfloat16()
+    y, st = ops.ssd(x, dt, a, b, c, policy=policy, return_state=True)
+    yr, sr = ref.ssd_scan_ref(x, dt, a, b, c, return_state=True)
+    assert y.dtype == yr.dtype == torch.bfloat16
+    assert st.dtype == torch.float32
+    torch.testing.assert_close(y, yr, rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(st, sr, rtol=2e-3, atol=2e-3)
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's SSD chunk kernels on one card, beside other versions.
+"""Time the port's SSD chunk kernels and its reduce and scan kernels on one
+card, beside other versions.
 
     python3 time_ssd.py                 # this checkout's kernels
     python3 time_ssd.py --other DIR     # and DIR's (a checkout, e.g. the
@@ -11,8 +12,12 @@
                                         # (csrc/ssd_chunk.cuh) with one
                                         # phase removed each
 
-Each version runs in its own process, so that its ``repro_torch`` and its
-kernel build are its own; every build starts at once, in parallel. Times
+The reduce and scan cases (``tcu_reduce``, ``tcu_scan`` at 2^24 elements,
+from 2^20 rows of 16 to one row of 2^24, and ``matmul_local_scan``) are
+timed beside ``torch.sum`` / ``torch.cumsum`` on the same input;
+``--ablate`` takes only the SSD cases. Each version runs in its own
+process, so that its ``repro_torch`` and its kernel build are its own;
+every build starts at once, in parallel. Times
 are medians with a cold L2, taken as ``chip_smoke.py`` takes them
 (``Smoke.time_ms``), after the card's name and power limit as
 ``nvidia-smi`` gives them. An ablated copy computes wrong values: it is
@@ -40,6 +45,18 @@ CASES = (("scan", "bfloat16", 4, 512, 64, 64, 1, 128),
          ("local", "float16", 4, 512, 64, 64, 1, 128),
          ("local", "float32", 2, 300, 8, 64, 2, 128))
 ABLATE_CASES = (CASES[0], CASES[2], CASES[5])
+
+# (kernel, dtype, rows, n): every 2^24-element case of chip_smoke.py's
+# reduce and scan, and the local scan of the log-depth family
+REDUCE_SCAN_CASES = (
+    ("reduce", "float16", 1 << 20, 16), ("scan", "float16", 1 << 20, 16),
+    ("reduce", "float16", 65536, 256), ("scan", "float16", 65536, 256),
+    ("reduce", "float16", 4096, 4096), ("scan", "float16", 4096, 4096),
+    ("reduce", "float32", 65536, 256), ("scan", "float32", 65536, 256),
+    ("reduce", "float32", 16, 1 << 20), ("scan", "float32", 16, 1 << 20),
+    ("reduce", "float32", 1, 1 << 24), ("scan", "float32", 1, 1 << 24),
+    ("local_scan", "float16", 65536, 256),
+    ("local_scan", "float32", 65536, 256))
 
 # one phase of tc_chunk_loop each: (text, replacement) pairs
 ABLATIONS = {
@@ -91,6 +108,27 @@ def worker(src: Path, label: str, cases, build_only: bool) -> None:
             ms = smoke.time_ms(lambda: kops.weighted_scan(x, la))
             print(f"{label} | weighted_scan float32 64 x 4096 | {ms:.4f} ms",
                   flush=True)
+            time_reduce_scan(torch, smoke, kops, gen, label)
+
+
+def time_reduce_scan(torch, smoke, kops, gen, label: str) -> None:
+    """Each case of REDUCE_SCAN_CASES, and its library call."""
+    for kernel, dtype, rows, n in REDUCE_SCAN_CASES:
+        x = torch.randn(rows, n, generator=gen, device="cuda").to(
+            getattr(torch, dtype))
+        if kernel == "reduce":
+            fn = (lambda: kops.segmented_reduce(x))
+            lib = (lambda: torch.sum(x, -1, dtype=torch.float32))
+        elif kernel == "scan":
+            fn = (lambda: kops.segmented_scan(x))
+            lib = (lambda: torch.cumsum(x, -1, dtype=torch.float32))
+        else:
+            fn = (lambda: kops.matmul_local_scan(x, 256))
+            lib = (lambda: torch.cumsum(x.view(rows, -1, 256), -1,
+                                        dtype=torch.float32))
+        ms, lib_ms = smoke.time_ms(fn), smoke.time_ms(lib)
+        print(f"{label} | {kernel} {dtype} {rows} x {n} | {ms:.4f} ms | "
+              f"library {lib_ms:.4f} ms", flush=True)
 
 
 def ablated_copy(name: str, edits) -> Path:
