@@ -9,16 +9,17 @@ Phases:
    them, then the build of ``src/repro_torch/csrc`` (nvcc, sm_90a) and its
    time, the registers and spills ``nvcc -Xptxas -v`` gave each instance of
    the flash-attention (wgmma), RMSNorm, tensor-core SSD (``ssd_scan``,
-   ``local_ssd``) and reduce/scan (``piece_totals``, ``piece_scan`` and the
-   combine passes) kernels, and flash attention's dynamic shared memory per
-   block.
+   ``local_ssd``), reduce/scan (``piece_totals``, ``piece_scan`` and the
+   combine passes) and weighted-scan (``wscan_pass``, ``wscan_fold``,
+   ``wscan_carry``) kernels, and flash attention's dynamic shared memory
+   per block.
 2. Main path, four runs, each with every kernel's launch count set to 0
    just before it and read just after: the public ops (``repro_torch.ops``)
    at 2^24 elements and at the models' shapes, on the linear kernels and
    on the log-depth family (``policy="tile_logdepth"``), where every kernel
-   must run, with the linear reduce and scan of 16 rows of 2^20 held
-   against ``policy="baseline"`` and a mixed-dtype SSD (bf16 x, f32 b, c)
-   returning y in bf16 on both families; then the engine of
+   must run, with the linear reduce, scan and weighted scan of 16 rows of
+   2^20 held against ``policy="baseline"`` and a mixed-dtype SSD (bf16 x,
+   f32 b, c) returning y in bf16 on both families; then the engine of
    ``repro_torch.launch.serve`` serving mamba2-1.3b FULL (48 layers),
    llama3.2-1b FULL (16 layers), and mamba2-1.3b FULL again under
    ``policy="ssd=tile_logdepth"``, random weights from seed 0, to four
@@ -37,7 +38,9 @@ Phases:
    path's shapes (the reduce and scan at 2^24 elements from 2^20 rows of 16
    to one row, RMSNorm also at the served decode and prefill shapes,
    flash attention also on its D = 128 instance, the SSD scan also at the
-   served wave and on a 64-chunk chain), with the error and its
+   served wave and on a 64-chunk chain, the weighted scan from 65536 rows
+   of 256 to one row of 2^24 and in bf16, its local pass also at 16 rows of
+   2^20), with the error and its
    tolerance (flash attention row by row, against each output row's RMS),
    the times of the kernel,
    the plain version and one library call where PyTorch has one, and the
@@ -145,7 +148,10 @@ def ptxas_report(build_log: Path, names=("flash_attention_wgmma_kernel",
                                           "piece_totals_kernel",
                                           "piece_scan_kernel",
                                           "tcu_reduce_combine_kernel",
-                                          "tcu_scan_carry_kernel")
+                                          "tcu_scan_carry_kernel",
+                                          "wscan_pass_kernel",
+                                          "wscan_fold_kernel",
+                                          "wscan_carry_kernel")
                  ) -> list[str]:
     """Registers, shared memory and spills that ``nvcc -Xptxas -v`` gave
     each instance of the named kernels, one line per instance."""
@@ -275,15 +281,31 @@ def ssd_cases(torch, kops, ref, gen):
             library=None, rtol=8e-3 if dtype == torch.bfloat16 else 2e-3,
             nbytes=nbytes(*ins) + y_bytes + st_bytes,
             ops=ssd_flops(bsz, seqlen, nheads, hdim, nstate), dtype=dtype))
-    rows, n = 64, 4096
-    x = torch.randn(rows, n, generator=gen, device="cuda")
-    la = -0.5 * torch.rand(rows, n, generator=gen, device="cuda")
-    out.append(dict(
-        kernel="ssd_scan", label=f"weighted_scan f32 rows={rows} n={n}",
-        primary=False, run=lambda: kops.weighted_scan(x, la),
-        plain=lambda: ref.weighted_scan_ref(x, la), library=None, rtol=2e-3,
-        nbytes=nbytes(x, la) + 4 * x.numel(), ops=2 * x.numel(),
-        dtype=torch.float32))
+    return out
+
+
+# the weighted scan's cases: (dtype, rows, n); the ops pass's shape first
+WEIGHTED_CASES = (("float32", 64, 4096), ("float32", 65536, 256),
+                  ("float32", 16, 1 << 20), ("float32", 1, 1 << 24),
+                  ("bfloat16", 16, 1 << 20))
+
+
+def weighted_cases(torch, kops, ref, gen):
+    """weighted_scan.cu from many short rows to one row of 2^24, x and
+    log_a in their own dtype, y in f32."""
+    out = []
+    for dtype, rows, n in WEIGHTED_CASES:
+        dt = getattr(torch, dtype)
+        x = torch.randn(rows, n, generator=gen, device="cuda").to(dt)
+        la = (-0.5 * torch.rand(rows, n, generator=gen, device="cuda")).to(dt)
+        out.append(dict(
+            kernel="weighted_scan", label=f"{dtype} rows={rows} n={n}",
+            primary=(dtype, rows, n) == WEIGHTED_CASES[0],
+            run=lambda x=x, la=la: kops.weighted_scan(x, la),
+            plain=lambda x=x, la=la: ref.weighted_scan_ref(x, la),
+            library=None, rtol=2e-3, nbytes=nbytes(x, la) + 4 * x.numel(),
+            # one multiply-add per element (and one exp)
+            ops=2 * x.numel(), dtype=dt))
     return out
 
 
@@ -319,16 +341,17 @@ def logdepth_cases(torch, kops, ref, gen):
             rtol=1e-3, nbytes=nbytes(x) + 4 * x.numel(), ops=x.numel(),
             dtype=dtype))
     q = HOPPER["weighted_scan_logdepth"]["q"]
-    rows, n = 64, 4096
-    x = torch.randn(rows, n, generator=gen, device="cuda")
-    la = -0.5 * torch.rand(rows, n, generator=gen, device="cuda")
-    out.append(dict(
-        kernel="matmul_local_weighted", label=f"f32 rows={rows} n={n} q={q}",
-        primary=True, run=lambda: kops.matmul_local_weighted(x, la, q),
-        plain=lambda: ref.local_weighted_ref(x, la, q), library=None,
-        rtol=1e-4, nbytes=nbytes(x, la) + 4 * x.numel(),
-        # one multiply-add per kept entry of each block's q x q mask
-        ops=rows * (n // q) * q * (q + 1), dtype=torch.float32))
+    for rows, n in ((64, 4096), (16, 1 << 20)):
+        x = torch.randn(rows, n, generator=gen, device="cuda")
+        la = -0.5 * torch.rand(rows, n, generator=gen, device="cuda")
+        out.append(dict(
+            kernel="matmul_local_weighted",
+            label=f"f32 rows={rows} n={n} q={q}", primary=rows == 64,
+            run=lambda x=x, la=la: kops.matmul_local_weighted(x, la, q),
+            plain=lambda x=x, la=la: ref.local_weighted_ref(x, la, q),
+            library=None, rtol=1e-4, nbytes=nbytes(x, la) + 4 * x.numel(),
+            # one multiply-add per element (and one exp)
+            ops=2 * x.numel(), dtype=torch.float32))
     q = HOPPER["ssd_logdepth"]["q"]
     for shape, dtype, primary in (((4, 512, 64, 64, 1, 128), torch.bfloat16,
                                    True),
@@ -492,6 +515,7 @@ def check_kernels(smoke: Smoke, kops, ref) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = (reduce_scan_cases(torch, kops, ref, gen)
              + ssd_cases(torch, kops, ref, gen)
+             + weighted_cases(torch, kops, ref, gen)
              + rmsnorm_cases(torch, kops, ref, gen)
              + attention_cases(torch, kops, gen)
              + logdepth_cases(torch, kops, ref, gen))
@@ -568,11 +592,14 @@ def compare_whole_ops(smoke: Smoke, ops, ref) -> list[dict]:
                       lambda x=x: ref.segmented_scan_ref(x),
                       lambda x=x: torch.cumsum(x, -1, dtype=torch.float32),
                       1e-3))
-    x = torch.randn(64, 4096, generator=gen, device="cuda")
-    la = -0.5 * torch.rand(64, 4096, generator=gen, device="cuda")
-    cases.append(("weighted_scan f32 rows=64 n=4096",
-                  lambda p: ops.weighted_scan(x, la, policy=p),
-                  lambda: ref.weighted_scan_ref(x, la), None, 2e-3))
+    for rows, n in ((64, 4096), (16, 1 << 20)):
+        x = torch.randn(rows, n, generator=gen, device="cuda")
+        la = -0.5 * torch.rand(rows, n, generator=gen, device="cuda")
+        cases.append((f"weighted_scan f32 rows={rows} n={n}",
+                      lambda p, x=x, la=la: ops.weighted_scan(x, la,
+                                                              policy=p),
+                      lambda x=x, la=la: ref.weighted_scan_ref(x, la), None,
+                      2e-3))
     for shape, dtype in (((4, 512, 64, 64, 1, 128), torch.bfloat16),
                          ((4, 468, 64, 64, 1, 128), torch.bfloat16),
                          ((2, 300, 8, 64, 2, 128), torch.float32)):
@@ -646,12 +673,16 @@ def ops_pass(smoke: Smoke, ops, ref):
     ld_sc = ops.scan(x, exclusive=True, policy=ld)
     long_row = torch.randn(16, 1 << 20, generator=gen, device="cuda")
     ld_long = ops.scan(long_row, policy=ld)
+    long_la = -0.5 * torch.rand(16, 1 << 20, generator=gen, device="cuda")
+    ws_long = ops.weighted_scan(long_row, long_la)
     ld_ws = ops.weighted_scan(ws_x, la, policy=ld)
     ld_y, ld_st = ops.ssd(*ssd_in, policy=ld, return_state=True)
     torch.cuda.synchronize()
     for name, t, shape in (("reduce", red, (N_ELEMS // 256,)),
                            ("scan", sc, (N_ELEMS // 256, 256)),
                            ("weighted_scan", ws, (64, 4096)),
+                           ("weighted_scan long row", ws_long,
+                            (16, 1 << 20)),
                            ("rmsnorm", nrm, (2048, 2048)),
                            ("ssd.y", y, (4, 512, 64, 64)),
                            ("ssd.state", st, (4, 64, 64, 128)),
@@ -672,10 +703,16 @@ def ops_pass(smoke: Smoke, ops, ref):
         if t[:, 0].abs().max().item() != 0.0:
             smoke.fail(f"ops.{name}(exclusive=True) does not start at 0")
     # the linear kernels on the long row, where each row is cut into pieces
-    # across the card, against torch.sum / torch.cumsum
-    for name, op, rtol in (("reduce", ops.reduce, 2e-4),
-                           ("scan", ops.scan, 1e-3)):
-        got, want = op(long_row), op(long_row, policy="baseline")
+    # across the card, against torch.sum / torch.cumsum and the weighted
+    # scan's plain version
+    base = "baseline"
+    for name, got, want, rtol in (
+            ("reduce", ops.reduce(long_row), ops.reduce(long_row,
+                                                        policy=base), 2e-4),
+            ("scan", ops.scan(long_row), ops.scan(long_row, policy=base),
+             1e-3),
+            ("weighted_scan", ws_long,
+             ops.weighted_scan(long_row, long_la, policy=base), 2e-3)):
         err = (got - want).abs().max().item()
         tol = rtol * max(1.0, want.abs().max().item())
         if got.shape != want.shape or not err <= tol:

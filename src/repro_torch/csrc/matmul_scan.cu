@@ -16,12 +16,15 @@
 //                   a piece whose carry starts at zero; a warp owns 16
 //                   blocks.
 //                   Bound: bytes (one read, one f32 write).
-//   local_weighted  y = exp(segsum(lambda)) x per q block of a row: a warp
-//                   owns one (row, block), scans lambda in shared memory
-//                   and sums y_t = sum_{s<=t} exp(Lambda_t - Lambda_s) x_s
-//                   with FMA loops; masked entries are never exponentiated.
-//                   Bound: bytes; the q/2 exps per element are the
-//                   practical limit.
+//   local_weighted  y = exp(segsum(lambda)) x per q block of a row (q = 16,
+//                   32, 64 or 128): wscan_tile.cuh's streaming loop, the
+//                   weighted scan's, with the tree on segments of q / 8
+//                   lanes and no carry between steps, so every block starts
+//                   from zero. Per element one exp and a few FMAs; no
+//                   subtraction of log-decays, so a log_a of -inf stays
+//                   finite. A warp owns a piece of whole steps (a row, or a
+//                   column range of one cut so that few long rows fill the
+//                   card). Bound: bytes (two f32 reads, one f32 write).
 //   local_ssd       per (batch, head, chunk of q steps): y_local =
 //                   ((C B^T) o M) (dt o X) and the chunk state S = (B o
 //                   w)^T (dt o X), the chunk body of ssd_scan.cu without
@@ -50,6 +53,7 @@
 
 #include "ssd_chunk.cuh"
 #include "tcu_tile.cuh"
+#include "wscan_tile.cuh"
 
 namespace rt {
 
@@ -71,39 +75,29 @@ static int launch_local_scan(const void* x, void* out, long long rows,
 }
 
 // ---------------------------------------------------------------------------
-// local weighted scan
+// local weighted scan: wscan_tile.cuh's loop, restarted every q columns
 
-constexpr int kWtWarps = 8;
 constexpr int kWtMaxQ = 128;
 
-__global__ void __launch_bounds__(kWtWarps * 32)
-    local_weighted_kernel(const float* __restrict__ x,
-                          const float* __restrict__ lam,
-                          float* __restrict__ y, long long n, int q,
-                          long long items) {
-  __shared__ float cum_s[kWtWarps][kWtMaxQ];
-  __shared__ float x_s[kWtWarps][kWtMaxQ];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long item = (long long)blockIdx.x * kWtWarps + warp;
-  if (item >= items) return;
-  const long long nb = (n + q - 1) / q;
-  const long long base = (item / nb) * n, c0 = (item % nb) * q;
-  float* cum = cum_s[warp];
-  float* xs = x_s[warp];
-  for (int t = lane; t < q; t += 32) {
-    const bool ok = c0 + t < n;
-    cum[t] = ok ? lam[base + c0 + t] : 0.f;
-    xs[t] = ok ? x[base + c0 + t] : 0.f;
-  }
-  __syncwarp();
-  chunk_cumsum(cum, nullptr, q, lane);
-  __syncwarp();
-  for (int t = lane; t < q && c0 + t < n; t += 32) {
-    const float ct = cum[t];
-    float acc = 0.f;
-    for (int s = 0; s <= t; ++s) acc += expf(ct - cum[s]) * xs[s];
-    y[base + c0 + t] = acc;
-  }
+static int launch_local_weighted(const float* x, const float* lam, float* y,
+                                 long long rows, long long n, int q,
+                                 cudaStream_t stream) {
+  // pieces of whole steps, short enough that the rows' pieces give every SM
+  // 16 warps, and at most 16 steps long
+  constexpr long long cols = wscan::kCols;
+  const long long steps = (n + cols - 1) / cols;
+  const long long target = 16LL * sm_count();
+  long long per = (rows * steps + target - 1) / target;
+  per = std::max(1LL, std::min(per, 16LL));
+  const long long len = per >= steps ? n : per * cols;
+  const wscan::Pieces geo{rows, n, (n + len - 1) / len, len};
+  const long long by_items =
+      (geo.count() + wscan::kWarps - 1) / wscan::kWarps;
+  const int blocks = (int)std::min<long long>(by_items, 8LL * sm_count());
+  wscan::launch_pass<float, float, wscan::kLocal>(x, lam, y, nullptr, geo,
+                                                  q / wscan::kE, blocks,
+                                                  stream);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -250,22 +244,16 @@ extern "C" int matmul_local_scan_launch(const void* x, void* out,
   }
 }
 
-// x, lam, y: (rows, n) f32 contiguous. q must be a multiple of 32, at most
-// 128.
+// x, lam, y: (rows, n) f32 contiguous. q must be 16, 32, 64 or 128.
 extern "C" int matmul_local_weighted_launch(const void* x, const void* lam,
                                             void* y, long long rows,
                                             long long n, int q,
                                             void* stream) {
-  if (rows < 1 || n < 1 || q < 32 || q % 32 || q > rt::kWtMaxQ)
+  if (rows < 1 || n < 1 || q < 16 || q > rt::kWtMaxQ || (q & (q - 1)))
     return (int)cudaErrorInvalidValue;
-  const long long items = rows * ((n + q - 1) / q);
-  const unsigned blocks =
-      (unsigned)((items + rt::kWtWarps - 1) / rt::kWtWarps);
-  rt::local_weighted_kernel<<<blocks, rt::kWtWarps * 32, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
+  return rt::launch_local_weighted(
       static_cast<const float*>(x), static_cast<const float*>(lam),
-      static_cast<float*>(y), n, q, items);
-  return (int)cudaGetLastError();
+      static_cast<float*>(y), rows, n, q, static_cast<cudaStream_t>(stream));
 }
 
 // Dynamic shared memory the local SSD pass's FMA instance needs at chunk q

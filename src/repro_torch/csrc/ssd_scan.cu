@@ -39,8 +39,8 @@
 // threads per (batch, head); the chunk's B^T, C, dt.X, the q x q masked
 // C B^T and H in about 130 KB of f32 shared memory; each product gives
 // every thread a 4x4 register tile whose column operand is read as float4
-// from a [k][col] array. The weighted scan rides this instance as H = G =
-// P = N = 1 with stride-0 dt, b and c.
+// from a [k][col] array. (The weighted scan has its own kernel,
+// weighted_scan.cu.)
 //
 // Both: the mask s > t is applied before the exp (the TPU code
 // exponentiates everywhere and masks afterwards; here an inf * 0 would

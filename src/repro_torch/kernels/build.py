@@ -40,6 +40,7 @@ SIGNATURES = {
     "tcu_reduce_launch": (_P, _P, _P) + (_LL,) * 4 + (_I,) * 3 + (_P,),
     "tcu_scan_launch": (_P, _P, _P) + (_LL,) * 4 + (_I,) * 3 + (_P,),
     "ssd_scan_launch": (_P,) * 7 + (_I,) * 8 + (_LL,) * 15 + (_P,),
+    "weighted_scan_launch": (_P,) * 4 + (_LL,) * 4 + (_I,) * 4 + (_P,),
     "rmsnorm_launch": (_P, _P, _P, _LL, _I, _I, _I, ctypes.c_float, _I, _P),
     "flash_attention_launch": (_P,) * 4 + (_I,) * 9 + (ctypes.c_float,)
                               + (_LL,) * 9 + (_P,),

@@ -30,7 +30,21 @@ HOPPER = {
     # (the FMA instance): the (N, P) state, B^T, C, X.dt and the q x q
     # C.B^T block in about 130 KB of f32 shared memory, one block per SM.
     "ssd": {"q": 64},
-    "weighted_scan": {"q": 64},
+    # the weighted scan (csrc/weighted_scan.cu, loop csrc/wscan_tile.cuh): a
+    # warp owns one piece (a row, or a column range of one) and walks it in
+    # steps of 256 columns, 8 per lane, ``depth`` steps of 16-byte loads in
+    # flight (whole rows of one step: 4 rows a warp), eight warps a block.
+    # weighted_scan_plan keeps one piece per row when the rows give every
+    # SM ``warps_per_sm`` warps. Fewer rows of at most ``block_warps`` x
+    # ``depth`` steps are folded into a block: up to 8 pieces a row, one
+    # batch of loads each, joined through shared memory in one launch.
+    # Longer rows are cut into pieces of at least ``min_steps`` steps,
+    # which a fixed-order carry pass joins. 16 warps an SM with four steps
+    # of x and log_a in flight are 64 to 128 KB of loads per SM, the same
+    # budget as the reduce and scan.
+    "weighted_scan": {"step": 256, "depth": 4, "warps_per_sm": 16,
+                      "min_steps": 16, "max_blocks_per_sm": 8,
+                      "block_warps": 8},
     # the log-depth family (tile_logdepth): the local passes of
     # csrc/matmul_scan.cu, then a tree over the block totals.
     # - scan: every ``block_n`` columns of a row are one piece of the
@@ -38,8 +52,10 @@ HOPPER = {
     #   warp owns 16 pieces. 256 columns are eight f16 or sixteen f32 steps;
     #   a 2^20-long row is 4096 independent pieces, and the tree then
     #   combines 4096 totals per row in three levels.
-    # - weighted_scan: a warp owns one (row, q-block); q = 64 keeps the q/2
-    #   exps per element low and 64 x 4096 rows at 4096 warps.
+    # - weighted_scan: blocks of q columns on the weighted scan's streaming
+    #   loop, each restarted from zero (a segment of q / 8 lanes of a step);
+    #   q = 64 makes a 2^20-long row 16384 blocks, whose totals the tree
+    #   combines in four levels.
     # - ssd: the chunk body of ssd_scan.cu without the carried state.
     #   f16/bf16 at q <= 64: the same 108 KB ring, two blocks per SM, each
     #   walking the chunks strided by the grid; f32: one block per chunk,
@@ -111,21 +127,16 @@ def rmsnorm_threads(rows: int, d: int, itemsize: int) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
-class ReduceScanPlan:
-    """Launch plan of ``csrc/tcu_reduce.cu`` and ``csrc/tcu_scan.cu``.
+class PiecePlan:
+    """Launch plan of the streaming kernels that cut rows into pieces
+    (``csrc/tcu_reduce.cu``, ``tcu_scan.cu``, ``weighted_scan.cu``).
 
     Row r is cut into ``pieces`` column ranges of ``length`` columns (the
     last one shorter when n is ragged, or empty); piece p of row r is the
-    kernels' piece ``r * pieces + p``, and a warp owns 16 consecutive
-    pieces. With 2 to 16 pieces (a power of two) a row's pieces share one
-    warp, which combines them in the same launch; with more, a second
-    launch combines each row's sums from the workspace: the reduce's warps
-    first add runs of 16 pieces (so its pieces are a multiple of 16), the
-    scan's combine writes every piece's carry.
-    ``blocks`` is the grid of the streaming kernels, ``combine_threads`` the
-    block of the fixed-order pass over each row's pieces (with more than
-    one piece), and ``workspace`` the f32 scratch the wrapper allocates:
-    the pieces' totals, and for the scan also their carries."""
+    kernels' piece ``r * pieces + p``. ``blocks`` caps the grid of the
+    streaming kernels, ``combine_threads`` is the block of the fixed-order
+    pass over each row's pieces (where there is one), and ``workspace`` the
+    f32 scratch the wrapper allocates for that pass."""
 
     pieces: int
     length: int
@@ -134,23 +145,36 @@ class ReduceScanPlan:
     workspace: int
 
 
+def _split(n: int, want: int, step: int, min_steps: int) -> tuple[int, int]:
+    """``(pieces, length)``: n columns cut into about ``want`` pieces of
+    whole steps, none shorter than ``min_steps`` steps; one piece of n when
+    that leaves no cut."""
+    length = max(-(-n // want), min_steps * step)
+    length = -(-length // step) * step
+    return (-(-n // length), length) if length < n else (1, n)
+
+
 def reduce_scan_plan(rows: int, n: int, itemsize: int, sms: int, *,
-                     scan: bool) -> ReduceScanPlan:
-    """The plan for ``rows`` rows of ``n`` elements of ``itemsize`` bytes on
-    a card of ``sms`` streaming multiprocessors."""
+                     scan: bool) -> PiecePlan:
+    """The plan of ``tcu_reduce.cu`` and ``tcu_scan.cu`` for ``rows`` rows of
+    ``n`` elements of ``itemsize`` bytes on a card of ``sms`` streaming
+    multiprocessors.
+
+    A warp owns 16 consecutive pieces. With 2 to 16 pieces (a power of two)
+    a row's pieces share one warp, which combines them in the same launch;
+    with more, a second launch combines each row's sums from the
+    workspace: the reduce's warps first add runs of 16 pieces (so its
+    pieces are a multiple of 16), the scan's combine writes every piece's
+    carry. The workspace holds the pieces' totals, and for the scan also
+    their carries."""
     geo = HOPPER["reduce_scan"]
     rows, n = max(1, int(rows)), max(1, int(n))
     step = 64 // int(itemsize)                     # columns per step
     target = int(sms) * geo["warps_per_sm"]        # warps that fill the card
     pieces, length = 1, n
     if -(-rows // MMA_TILE) < target:
-        want = -(-target * MMA_TILE // rows)
-        length = max(-(-n // want), geo["min_steps"] * step)
-        length = -(-length // step) * step
-        if length < n:
-            pieces = -(-n // length)
-        else:
-            length = n
+        pieces, length = _split(n, -(-target * MMA_TILE // rows), step,
+                                geo["min_steps"])
     if 1 < pieces <= MMA_TILE:
         # 2, 4, 8 or 16 pieces, so that a row's pieces share a warp's
         # group, which combines them itself (tail pieces may be empty)
@@ -168,7 +192,51 @@ def reduce_scan_plan(rows: int, n: int, itemsize: int, sms: int, *,
                                          else pieces // MMA_TILE)
     combine = _pow2_at_least(min(1024, max(WARP, WARP * -(-sums // 256))))
     work = 0 if sums == 1 else rows * sums * (2 if scan else 1)
-    return ReduceScanPlan(pieces, length, blocks, combine, work)
+    return PiecePlan(pieces, length, blocks, combine, work)
+
+
+def weighted_scan_plan(rows: int, n: int, sms: int) -> PiecePlan:
+    """The plan of ``weighted_scan.cu`` for ``rows`` rows of ``n`` elements
+    on a card of ``sms`` streaming multiprocessors (the same for every
+    dtype: a step is 256 columns of x and of log_a).
+
+    A warp owns one piece. With one piece a row the scan is one launch.
+    With 2, 4 or 8 pieces of at most one batch (``depth`` steps) a row's
+    pieces are warps of one block, which joins them through shared memory:
+    one launch, no workspace. With more, whole steps each, three launches:
+    every piece's total ``(sum of log_a, state from zero)`` into the
+    workspace, each row's carries from those totals in a fixed order (one
+    block of ``combine_threads`` per row), then every piece scanned from
+    its carry; the workspace holds the totals' two arrays and the
+    carries."""
+    geo = HOPPER["weighted_scan"]
+    rows, n = max(1, int(rows)), max(1, int(n))
+    step = geo["step"]
+    target = int(sms) * geo["warps_per_sm"]        # warps that fill the card
+    pieces, length = 1, n
+    if rows < target and step < n <= geo["block_warps"] * geo["depth"] * step:
+        # folded in a block: 2, 4 or 8 pieces of whole steps
+        pieces = min(geo["block_warps"], _pow2_at_least(-(-n // step)))
+        length = -(-(-(-n // pieces)) // step) * step
+    elif rows < target:
+        pieces, length = _split(n, -(-target // rows), step,
+                                geo["min_steps"])
+    blocks = min(-(-rows * pieces // geo["block_warps"]),
+                 int(sms) * geo["max_blocks_per_sm"])
+    # the carry pass: a thread folds ceil(pieces / threads) pieces in order
+    combine = min(256, max(WARP, _pow2_at_least(pieces)))
+    split = pieces > 1 and not weighted_folded(pieces, length)
+    work = 3 * rows * pieces if split else 0
+    return PiecePlan(pieces, length, blocks, combine, work)
+
+
+def weighted_folded(pieces: int, length: int) -> bool:
+    """Whether ``csrc/weighted_scan.cu`` joins a row's pieces inside one
+    block (its ``fold_ok``): 2, 4 or 8 pieces of at most one batch."""
+    geo = HOPPER["weighted_scan"]
+    return (1 < pieces <= geo["block_warps"]
+            and geo["block_warps"] % pieces == 0
+            and length <= geo["depth"] * geo["step"])
 
 
 def _pow2_at_least(n: int) -> int:

@@ -48,6 +48,10 @@ KERNELS = {
     "ssd_scan": Kernel(
         "ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
         "src/repro/kernels/ssd_scan.py:116", ref.ssd_scan_ref),
+    # the reference runs its weighted scan on the SSD kernel at N = P = 1
+    "weighted_scan": Kernel(
+        "weighted_scan", "src/repro_torch/csrc/weighted_scan.cu",
+        "src/repro/kernels/ssd_scan.py:116", ref.weighted_scan_ref),
     "rmsnorm": Kernel(
         "rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
         "src/repro/kernels/fused_rmsnorm.py:56", ref.rmsnorm_ref),
@@ -197,7 +201,7 @@ def segmented_scan(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# SSD chunk scan (ssd_scan.cu), and the weighted scan riding it
+# SSD chunk scan (ssd_scan.cu)
 
 
 def _strides(t: torch.Tensor, dims: int) -> list[int]:
@@ -286,24 +290,39 @@ def ssd_scan(x, dt, a, b, c, *, return_state: bool = False):
     return (y, state) if return_state else y
 
 
+# ---------------------------------------------------------------------------
+# the weighted scan (weighted_scan.cu)
+
+
 def _weighted_fwd(x: torch.Tensor, log_a: torch.Tensor) -> torch.Tensor:
     if not x.is_cuda:
         return ref.weighted_scan_ref(x, log_a)
-    # the SSD kernel with H = G = P = N = 1, dt = b = c = 1 and
-    # lambda = log_a: h_t = exp(log_a_t) h_{t-1} + x_t, y_t = h_t
-    lead, n = x.shape[:-1], x.shape[-1]
+    if x.shape != log_a.shape:
+        raise ValueError(f"weighted_scan: x {tuple(x.shape)} and log_a "
+                         f"{tuple(log_a.shape)} differ")
+    lib = _library(x)
+    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     if x.numel() == 0:
-        return x.float()
-    xf = _rows_view(x.float())
-    la = _rows_view(log_a.float())
-    rows = xf.shape[0]
-    one = torch.ones((), dtype=torch.float32, device=x.device)
-    q = layout.fit_block(n, layout.HOPPER["weighted_scan"]["q"], MMA_TILE)
-    y, _ = _launch_ssd(
-        xf, one, la, one, one, q=q, x_strides=[n, 1, 0],
-        dt_strides=[0, 0, 0], lam_strides=[n, 1, 0], b_strides=[0, 0, 0],
-        c_strides=[0, 0, 0], dims=(rows, n, 1, 1, 1, 1))
-    return y.reshape(*lead, n)
+        return out
+    # x is read in its own dtype (another float type goes to f32), log_a in
+    # x's dtype or f32
+    if x.dtype not in build.DTYPE_CODE:
+        x = x.float()
+    if log_a.dtype not in (x.dtype, torch.float32):
+        log_a = log_a.float()
+    xr, la = _rows_view(x), _rows_view(log_a)
+    rows, n = xr.shape
+    plan = layout.weighted_scan_plan(rows, n, devmod.sm_count(x.device))
+    ws = (torch.empty(plan.workspace, dtype=torch.float32, device=x.device)
+          if plan.workspace else None)
+    build.check(lib.weighted_scan_launch(
+        xr.data_ptr(), la.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), rows, n, plan.pieces,
+        plan.length, plan.blocks, plan.combine_threads,
+        build.DTYPE_CODE[x.dtype], build.DTYPE_CODE[la.dtype],
+        build.stream_ptr(x)), "weighted_scan")
+    KERNELS["weighted_scan"].launches += 1
+    return out
 
 
 def weighted_scan(x: torch.Tensor, log_a: torch.Tensor) -> torch.Tensor:

@@ -22,17 +22,21 @@ def segmented_scan_ref(x: torch.Tensor) -> torch.Tensor:
 
 def weighted_scan_ref(x: torch.Tensor, log_a: torch.Tensor) -> torch.Tensor:
     """Decayed scan ``y_i = exp(log_a_i) * y_{i-1} + x_i`` along the last
-    axis, f32 accumulation (sequential)."""
+    axis, f32 accumulation.
+
+    A log-step (Hillis-Steele) scan of the pairs ``(a, y) = (exp(log_a),
+    x)`` under the combine of the JAX oracle's ``associative_scan``,
+    ``(a_l, y_l) . (a_r, y_r) = (a_l a_r, y_r + a_r y_l)``: round k combines
+    every element with the one ``2^k`` before it, ``ceil(log2 n)`` rounds of
+    elementwise ops in all."""
     a = torch.exp(log_a.float())
-    xf = x.float()
-    ys = []
-    y = torch.zeros_like(xf[..., 0])
-    for i in range(xf.shape[-1]):
-        y = a[..., i] * y + xf[..., i]
-        ys.append(y)
-    if not ys:
-        return xf
-    return torch.stack(ys, dim=-1)
+    y = x.to(torch.float32, copy=True)     # never the caller's tensor
+    n, d = y.shape[-1], 1
+    while d < n:
+        y = torch.cat([y[..., :d], y[..., d:] + a[..., d:] * y[..., :-d]], -1)
+        a = torch.cat([a[..., :d], a[..., d:] * a[..., :-d]], -1)
+        d *= 2
+    return y
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, *,

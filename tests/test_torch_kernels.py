@@ -164,6 +164,139 @@ def test_weighted_scan_kernel_matches_plain(cuda):
                                atol=2e-3)
 
 
+# the weighted scan (weighted_scan.cu on csrc/wscan_tile.cuh): one launch
+# per call with one piece a row, three with pieces (totals, carries, scan)
+
+
+def weighted_inputs(shape, dtype, device, la_dtype=None, seed=None):
+    g = torch.Generator(device=device).manual_seed(
+        shape[-1] if seed is None else seed)
+    x = torch.randn(*shape, generator=g, device=device).to(dtype)
+    la = (-0.5 * torch.rand(*shape, generator=g, device=device)).to(
+        la_dtype or dtype)
+    return x, la
+
+
+def assert_weighted_close(x, la):
+    """weighted_scan against its plain version on the same inputs, one
+    launch of its kernel and none of another, at the tolerance of
+    test_weighted_scan_kernel_matches_plain."""
+    before = kops.launch_counts()
+    got = kops.weighted_scan(x, la)
+    after = kops.launch_counts()
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    torch.testing.assert_close(got, ref.weighted_scan_ref(x, la), rtol=2e-3,
+                               atol=2e-3)
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {"weighted_scan": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("shape", [(64, 4096), (65536, 256), (16, 1 << 20),
+                                   (1, 1 << 24), (3, 1_000_003),
+                                   (1 << 20, 16), (1000, 1), (7, 3),
+                                   (17, 1000), (1, 8192), (1, 4097),
+                                   (1, 8193), (2111, 257)])
+def test_weighted_scan_long_and_short_rows_match_plain(cuda, shape, dtype):
+    """Many rows of one step (four a warp), rows folded in a block (2 to 8
+    pieces, empty tail pieces at 4097), few long rows cut into pieces
+    (three launches, from 8193 columns), one row of 2^24, a row length
+    that is not a multiple of the 8-column run (the element-by-element
+    loads), and rows of 1 and 3 columns; x and log_a in the same dtype,
+    read as they are."""
+    assert_weighted_close(*weighted_inputs(shape, dtype, cuda))
+
+
+def _weighted_piece_len(rows, n):
+    return layout.weighted_scan_plan(rows, n, devmod.sm_count(
+        torch.device("cuda"))).length
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", list(range(1, 18)))
+def test_weighted_scan_rows_and_piece_edges(cuda, rows, dtype):
+    """Rows 1..17 at an n cut into pieces, and n at, one under and one over
+    a whole number of pieces."""
+    length = _weighted_piece_len(rows, 200_000)
+    for n in (200_000, 3 * length - 1, 3 * length, 3 * length + 1):
+        assert_weighted_close(*weighted_inputs((rows, n), dtype, cuda,
+                                               seed=rows * n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,la_dtype", [
+    (torch.bfloat16, torch.float32), (torch.float16, torch.float32),
+    (torch.float32, torch.bfloat16), (torch.float16, torch.bfloat16)])
+@pytest.mark.parametrize("shape", [(65536, 256), (16, 1 << 20), (5, 999)])
+def test_weighted_scan_mixed_dtypes_match_plain(cuda, shape, x_dtype,
+                                                la_dtype):
+    """A 16-bit x with an f32 log_a is read as it is; another log_a dtype is
+    widened to f32 first."""
+    assert_weighted_close(*weighted_inputs(shape, x_dtype, cuda, la_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,n", [(16, 1 << 20), (300, 256), (3, 100_000)])
+def test_weighted_scan_reads_unaligned_views(cuda, rows, n, dtype):
+    """Rows that do not start 16-byte aligned: a contiguous view one element
+    into its storage, and a column slice (copied to rows of n - 1)."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    flat = torch.randn(rows * n + 1, generator=g, device=cuda).to(dtype)
+    lflat = (-0.5 * torch.rand(rows * n + 1, generator=g,
+                               device=cuda)).to(dtype)
+    x, la = flat[1:].view(rows, n), lflat[1:].view(rows, n)
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    assert_weighted_close(x, la)
+    assert_weighted_close(x[:, 1:], la[:, 1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(16, 1 << 20), (4096, 300), (1, 1 << 22)])
+def test_weighted_scan_with_zero_decay_is_the_prefix_sum(cuda, shape, dtype):
+    """log_a = 0: exp is exactly 1 and the weighted scan is the plain
+    prefix sum, held at the scan's tolerance (tcu_scan.cu's test)."""
+    x = torch.randn(*shape, device=cuda).to(dtype)
+    got = kops.weighted_scan(x, torch.zeros_like(x))
+    torch.testing.assert_close(got, ref.segmented_scan_ref(x), rtol=1e-3,
+                               atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 1 << 20), (3, 1_000_003),
+                                   (64, 4096)])
+def test_weighted_scan_resets_and_underflow_stay_finite(cuda, shape):
+    """log_a = -inf (a hard reset: exp is 0) in every 7th column of one
+    row, and a row whose summed log-decay underflows exp to 0 (log_a = -1
+    throughout): every value is finite and matches the plain version."""
+    x, la = weighted_inputs(shape, torch.float32, cuda)
+    la[shape[0] // 2, ::7] = float("-inf")
+    la[0] = -1.0
+    y = kops.weighted_scan(x, la)
+    assert torch.isfinite(y).all()
+    torch.testing.assert_close(y, ref.weighted_scan_ref(x, la), rtol=2e-3,
+                               atol=2e-3)
+    ql = kops.matmul_local_weighted(x, la, 64)
+    assert torch.isfinite(ql).all()
+    torch.testing.assert_close(ql, ref.local_weighted_ref(x, la, 64),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 1 << 20), (1, 1 << 24),
+                                   (65536, 256), (3, 1_000_003), (64, 4096)])
+def test_weighted_scans_are_deterministic(cuda, shape):
+    """No atomics: two launches on the same input give the same bits."""
+    x, la = weighted_inputs(shape, torch.float32, cuda)
+    assert torch.equal(kops.weighted_scan(x, la), kops.weighted_scan(x, la))
+    assert torch.equal(kops.matmul_local_weighted(x, la, 64),
+                       kops.matmul_local_weighted(x, la, 64))
+
+
 # the tensor-core instance of the SSD chunk body (f16/bf16, q <= 64,
 # P <= 64, N <= 128): every product on mma.sync with hi/lo operand pairs,
 # a two-stage cp.async ring in ssd_scan.cu
@@ -223,9 +356,9 @@ def test_ssd_mma_instance_closed_form(cuda, dtype):
 @pytest.mark.cuda
 def test_f32_and_weighted_scan_launch_the_fma_instance(cuda):
     """The instance is chosen by dtype and shape before the launch: f32,
-    mixed dtypes, the weighted scan (H = G = P = N = 1) and a state wider
-    than the tile run the FMA loops; f16/bf16 at the served shape the
-    tensor cores."""
+    mixed dtypes and a state wider than the tile run the FMA loops; f16/bf16
+    at the served shape the tensor cores. The weighted scan runs its own
+    kernel, no SSD instance."""
     def launched(fn):
         before = kops.instance_counts()
         fn()
@@ -241,10 +374,13 @@ def test_f32_and_weighted_scan_launch_the_fma_instance(cuda):
     wide = ssd_inputs(1, 100, 2, 64, 1, 136, torch.bfloat16, cuda)
     assert launched(lambda: assert_ssd_close(wide, torch.bfloat16)) == {
         ("ssd_scan", "fma"): 1}
+    # the weighted scan has its own kernel (weighted_scan.cu) and launches
+    # no instance of the SSD chunk body
     x = torch.randn(3, 200, device=cuda)
     la = -0.5 * torch.rand(3, 200, device=cuda)
-    assert launched(lambda: kops.weighted_scan(x, la)) == {
-        ("ssd_scan", "fma"): 1}
+    ws_before = kops.launch_counts()["weighted_scan"]
+    assert launched(lambda: kops.weighted_scan(x, la)) == {}
+    assert kops.launch_counts()["weighted_scan"] == ws_before + 1
     assert launched(lambda: kops.matmul_local_ssd(*ins, 64)) == {
         ("matmul_local_ssd", "fma"): 1}
     ins16 = ssd_inputs(1, 100, 2, 64, 1, 128, torch.bfloat16, cuda)
@@ -477,6 +613,23 @@ def test_local_weighted_kernel_matches_plain(cuda, shape, q):
     torch.testing.assert_close(kops.weighted_scan_logdepth(x, la),
                                ref.weighted_scan_ref(x, la), rtol=2e-3,
                                atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [16, 32, 64, 128])
+@pytest.mark.parametrize("shape", [(16, 1 << 20), (3, 1_000_003), (1, 5),
+                                   (4097, 33)])
+def test_local_weighted_kernel_long_and_short_rows(cuda, shape, q):
+    """The local pass at every q it takes, on few long rows (cut into
+    pieces of whole steps), a ragged row length and rows shorter than a
+    block, bf16 inputs (widened by the wrapper) against the plain version
+    at 1e-4, one launch each."""
+    x, la = weighted_inputs(shape, torch.bfloat16, cuda)
+    before = kops.launch_counts()["matmul_local_weighted"]
+    torch.testing.assert_close(kops.matmul_local_weighted(x, la, q),
+                               ref.local_weighted_ref(x, la, q), rtol=1e-4,
+                               atol=1e-4)
+    assert kops.launch_counts()["matmul_local_weighted"] == before + 1
 
 
 @pytest.mark.cuda

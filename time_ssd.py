@@ -14,7 +14,10 @@ card, beside other versions.
 
 The reduce and scan cases (``tcu_reduce``, ``tcu_scan`` at 2^24 elements,
 from 2^20 rows of 16 to one row of 2^24, and ``matmul_local_scan``) are
-timed beside ``torch.sum`` / ``torch.cumsum`` on the same input;
+timed beside ``torch.sum`` / ``torch.cumsum`` on the same input; the
+weighted scan at ``chip_smoke.py``'s cases beside its log-depth op
+(``weighted_scan_logdepth``), and the local weighted pass at q = 64 (a
+call that takes more than a second is reported, not timed);
 ``--ablate`` takes only the SSD cases. Each version runs in its own
 process, so that its ``repro_torch`` and its kernel build are its own;
 every build starts at once, in parallel. Times
@@ -29,6 +32,7 @@ import argparse
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -103,12 +107,45 @@ def worker(src: Path, label: str, cases, build_only: bool) -> None:
             print(f"{label} | {kernel} {dtype} B={shape[0]} L={shape[1]} "
                   f"H={shape[2]} | {ms:.4f} ms", flush=True)
         if cases is CASES:
-            x = torch.randn(64, 4096, generator=gen, device="cuda")
-            la = -0.5 * torch.rand(64, 4096, generator=gen, device="cuda")
-            ms = smoke.time_ms(lambda: kops.weighted_scan(x, la))
-            print(f"{label} | weighted_scan float32 64 x 4096 | {ms:.4f} ms",
-                  flush=True)
+            time_weighted(torch, smoke, kops, gen, label)
             time_reduce_scan(torch, smoke, kops, gen, label)
+
+
+def timed(torch, smoke, fn) -> str:
+    """The median time of ``fn``, or "not measured" when one call takes more
+    than a second on the host clock (a serial chain over a long row)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once = time.perf_counter() - t0
+    if once > 1.0:
+        return f"not measured (> 1 s a call: {once:.2f} s once, host clock)"
+    return f"{smoke.time_ms(fn):.4f} ms"
+
+
+def time_weighted(torch, smoke, kops, gen, label: str) -> None:
+    """The weighted scan at each of chip_smoke.py's cases, and its
+    log-depth op whole (local pass, tree, glue) on the same input; then the
+    local pass alone at q = 64."""
+    import chip_smoke
+
+    for dtype, rows, n in chip_smoke.WEIGHTED_CASES:
+        dt = getattr(torch, dtype)
+        x = torch.randn(rows, n, generator=gen, device="cuda").to(dt)
+        la = (-0.5 * torch.rand(rows, n, generator=gen, device="cuda")).to(dt)
+        for name, fn in (
+                ("weighted_scan", lambda: kops.weighted_scan(x, la)),
+                ("weighted_scan_logdepth",
+                 lambda: kops.weighted_scan_logdepth(x, la))):
+            print(f"{label} | {name} {dtype} {rows} x {n} | "
+                  f"{timed(torch, smoke, fn)}", flush=True)
+    for rows, n in ((64, 4096), (16, 1 << 20)):
+        x = torch.randn(rows, n, generator=gen, device="cuda")
+        la = -0.5 * torch.rand(rows, n, generator=gen, device="cuda")
+        fn = (lambda: kops.matmul_local_weighted(x, la, 64))
+        print(f"{label} | local_weighted float32 {rows} x {n} q=64 | "
+              f"{timed(torch, smoke, fn)}", flush=True)
 
 
 def time_reduce_scan(torch, smoke, kops, gen, label: str) -> None:
