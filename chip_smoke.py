@@ -33,11 +33,31 @@ Phases:
    are held against the same model on the kernels' plain versions, and its
    device time is split by kind of kernel with ``torch.profiler``; 15
    decode steps on the host clock against their device time give the
-   card's idle share.
+   card's idle share. These three runs use the wave scheduler.
+   Then the continuous scheduler (the default): mamba2-1.3b FULL and
+   llama3.2-1b FULL, 8 requests of up to 512 prompt tokens and 16 new
+   tokens each on 4 slots, chunks of 16, every tick one block step
+   replayed from a CUDA graph. A warm-up request of the same capacity
+   bucket captures both graphs (T = 16 and T = 1); the measured run must
+   capture none, admit and finish 8 requests with at least 4 slot
+   refills, give every request tokens, and count 2 x layers + 1 RMSNorm
+   launches a tick (a replay adds what its capture counted). One T = 16
+   and one T = 1 tick from the graph are held against the eager step on a
+   clone of the cache (the same argmax for every active slot);
+   ``torch.profiler`` over a replayed tick must show the RMSNorm kernel 2
+   x layers + 1 times (97, 33; the largest count of three profiled ticks,
+   as the profiler may drop a record) and splits its device time by kind. In
+   f32, each request's first-token logits are held against its
+   ``prefill_last`` alone (B = 1, on the kernels) and the engine on the
+   kernels against the same engine on the plain versions, both within
+   1e-3 of the largest logit. Printed: tok/s, TTFT, ticks by T, host ms a
+   tick, device ms a tick by kind, the idle share of the T = 1 ticks, the
+   capture time, peak memory, and a T = 1 tick alone, graphed and eager.
 3. Per kernel: the kernel against its plain version on the card at the main
    path's shapes (the reduce and scan at 2^24 elements from 2^20 rows of 16
    to one row, RMSNorm also at the served decode and prefill shapes,
-   flash attention also on its D = 128 instance, the SSD scan also at the
+   the continuous T = 16 tick's 64 rows, flash attention also on its
+   D = 128 instance, the SSD scan also at the
    served wave and on a 64-chunk chain, the weighted scan from 65536 rows
    of 256 to one row of 2^24 and in bf16, its local pass also at 16 rows of
    2^20), with the error and its
@@ -49,7 +69,8 @@ Phases:
    log-depth op whole (local kernel, tree and glue) beside the linear
    kernel's op at the same shapes.
 4. A JSON line of the serve runs and whole-op times, a ``kernels`` JSON
-   line, the ``nvidia-smi`` line, and last the ``ok`` line.
+   line (launches: the main path's runs, graph replays included), the
+   ``nvidia-smi`` line, and last the ``ok`` line.
 
 Exits non-zero and prints no result when there is no CUDA device or no
 ``src/repro_torch`` beside this script; exits 1 when any phase failed.
@@ -57,12 +78,15 @@ Exits non-zero and prints no result when there is no CUDA device or no
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory
 PEAK_OPS = {"float16": 989e12, "bfloat16": 989e12,   # dense tensor cores
@@ -382,10 +406,11 @@ def rmsnorm_cases(torch, kops, ref, gen):
 
     out = []
     # the ops pass's shapes, then the served ones: a decode step's 4 rows
-    # (llama d 2048, mamba's inner norm d 4096) and the mamba prefill's
+    # (llama d 2048, mamba's inner norm d 4096; the continuous T = 1 tick),
+    # the continuous T = 16 tick's 64 rows, and the wave mamba prefill's
     # 1872 rows (4 x 468)
     for rows, d in ((2048, 2048), (2048, 4096), (4, 2048), (4, 4096),
-                    (1872, 2048), (1872, 4096)):
+                    (64, 2048), (64, 4096), (1872, 2048), (1872, 4096)):
         x = torch.randn(rows, d, generator=gen, device="cuda").to(
             torch.bfloat16)
         w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(
@@ -749,12 +774,10 @@ def ops_pass(smoke: Smoke, ops, ref):
 KINDS = ("flash_attention", "ssd_scan", "local_ssd", "rmsnorm", "gemm")
 
 
-def device_split(torch, fn) -> dict | None:
-    """Device time of one call of ``fn`` by kind of kernel, from
-    ``torch.profiler``: this repository's kernels by name, matrix products
-    (cuBLAS/CUTLASS kernels) as ``gemm``, the rest as ``other``. A
-    diagnostic: None, printed as not measured, when the profiler sees no
-    device time here."""
+def kernel_events(torch, fn) -> list | None:
+    """(name, launches, device ms) of each kernel that one call of ``fn``
+    runs, from ``torch.profiler``'s kernel events (a CUDA graph's replayed
+    kernels among them); None when the profiler fails here."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -767,23 +790,33 @@ def device_split(torch, fn) -> dict | None:
     except RuntimeError as exc:
         print(f"profiler: {exc!r}", flush=True)
         return None
+    # kernels only: a host op's device time repeats them
+    return [(e.key, e.count, getattr(e, "self_device_time_total", getattr(
+        e, "self_cuda_time_total", 0.0)) / 1e3)
+        for e in events if e.device_type == DeviceType.CUDA]
+
+
+def split_by_kind(events) -> dict | None:
+    """Device ms of ``kernel_events`` by kind of kernel: this repository's
+    kernels by name, matrix products (cuBLAS/CUTLASS kernels) as ``gemm``,
+    the rest as ``other``. A diagnostic: None, printed as not measured,
+    when the profiler saw no device time."""
     split = dict.fromkeys((*KINDS, "other"), 0.0)
-    for e in events:
-        if e.device_type != DeviceType.CUDA:   # kernels only: a host op's
-            continue                           # device time repeats them
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        if us <= 0:
-            continue
-        name = e.key.lower()
+    for name, _, ms in events or ():
+        name = name.lower()
         kind = next((k for k in KINDS if k in name), None)
         if kind is None and any(t in name for t in ("gemm", "xmma",
                                                      "cutlass", "nvjet")):
             kind = "gemm"
-        split[kind or "other"] += us / 1e3
+        split[kind or "other"] += max(ms, 0.0)
     if sum(split.values()) <= 0:
         return None
     return {k: round(v, 4) for k, v in split.items()}
+
+
+def device_split(torch, fn) -> dict | None:
+    """Device time of one call of ``fn`` by kind of kernel."""
+    return split_by_kind(kernel_events(torch, fn))
 
 
 # the runs of the served main path, each with its counts read on their own:
@@ -805,7 +838,8 @@ def serve_pass(smoke: Smoke, serve, kops, arch: str, policy: str | None,
 
     torch = smoke.torch
     engine = serve.build_engine(arch, "full", device="cuda", policy=policy,
-                                slots=4, max_new=16, seed=0)
+                                slots=4, max_new=16, scheduler="wave",
+                                seed=0)
     cfg = engine.bundle.cfg
     print(f"serve: {cfg.name} {cfg.n_layers} layers d_model={cfg.d_model} "
           f"{engine.bundle.n_params / 1e9:.3f}B params {cfg.dtype}, "
@@ -988,6 +1022,277 @@ def serve_pass(smoke: Smoke, serve, kops, arch: str, policy: str | None,
     return stats
 
 
+# the continuous scheduler's runs: the reference's default serving path,
+# every tick one block step replayed from a CUDA graph
+CONTINUOUS = ("mamba2-1.3b", "llama3.2-1b")
+
+
+def clone_tree(tree):
+    return {k: clone_tree(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def tree_max_diff(a, b) -> float:
+    if isinstance(a, dict):
+        return max(tree_max_diff(a[k], b[k]) for k in a)
+    return (a.float() - b.float()).abs().max().item()
+
+
+def ms_text(values) -> str:
+    if not values:
+        return "none"
+    return (f"{statistics.median(values):.3f} ({min(values):.3f}-"
+            f"{max(values):.3f}, n={len(values)})")
+
+
+def record_ticks(engine, keep_logits: bool = False) -> list:
+    """Wrap the engine's block step and sampling: each tick appends (T, host
+    ms from the step's inputs to the fetched argmax, inputs, logits)."""
+    ticks, cur = [], {}
+    step, sample = engine._block_step, engine._sample
+
+    def timed_step(tokens, n_valid, reset):
+        cur.update(t0=time.perf_counter(),
+                   inputs=(tokens.copy(), n_valid.copy(), reset.copy()))
+        logits = step(tokens, n_valid, reset)
+        cur["logits"] = logits.float().clone() if keep_logits else None
+        return logits
+
+    def timed_sample(logits):
+        out = sample(logits)
+        if "t0" in cur:
+            ticks.append((cur["inputs"][0].shape[1],
+                          1e3 * (time.perf_counter() - cur.pop("t0")),
+                          cur.pop("inputs"), cur.pop("logits")))
+        return out
+
+    engine._block_step, engine._sample = timed_step, timed_sample
+    return ticks
+
+
+def continuous_pass(smoke: Smoke, serve, kops, arch: str):
+    """``arch`` FULL under the continuous scheduler: 8 requests of up to 512
+    prompt tokens on 4 slots, chunks of 16; returns its numbers."""
+    from repro_torch.models import build_lm
+    from repro_torch.models.common import cast_tree
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+
+    torch = smoke.torch
+    engine = serve.build_engine(arch, "full", device="cuda", slots=4,
+                                max_new=16, scheduler="continuous",
+                                prefill_chunk=16, seed=0)
+    cfg = engine.bundle.cfg
+    norms = 2 * cfg.n_layers + 1
+    print(f"serve: {cfg.name} {cfg.n_layers} layers {cfg.dtype}, "
+          f"scheduler=continuous, 4 slots, prefill_chunk 16", flush=True)
+    reqs = serve.make_requests(8, 512, cfg.vocab, seed=0)
+    for r in reqs:
+        r.max_new = 16
+    # warm-up: the longest prompt alone, so the same capacity bucket; it
+    # captures the T = 16 and T = 1 graphs
+    longest = max(reqs, key=lambda r: len(r.prompt))
+    engine.run([Request(uid=-1, prompt=longest.prompt, max_new=16)])
+    graphs = engine.compile_stats()
+    if graphs["block"] != 2:
+        smoke.fail(f"continuous {arch}: warm-up captured {graphs['block']} "
+                   "graphs, want 2 (T = 16 and T = 1)")
+    ticks = record_ticks(engine)
+    first_tick, trace_from = engine.ticks, len(engine.trace)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    events = engine.trace[trace_from:]
+    admits = [e for e in events if e["event"] == "admit"]
+    finishes = [e for e in events if e["event"] == "finish"]
+    refills = [e for e in admits if e["tick"] > first_tick]
+    n_tok = sum(len(r.tokens) for r in results)
+    ttft = [1e3 * (r.first_token_s - r.arrival_s) for r in results]
+    by_t = {t: [ms for tt, ms, *_ in ticks if tt == t] for t in (16, 1)}
+    n_ticks = engine.ticks - first_tick
+    print(f"serve: {len(results)} requests, prompt lens "
+          f"{[r.prompt_len for r in results]}, {n_tok} tokens in "
+          f"{wall:.3f}s ({n_tok / wall:.2f} tok/s); TTFT ms median "
+          f"{statistics.median(ttft):.1f} max {max(ttft):.1f}; {n_ticks} "
+          f"ticks ({len(by_t[16])} of T=16, {len(by_t[1])} of T=1); host ms "
+          f"a tick (inputs to fetched argmax), median (min-max): T=16 "
+          f"{ms_text(by_t[16])}, T=1 {ms_text(by_t[1])}; {len(admits)} admits"
+          f" ({len(refills)} refills), {len(finishes)} finishes; graphs "
+          f"{engine.compile_stats()['block']}, captured in "
+          f"{graphs['capture_s']:.2f}s; peak memory {peak_gb:.2f} GB; "
+          f"launches {counts}", flush=True)
+    if engine.compile_stats()["block"] != graphs["block"]:
+        smoke.fail(f"continuous {arch}: the measured run captured "
+                   f"{engine.compile_stats()['block'] - graphs['block']} "
+                   "graph(s), want 0")
+    if len(admits) != 8 or len(finishes) != 8 or len(refills) < 4:
+        smoke.fail(f"continuous {arch}: {len(admits)} admits, "
+                   f"{len(finishes)} finishes, {len(refills)} refills; want "
+                   "8, 8 and >= 4")
+    if len(results) != 8 or any(len(r.tokens) == 0 for r in results):
+        smoke.fail(f"continuous {arch}: a request produced no tokens")
+    if counts["rmsnorm"] != norms * n_ticks:
+        smoke.fail(f"continuous {arch}: {counts['rmsnorm']} RMSNorm launches "
+                   f"counted, want {norms} x {n_ticks} ticks")
+
+    # one T = 16 and one T = 1 tick from the graph against the eager step
+    # on a clone of the cache, with the same inputs
+    gen = np.random.default_rng(5)
+    cases = {16: (np.array([16, 5, 1, 0]), np.array([True, False, False,
+                                                     False])),
+             1: (np.array([1, 1, 1, 0]), np.zeros(4, bool))}
+    inputs, replay_err = {}, {}
+    for t_len, (n_valid, reset) in cases.items():
+        tokens = gen.integers(3, cfg.vocab, (4, t_len))
+        inputs[t_len] = (tokens, n_valid, reset)
+        clone = clone_tree(engine._cache)
+        got = engine._graphs[t_len].replay(tokens, n_valid, reset).clone()
+        want = engine.bundle.decode_block(
+            engine.params, clone, {"tokens": torch.from_numpy(tokens).cuda()},
+            n_valid=torch.from_numpy(n_valid).cuda(),
+            reset_mask=torch.from_numpy(reset).cuda())[0]
+        live = torch.from_numpy(n_valid > 0).cuda()
+        same = bool((got[live].argmax(-1) == want[live].argmax(-1)).all())
+        replay_err[t_len] = ((got[live].float() - want[live].float())
+                             .abs().max().item(),
+                             tree_max_diff(engine._cache, clone))
+        if not same:
+            smoke.fail(f"continuous {arch}: T={t_len} graph replay and eager "
+                       "step pick different tokens")
+    print(f"serve: graph replay vs eager step, largest logit difference "
+          f"(active slots) and cache difference: T=16 {replay_err[16]}, "
+          f"T=1 {replay_err[1]}", flush=True)
+
+    def graphed(t_len):
+        def tick():
+            logits = engine._graphs[t_len].replay(*inputs[t_len])
+            return torch.argmax(logits, dim=-1).cpu()
+        return tick
+
+    def eager_tick():
+        tokens, n_valid, reset = inputs[1]
+        logits = engine._eager_step(torch.from_numpy(tokens).cuda(),
+                                    torch.from_numpy(n_valid).cuda(),
+                                    torch.from_numpy(reset).cuda())
+        return torch.argmax(logits, dim=-1).cpu()
+
+    # three replayed ticks of each shape, each under its own profiler: a
+    # replay launches the same kernels every time, but the profiler may drop
+    # a kernel record (96 of 97 once), so the gate reads the largest count
+    def rmsnorms(events):
+        return sum(n for name, n, _ in events or ()
+                   if "rmsnorm" in name.lower())
+
+    profiled = {t: [kernel_events(torch, graphed(t)) for _ in range(3)]
+                for t in (16, 1)}
+    per_replay = {t: [rmsnorms(ev) for ev in evs]
+                  for t, evs in profiled.items()}
+    if max(per_replay[1]) != norms or max(per_replay[16]) != norms:
+        smoke.fail(f"continuous {arch}: torch.profiler saw {per_replay} "
+                   f"RMSNorm launches in replayed ticks, want {norms}")
+    events = {t: max(evs, key=rmsnorms) for t, evs in profiled.items()}
+    top = {t: [(name[:60], n, round(ms, 4)) for name, n, ms in sorted(
+        events[t] or (), key=lambda r: -r[2])[:6]] for t in events}
+    n_prof = 5
+    split = {16: split_by_kind(events[16])}
+    sp = device_split(torch, lambda: [graphed(1)() for _ in range(n_prof)])
+    split[1] = (None if sp is None else
+                {k: round(v / n_prof, 4) for k, v in sp.items()})
+    print(f"serve: the largest kernels of a replayed tick (name, launches, "
+          f"ms): T=16 {top[16]}; T=1 {top[1]}", flush=True)
+    loop = {}
+    for name, fn in (("graphed", graphed(1)), ("eager", eager_tick)):
+        fn()
+        times = []
+        for _ in range(15):
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        loop[name] = times
+    busy1 = sum(split[1].values()) if split[1] else None
+    idle = (None if busy1 is None or not by_t[1] else
+            1.0 - busy1 / statistics.median(by_t[1]))
+    print(f"serve: device ms a tick by kind (torch.profiler, replayed): "
+          f"T=16 {split[16] or 'not measured'}; T=1 (mean of {n_prof}) "
+          f"{split[1] or 'not measured'}; idle share of the T=1 ticks "
+          f"{'not measured' if idle is None else f'{idle:.3f}'}; RMSNorm "
+          f"launches in three profiled replays {per_replay}; a T=1 tick "
+          f"alone, host "
+          f"ms: graphed {ms_text(loop['graphed'])}, eager "
+          f"{ms_text(loop['eager'])}", flush=True)
+    stats = dict(
+        scheduler="continuous", requests=len(results),
+        prompt_lens=[r.prompt_len for r in results], tokens=n_tok,
+        wall_s=wall, tok_per_s=n_tok / wall, ttft_ms=ttft,
+        ttft_ms_median=statistics.median(ttft), ttft_ms_max=max(ttft),
+        ticks=n_ticks, ticks_by_t={t: len(v) for t, v in by_t.items()},
+        tick_ms={t: v for t, v in by_t.items()},
+        admits=len(admits), refills=len(refills), finishes=len(finishes),
+        graphs=engine.compile_stats()["block"],
+        capture_s=graphs["capture_s"], peak_mem_gb=peak_gb,
+        launches=counts, rmsnorm_per_replay=per_replay,
+        device_ms_by_kind=split, top_kernels=top, idle_share_t1=idle,
+        replay_vs_eager=replay_err, t1_tick_ms_graphed=loop["graphed"],
+        t1_tick_ms_eager=loop["eager"])
+    # f32: the engine on the kernels against each request's prefill alone,
+    # and against the same engine on the plain versions
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = cast_tree(engine.params, torch.float32)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = {}
+    for path in (None, "baseline"):
+        eng = ServingEngine(build_lm(dataclasses.replace(cfg32, policy=path)),
+                            params32, ServeConfig(slots=4, max_new=16,
+                                                  prefill_chunk=16))
+        rec = record_ticks(eng, keep_logits=True)
+        res = eng.run(reqs)
+        runs[path] = (eng, rec, res)
+    eng, rec, res = runs[None]
+    slot_of = {e["uid"]: e["slot"] for e in eng.trace
+               if e["event"] == "admit"}
+    first_err, first_tol = 0.0, 0.0
+    for r in res:
+        tick = r.admitted_tick + -(-r.prompt_len // 16) - 1
+        got = rec[tick][3][slot_of[r.uid]]
+        prompt = torch.from_numpy(reqs[r.uid].prompt.astype("int64"))
+        want = eng.bundle.prefill_last(
+            eng.params, {"tokens": prompt[None].cuda()})[0][0, -1].float()
+        first_err = max(first_err, (got - want).abs().max().item())
+        first_tol = max(first_tol, 1e-3 * want.abs().max().item())
+    plain_rec = runs["baseline"][1]
+    path_err, path_tol, compared = 0.0, 0.0, 0
+    for (_, _, ins, lg), (_, _, pins, plg) in zip(rec, plain_rec):
+        if not all(np.array_equal(a, b) for a, b in zip(ins, pins)):
+            break               # the token streams parted: stop comparing
+        live = torch.from_numpy(ins[1] > 0).cuda()
+        path_err = max(path_err, (lg[live] - plg[live]).abs().max().item())
+        path_tol = max(path_tol, 1e-3 * plg[live].abs().max().item())
+        compared += 1
+    print(f"serve: f32 first-token logits, continuous engine vs each "
+          f"request's prefill alone (B=1, kernels): max_abs_err="
+          f"{first_err:.4e} (tol {first_tol:.4e}); f32 continuous engine, "
+          f"kernels vs plain versions over {compared} of {len(rec)} ticks: "
+          f"max_abs_err={path_err:.4e} (tol {path_tol:.4e})", flush=True)
+    if not first_err <= first_tol:
+        smoke.fail(f"continuous {arch}: first-token logits {first_err} from "
+                   f"the prefill's (tol {first_tol})")
+    if compared == 0 or not path_err <= path_tol:
+        smoke.fail(f"continuous {arch}: kernels vs plain versions "
+                   f"{path_err} (tol {path_tol}) over {compared} ticks")
+    stats.update(first_token_f32_max_abs_err=first_err,
+                 first_token_f32_tol=first_tol,
+                 plain_f32_max_abs_err=path_err, plain_f32_tol=path_tol,
+                 plain_f32_ticks_compared=compared)
+    return stats
+
+
 def main() -> int:
     import torch
 
@@ -1045,14 +1350,20 @@ def main() -> int:
                 smoke.fail(f"ops pass launched {name} no time")
         stats = {}
         launches = dict(ops_counts)
-        for arch, policy, per_layer, absent in SERVED:
-            run = arch if policy is None else f"{arch} {policy}"
+        runs = [(f"{arch} wave" + ("" if policy is None else f" {policy}"),
+                 lambda a=arch, p=policy, pl=per_layer, ab=absent:
+                 serve_pass(smoke, serve, kops, a, p, pl, ab))
+                for arch, policy, per_layer, absent in SERVED]
+        runs += [(f"{arch} continuous",
+                  lambda a=arch: continuous_pass(smoke, serve, kops, a))
+                 for arch in CONTINUOUS]
+        for run, fn in runs:
             try:
-                stats[run] = serve_pass(smoke, serve, kops, arch, policy,
-                                        per_layer, absent)
+                stats[run] = fn()
             except Exception as exc:
                 smoke.fail(f"serve pass {run}: {exc!r}")
                 stats[run] = {"launches": {k: 0 for k in ops_counts}}
+            gc.collect()
             torch.cuda.empty_cache()
             for k in launches:
                 launches[k] += stats[run]["launches"][k]

@@ -98,11 +98,21 @@ def ssd_decode_step(
     b_t: torch.Tensor,     # (B, G, N)
     c_t: torch.Tensor,     # (B, G, N)
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One recurrent step: h <- exp(a dt) h + dt x b^T;  y = h c."""
-    rep = state.shape[1] // b_t.shape[1]
+    """One recurrent step: h <- exp(a dt) h + dt x b^T;  y = h c.
+
+    The groups are repeated over their heads with ``expand``, never a
+    ``repeat_interleave`` that may size its output on the host: the block
+    step that loops over this is captured in a CUDA graph."""
+    bsz, nheads = state.shape[:2]
+    ngroups, nstate = b_t.shape[1:]
+
+    def per_head(t):                                          # (B, H, N)
+        return t.float()[:, :, None].expand(
+            bsz, ngroups, nheads // ngroups, nstate).reshape(
+            bsz, nheads, nstate)
+
     dec = torch.exp(dt_t.float() * a.float())
-    bf = torch.repeat_interleave(b_t.float(), rep, dim=1)     # (B, H, N)
-    cf = torch.repeat_interleave(c_t.float(), rep, dim=1)
+    bf, cf = per_head(b_t), per_head(c_t)
     xdt = x_t.float() * dt_t.float()[..., None]
     state = dec[..., None, None] * state + xdt[..., None] * bf[..., None, :]
     y = torch.einsum("bhpn,bhn->bhp", state, cf)

@@ -86,6 +86,15 @@ def launch_counts() -> dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
+def add_launches(counts: dict[str, int]) -> None:
+    """Add ``counts`` to the kernels' launch counts. A captured CUDA graph
+    replays its kernels without running their wrappers: its owner takes
+    back what the wrappers counted while the graph was captured (nothing
+    ran then) and adds it again at every replay."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n
+
+
 def instance_counts() -> dict[tuple[str, str], int]:
     return dict(INSTANCES)
 

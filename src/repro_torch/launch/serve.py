@@ -1,15 +1,25 @@
-"""Serving entry point of the port: greedy generation, wave scheduler.
+"""Serving entry point of the port: greedy generation.
 
     python -m repro_torch.launch.serve                  # mamba2-1.3b FULL
     python -m repro_torch.launch.serve --arch llama3.2-1b
-    python -m repro_torch.launch.serve --policy ssd=tile_logdepth
+    python -m repro_torch.launch.serve --scheduler wave \
+        --policy ssd=tile_logdepth
     python -m repro_torch.launch.serve --config smoke --device cpu
+
+The continuous scheduler is the default, as in the reference: per-slot
+admission, a ring KV cache, chunked prefill (``--prefill-chunk`` prompt
+tokens a tick) mixed with decode; on the card every tick replays a CUDA
+graph of the block step. ``--scheduler wave`` serves left-padded waves
+through one prefill and decode steps.
 
 Randomly initialised weights from a ``torch.Generator`` seeded with
 ``--seed``; synthetic prompts from a numpy generator with the same seed. By
-default the model runs on the CUDA card through the Hopper kernels (SSD
-chunk scan or flash attention, and RMSNorm, in every layer); ``--device
-cpu`` runs the same path on each kernel's plain version. ``--policy
+default the model runs on the CUDA card through the Hopper kernels:
+RMSNorm in every layer, and in the wave's prefill also the SSD chunk scan
+or flash attention (the continuous block step runs the recurrence and
+decode attention as torch ops, as the reference does). ``--device cpu``
+runs the same path on each kernel's plain version. Under the wave
+scheduler, ``--policy
 ssd=tile_logdepth`` prefills every Mamba layer through the log-depth
 MatMulScan family instead: the carry-free chunk kernel of
 ``csrc/matmul_scan.cu`` and a tree of batched matmuls over the chunk
@@ -33,11 +43,13 @@ from repro_torch.serving import Request, ServeConfig, ServingEngine
 
 def build_engine(arch: str = "mamba2-1.3b", config: str = "full", *,
                  device=None, policy: str | None = None, slots: int = 4,
-                 max_new: int = 16, scheduler: str = "wave",
+                 max_new: int = 16, scheduler: str = "continuous",
+                 prefill_chunk: int = 16, cache_kind: str = "ring",
                  seed: int = 0) -> ServingEngine:
     """A serving engine over randomly initialised weights."""
     serve_cfg = ServeConfig(slots=slots, max_new=max_new, policy=policy,
-                            scheduler=scheduler)
+                            scheduler=scheduler, prefill_chunk=prefill_chunk,
+                            cache_kind=cache_kind)
     mod = configs.get(arch)
     cfg = mod.FULL if config == "full" else mod.SMOKE
     bundle = build_lm(cfg)
@@ -66,8 +78,15 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--scheduler", choices=("continuous", "wave"),
-                    default="wave",
-                    help="only the wave scheduler is ported so far")
+                    default="continuous",
+                    help="continuous batching (per-slot admission, ring "
+                         "KV cache, chunked prefill) or the wave baseline")
+    ap.add_argument("--prefill-chunk", type=int, default=16,
+                    help="prompt tokens a prefilling slot consumes per "
+                         "tick (continuous scheduler)")
+    ap.add_argument("--cache", choices=("ring", "paged"), default="ring",
+                    help="KV-cache layout of the continuous scheduler "
+                         "(only the ring is ported)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--policy", default=None,
                     help="path policy: tile (the kernels, default), fused, "
@@ -80,7 +99,8 @@ def main(argv=None) -> None:
     engine = build_engine(args.arch, args.config, device=args.device,
                           policy=args.policy, slots=args.slots,
                           max_new=args.max_new, scheduler=args.scheduler,
-                          seed=args.seed)
+                          prefill_chunk=args.prefill_chunk,
+                          cache_kind=args.cache, seed=args.seed)
     reqs = make_requests(args.requests, args.prompt_len,
                          engine.bundle.cfg.vocab, args.seed)
     t0 = time.perf_counter()
@@ -91,7 +111,8 @@ def main(argv=None) -> None:
         print(f"req {r.uid}: prompt_len={r.prompt_len} -> "
               f"{len(r.tokens)} tokens: {r.tokens[:12]}")
     print(f"{len(results)} requests, {n_tok} tokens in {dt:.2f}s "
-          f"({n_tok / max(dt, 1e-9):.1f} tok/s, scheduler=wave, "
+          f"({n_tok / max(dt, 1e-9):.1f} tok/s, "
+          f"scheduler={engine.scheduler}, "
           f"device={engine.device})")
 
 

@@ -9,6 +9,12 @@ Dh)`` for dense and ``mamba.conv (n_layers, B, K-1, C)``/``mamba.state
 (one layer's slice at a time) instead of rebuilding it every token. The
 prefill cache holds exactly the prompt's positions; a server grows its
 sequence axis with :func:`pad_cache_seq` before decoding.
+
+The continuous scheduler's cache (:func:`lm_cache_pspec` with
+``per_slot_pos=True``) is a ring of ``min(capacity, swa_window)`` rows a
+slot with a position per slot, stepped by :func:`lm_decode_block`. That
+step takes the sliding window; the wave path (:func:`lm_apply`,
+:func:`lm_decode`) does not yet.
 """
 from __future__ import annotations
 
@@ -36,10 +42,14 @@ def _require_ported(cfg: L.ModelConfig) -> None:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported to PyTorch yet; "
             "see ROADMAP.md for the order of the remaining families")
+
+
+def _require_unwindowed(cfg: L.ModelConfig) -> None:
     if cfg.swa_window is not None:
         raise NotImplementedError(
-            "the sliding-window (ring) KV cache is not ported to PyTorch "
-            "yet; see ROADMAP.md")
+            "the wave path (lm_apply, lm_decode) does not take a sliding "
+            "window in PyTorch yet; serve a windowed model with the "
+            "continuous scheduler (see ROADMAP.md)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +61,12 @@ class Bundle:
     prefill_last: Callable   # (params, batch) -> (last logits, cache)
     decode: Callable         # (params, cache, batch) -> (logits, cache)
     n_params: int = 0
+    # (batch, smax, per_slot_pos=False, kind="ring") -> PSpec tree
+    cache_pspec: Callable = None
+    # continuous-batching slot step: (params, cache, {tokens (B, T)}, *,
+    # n_valid (B,), reset_mask (B,)) -> (logits (B, vocab), cache), the
+    # cache updated in place
+    decode_block: Callable = None
 
 
 def lm_pspec(cfg: L.ModelConfig):
@@ -85,6 +101,7 @@ def lm_apply(params, cfg: L.ModelConfig, batch, *, collect_cache=False,
     avoids the (B, S, vocab) logits tensor. ``aux`` is the MoE auxiliary
     loss of the reference, zero for these families."""
     _require_ported(cfg)
+    _require_unwindowed(cfg)
     h = embed_tokens(params["embed"], batch["tokens"])
     b, s, _ = h.shape
     caches = []
@@ -140,6 +157,7 @@ def lm_decode(params, cfg: L.ModelConfig, cache, batch):
     cache's tensors are updated in place (dense: the new token's k, v at
     row ``pos``)."""
     _require_ported(cfg)
+    _require_unwindowed(cfg)
     h = embed_tokens(params["embed"], batch["tokens"])       # (B, 1, d)
     pos = cache["pos"]
     if cfg.family == "dense":
@@ -167,6 +185,79 @@ def lm_decode(params, cfg: L.ModelConfig, cache, batch):
     return unembed(h, _head(params, cfg)), cache
 
 
+def lm_cache_pspec(cfg: L.ModelConfig, batch: int, smax: int,
+                   per_slot_pos: bool = False, *, kind: str = "ring"):
+    """Decode-cache declaration. ``per_slot_pos=True`` declares the
+    continuous-batching layout: ``pos`` is a (batch,) vector, one position
+    per slot. Dense: a KV ring of ``min(smax, swa_window)`` rows a slot;
+    ssm: conv history and state. Only the ring kind is ported."""
+    _require_ported(cfg)
+    if kind != "ring":
+        raise NotImplementedError(
+            f"cache kind {kind!r} is not ported to PyTorch yet (the paged KV "
+            "pool is queue 1 of ROADMAP.md); use kind='ring'")
+    cache: dict[str, Any] = {
+        "pos": PSpec((batch,) if per_slot_pos else (), "zeros", torch.int32)}
+    if cfg.family == "dense":
+        cache["attn"] = L.attn_cache_pspec(cfg, cfg.n_layers, batch, smax)
+        del cache["attn"]["pos"]
+    else:
+        cache["mamba"] = L.mamba_cache_pspec(cfg, cfg.n_layers, batch)
+    return cache
+
+
+def lm_decode_block(params, cfg: L.ModelConfig, cache, batch, *,
+                    n_valid, reset_mask):
+    """Slot-masked T-token step: the continuous-batching workhorse.
+
+    batch {"tokens": (B, T)}; slot b consumes its first ``n_valid[b]`` in
+    [0, T] tokens (0: the slot is untouched); ``reset_mask`` (B,) clears a
+    slot's sequence state first (pos -> 0, conv and state -> 0), as on
+    admission of a new request; stale KV rows need no clearing, the
+    per-slot lengths hide them. One call serves chunked prefill and
+    single-token decode across slots.
+
+    The cache's tensors are updated in place, and nothing here reads a
+    device value on the host, so the step can be captured in a CUDA graph
+    and replayed. Returns (logits (B, vocab) after each slot's last valid
+    token, cache); an idle slot's row is junk the caller ignores."""
+    _require_ported(cfg)
+    tokens = batch["tokens"]
+    b, t_len = tokens.shape
+    dev = tokens.device
+    n_valid = torch.as_tensor(n_valid, device=dev).long()
+    reset = torch.as_tensor(reset_mask, device=dev).bool()
+    pos = torch.where(reset, 0, cache["pos"])
+    h = embed_tokens(params["embed"], tokens)                # (B, T, d)
+    if cfg.family == "dense":
+        k, v = cache["attn"]["k"], cache["attn"]["v"]
+        for i, lp in enumerate(params["blocks"]):
+            a_in = rmsnorm(h, lp["ln1"], cfg.norm_eps, cfg.policy)
+            h = h + L.attn_decode_block(
+                lp["attn"], cfg, a_in, {"k": k[i], "v": v[i], "pos": pos},
+                n_valid=n_valid)
+            m_in = rmsnorm(h, lp["ln2"], cfg.norm_eps, cfg.policy)
+            h = h + L.mlp_apply(lp["mlp"], cfg, m_in)
+    else:
+        conv, state = cache["mamba"]["conv"], cache["mamba"]["state"]
+        for i, lp in enumerate(params["blocks"]):
+            m_in = rmsnorm(h, lp["ln"], cfg.norm_eps, cfg.policy)
+            out, c = L.mamba_decode_block(
+                lp["mamba"], cfg, m_in,
+                {"conv": torch.where(reset[:, None, None], 0, conv[i]),
+                 "state": torch.where(reset[:, None, None, None], 0,
+                                      state[i])},
+                n_valid=n_valid)
+            conv[i].copy_(c["conv"])
+            state[i].copy_(c["state"])
+            h = h + out
+    cache["pos"].copy_(pos + n_valid)
+    last = torch.clamp(n_valid - 1, min=0)
+    h_last = h.gather(1, last[:, None, None].expand(b, 1, h.shape[-1]))
+    h_last = rmsnorm(h_last, params["final_norm"], cfg.norm_eps, cfg.policy)
+    return unembed(h_last, _head(params, cfg))[:, 0], cache
+
+
 def build_lm(cfg: L.ModelConfig) -> Bundle:
     pspec = lm_pspec(cfg)
 
@@ -178,5 +269,15 @@ def build_lm(cfg: L.ModelConfig) -> Bundle:
     def decode(params, cache, batch):
         return lm_decode(params, cfg, cache, batch)
 
+    def decode_block(params, cache, batch, *, n_valid, reset_mask):
+        return lm_decode_block(params, cfg, cache, batch, n_valid=n_valid,
+                               reset_mask=reset_mask)
+
+    def cache_pspec(batch: int, smax: int, per_slot_pos: bool = False,
+                    **kind_kwargs):
+        return lm_cache_pspec(cfg, batch, smax, per_slot_pos=per_slot_pos,
+                              **kind_kwargs)
+
     return Bundle(cfg=cfg, params_pspec=pspec, prefill_last=prefill_last,
-                  decode=decode, n_params=count_params(pspec))
+                  decode=decode, n_params=count_params(pspec),
+                  cache_pspec=cache_pspec, decode_block=decode_block)

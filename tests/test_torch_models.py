@@ -232,6 +232,12 @@ def test_unported_archs_and_families_name_the_roadmap():
     moe = dataclasses.replace(tllama.SMOKE, family="moe")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_lm(moe)
+    # a windowed model builds (the continuous block step takes the window);
+    # its wave path does not yet
     swa = dataclasses.replace(tllama.SMOKE, swa_window=8)
+    bundle = build_lm(swa)
+    params = tinit_params(bundle.params_pspec,
+                          torch.Generator().manual_seed(0), swa.dtype)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_lm(swa)
+        bundle.prefill_last(params, {"tokens": torch.zeros((1, 4),
+                                                           dtype=torch.long)})

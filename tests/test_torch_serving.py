@@ -3,7 +3,9 @@
 The reference's engine with ``scheduler="wave"`` and ``policy="fused"`` and
 the port's engine serve mamba2 SMOKE and llama SMOKE (f32, the reference's
 weights carried over with ``params_from_numpy``) to the same requests with
-greedy sampling; the generated tokens must be identical.
+greedy sampling; the generated tokens must be identical. The continuous
+scheduler, the default, is held against the reference in
+``tests/test_torch_continuous.py``.
 """
 from __future__ import annotations
 
@@ -55,7 +57,7 @@ def serve_both(ref_weights, reqs, *, slots, max_new, eos, policy,
     teng = ServingEngine(build_lm(cfg),
                          params_from_numpy(np_params, cfg, device="cpu"),
                          ServeConfig(slots=slots, max_new=max_new,
-                                     eos_token=eos))
+                                     eos_token=eos, scheduler="wave"))
     got = teng.run([Request(uid=i, prompt=p, max_new=m)
                     for i, (p, m) in enumerate(reqs)])
     return want, got, teng
@@ -98,16 +100,18 @@ def test_several_waves_and_budgets_identical_to_jax(ref_weights):
 
 
 def test_unported_scheduler_names_the_roadmap():
+    """The continuous scheduler is ported; its paged KV pool is not."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeConfig(scheduler="continuous")
+        ServeConfig(cache_kind="paged")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tserve.main(["--config", "smoke", "--device", "cpu",
-                     "--scheduler", "continuous"])
+                     "--cache", "paged"])
 
 
 def test_serve_cli_on_cpu(capsys):
     tserve.main(["--config", "smoke", "--device", "cpu", "--requests", "3",
-                 "--max-new", "3", "--prompt-len", "12"])
+                 "--max-new", "3", "--prompt-len", "12",
+                 "--scheduler", "wave"])
     out = capsys.readouterr().out
     assert "3 requests" in out and "tok/s" in out
     assert "scheduler=wave" in out and "device=cpu" in out
@@ -147,7 +151,7 @@ def serve_llama_both(weights, reqs, *, slots, max_new, eos, policy):
     teng = ServingEngine(build_lm(cfg),
                          params_from_numpy(np_params, cfg, device="cpu"),
                          ServeConfig(slots=slots, max_new=max_new,
-                                     eos_token=eos))
+                                     eos_token=eos, scheduler="wave"))
     got = teng.run([Request(uid=i, prompt=p, max_new=m)
                     for i, (p, m) in enumerate(reqs)])
     return want, got, teng
