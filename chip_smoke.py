@@ -53,6 +53,27 @@ Phases:
    1e-3 of the largest logit. Printed: tok/s, TTFT, ticks by T, host ms a
    tick, device ms a tick by kind, the idle share of the T = 1 ticks, the
    capture time, peak memory, and a T = 1 tick alone, graphed and eager.
+   Then the paged KV pool (``cache_kind="paged"``, pages of 16 rows, 64 a
+   slot at capacity 1024), FULL, bf16, 4 slots, chunks of 16: both models
+   serve the continuous runs' 8 requests, whose tokens must equal those
+   ring runs', with no capture in the measured run and 2 x layers + 1
+   RMSNorm kernels a replayed tick; the largest logit difference from the
+   ring run over all ticks is printed, and on llama's 320-page pool the
+   copy-on-write copy of a tick is timed in the reference's form (the whole
+   pool gathered) and the port's (the copied pages only). llama3.2-1b
+   serves 8 requests that share a 392-token prefix under the ring and the
+   paged cache (the paged run must share prompt tokens and copy pages on
+   write). mamba2-1.3b serves four first turns and their second turns (each
+   the first and 32 tokens more) under both caches: the paged run must
+   share exactly the first turns whose snapshot landed before their second
+   turn's admission. Both runs are served again in f32, where the paged
+   tokens must equal the ring's (in bf16 a token depends on the tick
+   schedule, which the paged cache changes; the bf16 agreement is
+   printed). llama3.2-1b samples with
+   ``greedy=False``: seed 7 twice gives the same tokens, seed 8 others, and
+   2^16 draws over 16 classes lie within a total variation of 0.02 of
+   their softmax. Printed for both caches: tok/s, TTFT, ticks, host ms a
+   tick by T, device ms a replayed tick by T and kind, peak pages.
 3. Per kernel: the kernel against its plain version on the card at the main
    path's shapes (the reduce and scan at 2^24 elements from 2^20 rows of 16
    to one row, RMSNorm also at the served decode and prefill shapes,
@@ -772,6 +793,7 @@ def ops_pass(smoke: Smoke, ops, ref):
 
 
 KINDS = ("flash_attention", "ssd_scan", "local_ssd", "rmsnorm", "gemm")
+PRELUDE_SPINS = 16
 
 
 def kernel_events(torch, fn) -> list | None:
@@ -781,9 +803,16 @@ def kernel_events(torch, fn) -> list | None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()        # nothing earlier still running
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # a prelude of short spins, left out of the result: profiles
+            # whose first work was a graph replay have lost up to 7 of its
+            # kernel records
+            for _ in range(PRELUDE_SPINS):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
         events = prof.key_averages()
@@ -793,7 +822,8 @@ def kernel_events(torch, fn) -> list | None:
     # kernels only: a host op's device time repeats them
     return [(e.key, e.count, getattr(e, "self_device_time_total", getattr(
         e, "self_cuda_time_total", 0.0)) / 1e3)
-        for e in events if e.device_type == DeviceType.CUDA]
+        for e in events if e.device_type == DeviceType.CUDA
+        and "spin_kernel" not in e.key]
 
 
 def split_by_kind(events) -> dict | None:
@@ -1047,21 +1077,21 @@ def ms_text(values) -> str:
 
 def record_ticks(engine, keep_logits: bool = False) -> list:
     """Wrap the engine's block step and sampling: each tick appends (T, host
-    ms from the step's inputs to the fetched argmax, inputs, logits)."""
+    ms from the step's inputs to the fetched tokens, inputs, logits)."""
     ticks, cur = [], {}
     step, sample = engine._block_step, engine._sample
 
-    def timed_step(tokens, n_valid, reset):
+    def timed_step(inputs):
         cur.update(t0=time.perf_counter(),
-                   inputs=(tokens.copy(), n_valid.copy(), reset.copy()))
-        logits = step(tokens, n_valid, reset)
+                   inputs={k: np.array(v) for k, v in inputs.items()})
+        logits = step(inputs)
         cur["logits"] = logits.float().clone() if keep_logits else None
         return logits
 
     def timed_sample(logits):
         out = sample(logits)
         if "t0" in cur:
-            ticks.append((cur["inputs"][0].shape[1],
+            ticks.append((cur["inputs"]["tokens"].shape[1],
                           1e3 * (time.perf_counter() - cur.pop("t0")),
                           cur.pop("inputs"), cur.pop("logits")))
         return out
@@ -1070,9 +1100,115 @@ def record_ticks(engine, keep_logits: bool = False) -> list:
     return ticks
 
 
-def continuous_pass(smoke: Smoke, serve, kops, arch: str):
+def device_inputs(torch, inputs: dict) -> dict:
+    return {k: torch.from_numpy(np.asarray(v, np.int64)).cuda()
+            for k, v in inputs.items()}
+
+
+def eager_on(torch, engine, cache, inputs: dict):
+    """The engine's eager block step on ``cache`` (a clone of its own)."""
+    own, engine._cache = engine._cache, cache
+    try:
+        return engine._eager_step(device_inputs(torch, inputs))
+    finally:
+        engine._cache = own
+
+
+def measured_run(smoke: Smoke, kops, engine, reqs, warm, label: str,
+                 keep_logits: bool = False) -> dict:
+    """A warm-up run of ``warm`` (it captures the step's graphs), then the
+    measured run of ``reqs`` with every launch count set to 0 just before
+    it, which must capture no graph. Returns its numbers."""
+    torch = smoke.torch
+    engine.run(warm)
+    graphs = engine.compile_stats()
+    ticks = record_ticks(engine, keep_logits)
+    first_tick, trace_from = engine.ticks, len(engine.trace)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kops.launch_counts()
+    captured = engine.compile_stats()["block"] - graphs["block"]
+    if captured:
+        smoke.fail(f"{label}: the measured run captured {captured} graph(s),"
+                   " want 0")
+    n_tok = sum(len(r.tokens) for r in results)
+    return dict(
+        results=results, ticks=ticks, counts=counts, wall=wall,
+        events=engine.trace[trace_from:], first_tick=first_tick,
+        n_ticks=engine.ticks - first_tick, graphs=graphs,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, n_tok=n_tok,
+        ttft=[1e3 * (r.first_token_s - r.arrival_s) for r in results],
+        by_t={t: [ms for tt, ms, *_ in ticks if tt == t] for t in (16, 1)})
+
+
+def run_text(m: dict) -> str:
+    """tok/s, TTFT, ticks and host ms a tick of a ``measured_run``."""
+    by_t = m["by_t"]
+    return (f"{len(m['results'])} requests, {m['n_tok']} tokens in "
+            f"{m['wall']:.3f}s ({m['n_tok'] / m['wall']:.2f} tok/s); TTFT ms "
+            f"median {statistics.median(m['ttft']):.1f} max "
+            f"{max(m['ttft']):.1f}; {m['n_ticks']} ticks ({len(by_t[16])} of "
+            f"T=16, {len(by_t[1])} of T=1); host ms a tick (inputs to "
+            f"fetched tokens), median (min-max): T=16 {ms_text(by_t[16])}, "
+            f"T=1 {ms_text(by_t[1])}")
+
+
+def run_stats(m: dict) -> dict:
+    """The JSON numbers of a ``measured_run``."""
+    return dict(
+        requests=len(m["results"]),
+        prompt_lens=[r.prompt_len for r in m["results"]], tokens=m["n_tok"],
+        wall_s=m["wall"], tok_per_s=m["n_tok"] / m["wall"],
+        ttft_ms=m["ttft"], ttft_ms_median=statistics.median(m["ttft"]),
+        ttft_ms_max=max(m["ttft"]), ticks=m["n_ticks"],
+        ticks_by_t={t: len(v) for t, v in m["by_t"].items()},
+        tick_ms=m["by_t"], peak_mem_gb=m["peak_gb"], launches=m["counts"])
+
+
+def rmsnorms(events) -> int:
+    return sum(n for name, n, _ in events or () if "rmsnorm" in name.lower())
+
+
+def profiled_replays(smoke: Smoke, engine, inputs: dict, label: str,
+                     norms: int) -> dict:
+    """Three replayed ticks of each T, each under its own profiler: a replay
+    launches the same kernels every time, but the profiler may drop a
+    kernel record (96 of 97 once), so the gate reads the largest RMSNorm
+    count. Returns the kernel events of that profile by T."""
+    torch = smoke.torch
+
+    def tick(t_len):
+        logits = engine._graphs[t_len].replay(inputs[t_len])
+        return torch.argmax(logits, dim=-1).cpu()
+
+    profiled = {t: [kernel_events(torch, lambda t=t: tick(t))
+                    for _ in range(3)] for t in inputs}
+    per_replay = {t: [rmsnorms(ev) for ev in evs]
+                  for t, evs in profiled.items()}
+    kernels = {t: [sum(n for _, n, _ in ev or ()) for ev in evs]
+               for t, evs in profiled.items()}
+    if any(max(n) != norms for n in per_replay.values()):
+        smoke.fail(f"{label}: torch.profiler saw {per_replay} RMSNorm "
+                   f"launches in replayed ticks (of {kernels} kernels), "
+                   f"want {norms}")
+        for t, evs in profiled.items():
+            print(f"profiler, {label}, T={t}: kernels by name "
+                  f"{sorted((name[:80], n) for name, n, _ in evs[0] or ())}",
+                  flush=True)
+    return {"per_replay": per_replay, "kernels": kernels,
+            "events": {t: max(evs, key=rmsnorms)
+                       for t, evs in profiled.items()}}
+
+
+def continuous_pass(smoke: Smoke, serve, kops, arch: str, ring_ref: dict):
     """``arch`` FULL under the continuous scheduler: 8 requests of up to 512
-    prompt tokens on 4 slots, chunks of 16; returns its numbers."""
+    prompt tokens on 4 slots, chunks of 16; returns its numbers and leaves
+    the bf16 run's tokens and logits by tick in ``ring_ref[arch]``."""
     from repro_torch.models import build_lm
     from repro_torch.models.common import cast_tree
     from repro_torch.serving import Request, ServeConfig, ServingEngine
@@ -1091,54 +1227,34 @@ def continuous_pass(smoke: Smoke, serve, kops, arch: str):
     # warm-up: the longest prompt alone, so the same capacity bucket; it
     # captures the T = 16 and T = 1 graphs
     longest = max(reqs, key=lambda r: len(r.prompt))
-    engine.run([Request(uid=-1, prompt=longest.prompt, max_new=16)])
-    graphs = engine.compile_stats()
+    m = measured_run(smoke, kops, engine, reqs,
+                     [Request(uid=-1, prompt=longest.prompt, max_new=16)],
+                     f"continuous {arch}", keep_logits=True)
+    graphs, counts, by_t = m["graphs"], m["counts"], m["by_t"]
     if graphs["block"] != 2:
         smoke.fail(f"continuous {arch}: warm-up captured {graphs['block']} "
                    "graphs, want 2 (T = 16 and T = 1)")
-    ticks = record_ticks(engine)
-    first_tick, trace_from = engine.ticks, len(engine.trace)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kops.reset_launches()
-    t0 = time.perf_counter()
-    results = engine.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = kops.launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    events = engine.trace[trace_from:]
+    results, events, ticks = m["results"], m["events"], m["ticks"]
+    ring_ref[arch] = ({r.uid: r.tokens for r in results},
+                      [(ins, lg) for _, _, ins, lg in ticks])
     admits = [e for e in events if e["event"] == "admit"]
     finishes = [e for e in events if e["event"] == "finish"]
-    refills = [e for e in admits if e["tick"] > first_tick]
-    n_tok = sum(len(r.tokens) for r in results)
-    ttft = [1e3 * (r.first_token_s - r.arrival_s) for r in results]
-    by_t = {t: [ms for tt, ms, *_ in ticks if tt == t] for t in (16, 1)}
-    n_ticks = engine.ticks - first_tick
-    print(f"serve: {len(results)} requests, prompt lens "
-          f"{[r.prompt_len for r in results]}, {n_tok} tokens in "
-          f"{wall:.3f}s ({n_tok / wall:.2f} tok/s); TTFT ms median "
-          f"{statistics.median(ttft):.1f} max {max(ttft):.1f}; {n_ticks} "
-          f"ticks ({len(by_t[16])} of T=16, {len(by_t[1])} of T=1); host ms "
-          f"a tick (inputs to fetched argmax), median (min-max): T=16 "
-          f"{ms_text(by_t[16])}, T=1 {ms_text(by_t[1])}; {len(admits)} admits"
+    refills = [e for e in admits if e["tick"] > m["first_tick"]]
+    print(f"serve: {run_text(m)}; prompt lens "
+          f"{[r.prompt_len for r in results]}; {len(admits)} admits"
           f" ({len(refills)} refills), {len(finishes)} finishes; graphs "
           f"{engine.compile_stats()['block']}, captured in "
-          f"{graphs['capture_s']:.2f}s; peak memory {peak_gb:.2f} GB; "
+          f"{graphs['capture_s']:.2f}s; peak memory {m['peak_gb']:.2f} GB; "
           f"launches {counts}", flush=True)
-    if engine.compile_stats()["block"] != graphs["block"]:
-        smoke.fail(f"continuous {arch}: the measured run captured "
-                   f"{engine.compile_stats()['block'] - graphs['block']} "
-                   "graph(s), want 0")
     if len(admits) != 8 or len(finishes) != 8 or len(refills) < 4:
         smoke.fail(f"continuous {arch}: {len(admits)} admits, "
                    f"{len(finishes)} finishes, {len(refills)} refills; want "
                    "8, 8 and >= 4")
     if len(results) != 8 or any(len(r.tokens) == 0 for r in results):
         smoke.fail(f"continuous {arch}: a request produced no tokens")
-    if counts["rmsnorm"] != norms * n_ticks:
+    if counts["rmsnorm"] != norms * m["n_ticks"]:
         smoke.fail(f"continuous {arch}: {counts['rmsnorm']} RMSNorm launches "
-                   f"counted, want {norms} x {n_ticks} ticks")
+                   f"counted, want {norms} x {m['n_ticks']} ticks")
 
     # one T = 16 and one T = 1 tick from the graph against the eager step
     # on a clone of the cache, with the same inputs
@@ -1149,13 +1265,10 @@ def continuous_pass(smoke: Smoke, serve, kops, arch: str):
     inputs, replay_err = {}, {}
     for t_len, (n_valid, reset) in cases.items():
         tokens = gen.integers(3, cfg.vocab, (4, t_len))
-        inputs[t_len] = (tokens, n_valid, reset)
+        inputs[t_len] = engine._step_inputs(tokens, n_valid, reset, None)
         clone = clone_tree(engine._cache)
-        got = engine._graphs[t_len].replay(tokens, n_valid, reset).clone()
-        want = engine.bundle.decode_block(
-            engine.params, clone, {"tokens": torch.from_numpy(tokens).cuda()},
-            n_valid=torch.from_numpy(n_valid).cuda(),
-            reset_mask=torch.from_numpy(reset).cuda())[0]
+        got = engine._graphs[t_len].replay(inputs[t_len]).clone()
+        want = eager_on(torch, engine, clone, inputs[t_len])
         live = torch.from_numpy(n_valid > 0).cuda()
         same = bool((got[live].argmax(-1) == want[live].argmax(-1)).all())
         replay_err[t_len] = ((got[live].float() - want[live].float())
@@ -1170,32 +1283,17 @@ def continuous_pass(smoke: Smoke, serve, kops, arch: str):
 
     def graphed(t_len):
         def tick():
-            logits = engine._graphs[t_len].replay(*inputs[t_len])
+            logits = engine._graphs[t_len].replay(inputs[t_len])
             return torch.argmax(logits, dim=-1).cpu()
         return tick
 
     def eager_tick():
-        tokens, n_valid, reset = inputs[1]
-        logits = engine._eager_step(torch.from_numpy(tokens).cuda(),
-                                    torch.from_numpy(n_valid).cuda(),
-                                    torch.from_numpy(reset).cuda())
+        logits = engine._eager_step(device_inputs(torch, inputs[1]))
         return torch.argmax(logits, dim=-1).cpu()
 
-    # three replayed ticks of each shape, each under its own profiler: a
-    # replay launches the same kernels every time, but the profiler may drop
-    # a kernel record (96 of 97 once), so the gate reads the largest count
-    def rmsnorms(events):
-        return sum(n for name, n, _ in events or ()
-                   if "rmsnorm" in name.lower())
-
-    profiled = {t: [kernel_events(torch, graphed(t)) for _ in range(3)]
-                for t in (16, 1)}
-    per_replay = {t: [rmsnorms(ev) for ev in evs]
-                  for t, evs in profiled.items()}
-    if max(per_replay[1]) != norms or max(per_replay[16]) != norms:
-        smoke.fail(f"continuous {arch}: torch.profiler saw {per_replay} "
-                   f"RMSNorm launches in replayed ticks, want {norms}")
-    events = {t: max(evs, key=rmsnorms) for t, evs in profiled.items()}
+    prof = profiled_replays(smoke, engine, inputs, f"continuous {arch}",
+                            norms)
+    per_replay, events = prof["per_replay"], prof["events"]
     top = {t: [(name[:60], n, round(ms, 4)) for name, n, ms in sorted(
         events[t] or (), key=lambda r: -r[2])[:6]] for t in events}
     n_prof = 5
@@ -1226,16 +1324,10 @@ def continuous_pass(smoke: Smoke, serve, kops, arch: str):
           f"ms: graphed {ms_text(loop['graphed'])}, eager "
           f"{ms_text(loop['eager'])}", flush=True)
     stats = dict(
-        scheduler="continuous", requests=len(results),
-        prompt_lens=[r.prompt_len for r in results], tokens=n_tok,
-        wall_s=wall, tok_per_s=n_tok / wall, ttft_ms=ttft,
-        ttft_ms_median=statistics.median(ttft), ttft_ms_max=max(ttft),
-        ticks=n_ticks, ticks_by_t={t: len(v) for t, v in by_t.items()},
-        tick_ms={t: v for t, v in by_t.items()},
+        scheduler="continuous", **run_stats(m),
         admits=len(admits), refills=len(refills), finishes=len(finishes),
         graphs=engine.compile_stats()["block"],
-        capture_s=graphs["capture_s"], peak_mem_gb=peak_gb,
-        launches=counts, rmsnorm_per_replay=per_replay,
+        capture_s=graphs["capture_s"], rmsnorm_per_replay=per_replay,
         device_ms_by_kind=split, top_kernels=top, idle_share_t1=idle,
         replay_vs_eager=replay_err, t1_tick_ms_graphed=loop["graphed"],
         t1_tick_ms_eager=loop["eager"])
@@ -1243,7 +1335,7 @@ def continuous_pass(smoke: Smoke, serve, kops, arch: str):
     # and against the same engine on the plain versions
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     params32 = cast_tree(engine.params, torch.float32)
-    del engine
+    del engine, m, ticks
     gc.collect()
     torch.cuda.empty_cache()
     runs = {}
@@ -1269,9 +1361,9 @@ def continuous_pass(smoke: Smoke, serve, kops, arch: str):
     plain_rec = runs["baseline"][1]
     path_err, path_tol, compared = 0.0, 0.0, 0
     for (_, _, ins, lg), (_, _, pins, plg) in zip(rec, plain_rec):
-        if not all(np.array_equal(a, b) for a, b in zip(ins, pins)):
+        if not same_inputs(ins, pins):
             break               # the token streams parted: stop comparing
-        live = torch.from_numpy(ins[1] > 0).cuda()
+        live = torch.from_numpy(ins["n_valid"] > 0).cuda()
         path_err = max(path_err, (lg[live] - plg[live]).abs().max().item())
         path_tol = max(path_tol, 1e-3 * plg[live].abs().max().item())
         compared += 1
@@ -1291,6 +1383,360 @@ def continuous_pass(smoke: Smoke, serve, kops, arch: str):
                  plain_f32_max_abs_err=path_err, plain_f32_tol=path_tol,
                  plain_f32_ticks_compared=compared)
     return stats
+
+
+def same_inputs(a: dict, b: dict) -> bool:
+    """Whether two ticks' block-step inputs are the same."""
+    return a.keys() == b.keys() and all(np.array_equal(a[k], b[k])
+                                        for k in a)
+
+
+# the paged KV pool: the continuous scheduler's other cache kind, on the
+# same runs, then the traffic it is for
+PAGED = ("mamba2-1.3b", "llama3.2-1b")
+
+
+def warm_request(vocab: int, n: int):
+    """A warm-up request of ``n`` tokens drawn apart from the measured ones,
+    so that it shares no page with them."""
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(12345)
+    return Request(uid=-1, prompt=rng.integers(3, vocab, n, dtype=np.int32),
+                   max_new=16)
+
+
+def last_inputs(m: dict) -> dict:
+    """The inputs of the measured run's last tick of each T."""
+    return {t: ins for t, _, ins, _ in m["ticks"]}
+
+
+def tick_device_ms(smoke: Smoke, engine, inputs: dict) -> dict:
+    """Device ms of one replayed tick of each T by kind of kernel."""
+    torch = smoke.torch
+
+    def tick(t_len):
+        return torch.argmax(engine._graphs[t_len].replay(inputs[t_len]),
+                            dim=-1).cpu()
+
+    return {t: device_split(torch, lambda t=t: tick(t)) for t in inputs}
+
+
+def add_counts(total: dict, counts: dict) -> dict:
+    return {k: total.get(k, 0) + n for k, n in counts.items()}
+
+
+def paged_parity(smoke: Smoke, serve, kops, arch: str, ring_ref: dict):
+    """``arch`` FULL on the paged cache, the continuous pass's 8 requests:
+    the tokens must equal that ring run's, no graph may be captured in the
+    measured run, and a replayed tick launches 2 x layers + 1 RMSNorm
+    kernels."""
+    torch = smoke.torch
+    engine = serve.build_engine(arch, "full", device="cuda", slots=4,
+                                max_new=16, prefill_chunk=16,
+                                cache_kind="paged", seed=0)
+    cfg = engine.bundle.cfg
+    norms = 2 * cfg.n_layers + 1
+    reqs = serve.make_requests(8, 512, cfg.vocab, seed=0)
+    for r in reqs:
+        r.max_new = 16
+    label = f"paged {arch}"
+    m = measured_run(smoke, kops, engine, reqs, [warm_request(cfg.vocab, 510)],
+                     label, keep_logits=True)
+    ring_tokens, ring_ticks = ring_ref.pop(arch)
+    got = {r.uid: r.tokens for r in m["results"]}
+    if got != ring_tokens:
+        smoke.fail(f"{label}: tokens differ from the ring run's for uids "
+                   f"{[u for u in got if got[u] != ring_tokens.get(u)]}")
+    diff, compared = 0.0, 0
+    for (ins, lg), (_, _, pins, plg) in zip(ring_ticks, m["ticks"]):
+        if not all(np.array_equal(ins[k], pins[k])
+                   for k in ("tokens", "n_valid", "reset")):
+            break               # the schedules parted: stop comparing
+        live = torch.from_numpy(ins["n_valid"] > 0).cuda()
+        diff = max(diff, (lg[live] - plg[live]).abs().max().item())
+        compared += 1
+    counts = m["counts"]
+    if counts["rmsnorm"] != norms * m["n_ticks"]:
+        smoke.fail(f"{label}: {counts['rmsnorm']} RMSNorm launches counted, "
+                   f"want {norms} x {m['n_ticks']} ticks")
+    inputs = last_inputs(m)
+    prof = profiled_replays(smoke, engine, inputs, label, norms)
+    split = {t: split_by_kind(ev) for t, ev in prof["events"].items()}
+    kv = engine.kv_stats()
+    print(f"serve: {cfg.name} paged KV pool ({kv}): {run_text(m)}; graphs "
+          f"{engine.compile_stats()['block']}; launches {counts}; largest "
+          f"logit difference from the ring run over {compared} of "
+          f"{len(ring_ticks)} ticks (active slots) {diff:.4e}; RMSNorm "
+          f"launches in three profiled replays {prof['per_replay']}; device "
+          f"ms a replayed tick by kind {split}", flush=True)
+    stats = dict(scheduler="continuous", cache_kind="paged", **run_stats(m),
+                 kv=kv, logit_diff_vs_ring=diff, ticks_compared=compared,
+                 rmsnorm_per_replay=prof["per_replay"],
+                 device_ms_by_kind=split)
+    if cfg.family == "dense":
+        stats["kv_copy"] = kv_copy_forms(smoke, engine)
+    return stats
+
+
+def kv_copy_forms(smoke: Smoke, engine) -> dict:
+    """The copy-on-write page copy of one tick on the engine's KV pool, in
+    the reference's form (the whole pool gathered through a page map that
+    is the identity but for one page) and in the port's (the copied pages
+    only, as the padded pairs of a T = 16 step of 4 slots)."""
+    from repro_torch.serving import kvpool
+
+    torch = smoke.torch
+    k, v = engine._cache["attn"]["k"], engine._cache["attn"]["v"]
+    n_pages = k.shape[1]
+    plan = np.arange(n_pages)
+    plan[1] = 0
+    src, dst = (torch.from_numpy(a).cuda()
+                for a in kvpool.cow_pairs(plan, 8))
+    perm = torch.from_numpy(plan).cuda()
+
+    def gather_all():
+        return [torch.index_select(c, 1, perm) for c in (k, v)]
+
+    def pairs():
+        for c in (k, v):
+            c.index_copy_(1, dst, c.index_select(1, src))
+
+    out = dict(pool_mb=nbytes(k, v) / 2**20, pages=n_pages,
+               gather_all_ms=smoke.time_ms(gather_all),
+               pairs_ms=smoke.time_ms(pairs))
+    print(f"serve: the copy-on-write copy of a tick on the {n_pages}-page "
+          f"pool ({out['pool_mb']:.1f} MiB, k and v): the whole pool "
+          f"gathered (the reference's kv_copy) {out['gather_all_ms']:.4f} "
+          f"ms, 8 page pairs (the port's) {out['pairs_ms']:.4f} ms",
+          flush=True)
+    return out
+
+
+def kind_text(kind: str, m: dict, kv, dev: dict) -> str:
+    return (f"{kind}: {run_text(m)}; peak memory {m['peak_gb']:.2f} GB; "
+            f"pool {kv}; device ms a replayed tick by kind {dev}")
+
+
+def both_kinds(smoke: Smoke, serve, kops, arch: str, make_reqs, warm_len,
+               label: str, on_engine=None) -> dict:
+    """The same requests under the ring and under the paged cache, each
+    engine warmed up first: {kind: (measured run, kv stats, device ms a
+    tick by T, what ``on_engine`` returned)}. Then both again in f32
+    (``out["f32"]``: {kind: (results, kv stats)}): the bf16 engine's
+    tokens depend on the tick schedule (a decode token in a T = 16 tick
+    goes through other matrix-product shapes than in a T = 1 tick), and the
+    paged cache changes the schedule by skipping prefill ticks, so the two
+    caches are held token for token in f32."""
+    from repro_torch.models import build_lm
+    from repro_torch.models.common import cast_tree
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    torch = smoke.torch
+    out, f32 = {}, {}
+    for kind in ("ring", "paged"):
+        engine = serve.build_engine(arch, "full", device="cuda", slots=4,
+                                    max_new=16, prefill_chunk=16,
+                                    cache_kind=kind, seed=0)
+        extra = on_engine(engine) if on_engine else None
+        m = measured_run(smoke, kops, engine, make_reqs(),
+                         [warm_request(engine.bundle.cfg.vocab, warm_len)],
+                         f"{label} {kind}")
+        dev = tick_device_ms(smoke, engine, last_inputs(m))
+        out[kind] = (m, engine.kv_stats(), dev, extra)
+        print(f"serve: {label}, {kind_text(kind, m, out[kind][1], dev)}",
+              flush=True)
+        cfg32 = dataclasses.replace(engine.bundle.cfg, dtype=torch.float32)
+        params32 = cast_tree(engine.params, torch.float32)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng32 = ServingEngine(build_lm(cfg32), params32, ServeConfig(
+            slots=4, max_new=16, prefill_chunk=16, cache_kind=kind))
+        eng32.run([warm_request(cfg32.vocab, warm_len)])
+        kops.reset_launches()
+        f32[kind] = (eng32.run(make_reqs()), eng32.kv_stats(),
+                     kops.launch_counts())
+        del eng32, params32
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["f32"] = f32
+    return out
+
+
+def tokens_agree(smoke: Smoke, out: dict, label: str) -> dict:
+    """Gate: the paged tokens equal the ring's in f32; the bf16 runs'
+    agreement is printed."""
+    def toks(results):
+        return {r.uid: r.tokens for r in results}
+
+    bf16 = [toks(out[k][0]["results"]) for k in ("ring", "paged")]
+    f32 = [toks(out["f32"][k][0]) for k in ("ring", "paged")]
+    same16 = [u for u in bf16[0] if bf16[0][u] == bf16[1][u]]
+    same32 = [u for u in f32[0] if f32[0][u] == f32[1][u]]
+    print(f"serve: {label}: requests whose paged tokens equal the ring's: "
+          f"f32 {len(same32)} of {len(f32[0])}, bf16 {len(same16)} of "
+          f"{len(bf16[0])}; f32 paged pool {out['f32']['paged'][1]}",
+          flush=True)
+    if len(same32) != len(f32[0]):
+        smoke.fail(f"{label}: the f32 paged tokens differ from the ring's "
+                   f"for uids {sorted(set(f32[0]) - set(same32))}")
+    return {"same_tokens_f32": len(same32), "same_tokens_bf16": len(same16),
+            "requests": len(f32[0]), "f32_kv": out["f32"]["paged"][1]}
+
+
+def kinds_stats(out: dict) -> dict:
+    stats = {kind: dict(**run_stats(out[kind][0]), kv=out[kind][1],
+                        device_ms_by_kind=out[kind][2])
+             for kind in ("ring", "paged")}
+    launches = add_counts(out["ring"][0]["counts"], out["paged"][0]["counts"])
+    for kind in ("ring", "paged"):
+        launches = add_counts(launches, out["f32"][kind][2])
+    stats["launches"] = launches
+    return stats
+
+
+def shared_prefix_pass(smoke: Smoke, serve, kops):
+    """llama3.2-1b FULL, 8 requests sharing a 392-token prefix (24.5 pages)
+    with tails of 16 to 64 tokens, under the ring and the paged cache: the
+    tokens must be the same, and the paged run must share prompt tokens and
+    copy pages on write."""
+    from repro_torch import configs
+    from repro_torch.serving import Request
+
+    vocab = configs.get("llama3.2-1b").FULL.vocab
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(3, vocab, 392, dtype=np.int32)
+    tails = [rng.integers(3, vocab, int(rng.integers(16, 65)),
+                          dtype=np.int32) for _ in range(8)]
+
+    def make_reqs():
+        return [Request(uid=i, prompt=np.concatenate([prefix, t]),
+                        max_new=16) for i, t in enumerate(tails)]
+
+    label = "llama3.2-1b shared prefix"
+    out = both_kinds(smoke, serve, kops, "llama3.2-1b", make_reqs, 440,
+                     label)
+    agree = tokens_agree(smoke, out, label)
+    for kv in (out["paged"][1], out["f32"]["paged"][1]):
+        if not (kv["shared_tokens"] > 0 and kv["cow_copies"] > 0):
+            smoke.fail(f"{label}: shared_tokens {kv['shared_tokens']}, "
+                       f"cow_copies {kv['cow_copies']}; want both > 0")
+    stats = kinds_stats(out)
+    stats.update(agree)
+    return stats
+
+
+def multi_turn_pass(smoke: Smoke, serve, kops):
+    """mamba2-1.3b FULL: four first turns (the continuous pass's first four
+    prompts), then each one's second turn, the first turn and 32 tokens
+    more, queued behind them all, under the ring and the paged cache. The
+    tokens must be the same, and the paged run must share the whole first
+    turn of every second turn admitted after its snapshot landed."""
+    from repro_torch import configs
+    from repro_torch.serving import Request
+
+    vocab = configs.get("mamba2-1.3b").FULL.vocab
+    first = serve.make_requests(4, 512, vocab, seed=0)
+    rng = np.random.default_rng(1)
+    more = [rng.integers(3, vocab, 32, dtype=np.int32) for _ in first]
+
+    def make_reqs():
+        return ([Request(uid=r.uid, prompt=r.prompt, max_new=16)
+                 for r in first] +
+                [Request(uid=4 + r.uid, prompt=np.concatenate([r.prompt, x]),
+                         max_new=16) for r, x in zip(first, more)])
+
+    saves = []
+
+    def watch_saves(engine):
+        """Record the ticks whose plan saves a snapshot, and of which
+        slots."""
+        step_inputs = engine._step_inputs
+
+        def recorded(tokens, n_valid, reset, plan):
+            if plan is not None and (plan.get("snap_save", -1) >= 0).any():
+                saves.append((engine.ticks,
+                              np.flatnonzero(plan["snap_save"] >= 0)))
+            return step_inputs(tokens, n_valid, reset, plan)
+
+        engine._step_inputs = recorded
+
+    label = "mamba2-1.3b multi-turn"
+    out = both_kinds(smoke, serve, kops, "mamba2-1.3b", make_reqs, 500,
+                     label, on_engine=watch_saves)
+    paged = out["paged"][0]
+    kv = out["paged"][1]
+    agree = tokens_agree(smoke, out, label)
+    # the tick each first turn's snapshot was saved at (the paged run's
+    # saves, after its warm-up), and the tick each second turn was admitted
+    admits = [e for e in paged["events"] if e["event"] == "admit"]
+
+    def uid_at(slot, tick):
+        return max((e for e in admits
+                    if e["slot"] == slot and e["tick"] <= tick),
+                   key=lambda e: e["tick"])["uid"]
+
+    saved = {uid_at(int(s), t): t for t, slots in saves
+             if t >= paged["first_tick"] for s in slots}
+    admitted = {e["uid"]: e["tick"] for e in admits}
+    landed = [r.uid for r in first if r.uid in saved and
+              saved[r.uid] < admitted[4 + r.uid]]
+    want = sum(len(r.prompt) for r in first if r.uid in landed)
+    ttft = {kind: [round(t, 1) for t in out[kind][0]["ttft"][4:]]
+            for kind in ("ring", "paged")}
+    print(f"serve: {label}: second turns admitted after their first turn's "
+          f"snapshot landed {[4 + u for u in landed]}, shared_tokens "
+          f"{kv['shared_tokens']} (want {want}); second turns' TTFT ms, "
+          f"ring {ttft['ring']}, paged {ttft['paged']}", flush=True)
+    if kv["shared_tokens"] != want or not landed:
+        smoke.fail(f"{label}: shared_tokens {kv['shared_tokens']}, want "
+                   f"{want} (second turns {[4 + u for u in landed]})")
+    if out["f32"]["paged"][1]["shared_tokens"] != want:
+        smoke.fail(f"{label}: f32 shared_tokens "
+                   f"{out['f32']['paged'][1]['shared_tokens']}, want {want}")
+    stats = kinds_stats(out)
+    stats.update(second_turn_ttft_ms=ttft, landed=landed,
+                 shared_tokens_want=want, **agree)
+    return stats
+
+
+def sampling_pass(smoke: Smoke, serve, kops):
+    """llama3.2-1b FULL with ``greedy=False``, temperature 1: seed 7 twice
+    must give the same tokens and seed 8 other ones; the engine's draw over
+    fixed logits (2^16 draws over 16 classes) must lie within a total
+    variation distance of 0.02 of their softmax."""
+    torch = smoke.torch
+    counts, tokens = {}, []
+    for seed in (7, 7, 8):
+        engine = serve.build_engine("llama3.2-1b", "full", device="cuda",
+                                    slots=4, max_new=16, prefill_chunk=16,
+                                    greedy=False, temperature=1.0, seed=seed)
+        reqs = serve.make_requests(4, 512, engine.bundle.cfg.vocab, seed=0)
+        kops.reset_launches()
+        res = engine.run(reqs)
+        counts = add_counts(counts, kops.launch_counts())
+        tokens.append([r.tokens for r in res])
+    logits = np.random.default_rng(0).standard_normal(16).astype(np.float32)
+    draws = engine._sample(torch.from_numpy(logits).cuda().expand(1 << 16,
+                                                                  16))
+    freq = np.bincount(draws, minlength=16) / len(draws)
+    p = np.exp(logits - logits.max())
+    p /= p.sum()
+    tv = 0.5 * float(np.abs(freq - p).sum())
+    same, differ = tokens[0] == tokens[1], tokens[0] != tokens[2]
+    print(f"serve: sampling llama3.2-1b, temperature 1: seed 7 twice the "
+          f"same tokens {same}, seed 8 other tokens {differ}; 2^16 draws over"
+          f" 16 classes, total variation from the softmax {tv:.4f} (tol "
+          f"0.02)", flush=True)
+    if not (same and differ):
+        smoke.fail(f"sampling: seed 7 twice same {same}, seed 8 differs "
+                   f"{differ}")
+    if not tv < 0.02:
+        smoke.fail(f"sampling: total variation {tv} from the softmax")
+    del engine
+    return dict(seeded_same=same, other_seed_differs=differ, tv=tv,
+                launches=counts)
 
 
 def main() -> int:
@@ -1354,9 +1800,21 @@ def main() -> int:
                  lambda a=arch, p=policy, pl=per_layer, ab=absent:
                  serve_pass(smoke, serve, kops, a, p, pl, ab))
                 for arch, policy, per_layer, absent in SERVED]
+        ring_ref: dict = {}
         runs += [(f"{arch} continuous",
-                  lambda a=arch: continuous_pass(smoke, serve, kops, a))
+                  lambda a=arch: continuous_pass(smoke, serve, kops, a,
+                                                 ring_ref))
                  for arch in CONTINUOUS]
+        runs += [(f"{arch} paged",
+                  lambda a=arch: paged_parity(smoke, serve, kops, a,
+                                              ring_ref))
+                 for arch in PAGED]
+        runs += [("llama3.2-1b shared prefix",
+                  lambda: shared_prefix_pass(smoke, serve, kops)),
+                 ("mamba2-1.3b multi-turn",
+                  lambda: multi_turn_pass(smoke, serve, kops)),
+                 ("llama3.2-1b sampling",
+                  lambda: sampling_pass(smoke, serve, kops))]
         for run, fn in runs:
             try:
                 stats[run] = fn()

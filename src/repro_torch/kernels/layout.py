@@ -101,6 +101,15 @@ HOPPER = {
 # Largest dynamic shared memory a block may use on an H100 (bytes).
 MAX_SMEM = 232448
 
+# The paged KV pool's page (serving/kvpool.py): a page height is a power of
+# two and a multiple of KV_PAGE_ROW_MULTIPLE rows, the n extent of an
+# mma.sync m16n8k16, so that pages divide every power-of-two capacity
+# bucket of the continuous scheduler. KV_PAGE_ROWS is one tensor-core tile
+# edge. Both keep the JAX package's values (its sublane tile and two of
+# them), so that the block tables of the two packages compare one to one.
+KV_PAGE_ROW_MULTIPLE = 8
+KV_PAGE_ROWS = 2 * KV_PAGE_ROW_MULTIPLE
+
 
 def fit_block(size: int, block: int, multiple: int) -> int:
     """Clamp a block size against the axis it tiles: round ``block`` down to

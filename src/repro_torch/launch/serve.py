@@ -1,7 +1,7 @@
 """Serving entry point of the port: greedy generation.
 
     python -m repro_torch.launch.serve                  # mamba2-1.3b FULL
-    python -m repro_torch.launch.serve --arch llama3.2-1b
+    python -m repro_torch.launch.serve --arch llama3.2-1b --cache paged
     python -m repro_torch.launch.serve --scheduler wave \
         --policy ssd=tile_logdepth
     python -m repro_torch.launch.serve --config smoke --device cpu
@@ -9,8 +9,12 @@
 The continuous scheduler is the default, as in the reference: per-slot
 admission, a ring KV cache, chunked prefill (``--prefill-chunk`` prompt
 tokens a tick) mixed with decode; on the card every tick replays a CUDA
-graph of the block step. ``--scheduler wave`` serves left-padded waves
-through one prefill and decode steps.
+graph of the block step. ``--cache paged`` takes the paged KV pool instead
+(``--pool-pages``, ``--page-rows``): prompt prefixes shared page by page,
+copy-on-write, admission deferred under pool pressure, and for mamba state
+snapshots at prompt boundaries. ``--scheduler wave`` serves left-padded
+waves through one prefill and decode steps. ``--arrival-rate`` spreads the
+requests as open-loop Poisson arrivals.
 
 Randomly initialised weights from a ``torch.Generator`` seeded with
 ``--seed``; synthetic prompts from a numpy generator with the same seed. By
@@ -45,11 +49,16 @@ def build_engine(arch: str = "mamba2-1.3b", config: str = "full", *,
                  device=None, policy: str | None = None, slots: int = 4,
                  max_new: int = 16, scheduler: str = "continuous",
                  prefill_chunk: int = 16, cache_kind: str = "ring",
+                 pool_pages: int | None = None, page_rows: int | None = None,
+                 greedy: bool = True, temperature: float = 1.0,
                  seed: int = 0) -> ServingEngine:
-    """A serving engine over randomly initialised weights."""
+    """A serving engine over randomly initialised weights from ``seed``,
+    which also seeds its sampling."""
     serve_cfg = ServeConfig(slots=slots, max_new=max_new, policy=policy,
                             scheduler=scheduler, prefill_chunk=prefill_chunk,
-                            cache_kind=cache_kind)
+                            cache_kind=cache_kind, pool_pages=pool_pages,
+                            page_rows=page_rows, greedy=greedy,
+                            temperature=temperature, seed=seed)
     mod = configs.get(arch)
     cfg = mod.FULL if config == "full" else mod.SMOKE
     bundle = build_lm(cfg)
@@ -58,14 +67,20 @@ def build_engine(arch: str = "mamba2-1.3b", config: str = "full", *,
     return ServingEngine(bundle, params, serve_cfg)
 
 
-def make_requests(n: int, prompt_len: int, vocab: int,
-                  seed: int = 0) -> list[Request]:
+def make_requests(n: int, prompt_len: int, vocab: int, seed: int = 0,
+                  arrival_rate: float = 0.0) -> list[Request]:
     """``n`` prompts of 4..prompt_len tokens, drawn as the reference's
-    ``launch.serve`` draws them."""
+    ``launch.serve`` draws them: with ``arrival_rate`` > 0 (requests a
+    second) each request first draws its exponential gap to the last."""
     rng = np.random.default_rng(seed)
-    return [Request(uid=i, prompt=rng.integers(
-        3, vocab, size=rng.integers(4, prompt_len + 1), dtype=np.int32))
-        for i in range(n)]
+    arrival, reqs = 0.0, []
+    for i in range(n):
+        if arrival_rate > 0:
+            arrival += float(rng.exponential(1.0 / arrival_rate))
+        reqs.append(Request(uid=i, prompt=rng.integers(
+            3, vocab, size=rng.integers(4, prompt_len + 1), dtype=np.int32),
+            arrival_s=arrival))
+    return reqs
 
 
 def main(argv=None) -> None:
@@ -85,24 +100,37 @@ def main(argv=None) -> None:
                     help="prompt tokens a prefilling slot consumes per "
                          "tick (continuous scheduler)")
     ap.add_argument("--cache", choices=("ring", "paged"), default="ring",
-                    help="KV-cache layout of the continuous scheduler "
-                         "(only the ring is ported)")
+                    help="KV-cache layout (continuous scheduler): per-slot "
+                         "ring buffers, or the paged block-table pool with "
+                         "prompt-prefix sharing and copy-on-write")
+    ap.add_argument("--pool-pages", type=int, default=None,
+                    help="paged cache: total KV pool pages (default "
+                         "(slots+1) x pages-per-slot)")
+    ap.add_argument("--page-rows", type=int, default=None,
+                    help="paged cache: rows per page, a power-of-two "
+                         "multiple of 8 (default kernels/layout.py's "
+                         "KV_PAGE_ROWS)")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="open-loop Poisson arrival rate in requests/s "
+                         "(0: all requests available immediately)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--policy", default=None,
                     help="path policy: tile (the kernels, default), fused, "
                          "baseline, or op=path overrides; ssd=tile_logdepth "
                          "prefills the SSD through the log-depth family")
     ap.add_argument("--seed", type=int, default=0,
-                    help="weight and synthetic-request seed")
+                    help="weight, sampling and synthetic-request seed")
     args = ap.parse_args(argv)
 
     engine = build_engine(args.arch, args.config, device=args.device,
                           policy=args.policy, slots=args.slots,
                           max_new=args.max_new, scheduler=args.scheduler,
                           prefill_chunk=args.prefill_chunk,
-                          cache_kind=args.cache, seed=args.seed)
+                          cache_kind=args.cache, pool_pages=args.pool_pages,
+                          page_rows=args.page_rows, seed=args.seed)
     reqs = make_requests(args.requests, args.prompt_len,
-                         engine.bundle.cfg.vocab, args.seed)
+                         engine.bundle.cfg.vocab, args.seed,
+                         args.arrival_rate)
     t0 = time.perf_counter()
     results = engine.run(reqs)
     dt = time.perf_counter() - t0
@@ -114,6 +142,20 @@ def main(argv=None) -> None:
           f"({n_tok / max(dt, 1e-9):.1f} tok/s, "
           f"scheduler={engine.scheduler}, "
           f"device={engine.device})")
+    kv = engine.kv_stats()
+    if kv is not None:
+        print(f"paged KV pool: peak {kv.get('peak_pages_in_use', 0)}/"
+              f"{kv.get('pages_total', 0)} pages, "
+              f"{kv['shared_tokens']} prompt tokens prefix-shared, "
+              f"{kv['cow_copies']} CoW copies, {kv['defers']} admissions "
+              "deferred")
+    if args.arrival_rate > 0:
+        lats = [1e3 * (ts - r.arrival_s)
+                for r in results for ts in r.token_s]
+        if lats:
+            print(f"open loop @ {args.arrival_rate:.1f} req/s: token "
+                  f"latency p50={np.percentile(lats, 50):.1f}ms "
+                  f"p99={np.percentile(lats, 99):.1f}ms")
 
 
 if __name__ == "__main__":

@@ -6,7 +6,8 @@ layer's parameters, ``<layer>_apply`` runs the full sequence,
 ``<layer>_decode`` steps a cache, ``<layer>_decode_block`` steps the
 continuous scheduler's per-slot cache (``<layer>_cache_pspec``) by T tokens
 with a valid count per slot, writing it in place and reading no device
-value on the host (the step is captured in a CUDA graph). Attention, the
+value on the host (the step is captured in a CUDA graph);
+:func:`attn_decode_paged` does the same over the paged KV pool. Attention, the
 SSD and the norms go
 through ``repro_torch.core.dispatch`` under ``ModelConfig.policy`` (None:
 the Hopper kernels). Parameter layouts are the reference's, e.g.
@@ -145,6 +146,60 @@ def attn_decode_block(p, cfg: ModelConfig, x, cache, *, n_valid):
     return o.reshape(b, t_len, hq * dh) @ p["wo"]
 
 
+def attn_decode_paged(p, cfg: ModelConfig, x, cache, *, n_valid, tables):
+    """Block-table twin of :func:`attn_decode_block` for the paged KV pool
+    (``serving/kvpool.py``).
+
+    x (B,T,d); cache {k, v: (P, R, Hkv, Dh), the pool shared by every slot,
+    pos: (B,)}; ``tables`` (B, MP) maps slot b's logical page ``(p // R) %
+    MP`` to a pool page, so real token t lands at pool row ``tables[b, (p //
+    R) % MP] * R + p % R`` (p its absolute position). The host manager
+    makes the rows real tokens write distinct across slots (copy-on-write
+    comes before any write to a shared page), but a token past ``n_valid``
+    may name a row that a real token writes. So every token writes, in
+    place by index: a real token its own k, v; another token the value of
+    the real token writing the same row, if any, else the row's old value.
+    Writes to one row then carry one value, and the scatter is exact and
+    order-free. Attention gathers the slot's pages back into ring order:
+    for position p the gathered row is ``((p // R) % MP) * R + p % R == p
+    % (MP * R)``, the ring row of a capacity-``MP * R`` cache, so the
+    result equals the ring path's, sliding window included. Returns out
+    (B,T,d); the caller advances ``pos``."""
+    b, t_len = x.shape[:2]
+    dh, hq, hkv = cfg.dh, cfg.n_heads, cfg.n_kv_heads
+    kc, vc = cache["k"], cache["v"]
+    n_pages, r = kc.shape[:2]
+    mp = tables.shape[1]
+    cap = mp * r                                   # the ring it stands for
+    if t_len > cap:
+        raise ValueError(f"a block step of {t_len} tokens needs at least "
+                         f"{t_len} rows a slot, the block table maps {cap}")
+    steps = torch.arange(t_len, device=x.device)
+    posmat = cache["pos"].long()[:, None] + steps[None, :]      # (B, T)
+    q = rope((x @ p["wq"]).reshape(b, t_len, hq, dh), posmat, cfg.rope_theta)
+    k = rope((x @ p["wk"]).reshape(b, t_len, hkv, dh), posmat,
+             cfg.rope_theta)
+    v = (x @ p["wv"]).reshape(b, t_len, hkv, dh)
+    phys = tables.gather(1, (posmat // r) % mp)                 # (B, T)
+    rows = (phys * r + posmat % r).reshape(-1)                  # (B*T,)
+    valid = (steps[None, :] < n_valid[:, None]).reshape(-1)
+    # writer[i, j]: real token j writes token i's row (at most one j a row)
+    writer = (rows[:, None] == rows[None, :]) & valid[None, :]
+    written = writer.any(dim=1)[:, None, None]
+    src = writer.to(torch.uint8).argmax(dim=1)
+    for c, new in ((kc, k), (vc, v)):
+        flat = c.view(n_pages * r, hkv, dh)
+        new = new.reshape(b * t_len, hkv, dh).to(c.dtype)
+        flat.index_copy_(0, rows, torch.where(
+            written, new.index_select(0, src), flat.index_select(0, rows)))
+    # each slot's pages back in ring order: (B, MP*R, Hkv, Dh)
+    pages = tables.reshape(-1)
+    k_seq = kc.index_select(0, pages).view(b, cap, hkv, dh)
+    v_seq = vc.index_select(0, pages).view(b, cap, hkv, dh)
+    o = decode_attention(q, k_seq, v_seq, torch.clamp(posmat + 1, max=cap))
+    return o.reshape(b, t_len, hq * dh) @ p["wo"]
+
+
 def attn_cache_pspec(cfg: ModelConfig, n_layers: int, batch: int, smax: int):
     """The ring KV cache of ``n_layers`` layers: ``min(smax, swa_window)``
     rows a slot."""
@@ -152,6 +207,15 @@ def attn_cache_pspec(cfg: ModelConfig, n_layers: int, batch: int, smax: int):
     shp = (n_layers, batch, cap, cfg.n_kv_heads, cfg.dh)
     return {"k": PSpec(shp, "zeros"), "v": PSpec(shp, "zeros"),
             "pos": PSpec((), "zeros", torch.int32)}
+
+
+def attn_page_cache_pspec(cfg: ModelConfig, n_layers: int, pages: int,
+                          page_rows: int):
+    """The paged KV pool of ``n_layers`` layers: ``pages`` pages of
+    ``page_rows`` rows shared by every slot (block tables map slots to
+    pages)."""
+    shp = (n_layers, pages, page_rows, cfg.n_kv_heads, cfg.dh)
+    return {"k": PSpec(shp, "zeros"), "v": PSpec(shp, "zeros")}
 
 
 # ---------------------------------------------------------------------------
@@ -248,6 +312,14 @@ def mamba_cache_pspec(cfg: ModelConfig, n_layers: int, batch: int):
         "state": PSpec((n_layers, batch, cfg.ssm_heads, cfg.ssm_head_dim, ns),
                        "zeros", torch.float32),
     }
+
+
+def mamba_snap_pspec(cfg: ModelConfig, n_layers: int, pages: int):
+    """The paged cache's snapshot pool: ``pages`` (conv history, state)
+    pairs, each captured at a prompt boundary so that a later request
+    extending that exact prompt skips its prefill. The live per-slot state
+    stays in :func:`mamba_cache_pspec`; a page has its layout."""
+    return mamba_cache_pspec(cfg, n_layers, pages)
 
 
 def mamba_decode(p, cfg: ModelConfig, x, cache):

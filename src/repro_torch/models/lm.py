@@ -12,8 +12,9 @@ sequence axis with :func:`pad_cache_seq` before decoding.
 
 The continuous scheduler's cache (:func:`lm_cache_pspec` with
 ``per_slot_pos=True``) is a ring of ``min(capacity, swa_window)`` rows a
-slot with a position per slot, stepped by :func:`lm_decode_block`. That
-step takes the sliding window; the wave path (:func:`lm_apply`,
+slot with a position per slot, stepped by :func:`lm_decode_block`, or the
+paged pool (``kind="paged"``) stepped by :func:`lm_decode_block_paged`.
+Those steps take the sliding window; the wave path (:func:`lm_apply`,
 :func:`lm_decode`) does not yet.
 """
 from __future__ import annotations
@@ -61,12 +62,15 @@ class Bundle:
     prefill_last: Callable   # (params, batch) -> (last logits, cache)
     decode: Callable         # (params, cache, batch) -> (logits, cache)
     n_params: int = 0
-    # (batch, smax, per_slot_pos=False, kind="ring") -> PSpec tree
+    # (batch, smax, per_slot_pos=False, kind="ring", pool_pages=0,
+    # page_rows=0, state_pages=0) -> PSpec tree
     cache_pspec: Callable = None
     # continuous-batching slot step: (params, cache, {tokens (B, T)}, *,
     # n_valid (B,), reset_mask (B,)) -> (logits (B, vocab), cache), the
     # cache updated in place
     decode_block: Callable = None
+    # its paged twin: the same and page= (the manager's plan of the tick)
+    decode_block_paged: Callable = None
 
 
 def lm_pspec(cfg: L.ModelConfig):
@@ -186,23 +190,38 @@ def lm_decode(params, cfg: L.ModelConfig, cache, batch):
 
 
 def lm_cache_pspec(cfg: L.ModelConfig, batch: int, smax: int,
-                   per_slot_pos: bool = False, *, kind: str = "ring"):
+                   per_slot_pos: bool = False, *, kind: str = "ring",
+                   pool_pages: int = 0, page_rows: int = 0,
+                   state_pages: int = 0):
     """Decode-cache declaration. ``per_slot_pos=True`` declares the
     continuous-batching layout: ``pos`` is a (batch,) vector, one position
     per slot. Dense: a KV ring of ``min(smax, swa_window)`` rows a slot;
-    ssm: conv history and state. Only the ring kind is ported."""
+    ssm: conv history and state.
+
+    ``kind="paged"`` swaps the dense family's per-slot rings for one pool of
+    ``pool_pages`` pages of ``page_rows`` rows shared by every slot (block
+    tables map slots to pages, ``serving/kvpool.py``); the ssm family keeps
+    its live per-slot conv and state and adds a pool of ``state_pages``
+    snapshots for prompt-boundary prefix sharing."""
     _require_ported(cfg)
-    if kind != "ring":
-        raise NotImplementedError(
-            f"cache kind {kind!r} is not ported to PyTorch yet (the paged KV "
-            "pool is queue 1 of ROADMAP.md); use kind='ring'")
+    if kind == "paged" and not per_slot_pos:
+        raise ValueError("the paged cache is continuous-batching only "
+                         "(per_slot_pos=True)")
+    if kind not in ("ring", "paged"):
+        raise ValueError(f"cache kind must be 'ring' or 'paged', got {kind!r}")
     cache: dict[str, Any] = {
         "pos": PSpec((batch,) if per_slot_pos else (), "zeros", torch.int32)}
     if cfg.family == "dense":
-        cache["attn"] = L.attn_cache_pspec(cfg, cfg.n_layers, batch, smax)
-        del cache["attn"]["pos"]
+        if kind == "paged":
+            cache["attn"] = L.attn_page_cache_pspec(cfg, cfg.n_layers,
+                                                    pool_pages, page_rows)
+        else:
+            cache["attn"] = L.attn_cache_pspec(cfg, cfg.n_layers, batch, smax)
+            del cache["attn"]["pos"]
     else:
         cache["mamba"] = L.mamba_cache_pspec(cfg, cfg.n_layers, batch)
+        if kind == "paged":
+            cache["snap"] = L.mamba_snap_pspec(cfg, cfg.n_layers, state_pages)
     return cache
 
 
@@ -258,6 +277,114 @@ def lm_decode_block(params, cfg: L.ModelConfig, cache, batch, *,
     return unembed(h_last, _head(params, cfg))[:, 0], cache
 
 
+def _snap_plan(reset: torch.Tensor, load: torch.Tensor,
+               save: torch.Tensor) -> dict:
+    """The tick's snapshot plan as fixed-shape indices, made once for every
+    layer. Loads: ``use`` marks the reset slots that start from snapshot
+    ``page`` instead of zeros. Saves: each slot's pre-tick state goes to a
+    page as a (``src`` slot, ``dst`` page) pair: a slot with ``save >= 0``
+    its own state into page ``save``; every other slot repeats the first
+    saver's pair, or, when no slot saves, page 0 takes its own content back
+    (``keep``). Writes to one page then carry one value."""
+    b = save.shape[0]
+    saves = save >= 0
+    first = saves.to(torch.uint8).argmax().view(1)
+    keep = ~saves.any()
+    return {
+        "reset": reset, "use": reset & (load >= 0),
+        "page": load.clamp(min=0), "keep": keep,
+        "src": torch.where(saves, torch.arange(b, device=save.device),
+                           first),
+        "dst": torch.where(saves, save,
+                           torch.where(keep, 0, save.index_select(0, first)))}
+
+
+def _snap_io(live, snap, plan, dim=0):
+    """A live tensor at tick start, and the snapshots taken of it.
+
+    ``live`` and ``snap`` hold slots and snapshot pages on axis ``dim``. A
+    reset slot starts from zeros, or from its snapshot where the ``plan``
+    (:func:`_snap_plan`) loads one; the tick's initial value of each slot
+    the plan saves is written into its snapshot page, in place by index.
+    Save destinations are freshly allocated pages, never a page loaded this
+    tick, so the loads read before any save lands."""
+    shape = [1] * live.dim()
+    shape[dim] = -1
+    loaded = snap.index_select(dim, plan["page"]).to(live.dtype)
+    init = torch.where(plan["reset"].view(shape),
+                       torch.where(plan["use"].view(shape), loaded, 0), live)
+    dst = plan["dst"]
+    snap.index_copy_(dim, dst, torch.where(
+        plan["keep"], snap.index_select(dim, dst),
+        init.index_select(dim, plan["src"]).to(snap.dtype)))
+    return init
+
+
+def lm_decode_block_paged(params, cfg: L.ModelConfig, cache, batch, *,
+                          n_valid, reset_mask, page):
+    """Paged-pool twin of :func:`lm_decode_block`.
+
+    ``page`` carries the host manager's plan of the tick
+    (``serving/kvpool.py``): ``reset_pos`` (B,), the start position of each
+    reset slot (> 0 when a shared prefix is skipped). Dense adds ``tables``
+    (B, MP), the block tables, and ``kv_src``, ``kv_dst``: the copy-on-write
+    page copies (:func:`repro_torch.serving.kvpool.cow_pairs`), applied to
+    every layer's pool in place before the layers. Where the reference
+    gathers the whole pool through its ``kv_copy`` (identity but where a
+    fresh page reads its source), the pairs copy only those pages; the
+    result is the same. Ssm adds ``snap_save`` and ``snap_load`` (B,):
+    snapshot pages to save the slot's pre-tick state into, and to load a
+    reset slot's state from (-1: none). The cache is updated in place;
+    returns (logits (B, vocab) after each slot's last valid token, cache)."""
+    _require_ported(cfg)
+    tokens = batch["tokens"]
+    b, t_len = tokens.shape
+    dev = tokens.device
+    n_valid = torch.as_tensor(n_valid, device=dev).long()
+    reset = torch.as_tensor(reset_mask, device=dev).bool()
+    pos = torch.where(reset, torch.as_tensor(page["reset_pos"], device=dev),
+                      cache["pos"])
+    h = embed_tokens(params["embed"], tokens)                # (B, T, d)
+    if cfg.family == "dense":
+        k, v = cache["attn"]["k"], cache["attn"]["v"]
+        src = torch.as_tensor(page["kv_src"], device=dev).long().reshape(-1)
+        dst = torch.as_tensor(page["kv_dst"], device=dev).long().reshape(-1)
+        for c in (k, v):
+            c.index_copy_(1, dst, c.index_select(1, src))
+        tables = torch.as_tensor(page["tables"], device=dev).long()
+        for i, lp in enumerate(params["blocks"]):
+            a_in = rmsnorm(h, lp["ln1"], cfg.norm_eps, cfg.policy)
+            h = h + L.attn_decode_paged(
+                lp["attn"], cfg, a_in, {"k": k[i], "v": v[i], "pos": pos},
+                n_valid=n_valid, tables=tables)
+            m_in = rmsnorm(h, lp["ln2"], cfg.norm_eps, cfg.policy)
+            h = h + L.mlp_apply(lp["mlp"], cfg, m_in)
+    else:
+        conv, state = cache["mamba"]["conv"], cache["mamba"]["state"]
+        snap = cache["snap"]
+        plan = _snap_plan(
+            reset, torch.as_tensor(page["snap_load"], device=dev).long(),
+            torch.as_tensor(page["snap_save"], device=dev).long())
+        # the conv histories are small: every layer's at once; the states
+        # layer by layer, where one layer's stays in L2
+        conv0 = _snap_io(conv, snap["conv"], plan, dim=1)
+        for i, lp in enumerate(params["blocks"]):
+            m_in = rmsnorm(h, lp["ln"], cfg.norm_eps, cfg.policy)
+            out, c = L.mamba_decode_block(
+                lp["mamba"], cfg, m_in,
+                {"conv": conv0[i],
+                 "state": _snap_io(state[i], snap["state"][i], plan)},
+                n_valid=n_valid)
+            conv[i].copy_(c["conv"])
+            state[i].copy_(c["state"])
+            h = h + out
+    cache["pos"].copy_(pos + n_valid)
+    last = torch.clamp(n_valid - 1, min=0)
+    h_last = h.gather(1, last[:, None, None].expand(b, 1, h.shape[-1]))
+    h_last = rmsnorm(h_last, params["final_norm"], cfg.norm_eps, cfg.policy)
+    return unembed(h_last, _head(params, cfg))[:, 0], cache
+
+
 def build_lm(cfg: L.ModelConfig) -> Bundle:
     pspec = lm_pspec(cfg)
 
@@ -273,6 +400,12 @@ def build_lm(cfg: L.ModelConfig) -> Bundle:
         return lm_decode_block(params, cfg, cache, batch, n_valid=n_valid,
                                reset_mask=reset_mask)
 
+    def decode_block_paged(params, cache, batch, *, n_valid, reset_mask,
+                           page):
+        return lm_decode_block_paged(params, cfg, cache, batch,
+                                     n_valid=n_valid, reset_mask=reset_mask,
+                                     page=page)
+
     def cache_pspec(batch: int, smax: int, per_slot_pos: bool = False,
                     **kind_kwargs):
         return lm_cache_pspec(cfg, batch, smax, per_slot_pos=per_slot_pos,
@@ -280,4 +413,5 @@ def build_lm(cfg: L.ModelConfig) -> Bundle:
 
     return Bundle(cfg=cfg, params_pspec=pspec, prefill_last=prefill_last,
                   decode=decode, n_params=count_params(pspec),
-                  cache_pspec=cache_pspec, decode_block=decode_block)
+                  cache_pspec=cache_pspec, decode_block=decode_block,
+                  decode_block_paged=decode_block_paged)

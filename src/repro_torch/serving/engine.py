@@ -1,5 +1,5 @@
-"""Serving engines over a fixed slot grid, greedy: continuous batching
-(default) and the wave scheduler.
+"""Serving engines over a fixed slot grid: continuous batching (default)
+and the wave scheduler.
 
 Continuous scheduler (counterpart of ``repro.serving.engine``'s default):
 
@@ -15,13 +15,28 @@ Continuous scheduler (counterpart of ``repro.serving.engine``'s default):
   * the capacity is bucketed to powers of two, so at most two step shapes
     (T = chunk and T = 1) run per bucket.
 
+``ServeConfig(cache_kind="paged")`` swaps the rings for the paged pool of
+``serving/kvpool.py``: one pool of fixed-height KV pages shared by every
+slot through block tables, prompt prefixes shared page by page (a shared
+slot starts at the shared length and skips those prefill ticks),
+copy-on-write of a shared page before a divergent write, admission deferred
+under pool pressure, and for the ssm family a pool of state snapshots that a
+request extending a registered prompt loads instead of prefilling it. The
+host manager plans each tick; the plan is more inputs of the same step.
+
 On a CUDA device each step shape is captured once in a ``torch.cuda.
 CUDAGraph`` over the engine's cache tensors (the counterpart of the
-reference's jitted block step): a tick is a copy of the inputs into the
-graph's static buffers, a replay, and the argmax's one fetch. The graphs
-share one memory pool and are captured again only when the cache is
-reallocated for another capacity. A capture that fails raises. On the CPU
-the same step runs eagerly.
+reference's jitted block step): a tick is a copy of the inputs (the page
+plan included) into the graph's static buffers, a replay, and the sampled
+tokens' one fetch. The graphs share one memory pool and are captured again
+only when the cache is reallocated for another capacity. A capture that
+fails raises. On the CPU the same step runs eagerly.
+
+Sampling is greedy, or with ``greedy=False`` a categorical draw over
+``logits / temperature`` from a ``torch.Generator`` seeded with
+``ServeConfig.seed``, outside the graph as the reference samples outside its
+jitted step. The draw gives other bits than the reference's
+``jax.random``: the two agree in distribution, not token for token.
 
 Wave scheduler (``ServeConfig(scheduler="wave")``): requests are admitted in
 waves of up to ``slots``; prompts are left-padded to the wave's longest
@@ -30,8 +45,8 @@ reference); the wave prefills once through ``Bundle.prefill_last``, grows
 the KV cache by the wave's budget, and decodes one token per step until
 every member has its budget or emitted EOS.
 
-Not ported yet (ROADMAP.md): the paged KV pool, non-greedy sampling, the
-obs gauges of the continuous loop, multi-host lockstep.
+Not ported yet (ROADMAP.md): the obs gauges and events of the continuous
+loop and of the paged pool, multi-host lockstep.
 """
 from __future__ import annotations
 
@@ -46,6 +61,7 @@ import torch
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import cast_tree, init_params
 from repro_torch.models.lm import Bundle, build_lm, pad_cache_seq
+from repro_torch.serving import kvpool
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,10 +69,19 @@ class ServeConfig:
     slots: int = 4                  # concurrent sequences (static batch)
     max_new: int = 32               # decode budget per request (default)
     eos_token: int = 2
+    greedy: bool = True
+    temperature: float = 1.0
     scheduler: str = "continuous"   # continuous | wave
     prefill_chunk: int = 16         # prompt tokens consumed per tick/slot
     max_context: int | None = None  # cap on ring-cache capacity (rows)
-    cache_kind: str = "ring"        # ring (the paged pool is not ported)
+    # KV-cache layout of the continuous scheduler: the per-slot rings, or
+    # the paged pool with prefix sharing and copy-on-write (kvpool.py)
+    cache_kind: str = "ring"        # ring | paged
+    page_rows: int | None = None    # page height (None: KV_PAGE_ROWS)
+    pool_pages: int | None = None   # KV pool size (None: (slots+1) pages/slot)
+    state_pages: int | None = None  # SSM snapshot pool size (None: 2*slots)
+    prefix_sharing: bool = True     # trie-share prompt prefixes (paged only)
+    seed: int = 0                   # sampling generator seed
     trace_ring: int = 4096          # admit/finish events kept in memory
     # path policy for every core op of the served model; None keeps the
     # bundle's own (the kernels unless the bundle says otherwise)
@@ -69,10 +94,13 @@ class ServeConfig:
         if self.cache_kind not in ("ring", "paged"):
             raise ValueError(f"cache_kind must be 'ring' or 'paged', got "
                              f"{self.cache_kind!r}")
-        if self.cache_kind == "paged":
-            raise NotImplementedError(
-                "the paged KV pool is not ported to PyTorch yet (queue 1 of "
-                "ROADMAP.md); use cache_kind='ring'")
+        if self.cache_kind == "paged" and self.scheduler == "wave":
+            raise ValueError(
+                "the paged KV cache requires the continuous scheduler "
+                "(wave batching shares one scalar position counter)")
+        if not self.greedy and not self.temperature > 0:
+            raise ValueError(f"sampling needs a temperature > 0, got "
+                             f"{self.temperature}")
         if self.slots < 1:
             raise ValueError("slots must be >= 1")
         if self.prefill_chunk < 1:
@@ -123,29 +151,49 @@ def _bucket(n: int) -> int:
 class _BlockGraph:
     """The block step of ``t_len`` tokens captured over one cache.
 
-    ``host`` (pinned) and ``inputs`` hold the step's inputs packed as (B,
-    T + 2) int64: the tokens, then ``n_valid``, then the reset flag.
-    ``launches`` is what each replay launches of the counted kernels."""
+    ``host`` (pinned) and ``inputs`` hold the step's inputs packed into one
+    int64 vector: ``fields`` gives each input's (offset, shape) there (the
+    tokens, ``n_valid``, the reset flags and, on the paged cache, the page
+    plan). ``launches`` is what each replay launches of the counted
+    kernels."""
     t_len: int
     graph: torch.cuda.CUDAGraph
     host: torch.Tensor
     inputs: torch.Tensor
+    fields: dict
     logits: torch.Tensor
     launches: dict
 
     @torch.inference_mode()     # the buffers were made under it
-    def replay(self, tokens: np.ndarray, n_valid: np.ndarray,
-               reset: np.ndarray) -> torch.Tensor:
+    def replay(self, step_inputs: dict) -> torch.Tensor:
         # every tick ends with a fetch that waits for the replay, so the
-        # previous copy out of ``host`` is done before it is written again
+        # previous copy out of ``host`` is done before it is written again,
+        # and the replay has read the page plan before the next is staged
         staged = self.host.numpy()
-        staged[:, :self.t_len] = tokens
-        staged[:, self.t_len] = n_valid
-        staged[:, self.t_len + 1] = reset
+        for name, (off, shape) in self.fields.items():
+            staged[off:off + int(np.prod(shape))] = \
+                np.asarray(step_inputs[name]).reshape(-1)
         self.inputs.copy_(self.host, non_blocking=True)
         self.graph.replay()
         kops.add_launches(self.launches)
         return self.logits
+
+
+def _pack(step_inputs: dict) -> tuple[np.ndarray, dict]:
+    """The step's inputs as one int64 vector and each one's (offset,
+    shape) in it."""
+    fields, off = {}, 0
+    for name, arr in step_inputs.items():
+        fields[name] = (off, arr.shape)
+        off += arr.size
+    flat = np.concatenate([np.asarray(a, np.int64).reshape(-1)
+                           for a in step_inputs.values()])
+    return flat, fields
+
+
+def _unpack(buf: torch.Tensor, fields: dict) -> dict:
+    return {name: buf[off:off + int(np.prod(shape))].view(shape)
+            for name, (off, shape) in fields.items()}
 
 
 class ServingEngine:
@@ -177,11 +225,13 @@ class ServingEngine:
         self._cache = None              # continuous ring cache (reused)
         self._capacity = None
         self._overflow_warned = False   # max_context degrade: warn once
+        self._kv = None                 # PagedKVManager (cache_kind=paged)
         self._graphs: dict[int, _BlockGraph] = {}   # by T, for this cache
         self._pool = None               # the graphs' shared memory pool
         self._step_shapes: set[tuple[int, int]] = set()
         self.captures = 0
         self.capture_s = 0.0
+        self._gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
 
     # -- shared plumbing ----------------------------------------------------
 
@@ -207,13 +257,30 @@ class ServingEngine:
             return {"block": self.captures, "capture_s": self.capture_s}
         return {"block": len(self._step_shapes), "capture_s": 0.0}
 
+    def kv_stats(self) -> dict | None:
+        """The paged pool's occupancy and sharing counters (None under the
+        ring cache): pages in use / free / shared, peak in use, CoW copies,
+        defers, trie entries; see ``PagedKVManager.stats``."""
+        return None if self._kv is None else self._kv.stats()
+
     def _budget(self, req: Request) -> int:
         return self.cfg.max_new if req.max_new is None else req.max_new
 
     def _sample(self, logits: torch.Tensor) -> np.ndarray:
+        """Greedy, or a categorical draw over ``logits / temperature`` by
+        the Gumbel-max rule from the engine's seeded generator (one draw a
+        row, idle slots included, as the reference draws). The fetch waits
+        for the step."""
         if logits.ndim == 3:            # wave steps emit (B, T, V)
             logits = logits[:, -1]
-        return torch.argmax(logits, dim=-1).cpu().numpy()
+        if self.cfg.greedy:
+            return torch.argmax(logits, dim=-1).cpu().numpy()
+        u = torch.rand(logits.shape, generator=self._gen,
+                       device=logits.device, dtype=torch.float32)
+        gumbel = -torch.log(-torch.log(u.clamp_min(
+            torch.finfo(torch.float32).tiny)))
+        return torch.argmax(logits.float() / self.cfg.temperature + gumbel,
+                            dim=-1).cpu().numpy()
 
     def run(self, requests: list[Request]) -> list[Result]:
         t0 = time.perf_counter()
@@ -234,35 +301,103 @@ class ServingEngine:
         cap = _bucket(need)
         if self.cfg.max_context is not None:
             cap = min(cap, _bucket(self.cfg.max_context))
+        kind: dict = {}
+        if self.cfg.cache_kind == "paged":
+            rows = kvpool.validate_page_rows(self.cfg.page_rows
+                                             or kvpool.KV_PAGE_ROWS)
+            swa = self.bundle.cfg.swa_window
+            if swa:
+                # page granularity: the sliding window rounds UP to a whole
+                # page (a paged slot keeps >= swa rows, never fewer)
+                cap = min(cap, -(-swa // rows) * rows)
+            cap = max(cap, rows)
+            mp = cap // rows
+            pool_pages = self.cfg.pool_pages or (self.cfg.slots + 1) * mp
+            state_pages = self.cfg.state_pages or 2 * self.cfg.slots
+            kind = {"kind": "paged", "pool_pages": pool_pages,
+                    "page_rows": rows, "state_pages": state_pages}
+            if self._kv is None or self._capacity != cap or \
+                    self._kv.kv is not None and \
+                    self._kv.kv.n_pages != pool_pages:
+                self._kv = kvpool.PagedKVManager(
+                    slots=self.cfg.slots, page_rows=rows, maxpages=mp,
+                    pool_pages=pool_pages, family=self.bundle.cfg.family,
+                    state_pages=state_pages,
+                    sharing=self.cfg.prefix_sharing)
         if self._cache is None or self._capacity != cap:
-            self._graphs.clear()        # they were captured over the old one
+            # the graphs were captured over the old cache; their memory pool
+            # goes with them (a capture into a pool no live graph holds
+            # fails an assertion of the caching allocator)
+            self._graphs.clear()
+            self._pool = None
             pspec = self.bundle.cache_pspec(self.cfg.slots, cap,
-                                            per_slot_pos=True)
+                                            per_slot_pos=True, **kind)
             gen = torch.Generator(device=self.device)    # zeros draw nothing
             self._cache = init_params(pspec, gen, self.bundle.cfg.dtype)
             self._capacity = cap
 
-    def _eager_step(self, tokens: torch.Tensor, n_valid: torch.Tensor,
-                    reset: torch.Tensor) -> torch.Tensor:
-        logits, _ = self.bundle.decode_block(
-            self.params, self._cache, {"tokens": tokens}, n_valid=n_valid,
-            reset_mask=reset)
+    def _step_inputs(self, tokens: np.ndarray, n_valid: np.ndarray,
+                     reset: np.ndarray, plan: dict | None) -> dict:
+        """The block step's inputs: the tokens, ``n_valid``, the reset flags
+        and, on the paged cache, the manager's plan of the tick, its
+        copy-on-write entries as the fixed pairs the step of ``T`` tokens
+        takes (a slot writes at most ``ceil((T-1)/R) + 1`` pages a tick)."""
+        out = {"tokens": tokens, "n_valid": n_valid, "reset": reset}
+        if plan is None:
+            return out
+        out["reset_pos"] = plan["reset_pos"]
+        if "kv_copy" in plan:
+            per_slot = -(-(tokens.shape[1] - 1) // self._kv.page_rows) + 1
+            src, dst = kvpool.cow_pairs(plan["kv_copy"],
+                                        self.cfg.slots * per_slot)
+            out.update(tables=plan["tables"], kv_src=src, kv_dst=dst)
+        if "snap_save" in plan:
+            out.update(snap_save=plan["snap_save"],
+                       snap_load=plan["snap_load"])
+        return out
+
+    def _idle_inputs(self, t_len: int) -> dict:
+        """A step that changes nothing: every ``n_valid`` 0, no reset, an
+        identity copy plan, no snapshot saved or loaded."""
+        nb = self.cfg.slots
+        zeros = np.zeros(nb, np.int64)
+        plan = None
+        if self._kv is not None:
+            plan = {"reset_pos": zeros}
+            if self._kv.has_kv:
+                plan.update(tables=np.zeros((nb, self._kv.maxpages),
+                                            np.int64),
+                            kv_copy=np.arange(self._kv.kv.n_pages))
+            if self._kv.has_state:
+                plan.update(snap_save=np.full(nb, -1),
+                            snap_load=np.full(nb, -1))
+        return self._step_inputs(np.zeros((nb, t_len), np.int64), zeros,
+                                 zeros, plan)
+
+    def _eager_step(self, inputs: dict) -> torch.Tensor:
+        kw = {"n_valid": inputs["n_valid"],
+              "reset_mask": inputs["reset"].bool()}
+        step = self.bundle.decode_block
+        if self._kv is not None:
+            step = self.bundle.decode_block_paged
+            kw["page"] = {k: v for k, v in inputs.items()
+                          if k not in ("tokens", "n_valid", "reset")}
+        logits, _ = step(self.params, self._cache,
+                         {"tokens": inputs["tokens"]}, **kw)
         return logits
 
     def _capture(self, t_len: int) -> _BlockGraph:
         """Warm the step up on a side stream, then capture it. The warm-up
-        runs with every ``n_valid`` 0, which leaves the cache as it is, and
-        builds what cannot be built inside a capture (the kernels' library,
-        library handles)."""
+        runs the idle step, which leaves the cache as it is, and builds what
+        cannot be built inside a capture (the kernels' library, library
+        handles)."""
         t0 = time.perf_counter()
-        nb = self.cfg.slots
-        host = torch.zeros((nb, t_len + 2), dtype=torch.int64,
-                           pin_memory=True)
-        inputs = torch.zeros_like(host, device=self.device)
+        flat, fields = _pack(self._idle_inputs(t_len))
+        host = torch.from_numpy(flat).pin_memory()
+        inputs = host.to(self.device)
 
         def step():
-            return self._eager_step(inputs[:, :t_len], inputs[:, t_len],
-                                    inputs[:, t_len + 1].bool())
+            return self._eager_step(_unpack(inputs, fields))
 
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
@@ -280,20 +415,19 @@ class ServingEngine:
             self._pool = graph.pool()
         self.captures += 1
         self.capture_s += time.perf_counter() - t0
-        return _BlockGraph(t_len, graph, host, inputs, logits, counted)
+        return _BlockGraph(t_len, graph, host, inputs, fields, logits,
+                           counted)
 
-    def _block_step(self, tokens: np.ndarray, n_valid: np.ndarray,
-                    reset: np.ndarray) -> torch.Tensor:
+    def _block_step(self, inputs: dict) -> torch.Tensor:
         """One block step of the scheduler -> logits (B, vocab)."""
-        t_len = tokens.shape[1]
+        t_len = inputs["tokens"].shape[1]
         self._step_shapes.add((t_len, self._capacity))
         if self.device.type != "cuda":
-            return self._eager_step(torch.from_numpy(tokens),
-                                    torch.from_numpy(n_valid),
-                                    torch.from_numpy(reset))
+            return self._eager_step({k: torch.from_numpy(
+                np.asarray(v, np.int64)) for k, v in inputs.items()})
         if t_len not in self._graphs:
             self._graphs[t_len] = self._capture(t_len)
-        return self._graphs[t_len].replay(tokens, n_valid, reset)
+        return self._graphs[t_len].replay(inputs)
 
     @torch.inference_mode()
     def _run_continuous(self, t0: float) -> list[Result]:
@@ -301,7 +435,8 @@ class ServingEngine:
         self._ensure_cache()
         chunk = min(self.cfg.prefill_chunk, self._capacity)
         attn = self._cache.get("attn")
-        rows = None if attn is None else attn["k"].shape[2]
+        rows = (None if attn is None or self._kv is not None
+                else attn["k"].shape[2])
         if rows is not None and chunk > rows:
             raise ValueError(
                 f"prefill_chunk {chunk} exceeds the ring of {rows} rows that "
@@ -315,21 +450,31 @@ class ServingEngine:
         while True:
             now = time.perf_counter() - t0
             cur = self.ticks
-            # admission: refill every free slot from the arrived queue
+            # admission: refill every free slot from the arrived queue. The
+            # paged cache admits head-of-line only: a deferred request
+            # blocks later ones (FIFO; skipping ahead would starve it)
             reset = np.zeros(nb, bool)
+            blocked = False
             for i, s in enumerate(slots):
-                if not s.free or not self.queue:
+                if blocked or not s.free or not self.queue:
                     continue
                 if self.queue[0].arrival_s > now:
                     continue
                 req = self.queue[0]
                 budget = self._budget(req)
+                start = 0
+                if self._kv is not None:
+                    got = self._kv.admit(i, req.prompt, budget, uid=req.uid)
+                    if got is None:     # pool pressure: defer admission
+                        blocked = True
+                        continue
+                    start = got
                 need = len(req.prompt) + budget
                 if need > self._capacity:
                     # capacity saturated at max_context: the slot degrades
-                    # to sliding-window attention (the ring overwrites its
-                    # oldest rows); correct for windowed models, lossy for
-                    # full-attention ones
+                    # to sliding-window attention (the ring or the block
+                    # table overwrites its oldest rows); correct for
+                    # windowed models, lossy for full-attention ones
                     if not self._overflow_warned:
                         warnings.warn(
                             f"request uid={req.uid} needs {need} cache "
@@ -349,10 +494,18 @@ class ServingEngine:
                                   prompt_len=len(req.prompt),
                                   arrival_s=req.arrival_s,
                                   admitted_tick=cur))
+                slots[i].ppos = start   # trie-shared prefix tokens skipped
                 reset[i] = True
-                self._trace_event(cur, "admit", req.uid, i, start=0)
+                self._trace_event(cur, "admit", req.uid, i, start=start)
             active = [i for i, s in enumerate(slots) if not s.free]
             if not active:
+                if blocked:
+                    req = self.queue[0]
+                    raise RuntimeError(
+                        f"paged KV pool cannot admit request uid={req.uid} "
+                        f"(prompt {len(req.prompt)} + budget "
+                        f"{self._budget(req)}) even with every slot idle; "
+                        "raise ServeConfig.pool_pages")
                 if not self.queue:
                     break
                 wait = self.queue[0].arrival_s - now
@@ -376,15 +529,24 @@ class ServingEngine:
                 else:
                     tokens[i, 0] = s.last
                     n_valid[i] = 1
-            nxt = self._sample(self._block_step(tokens, n_valid, reset))
+            plan = None
+            if self._kv is not None:
+                plan = self._kv.plan_tick({i: int(n_valid[i])
+                                           for i in active})
+            nxt = self._sample(self._block_step(
+                self._step_inputs(tokens, n_valid, reset, plan)))
             now = time.perf_counter() - t0
             self.ticks = cur + 1
 
             for i in active:
                 s = slots[i]
+                if self._kv is not None:
+                    self._kv.advance(i, int(n_valid[i]))
                 plen = len(s.req.prompt)
                 if s.ppos < plen:
                     s.ppos += int(n_valid[i])
+                    if self._kv is not None and s.ppos >= plen:
+                        self._kv.mark_prefilled(i)
                     if s.ppos < plen:
                         continue        # mid-prefill: logits are interim
                 # this tick produced a real token for slot i
@@ -403,7 +565,11 @@ class ServingEngine:
                     res.finish_tick = cur
                     self._trace_event(cur, "finish", res.uid, i)
                     out.append(res)
+                    if self._kv is not None:
+                        self._kv.release(i)   # pages back to the pool
                     slots[i] = _Slot()  # freed; refilled next tick
+            if self._kv is not None:
+                self._kv.end_tick()
         return out
 
     # -- wave scheduler -----------------------------------------------------

@@ -95,8 +95,9 @@ def test_cache_pspec_matches_reference(arch):
                 tb.cache_pspec(3, 32, per_slot_pos=per_slot),
                 is_leaf=lambda x: hasattr(x, "shape"))
             assert got == want, (swa, per_slot)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.cache_pspec(3, 32, per_slot_pos=True, kind="paged")
+    # the paged kind is held against the reference in test_torch_paged.py
+    with pytest.raises(ValueError, match="cache kind"):
+        tb.cache_pspec(3, 32, per_slot_pos=True, kind="flat")
 
 
 @pytest.mark.parametrize("policy", [None, "fused"])

@@ -27,6 +27,7 @@ from repro_torch.configs import mamba2_1_3b as tmamba
 from repro_torch.launch import serve as tserve
 from repro_torch.models import build_lm
 from repro_torch.models.common import params_from_numpy
+from repro_torch.models.lm import lm_cache_pspec
 from repro_torch.serving import Request, ServeConfig, ServingEngine
 
 
@@ -100,12 +101,18 @@ def test_several_waves_and_budgets_identical_to_jax(ref_weights):
 
 
 def test_unported_scheduler_names_the_roadmap():
-    """The continuous scheduler is ported; its paged KV pool is not."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeConfig(cache_kind="paged")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The continuous scheduler and its paged KV pool are ported; the paged
+    cache of the hybrid and moe families waits for those families, and the
+    wave scheduler takes no paged cache, as in the reference."""
+    assert ServeConfig(cache_kind="paged").cache_kind == "paged"
+    for family in ("hybrid", "moe"):
+        cfg = dataclasses.replace(tllama.SMOKE, family=family)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            lm_cache_pspec(cfg, 2, 32, per_slot_pos=True, kind="paged",
+                           pool_pages=4, page_rows=16, state_pages=2)
+    with pytest.raises(ValueError, match="continuous"):
         tserve.main(["--config", "smoke", "--device", "cpu",
-                     "--cache", "paged"])
+                     "--cache", "paged", "--scheduler", "wave"])
 
 
 def test_serve_cli_on_cpu(capsys):
