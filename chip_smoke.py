@@ -31,7 +31,9 @@ Phases:
    2 x layers + 1 RMSNorm launches per forward (97, 33). Each prefill's
    last-token logits, and the logits of two decode steps from its cache,
    are held against the same model on the kernels' plain versions, and its
-   device time is split by kind of kernel with ``torch.profiler``; 15
+   device time is split by kind of kernel with ``torch.profiler``, and the
+   "other" kernels' time by the op that launched them, from a Chrome trace
+   of ``repro_torch.obs.profiling.tracing`` (the ten largest); 15
    decode steps on the host clock against their device time give the
    card's idle share. These three runs use the wave scheduler.
    Then the continuous scheduler (the default): mamba2-1.3b FULL and
@@ -74,6 +76,20 @@ Phases:
    2^16 draws over 16 classes lie within a total variation of 0.02 of
    their softmax. Printed for both caches: tok/s, TTFT, ticks, host ms a
    tick by T, device ms a replayed tick by T and kind, peak pages.
+   Then observability (``repro_torch.obs``): llama3.2-1b serves the
+   shared-prefix requests on the paged cache through
+   ``repro_torch.launch.serve.main`` three times, with obs off, with
+   ``--obs-events --metrics-out``, and with those and ``--profile-dir``
+   (traces under ``build/obs/``). The three runs must give the same tokens
+   and launch counts; each run with obs on must show one admit and one
+   finish event per request, TTFT observed once per request,
+   ``repro_serving_tokens_total`` equal to the tokens returned, the four
+   tick phases summing to the ticks within 1e-6 s a tick, as many ``kv_cow``
+   events as CoW copies, the peak-pages gauge at the pool's peak, and a
+   resolution and a ``kernel_invoke`` event of RMSNorm on ``tile``; the
+   trace must hold one ``serving/block_step`` range a tick and RMSNorm
+   kernel records. Printed: the T = 1 tick's host ms in each of the three
+   runs, beside the card's name and power limit.
 3. Per kernel: the kernel against its plain version on the card at the main
    path's shapes (the reduce and scan at 2^24 elements from 2^20 rows of 16
    to one row, RMSNorm also at the served decode and prefill shapes,
@@ -98,9 +114,12 @@ Exits non-zero and prints no result when there is no CUDA device or no
 """
 from __future__ import annotations
 
+import bisect
+import contextlib
 import dataclasses
 import gc
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -114,6 +133,7 @@ PEAK_OPS = {"float16": 989e12, "bfloat16": 989e12,   # dense tensor cores
             "float32": 67e12}                          # CUDA cores
 N_ELEMS = 1 << 24
 SPIN_CAP_MS = 20.0                  # longest spin before a timed launch
+OBS_DIR = Path(__file__).resolve().parent / "build" / "obs"   # traces
 
 
 class Smoke:
@@ -826,19 +846,24 @@ def kernel_events(torch, fn) -> list | None:
         and "spin_kernel" not in e.key]
 
 
+def kind_of(name: str) -> str:
+    """This repository's kernels by name, matrix products (cuBLAS/CUTLASS
+    kernels) as ``gemm``, the rest as ``other``."""
+    name = name.lower()
+    kind = next((k for k in KINDS if k in name), None)
+    if kind is None and any(t in name for t in ("gemm", "xmma", "cutlass",
+                                                 "nvjet")):
+        kind = "gemm"
+    return kind or "other"
+
+
 def split_by_kind(events) -> dict | None:
-    """Device ms of ``kernel_events`` by kind of kernel: this repository's
-    kernels by name, matrix products (cuBLAS/CUTLASS kernels) as ``gemm``,
-    the rest as ``other``. A diagnostic: None, printed as not measured,
-    when the profiler saw no device time."""
+    """Device ms of ``kernel_events`` by ``kind_of`` each kernel. A
+    diagnostic: None, printed as not measured, when the profiler saw no
+    device time."""
     split = dict.fromkeys((*KINDS, "other"), 0.0)
     for name, _, ms in events or ():
-        name = name.lower()
-        kind = next((k for k in KINDS if k in name), None)
-        if kind is None and any(t in name for t in ("gemm", "xmma",
-                                                     "cutlass", "nvjet")):
-            kind = "gemm"
-        split[kind or "other"] += max(ms, 0.0)
+        split[kind_of(name)] += max(ms, 0.0)
     if sum(split.values()) <= 0:
         return None
     return {k: round(v, 4) for k, v in split.items()}
@@ -847,6 +872,68 @@ def split_by_kind(events) -> dict | None:
 def device_split(torch, fn) -> dict | None:
     """Device time of one call of ``fn`` by kind of kernel."""
     return split_by_kind(kernel_events(torch, fn))
+
+
+def chrome_trace(profile_dir: Path) -> list:
+    """The events of the one Chrome trace ``obs.profiling.tracing`` wrote
+    into ``profile_dir``."""
+    (path,) = profile_dir.glob("*.pt.trace.json")
+    return json.loads(path.read_text())["traceEvents"]
+
+
+def launching_ops(events) -> dict:
+    """For each kernel record of a Chrome trace, by correlation id, the
+    innermost CPU op around its launch (None outside any op)."""
+    ops: dict = {}
+    for e in events:
+        if e.get("cat") == "cpu_op":
+            ops.setdefault((e["pid"], e["tid"]), []).append(
+                (e["ts"], e["ts"] + e.get("dur", 0), e["name"]))
+    ops = {key: sorted(v) for key, v in ops.items()}
+    starts = {key: [o[0] for o in v] for key, v in ops.items()}
+    out = {}
+    for e in events:
+        if e.get("cat") != "cuda_runtime" or "correlation" not in e.get(
+                "args", {}):
+            continue
+        key, ts = (e["pid"], e["tid"]), e["ts"]
+        found = None
+        # the innermost op around ts is the latest-starting one that ends
+        # after ts
+        for j in range(bisect.bisect_right(starts.get(key, []), ts) - 1,
+                       -1, -1):
+            if ops[key][j][1] >= ts:
+                found = ops[key][j][2]
+                break
+        out[e["args"]["correlation"]] = found
+    return out
+
+
+def other_by_op(fn, label: str, top: int = 10) -> dict:
+    """Device ms of the "other" kernels (``kind_of``) of one call of ``fn``
+    (warmed up), traced through ``repro_torch.obs.profiling.tracing``, by
+    the CPU op that launched each (its kernel's name where no op was around
+    the launch): the ``top`` largest and their total."""
+    from repro_torch.obs import profiling
+
+    out_dir = OBS_DIR / label
+    shutil.rmtree(out_dir, ignore_errors=True)
+    with profiling.tracing(str(out_dir)):
+        fn()
+    events = chrome_trace(out_dir)
+    launcher = launching_ops(events)
+    by_op: dict = {}
+    for e in events:
+        if e.get("cat") != "kernel" or "spin_kernel" in e["name"] or \
+                kind_of(e["name"]) != "other":
+            continue
+        op = launcher.get(e.get("args", {}).get("correlation")) or \
+            f"(no op) {e['name'][:60]}"
+        n, ms = by_op.get(op, (0, 0.0))
+        by_op[op] = (n + 1, ms + e["dur"] / 1e3)
+    ranked = sorted(by_op.items(), key=lambda kv: -kv[1][1])
+    return {"other_ms": round(sum(ms for _, ms in by_op.values()), 4),
+            "top": [(op, n, round(ms, 4)) for op, (n, ms) in ranked[:top]]}
 
 
 # the runs of the served main path, each with its counts read on their own:
@@ -963,6 +1050,12 @@ def serve_pass(smoke: Smoke, serve, kops, arch: str, policy: str | None,
     prefill_spread = smoke.spread
     plain_prefill_ms = smoke.time_ms(plain_bf16, max_iters=3)
     split = device_split(torch, kern_bf16)
+    other = other_by_op(kern_bf16, f"prefill-{arch}-{policy or 'tile'}"
+                        .replace("=", "_"))
+    print(f"serve: prefill device ms of the 'other' kernels by the op that "
+          f"launched them (obs.profiling.tracing, one prefill; "
+          f"{smi_line()}): total {other['other_ms']}, largest "
+          f"{other['top']}", flush=True)
     got, want = kern_bf16(), plain_bf16()
     # the same weights in f32 on both paths: kernels and plain versions
     # agree to about 1e-6 per op, so every layer stack of the port stays
@@ -1039,7 +1132,8 @@ def serve_pass(smoke: Smoke, serve, kops, arch: str, policy: str | None,
           f"{'' if idle is None else f' ({idle[1]:.3f} to {idle[2]:.3f})'}",
           flush=True)
     stats.update(prefill_ms=prefill_ms, plain_prefill_ms=plain_prefill_ms,
-                 prefill_device_ms_by_kind=split, decode_step_ms=step_ms,
+                 prefill_device_ms_by_kind=split,
+                 prefill_other_ms_by_op=other, decode_step_ms=step_ms,
                  decode_step_ms_min=min(step_times),
                  decode_step_ms_max=max(step_times),
                  decode_device_ms_by_kind=dsplit,
@@ -1596,11 +1690,10 @@ def kinds_stats(out: dict) -> dict:
     return stats
 
 
-def shared_prefix_pass(smoke: Smoke, serve, kops):
-    """llama3.2-1b FULL, 8 requests sharing a 392-token prefix (24.5 pages)
-    with tails of 16 to 64 tokens, under the ring and the paged cache: the
-    tokens must be the same, and the paged run must share prompt tokens and
-    copy pages on write."""
+def shared_prefix_requests():
+    """A maker of llama3.2-1b's 8 requests that share a 392-token prefix
+    (24.5 pages) with tails of 16 to 64 tokens (numpy seed 0), 16 new
+    tokens each."""
     from repro_torch import configs
     from repro_torch.serving import Request
 
@@ -1614,9 +1707,16 @@ def shared_prefix_pass(smoke: Smoke, serve, kops):
         return [Request(uid=i, prompt=np.concatenate([prefix, t]),
                         max_new=16) for i, t in enumerate(tails)]
 
+    return make_reqs
+
+
+def shared_prefix_pass(smoke: Smoke, serve, kops):
+    """llama3.2-1b FULL, the shared-prefix requests, under the ring and the
+    paged cache: the tokens must be the same, and the paged run must share
+    prompt tokens and copy pages on write."""
     label = "llama3.2-1b shared prefix"
-    out = both_kinds(smoke, serve, kops, "llama3.2-1b", make_reqs, 440,
-                     label)
+    out = both_kinds(smoke, serve, kops, "llama3.2-1b",
+                     shared_prefix_requests(), 440, label)
     agree = tokens_agree(smoke, out, label)
     for kv in (out["paged"][1], out["f32"]["paged"][1]):
         if not (kv["shared_tokens"] > 0 and kv["cow_copies"] > 0):
@@ -1624,6 +1724,193 @@ def shared_prefix_pass(smoke: Smoke, serve, kops):
                        f"cow_copies {kv['cow_copies']}; want both > 0")
     stats = kinds_stats(out)
     stats.update(agree)
+    return stats
+
+
+OBS_ARGV = ["--arch", "llama3.2-1b", "--config", "full", "--requests", "8",
+            "--slots", "4", "--max-new", "16", "--prefill-chunk", "16",
+            "--cache", "paged", "--seed", "0"]
+
+
+@contextlib.contextmanager
+def served_through_main(serve, make_reqs, starts: list):
+    """``serve.main`` serves ``make_reqs()`` in place of its synthetic
+    requests, and its engine appends (T, host clock) at the start of every
+    block step to ``starts``."""
+    build, make = serve.build_engine, serve.make_requests
+
+    def build_timed(*args, **kw):
+        engine = build(*args, **kw)
+        step = engine._block_step
+
+        def timed(inputs):
+            starts.append((inputs["tokens"].shape[1], time.perf_counter()))
+            return step(inputs)
+
+        engine._block_step = timed
+        return engine
+
+    serve.build_engine = build_timed
+    serve.make_requests = lambda *args, **kw: make_reqs()
+    try:
+        yield
+    finally:
+        serve.build_engine, serve.make_requests = build, make
+
+
+def tick_ms(starts: list, t_len: int) -> list:
+    """Host ms of each tick of ``t_len`` tokens, start to the next tick's
+    start (everything the loop does for the tick, obs included), without
+    the first of each T (its graph's capture) and the last tick."""
+    out, seen = [], set()
+    for (t, t0), (_, t1) in zip(starts, starts[1:]):
+        if t in seen and t == t_len:
+            out.append(1e3 * (t1 - t0))
+        seen.add(t)
+    return out
+
+
+def prom_values(text: str) -> dict:
+    """``{"name{labels}": value}`` of a Prometheus text exposition."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, _, val = line.rpartition(" ")
+            out[key] = float(val)
+    return out
+
+
+def obs_pass(smoke: Smoke, serve, kops):
+    """llama3.2-1b FULL, bf16, the paged cache, the shared-prefix requests,
+    served through ``repro_torch.launch.serve.main`` five times: with obs
+    off, on (``--obs-events --metrics-out``), on, off (in turns, as the
+    host clock drifts), then with those and ``--profile-dir``. Gates: the
+    same tokens and launch counts in all five; in each run with obs on one
+    admit and one finish event per request; TTFT observed once
+    per request; ``repro_serving_tokens_total`` the tokens returned; the
+    four tick phases summing to the ticks within 1e-6 s a tick; ``kv_cow``
+    events the pool's CoW copies and the peak-pages gauge its peak; a
+    resolution and a kernel_invoke event of RMSNorm on ``tile``; the trace
+    holding one ``serving/block_step`` range a tick and RMSNorm kernel
+    records."""
+    from repro_torch import obs
+
+    make_reqs = shared_prefix_requests()
+    runs = {}
+    on = ("events", "metrics")
+    for label, flags in (("off a", ()), ("on a", on), ("on b", on),
+                         ("off b", ()), ("on, traced", (*on, "profile"))):
+        out_dir = OBS_DIR / f"serve-{len(runs)}"
+        shutil.rmtree(out_dir, ignore_errors=True)
+        out_dir.mkdir(parents=True)
+        paths = {"events": out_dir / "events.jsonl",
+                 "metrics": out_dir / "metrics.prom",
+                 "profile": out_dir / "trace"}
+        argv = list(OBS_ARGV)
+        for flag in flags:
+            argv += [{"events": "--obs-events", "metrics": "--metrics-out",
+                      "profile": "--profile-dir"}[flag], str(paths[flag])]
+        starts: list = []
+        kops.reset_launches()
+        with served_through_main(serve, make_reqs, starts):
+            engine = serve.main(argv)
+        smoke.torch.cuda.synchronize()
+        counts = kops.launch_counts()
+        runs[label] = dict(engine=engine, counts=counts, paths=paths,
+                           flags=flags, t1=tick_ms(starts, 1))
+        if obs.active() is not None:
+            smoke.fail(f"obs {label}: a session outlived serve.main")
+    base = runs["off a"]
+    tokens = {k: {r.uid: r.tokens for r in m["engine"].results}
+              for k, m in runs.items()}
+    for label, m in runs.items():
+        if tokens[label] != tokens["off a"] or m["counts"] != base["counts"]:
+            smoke.fail(f"obs {label}: tokens or launch counts differ from "
+                       f"the run with obs off ({m['counts']} against "
+                       f"{base['counts']})")
+    stats = {}
+    for label, m in runs.items():
+        if not m["flags"]:
+            continue
+        engine, paths = m["engine"], m["paths"]
+        results = engine.results
+        events = obs.load_jsonl(str(paths["events"]))
+        prom = prom_values(paths["metrics"].read_text())
+        kv = engine.kv_stats()
+        n_req = len(results)
+        n_tok = sum(len(r.tokens) for r in results)
+        serving = [e for e in events if e["kind"] == "serving"]
+        per_uid = {(r.uid, ev): sum(1 for e in serving if e["uid"] == r.uid
+                                    and e["event"] == ev)
+                   for r in results for ev in ("admit", "finish")}
+        phase_sum = sum(v for k, v in prom.items()
+                        if k.startswith("repro_serving_tick_phase_seconds_sum"))
+        tick_sum = prom.get("repro_serving_tick_seconds_sum", float("nan"))
+        n_ticks = prom.get("repro_serving_tick_seconds_count", 0)
+        cow = sum(1 for e in events if e["kind"] == "kv_cow")
+        res = {(e["op"], e["chosen_path"], e["level"]) for e in events
+               if e["kind"] == "resolution"}
+        inv = {(e["op"], e["path"]) for e in events
+               if e["kind"] == "kernel_invoke"}
+        checks = {
+            "one admit and one finish per request":
+                set(per_uid.values()) == {1} and n_req == 8,
+            "TTFT count = requests":
+                prom.get("repro_serving_ttft_seconds_count") == n_req,
+            "tokens_total = tokens returned":
+                prom.get("repro_serving_tokens_total") == n_tok,
+            "phases sum to the ticks within 1e-6 s a tick":
+                n_ticks == engine.ticks
+                and abs(phase_sum - tick_sum) <= 1e-6 * n_ticks,
+            "kv_cow events = cow_copies": cow == kv["cow_copies"] > 0,
+            "peak pages gauge = kv_stats peak":
+                prom.get("repro_kvpool_peak_pages_in_use")
+                == kv["peak_pages_in_use"],
+            "rmsnorm resolution and kernel_invoke on tile":
+                ("rmsnorm", "tile", "kernel") in res
+                and ("rmsnorm", "tile") in inv,
+        }
+        # mean ms of each phase a tick, from the run's own histograms
+        head = "repro_serving_tick_phase_seconds_sum"
+        phase_ms = {k[len(head):].split('"')[1]: round(
+            1e3 * v / prom[k.replace("_sum{", "_count{")], 4)
+            for k, v in prom.items() if k.startswith(head)}
+        row = dict(ticks=engine.ticks, tokens=n_tok, cow=cow,
+                   phase_sum_s=phase_sum, tick_sum_s=tick_sum,
+                   events=len(events), phase_ms=phase_ms)
+        if "profile" in m["flags"]:
+            trace = chrome_trace(paths["profile"])
+            spans = sum(1 for e in trace if e.get("name") ==
+                        "serving/block_step" and e.get("cat") ==
+                        "user_annotation")
+            norms = sum(1 for e in trace if e.get("cat") == "kernel"
+                        and "rmsnorm" in e["name"].lower())
+            checks["one serving/block_step range a tick"] = \
+                spans == engine.ticks
+            checks["rmsnorm kernel records in the trace"] = norms > 0
+            # each tick replays 2L + 1 RMSNorm kernels; each graph's eager
+            # warm-up launched them once more
+            row.update(block_step_ranges=spans, rmsnorm_records=norms,
+                       rmsnorm_records_want=(2 * engine.bundle.cfg.n_layers
+                                             + 1) * (engine.ticks +
+                                                     engine.captures))
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            smoke.fail(f"obs {label}: {failed} ({row})")
+        print(f"obs {label}: {row}; checks passed "
+              f"{len(checks) - len(failed)} of {len(checks)}", flush=True)
+        stats[label] = row
+    cost = {label: m["t1"] for label, m in runs.items()}
+    cost["off, a and b"] = cost["off a"] + cost["off b"]
+    cost["on, a and b"] = cost["on a"] + cost["on b"]
+    print(f"obs: T = 1 tick host ms, start to next start, median (min-max, "
+          f"n), first tick of each T left out; {smi_line()}: "
+          + "; ".join(f"obs {label} {ms_text(v)}" for label, v in
+                      cost.items()), flush=True)
+    launches = {}
+    for m in runs.values():
+        launches = add_counts(launches, m["counts"])
+    stats.update(t1_tick_ms=cost, launches=launches)
     return stats
 
 
@@ -1811,6 +2098,7 @@ def main() -> int:
                  for arch in PAGED]
         runs += [("llama3.2-1b shared prefix",
                   lambda: shared_prefix_pass(smoke, serve, kops)),
+                 ("llama3.2-1b obs", lambda: obs_pass(smoke, serve, kops)),
                  ("mamba2-1.3b multi-turn",
                   lambda: multi_turn_pass(smoke, serve, kops)),
                  ("llama3.2-1b sampling",

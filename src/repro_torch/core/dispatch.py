@@ -9,35 +9,63 @@ Every op takes ``policy=`` (see :mod:`repro_torch.core.policy`) and runs:
   ``tile_logdepth``  scan, weighted_scan and ssd only: the carry-free local
                 kernels of ``csrc/matmul_scan.cu`` and the log-depth tree of
                 ``kernels/matmul_scan.py`` (the other ops raise)
+
+Each op resolves its path with the bucket-axis size the reference's
+``dispatch._resolve`` passes (reduce, scan, weighted_scan: the last axis;
+attention and ssd: the sequence axis), so an observability session records
+the reference's ``resolution`` events.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.policy import resolve
+from repro_torch.core.policy import _emit_resolution, resolve
 from repro_torch.core.reduce import tcu_segmented_reduce
 from repro_torch.core.scan import tcu_scan, tcu_weighted_scan
 from repro_torch.core.ssd import CHUNK, ssd_chunked
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
+from repro_torch.obs import runtime
+
+KERNEL_PATHS = ("tile", "tile_logdepth")
+
+
+def _resolve(policy, op: str, x: torch.Tensor, n: int,
+             level: str = "dispatch") -> str:
+    return resolve(policy, op, n=n, dtype=x.dtype, level=level,
+                   device=x.device)
+
+
+def _kernel_level(op: str, x: torch.Tensor, n: int, path: str) -> None:
+    """The reference resolves a kernel path once more in its kernel
+    registry (``repro.kernels.backend.pallas_op``: level ``"kernel"``, the
+    registry's name of the op, the dispatch's choice as the per-call
+    label). The port's wrappers take the path as given, so that
+    resolution is recorded here (only called with a session active)."""
+    if path in KERNEL_PATHS:
+        _emit_resolution(op, n, x.dtype, "kernel", path, path, x.device)
 
 
 def reduce(x: torch.Tensor, *, policy: str | None = None) -> torch.Tensor:
     """Segmented sum over the last axis -> f32 ``(...,)``."""
-    p = resolve(policy, "reduce")
+    p = _resolve(policy, "reduce", x, x.shape[-1])
     if p == "fused":
         return tcu_segmented_reduce(x, formulation="fused")
     if p == "baseline":
         return torch.sum(x.float(), dim=-1)
+    if runtime.ACTIVE is not None:
+        _kernel_level("segmented_reduce", x, x.shape[-1], p)
     return kops.segmented_reduce(x)
 
 
 def scan(x: torch.Tensor, *, policy: str | None = None,
          exclusive: bool = False) -> torch.Tensor:
     """Prefix sum over the last axis -> f32, same shape."""
-    p = resolve(policy, "scan")
+    p = _resolve(policy, "scan", x, x.shape[-1])
     if p == "fused":                   # core's scan is the tile algebra
         return tcu_scan(x, exclusive=exclusive)
+    if runtime.ACTIVE is not None:
+        _kernel_level("segmented_scan", x, x.shape[-1], p)
     if p == "baseline":
         out = torch.cumsum(x.float(), dim=-1)
     elif p == "tile_logdepth":
@@ -55,11 +83,13 @@ def scan(x: torch.Tensor, *, policy: str | None = None,
 def weighted_scan(x: torch.Tensor, log_a: torch.Tensor, *,
                   policy: str | None = None) -> torch.Tensor:
     """Decayed scan ``y_i = exp(log_a_i) * y_{i-1} + x_i`` -> f32."""
-    p = resolve(policy, "weighted_scan")
+    p = _resolve(policy, "weighted_scan", x, x.shape[-1])
     if p == "fused":
         return tcu_weighted_scan(x, log_a)
     if p == "baseline":
         return ref.weighted_scan_ref(x, log_a)
+    if runtime.ACTIVE is not None:
+        _kernel_level("weighted_scan", x, x.shape[-1], p)
     if p == "tile_logdepth":
         return kops.weighted_scan_logdepth(x, log_a)
     return kops.weighted_scan(x, log_a)
@@ -67,8 +97,10 @@ def weighted_scan(x: torch.Tensor, log_a: torch.Tensor, *,
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
             policy: str | None = None) -> torch.Tensor:
-    """RMSNorm over the last axis, in x's dtype."""
-    if resolve(policy, "rmsnorm") == "tile":
+    """RMSNorm over the last axis, in x's dtype. The reference has RMSNorm
+    in its kernel registry only (``repro.kernels.ops.rmsnorm``), so it
+    resolves once, at level ``"kernel"``."""
+    if _resolve(policy, "rmsnorm", x, x.shape[-1], level="kernel") == "tile":
         return kops.rmsnorm(x, w, eps=eps)
     return ref.rmsnorm_ref(x, w, eps=eps)
 
@@ -80,7 +112,7 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     ``(B, Sk, Hkv, D)`` -> ``(B, Sq, Hq, D)``. ``tile`` reads the model
     layout through strides, so no transposed copy is made; ``fused`` takes
     only the lengths the reference's ``chunked_attention`` takes."""
-    p = resolve(policy, "attention")
+    p = _resolve(policy, "attention", q, q.shape[1])
     if p == "fused":
         # lazy: repro_torch.models imports this module
         from repro_torch.models.xla_attention import chunked_attention
@@ -90,6 +122,8 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     if p == "baseline":
         return kops.attention_plain(q, k, v, causal=causal, window=window,
                                     scale=scale)
+    if runtime.ACTIVE is not None:
+        _kernel_level("attention", q, q.shape[1], p)
     return kops.attention(q, k, v, causal=causal, window=window, scale=scale)
 
 
@@ -102,13 +136,15 @@ def ssd(x, dt, a, b, c, *, policy: str | None = None, chunk: int | None = None,
     chunks are ``kernels/layout.HOPPER["ssd"]["q"]`` and
     ``HOPPER["ssd_logdepth"]["q"]``.
     """
-    p = resolve(policy, "ssd")
+    p = _resolve(policy, "ssd", x, x.shape[1])
     if p == "fused":
         y, h = ssd_chunked(x, dt, a, b, c, chunk=chunk or CHUNK,
                            matmul_dtype=matmul_dtype)
         return (y, h) if return_state else y
     if p == "baseline":
         return ref.ssd_scan_ref(x, dt, a, b, c, return_state=return_state)
+    if runtime.ACTIVE is not None:
+        _kernel_level("ssd_scan", x, x.shape[1], p)
     if p == "tile_logdepth":
         return kops.ssd_scan_logdepth(x, dt, a, b, c,
                                       return_state=return_state)

@@ -11,6 +11,11 @@ Every wrapper is a ``torch.autograd.Function`` whose backward goes through
 the plain version (the counterpart of ``_diff_via_ref`` in
 ``repro.kernels.ops``): each kernel agrees with its oracle to tolerance, so
 the oracle's gradient is the kernel's.
+
+With an observability session active, each public wrapper emits one
+``kernel_invoke`` event and counts ``repro_kernel_invocations_total``
+(the reference's ``kernels/backend.py::_emit_invoke``), under the
+reference's registry name of the op.
 """
 from __future__ import annotations
 
@@ -21,9 +26,11 @@ from typing import Callable
 import torch
 
 from repro_torch import device as devmod
+from repro_torch.core.policy import dtype_tag
 from repro_torch.kernels import build, layout, ref
 from repro_torch.kernels.layout import MMA_TILE, WARP
 from repro_torch.kernels.matmul_scan import tree_scan, tree_weighted
+from repro_torch.obs import runtime
 
 
 @dataclasses.dataclass
@@ -97,6 +104,22 @@ def add_launches(counts: dict[str, int]) -> None:
 
 def instance_counts() -> dict[tuple[str, str], int]:
     return dict(INSTANCES)
+
+
+def _invoked(op: str, n: int, t: torch.Tensor, path: str = "tile") -> None:
+    """One ``kernel_invoke`` event and count for a wrapper's call of ``op``
+    on ``t`` (only called when an obs session is active). Under a CUDA
+    graph the wrappers run at the warm-up and the capture and never at a
+    replay, so the event fires then and not per replay, as the reference's
+    fires once per jit trace; replays are not counted into it."""
+    sess = runtime.ACTIVE
+    if sess is None:
+        return
+    sess.emit("kernel_invoke", op=op, n=int(n), dtype=dtype_tag(t.dtype),
+              path=path, tuning=None)
+    sess.counter(
+        "repro_kernel_invocations_total",
+        "kernel-registry executions by op/path").inc(op=op, path=path)
 
 
 def _dtype_code(t: torch.Tensor, name: str) -> int:
@@ -189,6 +212,8 @@ def _reduce_fwd(x: torch.Tensor) -> torch.Tensor:
 
 def segmented_reduce(x: torch.Tensor) -> torch.Tensor:
     """Sum over the last axis of ``x (..., n)`` -> f32 ``(...,)``."""
+    if runtime.ACTIVE is not None:
+        _invoked("segmented_reduce", x.shape[-1], x)
     return _via_plain(_reduce_fwd, ref.segmented_reduce_ref, x)
 
 
@@ -206,6 +231,8 @@ def _scan_fwd(x: torch.Tensor) -> torch.Tensor:
 
 def segmented_scan(x: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix sum over the last axis -> f32, same shape."""
+    if runtime.ACTIVE is not None:
+        _invoked("segmented_scan", x.shape[-1], x)
     return _via_plain(_scan_fwd, ref.segmented_scan_ref, x)
 
 
@@ -294,6 +321,8 @@ def ssd_scan(x, dt, a, b, c, *, return_state: bool = False):
     """Mamba-2 SSD scan: ``x (B, L, H, P)``, ``dt (B, L, H)``, ``a (H,)``,
     ``b``/``c`` ``(B, L, G, N)`` -> ``y (B, L, H, P)`` in x's dtype; with
     ``return_state=True`` also the final state ``(B, H, P, N)`` f32."""
+    if runtime.ACTIVE is not None:
+        _invoked("ssd_scan", x.shape[1], x)
     y, state = _via_plain(_ssd_fwd, ref.ssd_scan_ref, x, dt, a, b, c,
                           return_state=True)
     return (y, state) if return_state else y
@@ -336,6 +365,8 @@ def _weighted_fwd(x: torch.Tensor, log_a: torch.Tensor) -> torch.Tensor:
 
 def weighted_scan(x: torch.Tensor, log_a: torch.Tensor) -> torch.Tensor:
     """Decayed scan ``y_i = exp(log_a_i) * y_{i-1} + x_i`` -> f32."""
+    if runtime.ACTIVE is not None:
+        _invoked("weighted_scan", x.shape[-1], x)
     return _via_plain(_weighted_fwd, ref.weighted_scan_ref, x, log_a)
 
 
@@ -371,6 +402,8 @@ def _rmsnorm_fwd(x: torch.Tensor, w: torch.Tensor, *,
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
             eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last axis, in x's dtype (differentiable)."""
+    if runtime.ACTIVE is not None:
+        _invoked("rmsnorm", x.shape[-1], x)
     return _via_plain(_rmsnorm_fwd, ref.rmsnorm_ref, x, w, eps=eps)
 
 
@@ -452,6 +485,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     index, ends aligned by ``Sk - Sq``; ``scale`` defaults to ``D**-0.5``.
     Any lengths; on a CUDA tensor it raises on a head dim that is not a
     multiple of 16 or above 128 (differentiable)."""
+    if runtime.ACTIVE is not None:
+        _invoked("attention", q.shape[1], q)
     return _via_plain(_attention_fwd, attention_plain, q, k, v,
                       causal=causal, window=window, scale=scale)
 
@@ -504,6 +539,8 @@ def _scan_logdepth_fwd(x: torch.Tensor) -> torch.Tensor:
 def segmented_scan_logdepth(x: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix sum over the last axis -> f32, by local block scans
     and a log-depth tree over the block totals (differentiable)."""
+    if runtime.ACTIVE is not None:
+        _invoked("segmented_scan", x.shape[-1], x, "tile_logdepth")
     return _via_plain(_scan_logdepth_fwd, ref.segmented_scan_ref, x)
 
 
@@ -555,6 +592,8 @@ def weighted_scan_logdepth(x: torch.Tensor,
                            log_a: torch.Tensor) -> torch.Tensor:
     """Decayed scan ``y_i = exp(log_a_i) y_{i-1} + x_i`` -> f32, by local
     block passes and a log-depth weighted tree (differentiable)."""
+    if runtime.ACTIVE is not None:
+        _invoked("weighted_scan", x.shape[-1], x, "tile_logdepth")
     return _via_plain(_weighted_logdepth_fwd, ref.weighted_scan_ref, x,
                       log_a)
 
@@ -627,6 +666,8 @@ def ssd_scan_logdepth(x, dt, a, b, c, *, return_state: bool = False):
     """Mamba-2 SSD scan by carry-free chunk passes and a log-depth tree over
     the chunk states: the arguments and results of :func:`ssd_scan`
     (differentiable)."""
+    if runtime.ACTIVE is not None:
+        _invoked("ssd_scan", x.shape[1], x, "tile_logdepth")
     y, state = _via_plain(_ssd_logdepth_fwd, ref.ssd_scan_ref, x, dt, a, b,
                           c, return_state=True)
     return (y, state) if return_state else y

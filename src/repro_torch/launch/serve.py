@@ -5,6 +5,9 @@
     python -m repro_torch.launch.serve --scheduler wave \
         --policy ssd=tile_logdepth
     python -m repro_torch.launch.serve --config smoke --device cpu
+    python -m repro_torch.launch.serve --cache paged \
+        --obs-events events.jsonl --metrics-out metrics.prom \
+        --profile-dir trace/
 
 The continuous scheduler is the default, as in the reference: per-slot
 admission, a ring KV cache, chunked prefill (``--prefill-chunk`` prompt
@@ -29,6 +32,12 @@ MatMulScan family instead: the carry-free chunk kernel of
 ``csrc/matmul_scan.cu`` and a tree of batched matmuls over the chunk
 states. A bare ``--policy tile_logdepth`` raises on the model's RMSNorm,
 which has no log-depth form.
+
+``--obs-events``, ``--metrics-out`` and ``--profile-dir`` (the reference's
+flags, ``repro_torch.obs.cli``) run the serve under an observability
+session: a JSON-lines file of every event, the run's metrics as Prometheus
+text, and a ``torch.profiler`` Chrome trace. With none of them the run is
+uninstrumented.
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ from repro_torch import configs
 from repro_torch import device as devmod
 from repro_torch.models import build_lm
 from repro_torch.models.common import init_params
+from repro_torch.obs import cli as obs_cli
 from repro_torch.serving import Request, ServeConfig, ServingEngine
 
 
@@ -83,7 +93,9 @@ def make_requests(n: int, prompt_len: int, vocab: int, seed: int = 0,
     return reqs
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> ServingEngine:
+    """Parse ``argv`` and serve; returns the engine, whose ``results`` and
+    ``kv_stats()`` hold the run."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="mamba2-1.3b",
                     help="mamba2-1.3b or llama3.2-1b")
@@ -120,8 +132,14 @@ def main(argv=None) -> None:
                          "prefills the SSD through the log-depth family")
     ap.add_argument("--seed", type=int, default=0,
                     help="weight, sampling and synthetic-request seed")
+    obs_cli.add_obs_args(ap)
     args = ap.parse_args(argv)
 
+    with obs_cli.obs_scope(args):
+        return run(args)
+
+
+def run(args) -> ServingEngine:
     engine = build_engine(args.arch, args.config, device=args.device,
                           policy=args.policy, slots=args.slots,
                           max_new=args.max_new, scheduler=args.scheduler,
@@ -156,6 +174,7 @@ def main(argv=None) -> None:
             print(f"open loop @ {args.arrival_rate:.1f} req/s: token "
                   f"latency p50={np.percentile(lats, 50):.1f}ms "
                   f"p99={np.percentile(lats, 99):.1f}ms")
+    return engine
 
 
 if __name__ == "__main__":

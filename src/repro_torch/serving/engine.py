@@ -45,8 +45,17 @@ reference); the wave prefills once through ``Bundle.prefill_last``, grows
 the KV cache by the wave's budget, and decodes one token per step until
 every member has its budget or emitted EOS.
 
-Not ported yet (ROADMAP.md): the obs gauges and events of the continuous
-loop and of the paged pool, multi-host lockstep.
+Observability (``repro_torch.obs``, off by default) records what the
+reference's engine records, under the same names: ``serving`` events and
+``repro_serving_requests_total`` for admissions and finishes, one
+step-cache lookup per engine, a ``serve_block_trace`` event per new step
+shape, and per tick the queue-depth and slot-occupancy gauges, the
+TTFT and token-latency histograms, ``repro_serving_tokens_total``, the four
+tick phases and the tick's wall time, a ``serving/block_step`` span, and the
+paged pool's gauges. Every site guards on ``runtime.ACTIVE is not None``
+(the span on the profiler's own flag, as in the reference).
+
+Not ported yet (ROADMAP.md): multi-host lockstep.
 """
 from __future__ import annotations
 
@@ -61,6 +70,8 @@ import torch
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import cast_tree, init_params
 from repro_torch.models.lm import Bundle, build_lm, pad_cache_seq
+from repro_torch.obs import profiling as _prof
+from repro_torch.obs import runtime as _obs
 from repro_torch.serving import kvpool
 
 
@@ -232,6 +243,13 @@ class ServingEngine:
         self.captures = 0
         self.capture_s = 0.0
         self._gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        if _obs.ACTIVE is not None:
+            # the reference looks its jitted steps up once per engine in a
+            # cache shared by the engines of one config; the port's graphs
+            # belong to one engine's cache, so every engine's lookup misses
+            _obs.ACTIVE.counter(
+                "repro_serving_compile_cache_total",
+                "serving step-cache lookups by result").inc(result="miss")
 
     # -- shared plumbing ----------------------------------------------------
 
@@ -243,8 +261,15 @@ class ServingEngine:
 
     def _trace_event(self, tick: int, event: str, uid: int, slot: int,
                      **extra) -> None:
-        self._trace.append({"tick": tick, "event": event, "uid": uid,
-                            "slot": slot, **extra})
+        ev = {"tick": tick, "event": event, "uid": uid, "slot": slot,
+              **extra}
+        self._trace.append(ev)
+        sess = _obs.ACTIVE
+        if sess is not None:
+            sess.emit("serving", **ev)
+            sess.counter(
+                "repro_serving_requests_total",
+                "request lifecycle events by type").inc(event=event)
 
     def submit(self, req: Request) -> None:
         self.queue.append(req)
@@ -419,9 +444,16 @@ class ServingEngine:
                            counted)
 
     def _block_step(self, inputs: dict) -> torch.Tensor:
-        """One block step of the scheduler -> logits (B, vocab)."""
+        """One block step of the scheduler -> logits (B, vocab).
+
+        A (T, capacity) seen first (on the card, a capture) emits
+        ``serve_block_trace``, the reference's retrace event."""
         t_len = inputs["tokens"].shape[1]
-        self._step_shapes.add((t_len, self._capacity))
+        shape = (t_len, self._capacity)
+        sess = _obs.ACTIVE
+        if sess is not None:
+            self._trace_step_shape(sess, t_len, shape)
+        self._step_shapes.add(shape)
         if self.device.type != "cuda":
             return self._eager_step({k: torch.from_numpy(
                 np.asarray(v, np.int64)) for k, v in inputs.items()})
@@ -429,8 +461,27 @@ class ServingEngine:
             self._graphs[t_len] = self._capture(t_len)
         return self._graphs[t_len].replay(inputs)
 
+    def _trace_step_shape(self, sess, t_len: int, shape: tuple) -> None:
+        new = (t_len not in self._graphs if self.device.type == "cuda"
+               else shape not in self._step_shapes)
+        if new:
+            sess.emit("serve_block_trace", slots=self.cfg.slots,
+                      block_t=t_len, cache_kind=self.cfg.cache_kind)
+            sess.counter(
+                "repro_serve_block_traces_total",
+                "block-step retraces (jit compiles) by T").inc(
+                block_t=str(t_len))
+
     @torch.inference_mode()
     def _run_continuous(self, t0: float) -> list[Result]:
+        """The continuous loop. Observed tick phases share their boundaries,
+        so they sum to the tick: ``admission`` (refilling slots), then
+        ``prefill`` or ``decode`` (building the inputs, the page plan and
+        the block step), ``sample`` (the sampled tokens' fetch) and
+        ``bookkeep``. On the card the block step is a graph replay that
+        returns once enqueued, and the fetch is where the host waits for
+        the card, as for the reference's asynchronous jitted step: the step
+        phase is the enqueue, and ``sample`` holds the device's time."""
         nb = self.cfg.slots
         self._ensure_cache()
         chunk = min(self.cfg.prefill_chunk, self._capacity)
@@ -448,7 +499,9 @@ class ServingEngine:
         out: list[Result] = []
 
         while True:
+            sess = _obs.ACTIVE       # per tick: sessions can open mid-run
             now = time.perf_counter() - t0
+            tick_start = t0 + now    # same clock read; no cost when off
             cur = self.ticks
             # admission: refill every free slot from the arrived queue. The
             # paged cache admits head-of-line only: a deferred request
@@ -517,6 +570,14 @@ class ServingEngine:
             any_prefill = any(slots[i].ppos < len(slots[i].req.prompt)
                               for i in active)
             t_len = chunk if any_prefill else 1
+            if sess is not None:
+                t_adm = time.perf_counter()
+                sess.gauge("repro_serving_queue_depth",
+                           "requests waiting for a slot").set(
+                    len(self.queue))
+                sess.gauge("repro_serving_slot_occupancy",
+                           "fraction of decode slots busy").set(
+                    len(active) / nb)
             tokens = np.zeros((nb, t_len), np.int64)
             n_valid = np.zeros(nb, np.int64)
             for i in active:
@@ -533,8 +594,15 @@ class ServingEngine:
             if self._kv is not None:
                 plan = self._kv.plan_tick({i: int(n_valid[i])
                                            for i in active})
-            nxt = self._sample(self._block_step(
-                self._step_inputs(tokens, n_valid, reset, plan)))
+            step_in = self._step_inputs(tokens, n_valid, reset, plan)
+            if _prof._TRACING:
+                with _prof.span("serving/block_step"):
+                    logits = self._block_step(step_in)
+            else:
+                logits = self._block_step(step_in)
+            if sess is not None:
+                t_step = time.perf_counter()
+            nxt = self._sample(logits)
             now = time.perf_counter() - t0
             self.ticks = cur + 1
 
@@ -555,10 +623,23 @@ class ServingEngine:
                 res = s.result
                 if res.first_token_s is None:
                     res.first_token_s = now
+                    if sess is not None:
+                        sess.histogram(
+                            "repro_serving_ttft_seconds",
+                            "request arrival to first token").observe(
+                            max(0.0, now - res.arrival_s))
                 finished = tok == self.cfg.eos_token
                 if not finished:
+                    if sess is not None and res.token_s:
+                        sess.histogram(
+                            "repro_serving_token_latency_seconds",
+                            "gap between consecutive emitted tokens"
+                        ).observe(max(0.0, now - res.token_s[-1]))
                     res.tokens.append(tok)
                     res.token_s.append(now)
+                    if sess is not None:
+                        sess.counter("repro_serving_tokens_total",
+                                     "decode tokens emitted").inc()
                     finished = len(res.tokens) >= s.budget
                 if finished:
                     res.finish_s = now
@@ -570,6 +651,23 @@ class ServingEngine:
                     slots[i] = _Slot()  # freed; refilled next tick
             if self._kv is not None:
                 self._kv.end_tick()
+                if sess is not None:
+                    self._kv.emit_gauges()
+            if sess is not None:
+                # contiguous boundaries: the four phase durations sum to
+                # the tick wall time (to float addition error)
+                t_end = time.perf_counter()
+                ph = sess.histogram(
+                    "repro_serving_tick_phase_seconds",
+                    "per-tick phase wall time (phases sum to the tick)")
+                ph.observe(t_adm - tick_start, phase="admission")
+                ph.observe(t_step - t_adm,
+                           phase=("prefill" if any_prefill else "decode"))
+                ph.observe((t0 + now) - t_step, phase="sample")
+                ph.observe(t_end - (t0 + now), phase="bookkeep")
+                sess.histogram(
+                    "repro_serving_tick_seconds",
+                    "block-step tick wall time").observe(t_end - tick_start)
         return out
 
     # -- wave scheduler -----------------------------------------------------

@@ -52,9 +52,11 @@ Sharing semantics per family:
   after prefill completes (device state then equals state-after-prompt)
   into the snapshot pool.
 
-The reference's observability hooks (``kv_*`` events, the
-``repro_kvpool_*`` gauges and counters) wait for the port of ``repro.obs``;
-``stats()`` carries the same counters.
+With an observability session active (``repro_torch.obs``) the manager
+emits the reference's ``kv_evict``, ``kv_defer``, ``kv_alloc`` and
+``kv_cow`` events, counts ``repro_kvpool_defer_total`` and
+``repro_kvpool_cow_total``, and :meth:`PagedKVManager.emit_gauges` sets the
+pool's gauges; ``stats()`` carries the same counters with or without one.
 """
 from __future__ import annotations
 
@@ -64,6 +66,7 @@ from typing import Any
 import numpy as np
 
 from repro_torch.kernels.layout import KV_PAGE_ROW_MULTIPLE, KV_PAGE_ROWS
+from repro_torch.obs import runtime as _obs
 
 # families with a paged attention KV pool / with SSM conv+state snapshots
 # (the reference's lists; only dense and ssm are ported)
@@ -372,6 +375,7 @@ class PrefixTrie:
         ``protect`` entries (ids) are skipped: an admission must not evict
         the prefix it just matched. Returns pages freed."""
         freed_kv = freed_state = 0
+        sess = _obs.ACTIVE
         while freed_kv < need_kv or freed_state < need_state:
             leaves = [(n, k, e) for n, k, e in self._leaves()
                       if id(e) not in protect]
@@ -388,6 +392,9 @@ class PrefixTrie:
             if ent.state_page is not None and \
                     state_pool.decref(ent.state_page):
                 freed_state += 1
+            if sess is not None:
+                sess.emit("kv_evict", tokens=len(ent.tokens),
+                          kv_page=ent.kv_page, state_page=ent.state_page)
         return freed_kv, freed_state
 
 
@@ -473,6 +480,14 @@ class PagedKVManager:
                 headroom = self.kv.free_count - self._outstanding
             if needed > headroom:
                 self.stats_counters["defers"] += 1
+                sess = _obs.ACTIVE
+                if sess is not None:
+                    sess.emit("kv_defer", uid=uid, slot=slot,
+                              needed=needed, free=self.kv.free_count,
+                              outstanding=self._outstanding)
+                    sess.counter("repro_kvpool_defer_total",
+                                 "admissions deferred on pool pressure"
+                                 ).inc()
                 return None
             for idx, (pid, _rows) in enumerate(m.kv_pages):
                 self.kv.incref(pid)
@@ -523,6 +538,10 @@ class PagedKVManager:
             rec.reserved -= 1
             self._outstanding -= 1
         self.stats_counters["allocs"] += 1
+        sess = _obs.ACTIVE
+        if sess is not None:
+            sess.emit("kv_alloc", slot=slot, uid=rec.uid, page=pid,
+                      why=why)
         return pid
 
     def plan_tick(self, takes: dict[int, int]) -> dict[str, np.ndarray]:
@@ -533,6 +552,7 @@ class PagedKVManager:
         out: dict[str, np.ndarray] = {
             "reset_pos": self._reset_pos.copy()}
         r, mp = self.page_rows, self.maxpages
+        sess = _obs.ACTIVE
         if self.has_kv:
             copy = np.arange(self.kv.n_pages, dtype=np.int32)
             for slot, take in takes.items():
@@ -554,6 +574,12 @@ class PagedKVManager:
                         self.kv.decref(pid)
                         self.tables[slot, li] = new
                         self.stats_counters["cow_copies"] += 1
+                        if sess is not None:
+                            sess.emit("kv_cow", slot=slot, uid=rec.uid,
+                                      src=pid, dst=new)
+                            sess.counter(
+                                "repro_kvpool_cow_total",
+                                "copy-on-write page copies").inc()
                     # else: sole owner, append/ring-overwrite in place
             out["tables"] = np.maximum(self.tables, 0)
             out["kv_copy"] = copy
@@ -693,6 +719,24 @@ class PagedKVManager:
                        state_pages_in_use=self.state.in_use,
                        peak_state_pages_in_use=self.state.peak_in_use)
         return out
+
+    def emit_gauges(self) -> None:
+        sess = _obs.ACTIVE
+        if sess is None or self.kv is None:
+            return
+        g = sess.gauge("repro_kvpool_pages", "KV pool pages by state")
+        g.set(self.kv.in_use, state="in_use")
+        g.set(self.kv.free_count, state="free")
+        g.set(self.kv.shared_count(), state="shared")
+        sess.gauge("repro_kvpool_share_ratio",
+                   "shared / in-use KV pages").set(
+            self.kv.shared_count() / max(self.kv.in_use, 1))
+        sess.gauge("repro_kvpool_cow_copies",
+                   "cumulative copy-on-write page copies").set(
+            self.stats_counters["cow_copies"])
+        sess.gauge("repro_kvpool_peak_pages_in_use",
+                   "high-water mark of KV pages in use").set(
+            self.kv.peak_in_use)
 
 
 class _NullPool:

@@ -372,6 +372,8 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.ops as ops\n"
         "import repro_torch.launch.serve, repro_torch.serving, "
         "repro_torch.models, repro_torch.configs.mamba2_1_3b\n"
+        "import repro_torch.obs, repro_torch.obs.cli, "
+        "repro_torch.obs.profiling\n"
         "ops.reduce(torch.ones(2, 16), policy='tile')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
@@ -382,6 +384,9 @@ def test_port_imports_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "clean" in out.stdout
+    obs_modules = {p.name for p in (SRC / "repro_torch" / "obs").glob("*.py")}
+    assert {"metrics.py", "events.py", "runtime.py", "profiling.py",
+            "cli.py"} <= obs_modules
     for path in (SRC / "repro_torch").rglob("*.py"):
         text = path.read_text()
         for banned in ("import jax", "from jax", "import repro.",

@@ -14,7 +14,8 @@ card, beside other versions.
 
 The reduce and scan cases (``tcu_reduce``, ``tcu_scan`` at 2^24 elements,
 from 2^20 rows of 16 to one row of 2^24, and ``matmul_local_scan``) are
-timed beside ``torch.sum`` / ``torch.cumsum`` on the same input; the
+timed beside their plain versions (``kernels/ref.py``) and ``torch.sum`` /
+``torch.cumsum`` on the same input; the
 weighted scan at ``chip_smoke.py``'s cases beside its log-depth op
 (``weighted_scan_logdepth``), and the local weighted pass at q = 64 (a
 call that takes more than a second is reported, not timed);
@@ -87,7 +88,7 @@ def worker(src: Path, label: str, cases, build_only: bool) -> None:
     import torch
 
     import chip_smoke
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ref
     from repro_torch.kernels import ops as kops
 
     build.load()
@@ -108,7 +109,7 @@ def worker(src: Path, label: str, cases, build_only: bool) -> None:
                   f"H={shape[2]} | {ms:.4f} ms", flush=True)
         if cases is CASES:
             time_weighted(torch, smoke, kops, gen, label)
-            time_reduce_scan(torch, smoke, kops, gen, label)
+            time_reduce_scan(torch, smoke, kops, ref, gen, label)
 
 
 def timed(torch, smoke, fn) -> str:
@@ -148,24 +149,29 @@ def time_weighted(torch, smoke, kops, gen, label: str) -> None:
               f"{timed(torch, smoke, fn)}", flush=True)
 
 
-def time_reduce_scan(torch, smoke, kops, gen, label: str) -> None:
-    """Each case of REDUCE_SCAN_CASES, and its library call."""
+def time_reduce_scan(torch, smoke, kops, ref, gen, label: str) -> None:
+    """Each case of REDUCE_SCAN_CASES, its plain version and its library
+    call."""
     for kernel, dtype, rows, n in REDUCE_SCAN_CASES:
         x = torch.randn(rows, n, generator=gen, device="cuda").to(
             getattr(torch, dtype))
         if kernel == "reduce":
             fn = (lambda: kops.segmented_reduce(x))
+            plain = (lambda: ref.segmented_reduce_ref(x))
             lib = (lambda: torch.sum(x, -1, dtype=torch.float32))
         elif kernel == "scan":
             fn = (lambda: kops.segmented_scan(x))
+            plain = (lambda: ref.segmented_scan_ref(x))
             lib = (lambda: torch.cumsum(x, -1, dtype=torch.float32))
         else:
             fn = (lambda: kops.matmul_local_scan(x, 256))
+            plain = (lambda: ref.local_scan_ref(x, 256))
             lib = (lambda: torch.cumsum(x.view(rows, -1, 256), -1,
                                         dtype=torch.float32))
-        ms, lib_ms = smoke.time_ms(fn), smoke.time_ms(lib)
+        ms, plain_ms, lib_ms = (smoke.time_ms(f) for f in (fn, plain, lib))
         print(f"{label} | {kernel} {dtype} {rows} x {n} | {ms:.4f} ms | "
-              f"library {lib_ms:.4f} ms", flush=True)
+              f"plain {plain_ms:.4f} ms | library {lib_ms:.4f} ms",
+              flush=True)
 
 
 def ablated_copy(name: str, edits) -> Path:
