@@ -90,9 +90,27 @@ Phases:
    trace must hold one ``serving/block_step`` range a tick and RMSNorm
    kernel records. Printed: the T = 1 tick's host ms in each of the three
    runs, beside the card's name and power limit.
+   Then training (``repro_torch.training``, outside inference mode):
+   mamba2-1.3b and llama3.2-1b FULL, bf16 compute, f32 master weights,
+   AdamW at the reference's ``OptConfig`` defaults, remat ``none``, batches
+   of 4 x 512 from ``SyntheticLMPipeline(seed=0)``. 8 steps on one fixed
+   batch (every loss finite, the last below the first), then 6 timed steps
+   on the pipeline's batches (prefetch thread), each run with its launch
+   counts from 0 and gated per step: RMSNorm 2L + 1 forward and 2L again in
+   the recompute of each layer, flash attention (llama) or the SSD (mamba,
+   every launch on the tensor-core instance) twice a layer, ``tcu_reduce``
+   once per parameter leaf (the global norm), no other kernel. Printed:
+   step host ms (median, range; synchronised), tok/s, one step's device ms
+   by kind from ``torch.profiler`` and the idle share, peak GB, and the
+   global norm's ``tcu_reduce`` over the real leaves against ``torch.sum``.
+   In f32 at 2 layers (full width): one step on the kernels against the
+   same step under ``policy="baseline"`` (loss rtol 1e-4, grad_norm rtol
+   1e-3, gradients and params per leaf against the leaf's largest; see
+   ``update_gate``), then the state checkpointed and restored bit for bit
+   and a step from it against one from the state in memory.
 3. Per kernel: the kernel against its plain version on the card at the main
    path's shapes (the reduce and scan at 2^24 elements from 2^20 rows of 16
-   to one row, RMSNorm also at the served decode and prefill shapes,
+   to one row, the reduce also on the global norm's largest rows, RMSNorm also at the served decode and prefill shapes,
    the continuous T = 16 tick's 64 rows, flash attention also on its
    D = 128 instance, the SSD scan also at the
    served wave and on a 64-chunk chain, the weighted scan from 65536 rows
@@ -105,8 +123,9 @@ Phases:
    the peak rate of the input type, whichever is larger). Then each
    log-depth op whole (local kernel, tree and glue) beside the linear
    kernel's op at the same shapes.
-4. A JSON line of the serve runs and whole-op times, a ``kernels`` JSON
-   line (launches: the main path's runs, graph replays included), the
+4. A JSON line of the serve and train runs and whole-op times, a
+   ``kernels`` JSON line (launches: the main path's runs, graph replays
+   and train steps included), the
    ``nvidia-smi`` line, and last the ``ok`` line.
 
 Exits non-zero and prints no result when there is no CUDA device or no
@@ -132,6 +151,10 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory
 PEAK_OPS = {"float16": 989e12, "bfloat16": 989e12,   # dense tensor cores
             "float32": 67e12}                          # CUDA cores
 N_ELEMS = 1 << 24
+# the largest parameter leaves the train step's global norm reduces:
+# llama3.2-1b's tied embedding (128256 x 2048) and mamba2-1.3b's stacked
+# in_proj (48 x 2048 x 8512)
+GLOBAL_NORM_ROWS = (128256 * 2048, 48 * 2048 * 8512)
 SPIN_CAP_MS = 20.0                  # longest spin before a timed launch
 OBS_DIR = Path(__file__).resolve().parent / "build" / "obs"   # traces
 
@@ -297,6 +320,16 @@ def reduce_scan_cases(torch, kops, ref, gen):
                                                  dtype=torch.float32),
                 rtol=1e-3, nbytes=nbytes(x) + 4 * x.numel(), ops=x.numel(),
                 dtype=dtype))
+    # the train step's global norm reduces each parameter leaf's squares as
+    # one row: the largest leaves of both models, positive as squares are
+    for n in GLOBAL_NORM_ROWS:
+        x = torch.rand(1, n, generator=gen, device="cuda")
+        out.append(dict(
+            kernel="tcu_reduce", label=f"float32 rows=1 n={n} (global norm)",
+            primary=False, run=lambda x=x: kops.segmented_reduce(x),
+            plain=lambda x=x: ref.segmented_reduce_ref(x),
+            library=lambda x=x: torch.sum(x, dim=-1, dtype=torch.float32),
+            rtol=2e-4, nbytes=nbytes(x) + 4, ops=n, dtype=torch.float32))
     return out
 
 
@@ -813,6 +846,9 @@ def ops_pass(smoke: Smoke, ops, ref):
 
 
 KINDS = ("flash_attention", "ssd_scan", "local_ssd", "rmsnorm", "gemm")
+# tcu_reduce.cu's kernels, kind "reduce" (torch's own reductions are
+# "other")
+REDUCE_KERNELS = ("piece_totals", "tcu_reduce_combine")
 PRELUDE_SPINS = 16
 
 
@@ -847,9 +883,12 @@ def kernel_events(torch, fn) -> list | None:
 
 
 def kind_of(name: str) -> str:
-    """This repository's kernels by name, matrix products (cuBLAS/CUTLASS
-    kernels) as ``gemm``, the rest as ``other``."""
+    """This repository's kernels by name (``tcu_reduce.cu``'s as
+    ``reduce``), matrix products (cuBLAS/CUTLASS kernels) as ``gemm``, the
+    rest as ``other``."""
     name = name.lower()
+    if any(k in name for k in REDUCE_KERNELS):
+        return "reduce"
     kind = next((k for k in KINDS if k in name), None)
     if kind is None and any(t in name for t in ("gemm", "xmma", "cutlass",
                                                  "nvjet")):
@@ -861,7 +900,7 @@ def split_by_kind(events) -> dict | None:
     """Device ms of ``kernel_events`` by ``kind_of`` each kernel. A
     diagnostic: None, printed as not measured, when the profiler saw no
     device time."""
-    split = dict.fromkeys((*KINDS, "other"), 0.0)
+    split = dict.fromkeys((*KINDS, "reduce", "other"), 0.0)
     for name, _, ms in events or ():
         split[kind_of(name)] += max(ms, 0.0)
     if sum(split.values()) <= 0:
@@ -2026,6 +2065,280 @@ def sampling_pass(smoke: Smoke, serve, kops):
                 launches=counts)
 
 
+# ---------------------------------------------------------------------------
+# training: repro_torch.training's step on both models, FULL, bf16 compute,
+# f32 masters, AdamW at the reference's OptConfig defaults, remat "none"
+
+TRAIN_ARCHS = ("llama3.2-1b", "mamba2-1.3b")
+TRAIN_BATCH, TRAIN_SEQ = 4, 512     # the kernel table's rows 3 and 5
+FIXED_STEPS, TIMED_STEPS = 8, 6
+PARITY_LAYERS = 2                   # depth of the f32 parity gate alone
+# the parity gate's checkpoint, deleted after; not launch/train.py's default
+# directory (build/train_ckpt), which may hold a user's run
+CKPT_DIR = OBS_DIR.parent / "smoke_train_ckpt"
+
+
+def train_launches(cfg, n_leaves: int, kernels) -> dict:
+    """Kernel launches of one train step: RMSNorm 2L + 1 forward and 2L
+    again when remat recomputes each layer in backward, the layer kernel
+    (flash attention or the SSD) once forward and once recomputed, and
+    ``tcu_reduce`` once per parameter leaf (the global norm); no other."""
+    layers = cfg.n_layers
+    want = dict.fromkeys(kernels, 0)
+    want["rmsnorm"] = 4 * layers + 1
+    layer_kernel = "flash_attention" if cfg.family == "dense" else "ssd_scan"
+    want[layer_kernel] = 2 * layers
+    want["tcu_reduce"] = n_leaves
+    return want
+
+
+def scaled(counts: dict, k: int) -> dict:
+    return {name: k * n for name, n in counts.items()}
+
+
+def train_pass(smoke: Smoke, kops, arch: str) -> dict:
+    """``arch`` FULL through ``make_train_step``: 8 steps on one fixed
+    batch, then 6 timed steps on the pipeline's batches, with every launch
+    count set to 0 before each run and gated per step; one step's device
+    time by kind from ``torch.profiler``, and its "other" kernels by the op
+    that launched them; the global norm's reduce over the real leaves
+    against ``torch.sum``. Returns its numbers."""
+    from repro_torch import configs, tree
+    from repro_torch.data import DataConfig, SyntheticLMPipeline
+    from repro_torch.models import build_lm
+    from repro_torch.optim import OptConfig
+    from repro_torch.training import init_train_state, make_train_step
+
+    torch = smoke.torch
+    cfg = configs.get(arch).FULL
+    bundle = build_lm(cfg)
+    opt_cfg = OptConfig()
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                             bundle, opt_cfg)
+    n_leaves = len(tree.leaves(state["params"]))
+    per_step = train_launches(cfg, n_leaves, kops.KERNELS)
+    step = make_train_step(bundle, opt_cfg)
+    data = SyntheticLMPipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=0), device="cuda")
+    batch = data.device_batch(0)
+    torch.cuda.synchronize()
+
+    kops.reset_launches()
+    losses = []
+    for _ in range(FIXED_STEPS):
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"].item())
+    fixed = kops.launch_counts()
+    instances = kops.instance_counts()
+    if fixed != scaled(per_step, FIXED_STEPS):
+        smoke.fail(f"train {arch}: launches over {FIXED_STEPS} steps "
+                   f"{fixed}, want {scaled(per_step, FIXED_STEPS)}")
+    if cfg.family == "ssm" and instances != {
+            ("ssd_scan", "mma"): fixed["ssd_scan"]}:
+        smoke.fail(f"train {arch}: SSD instances "
+                   f"{instance_text(instances)}, want every launch on mma")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        smoke.fail(f"train {arch}: losses {losses} not finite or not "
+                   "falling")
+
+    data.skip_to(1)
+    batches = iter(data)
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()
+    for _ in range(TIMED_STEPS):
+        _, batch = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        metrics["loss"].item()
+        times.append(1e3 * (time.perf_counter() - t0))
+    data.close()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    timed = kops.launch_counts()
+    if timed != scaled(per_step, TIMED_STEPS):
+        smoke.fail(f"train {arch}: launches over {TIMED_STEPS} timed steps "
+                   f"{timed}, want {scaled(per_step, TIMED_STEPS)}")
+    med = statistics.median(times)
+    split = split_by_kind(kernel_events(torch, lambda: step(state, batch)))
+    idle = None if split is None else 1.0 - sum(split.values()) / med
+    other = other_by_op(lambda: step(state, batch), f"train_{arch}")
+
+    with torch.no_grad():
+        sq = [p.float().square().reshape(1, -1)
+              for p in tree.leaves(state["params"])]
+        norm_ms = smoke.time_ms(lambda: [kops.segmented_reduce(x)
+                                         for x in sq])
+        norm_spread = smoke.spread
+        sum_ms = smoke.time_ms(lambda: [torch.sum(x, dim=-1) for x in sq])
+        sum_spread = smoke.spread
+        norm_bound = bound(sum(nbytes(x) for x in sq),
+                           sum(x.numel() for x in sq), torch.float32)[0]
+    del sq, state, metrics, batch
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (med / 1e3)
+    print(f"train {arch} FULL bf16, B={TRAIN_BATCH} S={TRAIN_SEQ}: "
+          f"losses of {FIXED_STEPS} steps on one batch "
+          f"{[round(x, 4) for x in losses]}; launches a step {per_step} "
+          f"(SSD instances {instance_text(instances)}); {TIMED_STEPS} "
+          f"pipeline steps, host ms median {ms_text(times)}, "
+          f"{tok_s:.1f} tok/s; device ms of a step by kind {split}, idle "
+          f"share {'not measured' if idle is None else f'{idle:.3f}'}; "
+          f"peak {peak_gb:.2f} GB; global norm over {n_leaves} leaves: "
+          f"tcu_reduce {norm_ms:.4f} ms (min {norm_spread['min']:.4f} max "
+          f"{norm_spread['max']:.4f}"
+          f"{' HOST-BOUND' if norm_spread['host_bound'] else ''}), "
+          f"torch.sum {sum_ms:.4f} ms"
+          f"{' HOST-BOUND' if sum_spread['host_bound'] else ''}, bound "
+          f"{norm_bound:.4f} ms; \"other\" device ms by launching op "
+          f"{other}", flush=True)
+    out = dict(losses=losses, launches_per_step=per_step, step_ms=times,
+               step_ms_median=med, tok_per_s=tok_s, device_ms=split,
+               idle_share=idle, other_by_op=other, peak_mem_gb=peak_gb,
+               global_norm_ms=norm_ms, global_norm_torch_sum_ms=sum_ms,
+               global_norm_bound_ms=norm_bound,
+               launches=add_counts(fixed, timed))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["parity"] = train_parity(smoke, arch)
+    return out
+
+
+def update_gate(got, want, old, dgrad=None, m_want=None, lr: float = 0.0,
+                eps: float = 1e-8, b1: float = 0.9) -> dict:
+    """Each leaf of the params after an AdamW step on one path (``got``)
+    against another's (``want``), from the same ``old``: within 1e-3 of the
+    leaf's largest change, plus one f32 rounding of the param.
+
+    With ``dgrad`` (each leaf's largest gradient difference between the
+    paths, clipped as the step clips) the first step's conditioning is
+    added: its update ``g / (|g| + eps)`` (g the other path's clipped
+    gradient, ``m / (1 - b1)``) moves by at most ``eps dg / (max(|g| - dg,
+    0) + eps)^2``, and by at most 2, when g moves by dg; times ``lr``. That
+    is nothing where |g| is far above dg and eps, and up to two whole
+    updates where g's sign is not determined. Returns the worst error over
+    tolerance, and the elements beyond the plain 1e-3 tolerance."""
+    from repro_torch import tree
+
+    worst, beyond, total = 0.0, 0, 0
+    n = len(tree.leaves(got))
+    for g_new, w_new, p_old, dg, m in zip(
+            tree.leaves(got), tree.leaves(want), tree.leaves(old),
+            dgrad or [None] * n,
+            [None] * n if m_want is None else tree.leaves(m_want)):
+        err = (g_new - w_new).abs()
+        tol = 1e-3 * (w_new - p_old).abs().max()
+        beyond += int((err > tol).sum())
+        total += err.numel()
+        tol = tol + float(np.finfo(np.float32).eps) * w_new.abs()
+        if dg is not None:
+            grad = m.float().abs() / (1 - b1)
+            slack = eps * dg / ((grad - dg).clamp(min=0.0) + eps) ** 2
+            tol = tol + lr * slack.clamp(max=2.0)
+        worst = max(worst, float((err / tol).max()))
+    return dict(worst=worst, beyond_plain=beyond, elements=total)
+
+
+def train_parity(smoke: Smoke, arch: str) -> dict:
+    """f32, ``PARITY_LAYERS`` layers, full width: one step on the kernels
+    against the same step under ``policy="baseline"`` (loss rtol 1e-4,
+    grad_norm rtol 1e-3, each gradient leaf within 1e-3 of its largest,
+    params by ``update_gate`` with the first step's conditioning at the
+    measured gradient differences); then the kernels' state saved and
+    restored bit for bit, and a step from it against a step from the state
+    in memory, within the same tolerances (params within 1e-3 of each
+    leaf's largest change)."""
+    from repro_torch import configs, tree
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.data import DataConfig, SyntheticLMPipeline
+    from repro_torch.models import build_lm
+    from repro_torch.optim import OptConfig
+    from repro_torch.training import (init_train_state, make_train_step,
+                                      value_and_grad)
+
+    torch = smoke.torch
+    cfg = dataclasses.replace(configs.get(arch).FULL,
+                              n_layers=PARITY_LAYERS, dtype=torch.float32)
+    paths = {"kernels": None, "baseline": "baseline"}
+    bundles = {k: build_lm(dataclasses.replace(cfg, policy=p))
+               for k, p in paths.items()}
+    opts = {k: OptConfig(policy=p) for k, p in paths.items()}
+    state0 = init_train_state(torch.Generator(device="cuda").manual_seed(1),
+                              bundles["kernels"], opts["kernels"])
+    batch = SyntheticLMPipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=0), device="cuda").device_batch(0)
+    grads = {k: value_and_grad(b, state0["params"], batch)[1]
+             for k, b in bundles.items()}
+    dgrad = [(a - b).abs().max() for a, b in zip(
+        tree.leaves(grads["kernels"]), tree.leaves(grads["baseline"]))]
+    grad_err = max(float(d / b.abs().max()) for d, b in zip(
+        dgrad, tree.leaves(grads["baseline"])))
+    del grads
+    steps = {k: make_train_step(bundles[k], opts[k]) for k in paths}
+    new = {k: steps[k](state0, batch) for k in paths}
+
+    def compare(label, a, b, old, cond):
+        (sa, ma), (sb, mb) = a, b
+        loss = abs(ma["loss"].item() / mb["loss"].item() - 1)
+        gnorm = abs(ma["grad_norm"].item() / mb["grad_norm"].item() - 1)
+        if cond:   # the step clips both paths' gradients by about this
+            clip = min(1.0, opts["kernels"].clip_norm
+                       / (mb["grad_norm"].item() + 1e-9))
+            gate = update_gate(sa["params"], sb["params"], old,
+                               [clip * d for d in dgrad], sb["opt"]["m"],
+                               mb["lr"].item())
+        else:
+            gate = update_gate(sa["params"], sb["params"], old)
+        ok = loss <= 1e-4 and gnorm <= 1e-3 and gate["worst"] <= 1.0
+        print(f"train {arch} f32 {PARITY_LAYERS} layers, {label}: loss rel "
+              f"{loss:.3e} (tol 1e-4), grad_norm rel {gnorm:.3e} (tol 1e-3),"
+              f" params worst {gate['worst']:.3f} of tolerance, "
+              f"{gate['beyond_plain']} of {gate['elements']} elements beyond "
+              "1e-3 of their leaf's largest change"
+              f"{'' if ok else '  <-- OUT OF TOLERANCE'}", flush=True)
+        if not ok:
+            smoke.fail(f"train {arch} {label}: loss {loss}, grad_norm "
+                       f"{gnorm}, params {gate}")
+        return dict(loss_rel=loss, grad_norm_rel=gnorm, **gate)
+
+    parity = compare("kernels vs baseline", new["kernels"],
+                     new["baseline"], state0["params"], cond=True)
+    print(f"train {arch} f32: gradient leaves, kernels vs baseline, worst "
+          f"{grad_err:.3e} of the leaf's largest (tol 1e-3)", flush=True)
+    if not grad_err <= 1e-3:
+        smoke.fail(f"train {arch}: gradients differ by {grad_err} of the "
+                   "leaf's largest")
+    parity["grad_rel"] = grad_err
+    del new["baseline"]
+
+    s1 = new["kernels"][0]
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save(str(CKPT_DIR), 1, s1)
+    save_s = time.perf_counter() - t0
+    size_gb = sum(f.stat().st_size for f in CKPT_DIR.rglob("*")) / 1e9
+    t0 = time.perf_counter()
+    restored = ckpt.restore(str(CKPT_DIR), 1, s1)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    differ = [k for (k, a), b in zip(tree.items(s1), tree.leaves(restored))
+              if not (np.array_equal(a, b) if isinstance(a, np.ndarray)
+                      else a.dtype == b.dtype and torch.equal(a, b))]
+    print(f"train {arch} f32: checkpoint {size_gb:.2f} GB saved in "
+          f"{save_s:.2f} s, restored in {restore_s:.2f} s; leaves not bit "
+          f"for bit: {differ}", flush=True)
+    if differ:
+        smoke.fail(f"train {arch}: restored leaves differ: {differ}")
+    resumed = compare("resumed step vs the step in memory",
+                      steps["kernels"](restored, batch),
+                      steps["kernels"](s1, batch), s1["params"], cond=False)
+    return dict(parity=parity, resumed=resumed, ckpt_gb=size_gb,
+                ckpt_save_s=save_s, ckpt_restore_s=restore_s)
+
+
 def main() -> int:
     import torch
 
@@ -2113,6 +2426,21 @@ def main() -> int:
             torch.cuda.empty_cache()
             for k in launches:
                 launches[k] += stats[run]["launches"][k]
+
+    # training, outside inference mode
+    for arch in TRAIN_ARCHS:
+        run = f"{arch} train"
+        try:
+            stats[run] = train_pass(smoke, kops, arch)
+        except Exception as exc:
+            smoke.fail(f"train pass {arch}: {exc!r}")
+            stats[run] = {"launches": {k: 0 for k in ops_counts}}
+        gc.collect()
+        torch.cuda.empty_cache()
+        for k in launches:
+            launches[k] += stats[run]["launches"][k]
+
+    with torch.inference_mode():
         rows = check_kernels(smoke, kops, ref)
         whole_ops = compare_whole_ops(smoke, ops, ref)
 

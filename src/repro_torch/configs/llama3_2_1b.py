@@ -20,5 +20,5 @@ SMOKE = ModelConfig(
     name="llama3.2-smoke", family="dense",
     n_layers=2, d_model=64, vocab=256,
     n_heads=4, n_kv_heads=2, d_ff=128, head_dim=16,
-    tie_embeddings=True, dtype=torch.float32,
+    tie_embeddings=True, dtype=torch.float32, remat_policy="off",
 )

@@ -19,5 +19,5 @@ SMOKE = ModelConfig(
     name="mamba2-smoke", family="ssm",
     n_layers=3, d_model=64, vocab=256,
     ssm_state=16, ssm_head_dim=16, ssm_groups=1, expand=2, conv_kernel=4,
-    dtype=torch.float32,
+    dtype=torch.float32, remat_policy="off",
 )

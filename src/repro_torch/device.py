@@ -46,3 +46,13 @@ def sm_count(device: torch.device) -> int:
     take it)."""
     return _sm_count(device.index if device.index is not None
                      else torch.cuda.current_device())
+
+
+def process() -> tuple[int, int]:
+    """(this process's index, process count): ``torch.distributed``'s rank
+    and world size when it is initialised, else (0, 1); the counterpart of
+    ``jax.process_index()`` and ``jax.process_count()``."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1

@@ -7,10 +7,17 @@ on the current stream. It runs the kernel's plain version, the oracle in
 given lies on the CPU. For a CUDA tensor it launches the kernel or raises:
 there is no fallback.
 
-Every wrapper is a ``torch.autograd.Function`` whose backward goes through
-the plain version (the counterpart of ``_diff_via_ref`` in
-``repro.kernels.ops``): each kernel agrees with its oracle to tolerance, so
-the oracle's gradient is the kernel's.
+Every wrapper is a ``torch.autograd.Function`` (:class:`_ViaPlain`, the
+counterpart of ``_diff_via_ref`` in ``repro.kernels.ops``) whose forward is
+the kernel and whose backward differentiates a plain torch form of the same
+function at the saved inputs: each kernel agrees with that form to
+tolerance, so the form's gradient is the kernel's. The reduce, the scans,
+the weighted scans, RMSNorm and attention differentiate their plain
+version (the oracle of :data:`KERNELS`), and so does the log-depth SSD
+(``ssd_scan_logdepth``). The SSD wrapper of training's path
+(``ssd_scan``) differentiates ``core/ssd.py::ssd_chunked`` in f32
+(:func:`_ssd_grad_form`) instead of its oracle, a loop over the sequence
+whose graph would keep one ``(B, H, P, N)`` state a token.
 
 With an observability session active, each public wrapper emits one
 ``kernel_invoke`` event and counts ``repro_kernel_invocations_total``
@@ -27,6 +34,7 @@ import torch
 
 from repro_torch import device as devmod
 from repro_torch.core.policy import dtype_tag
+from repro_torch.core.ssd import ssd_chunked
 from repro_torch.kernels import build, layout, ref
 from repro_torch.kernels.layout import MMA_TILE, WARP
 from repro_torch.kernels.matmul_scan import tree_scan, tree_weighted
@@ -157,7 +165,8 @@ class _ViaPlain(torch.autograd.Function):
         with torch.enable_grad():
             out = ctx.plain(*inputs, **ctx.kwargs)
         outs = out if isinstance(out, tuple) else (out,)
-        pairs = [(o, g) for o, g in zip(outs, grads)
+        # the form may compute in f32 where the kernel returned x's dtype
+        pairs = [(o, g.to(o.dtype)) for o, g in zip(outs, grads)
                  if g is not None and o.requires_grad]
         wrt = [t for t in inputs if t.requires_grad]
         got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
@@ -317,13 +326,23 @@ def _ssd_fwd(x, dt, a, b, c, *, return_state: bool = True):
     return y.to(y_dtype), state
 
 
+def _ssd_grad_form(x, dt, a, b, c, *, return_state: bool = True):
+    """The function :func:`ssd_scan` differentiates: the chunked SSD of
+    ``core/ssd.py`` in f32 (chunk matmuls, a carry per chunk), the same
+    function as ``ref.ssd_scan_ref``. Returns (y f32, final state f32)
+    whatever ``return_state`` (the wrapper's own keyword)."""
+    return ssd_chunked(x.float(), dt.float(), a.float(), b.float(),
+                       c.float())
+
+
 def ssd_scan(x, dt, a, b, c, *, return_state: bool = False):
     """Mamba-2 SSD scan: ``x (B, L, H, P)``, ``dt (B, L, H)``, ``a (H,)``,
     ``b``/``c`` ``(B, L, G, N)`` -> ``y (B, L, H, P)`` in x's dtype; with
-    ``return_state=True`` also the final state ``(B, H, P, N)`` f32."""
+    ``return_state=True`` also the final state ``(B, H, P, N)`` f32
+    (differentiable, through :func:`_ssd_grad_form`)."""
     if runtime.ACTIVE is not None:
         _invoked("ssd_scan", x.shape[1], x)
-    y, state = _via_plain(_ssd_fwd, ref.ssd_scan_ref, x, dt, a, b, c,
+    y, state = _via_plain(_ssd_fwd, _ssd_grad_form, x, dt, a, b, c,
                           return_state=True)
     return (y, state) if return_state else y
 

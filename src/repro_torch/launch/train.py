@@ -1,0 +1,188 @@
+"""Training entry point of the port: checkpoint/restart, straggler
+reporting and deterministic resume.
+
+    python -m repro_torch.launch.train --arch llama3.2-1b --config full
+    python -m repro_torch.launch.train --config smoke --device cpu --steps 4
+    python -m repro_torch.launch.train --arch mamba2-1.3b --config full \
+        --batch 4 --seq 512 --steps 20 --obs-events events.jsonl \
+        --metrics-out metrics.prom
+
+Counterpart of ``repro.launch.train`` on one device:
+
+  * periodic checkpointing (step- and wall-clock-triggered) with atomic
+    commit (``checkpoint/ckpt.py``), in the reference's layout;
+  * ``--resume auto`` restores the latest valid manifest;
+  * per-step wall time is logged (host clock, after the step's loss has
+    reached the host); steps slower than ``--straggler-factor`` x the
+    running median are flagged;
+  * data order is a pure function of (seed, step) (``data/pipeline.py``).
+
+By default the model runs on the CUDA card through the Hopper kernels:
+RMSNorm in every layer, flash attention (llama) or the SSD chunk scan
+(mamba) in every layer, each launched again when its layer is recomputed in
+backward, and the global norm's ``tcu_reduce`` once per parameter leaf.
+``--device cpu`` runs the same path on each kernel's plain version. The
+learning-rate schedule is the reference's (warmup ``min(20, --steps)``,
+cosine to ``--steps``) unless ``--warmup-steps`` or ``--decay-steps`` fix
+it, as a run resumed with another ``--steps`` needs to continue the
+interrupted one. ``--obs-events``, ``--metrics-out`` and ``--profile-dir``
+run under an observability session (``repro_torch.obs.cli``). The
+reference's ``--tp``, ``--mesh`` and ``--tune`` are not ported yet
+(ROADMAP queue 1).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch import device as devmod
+from repro_torch.checkpoint import ckpt
+from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
+from repro_torch.models import build_lm
+from repro_torch.obs import cli as obs_cli
+from repro_torch.obs import profiling as _prof
+from repro_torch.optim import OptConfig
+from repro_torch.training import TrainConfig, init_train_state, make_train_step
+
+# the reference's smoke shape (repro.configs.common: SMOKE_BATCH, SMOKE_SEQ)
+SMOKE_BATCH, SMOKE_SEQ = 2, 128
+CKPT_DIR = Path(__file__).resolve().parents[3] / "build" / "train_ckpt"
+
+
+def main(argv=None) -> dict[int, float]:
+    """Parse ``argv`` and train; returns each step's loss."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-1b",
+                    help="mamba2-1.3b or llama3.2-1b")
+    ap.add_argument("--config", choices=("smoke", "full"), default="smoke")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=SMOKE_BATCH * 2)
+    ap.add_argument("--seq", type=int, default=SMOKE_SEQ)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--warmup-steps", type=int, default=None,
+                    help="linear warmup steps (default min(20, --steps))")
+    ap.add_argument("--decay-steps", type=int, default=None,
+                    help="step the cosine reaches its floor at (default "
+                         "--steps)")
+    ap.add_argument("--ckpt-dir", default=str(CKPT_DIR))
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--ckpt-every-s", type=float, default=600.0)
+    ap.add_argument("--keep-last", type=int, default=3,
+                    help="committed checkpoints to keep (0 keeps all)")
+    ap.add_argument("--resume", choices=("auto", "none"), default="auto")
+    ap.add_argument("--straggler-factor", type=float, default=1.5)
+    ap.add_argument("--straggler-report", default=None,
+                    help="jsonl path for per-step timing records")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--policy", default=None,
+                    help="path policy of the model's ops and the "
+                         "optimizer's global-norm reduce: tile (the "
+                         "kernels, default), fused, baseline, or op=path "
+                         "overrides")
+    obs_cli.add_obs_args(ap)
+    args = ap.parse_args(argv)
+
+    with obs_cli.obs_scope(args) as obs_sess:
+        return run(args, obs_sess)
+
+
+def run(args, obs_sess=None) -> dict[int, float]:
+    mod = configs.get(args.arch)
+    cfg = mod.SMOKE if args.config == "smoke" else mod.FULL
+    if args.policy is not None:
+        cfg = dataclasses.replace(cfg, policy=args.policy)
+    bundle = build_lm(cfg)
+    device = devmod.resolve(args.device)
+    opt_cfg = OptConfig(
+        peak_lr=args.lr,
+        warmup_steps=(min(20, args.steps) if args.warmup_steps is None
+                      else args.warmup_steps),
+        decay_steps=(args.steps if args.decay_steps is None
+                     else args.decay_steps),
+        policy=args.policy)
+    train_cfg = TrainConfig(microbatches=args.microbatches)
+    ckpt_writer = ckpt.AsyncCheckpointer(
+        args.ckpt_dir, keep_last=args.keep_last or None)
+
+    state = init_train_state(torch.Generator(device=device).manual_seed(0),
+                             bundle, opt_cfg, train_cfg)
+    step_fn = make_train_step(bundle, opt_cfg, train_cfg)
+
+    start = 0
+    if args.resume == "auto":
+        latest = ckpt.latest_step(args.ckpt_dir)
+        if latest is not None:
+            state = ckpt.restore(args.ckpt_dir, latest, state)
+            start = latest
+            print(f"resumed from step {latest}")
+
+    data = SyntheticLMPipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch),
+        device=device)
+    data.skip_to(start)
+
+    times: list[float] = []
+    losses: dict[int, float] = {}
+    last_ckpt_t = time.time()
+    for step in range(start, args.steps):
+        batch = data.device_batch(step)
+        t0 = time.perf_counter()
+        with _prof.span("train/step"):
+            state, metrics = step_fn(state, batch)
+            loss = metrics["loss"].item()     # waits for the step
+        dt = time.perf_counter() - t0
+        times.append(dt)
+        losses[step] = loss
+        if obs_sess is not None:
+            obs_sess.histogram(
+                "repro_train_step_seconds",
+                "optimizer step wall time").observe(dt)
+            obs_sess.gauge(
+                "repro_train_tokens_per_s",
+                "training throughput at the last step").set(
+                args.batch * args.seq / max(dt, 1e-9))
+            obs_sess.emit("train_step", step=step, seconds=dt, loss=loss)
+
+        med = float(np.median(times[-50:]))
+        straggle = len(times) > 5 and dt > args.straggler_factor * med
+        if args.straggler_report:
+            with open(args.straggler_report, "a") as f:
+                f.write(json.dumps({"step": step, "dt": dt,
+                                    "median": med,
+                                    "straggler": straggle}) + "\n")
+        if straggle:
+            print(f"[straggler] step {step}: {dt:.3f}s vs median "
+                  f"{med:.3f}s")
+        if step % args.log_every == 0 or step == args.steps - 1:
+            print(f"step {step:5d} loss {loss:.4f} "
+                  f"gnorm {metrics['grad_norm'].item():.3f} "
+                  f"lr {metrics['lr'].item():.2e} {dt:.3f}s")
+
+        due_steps = (step + 1) % args.ckpt_every == 0
+        due_time = time.time() - last_ckpt_t > args.ckpt_every_s
+        if due_steps or due_time or step == args.steps - 1:
+            # async: snapshots now, writes in the background; the next
+            # save (or the final wait below) is the commit barrier
+            ckpt_writer.save(step + 1, state)
+            last_ckpt_t = time.time()
+            print(f"checkpoint scheduled @ step {step + 1}")
+
+    path = ckpt_writer.wait()
+    print(f"checkpointed -> {path}")
+    if times:
+        print(f"done: {args.steps - start} steps, "
+              f"median step {np.median(times):.3f}s on {device}")
+    return losses
+
+
+if __name__ == "__main__":
+    main()

@@ -1,12 +1,14 @@
 """Shared model machinery: parameter declaration and init, norms, rope,
-SwiGLU, embeddings.
+SwiGLU, embeddings, the loss.
 
 Parameters are declared as trees (dicts and lists) of :class:`PSpec` and
 materialised by :func:`init_params` from an explicit ``torch.Generator``
-with the reference's init rules. :func:`params_from_numpy` takes the JAX
-package's parameter tree, as numpy arrays, into the port's layout: the
-reference stacks layers on a leading axis for ``lax.scan``; the port keeps a
-list with one entry per layer.
+with the reference's init rules. The reference stacks layers on a leading
+axis for ``lax.scan``; the port's forward takes a list with one entry per
+layer. The train state keeps the reference's stacked leaves
+(:func:`stack_pspec`), and :func:`unstack_blocks` views them as that list.
+:func:`params_from_numpy` takes the JAX package's parameter tree, as numpy
+arrays, into the port's layout, and :func:`params_to_numpy` back.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch import device as devmod
 from repro_torch.core import dispatch
+from repro_torch.tree import map_tree as _map_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,14 +30,6 @@ class PSpec:
     init: str = "fan_in"     # fan_in | zeros | ones | normal | const:<v> |
     #                          dt_bias | a_log
     dtype: torch.dtype | None = None   # None = model default
-
-
-def _map_tree(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map_tree(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_map_tree(fn, v) for v in tree]
-    return fn(tree)
 
 
 def _init_leaf(ps: PSpec, gen: torch.Generator, default_dtype, device):
@@ -85,6 +80,19 @@ def count_params(tree) -> int:
     return math.prod(tree.shape)
 
 
+def stack_pspec(tree):
+    """A parameter declaration with the per-layer list of ``tree["blocks"]``
+    stacked into ``(n_layers, ...)`` leaves, the reference's layout (the
+    train state's). Each layer's leaf keeps its init rule; ``fan_in`` reads
+    ``shape[-2]``, so a stacked leaf draws from the same distribution."""
+    blocks = tree["blocks"]
+    out = {k: v for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = _map_tree(
+        lambda ps: dataclasses.replace(ps, shape=(len(blocks), *ps.shape)),
+        blocks[0])
+    return out
+
+
 def _leaf_from_numpy(arr, device) -> torch.Tensor:
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":
@@ -95,28 +103,62 @@ def _leaf_from_numpy(arr, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(device)   # a writable copy
 
 
+def tree_from_numpy(tree, *, device=None):
+    """The reference's tree of numpy arrays -> tensors on ``device`` with
+    their dtype, in the same (stacked) layout."""
+    dev = devmod.resolve(device)
+    return _map_tree(lambda a: _leaf_from_numpy(a, dev), tree)
+
+
+def unstack_blocks(params, cfg):
+    """Stacked parameters (``blocks`` leaves ``(n_layers, ...)``) -> the
+    forward's layout: ``blocks`` a list of per-layer trees of views.
+
+    The views are ``torch.unbind``'s, whose backward stacks the layers'
+    gradients in one tensor, so gradients reach the stacked leaf."""
+    views = []
+
+    def split(t):
+        if t.shape[0] != cfg.n_layers:
+            raise ValueError(f"stacked leaf {tuple(t.shape)} does not lead "
+                             f"with n_layers={cfg.n_layers}")
+        views.append(torch.unbind(t, 0))
+        return len(views) - 1
+
+    index = _map_tree(split, params["blocks"])
+    out = {k: v for k, v in params.items() if k != "blocks"}
+    out["blocks"] = [_map_tree(lambda j, i=i: views[j][i], index)
+                     for i in range(cfg.n_layers)]
+    return out
+
+
 def params_from_numpy(tree, cfg, *, device=None):
     """The reference's parameter tree (``jax.tree.map(np.asarray, params)``)
     -> the port's: leaves become tensors on ``device`` with their dtype, and
     the stacked ``(n_layers, ...)`` leaves of ``tree["blocks"]`` are split
     into a list of per-layer trees."""
-    dev = devmod.resolve(device)
-    out = {k: _map_tree(lambda a: _leaf_from_numpy(a, dev), v)
-           for k, v in tree.items() if k != "blocks"}
-    stacked = _map_tree(lambda a: _leaf_from_numpy(a, dev), tree["blocks"])
-    blocks = []
-    for i in range(cfg.n_layers):
-        blocks.append(_map_tree(lambda t, i=i: _layer_slice(t, i, cfg),
-                                stacked))
+    return unstack_blocks(tree_from_numpy(tree, device=device), cfg)
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:      # numpy has no bf16: exact in f32
+        t = t.float()
+    return t.numpy()
+
+
+def params_to_numpy(params):
+    """The inverse of :func:`params_from_numpy`: tensors -> numpy arrays in
+    the reference's layout, a per-layer ``blocks`` list stacked back into
+    ``(n_layers, ...)`` leaves (stacked leaves stay as they are). bf16
+    leaves come back as float32 arrays, which hold them exactly."""
+    blocks = params["blocks"]
+    if isinstance(blocks, list):
+        blocks = _map_tree(lambda *ls: torch.stack(ls), blocks[0],
+                           *blocks[1:])
+    out = {k: v for k, v in params.items() if k != "blocks"}
     out["blocks"] = blocks
-    return out
-
-
-def _layer_slice(t: torch.Tensor, i: int, cfg) -> torch.Tensor:
-    if t.shape[0] != cfg.n_layers:
-        raise ValueError(f"stacked leaf {tuple(t.shape)} does not lead with "
-                         f"n_layers={cfg.n_layers}")
-    return t[i]
+    return _map_tree(_leaf_to_numpy, out)
 
 
 def cast_tree(tree, dtype: torch.dtype):
@@ -132,6 +174,15 @@ def cast_tree(tree, dtype: torch.dtype):
 
 def rmsnorm(x, w, eps: float = 1e-6, policy: str | None = None):
     return dispatch.rmsnorm(x, w, eps=eps, policy=policy)
+
+
+def cross_entropy(logits: torch.Tensor,
+                  labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy; logsumexp in f32."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - gold)
 
 
 def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

@@ -49,6 +49,9 @@ class ModelConfig:
     expand: int = 2
     ssd_chunk: int = 128           # chunk of the ``fused`` SSD form
     dtype: torch.dtype = torch.bfloat16
+    # activation checkpointing of each layer in training: none (recompute
+    # the layer in backward) | dots (keep the matmul outputs) | off
+    remat_policy: str = "none"
     # path policy for every core op of the model (None: the kernels)
     policy: str | None = None
 

@@ -16,26 +16,61 @@ slot with a position per slot, stepped by :func:`lm_decode_block`, or the
 paged pool (``kind="paged"``) stepped by :func:`lm_decode_block_paged`.
 Those steps take the sliding window; the wave path (:func:`lm_apply`,
 :func:`lm_decode`) does not yet.
+
+Training: :func:`lm_loss` is the mean token cross-entropy of
+:func:`lm_apply`; ``Bundle.loss`` takes the train state's stacked
+parameters. With gradients on, each layer of the forward runs under
+``cfg.remat_policy`` (:func:`_remat`): its activations are recomputed in
+backward, the layer's kernels launched again.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import layers as L
 from repro_torch.models.common import (
     PSpec,
     count_params,
+    cross_entropy,
     embed_tokens,
     rmsnorm,
     unembed,
+    unstack_blocks,
 )
 
 
 FAMILIES = ("dense", "ssm")
+# the reference's dots_with_no_batch_dims_saveable: a matmul without batch
+# dims is an mm (``x @ W`` folds its leading dims into rows) or an addmm
+_SAVED_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_MATMULS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, policy: str):
+    """``fn`` (one layer) under an activation-checkpoint policy: ``off``
+    keeps every activation; ``none`` keeps the layer's inputs only and
+    runs the layer again in backward; ``dots`` keeps the outputs of the
+    matmuls without batch dims as well (selective checkpointing)."""
+    if policy == "off":
+        return fn
+    if policy == "none":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(policy)
 
 
 def _require_ported(cfg: L.ModelConfig) -> None:
@@ -55,10 +90,12 @@ def _require_unwindowed(cfg: L.ModelConfig) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class Bundle:
-    """Everything the server needs for one architecture."""
+    """Everything the trainer and the server need for one architecture."""
 
     cfg: L.ModelConfig
     params_pspec: Any
+    # (stacked params, {tokens, labels}) -> scalar mean cross-entropy
+    loss: Callable
     prefill_last: Callable   # (params, batch) -> (last logits, cache)
     decode: Callable         # (params, cache, batch) -> (logits, cache)
     n_params: int = 0
@@ -108,27 +145,31 @@ def lm_apply(params, cfg: L.ModelConfig, batch, *, collect_cache=False,
     _require_unwindowed(cfg)
     h = embed_tokens(params["embed"], batch["tokens"])
     b, s, _ = h.shape
-    caches = []
     if cfg.family == "dense":
         # positions from 0 in every row, left padding included, as in the
         # reference
         positions = torch.arange(s, device=h.device).expand(b, s)
-        for lp in params["blocks"]:
+
+        def layer(h, lp):
             a_in = rmsnorm(h, lp["ln1"], cfg.norm_eps, cfg.policy)
             a_out, kv = L.attn_apply(lp["attn"], cfg, a_in,
                                      positions=positions)
             h = h + a_out
             m_in = rmsnorm(h, lp["ln2"], cfg.norm_eps, cfg.policy)
-            h = h + L.mlp_apply(lp["mlp"], cfg, m_in)
-            if collect_cache:
-                caches.append(kv)
+            return (h + L.mlp_apply(lp["mlp"], cfg, m_in),
+                    kv if collect_cache else None)
     else:
-        for lp in params["blocks"]:
+        def layer(h, lp):
             m_in = rmsnorm(h, lp["ln"], cfg.norm_eps, cfg.policy)
             out, cache = L.mamba_apply(lp["mamba"], cfg, m_in,
                                        collect_cache=collect_cache)
-            h = h + out
-            caches.append(cache)
+            return h + out, cache
+    if torch.is_grad_enabled():
+        layer = _remat(layer, cfg.remat_policy)
+    caches = []
+    for lp in params["blocks"]:
+        h, cache = layer(h, lp)
+        caches.append(cache)
     if last_only:
         h = h[:, -1:]
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps, cfg.policy)
@@ -144,6 +185,14 @@ def lm_apply(params, cfg: L.ModelConfig, batch, *, collect_cache=False,
                 "conv": torch.stack([c["conv"] for c in caches]),
                 "state": torch.stack([c["state"] for c in caches])}
     return logits, torch.zeros((), device=h.device), cache
+
+
+def lm_loss(params, cfg: L.ModelConfig, batch) -> torch.Tensor:
+    """Mean token cross-entropy of :func:`lm_apply` on ``batch`` {tokens,
+    labels (B, S)}; the reference adds its MoE auxiliary loss, zero for
+    these families."""
+    logits, _, _ = lm_apply(params, cfg, batch)
+    return cross_entropy(logits, batch["labels"])
 
 
 def pad_cache_seq(cache, extra: int):
@@ -388,6 +437,9 @@ def lm_decode_block_paged(params, cfg: L.ModelConfig, cache, batch, *,
 def build_lm(cfg: L.ModelConfig) -> Bundle:
     pspec = lm_pspec(cfg)
 
+    def loss(params, batch):
+        return lm_loss(unstack_blocks(params, cfg), cfg, batch)
+
     def prefill_last(params, batch):
         logits, _, cache = lm_apply(params, cfg, batch, collect_cache=True,
                                     last_only=True)
@@ -411,7 +463,8 @@ def build_lm(cfg: L.ModelConfig) -> Bundle:
         return lm_cache_pspec(cfg, batch, smax, per_slot_pos=per_slot_pos,
                               **kind_kwargs)
 
-    return Bundle(cfg=cfg, params_pspec=pspec, prefill_last=prefill_last,
+    return Bundle(cfg=cfg, params_pspec=pspec, loss=loss,
+                  prefill_last=prefill_last,
                   decode=decode, n_params=count_params(pspec),
                   cache_pspec=cache_pspec, decode_block=decode_block,
                   decode_block_paged=decode_block_paged)

@@ -1,0 +1,117 @@
+"""AdamW with configurable moment dtypes + warmup-cosine schedule.
+
+Counterpart of ``repro.optim.adamw``. Master params are f32; the moments
+are kept in ``OptConfig.state_dtype`` (bf16 for the largest models). The
+global-norm clip reduces each leaf's Σx² through
+``repro_torch.core.dispatch.reduce`` under ``OptConfig.policy``: on the
+default ``tile`` path that is ``csrc/tcu_reduce.cu``, one launch a leaf,
+each leaf one ``(1, n)`` row (``torch.sum`` on ``baseline``).
+
+The update is functional, as the reference's: it returns new params and
+moments and leaves its arguments as they were. Everything here runs under
+``torch.no_grad()`` and reads no device value on the host: ``step``, the
+learning rate and the norm stay tensors on the params' device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch import tree
+from repro_torch.core import dispatch
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    peak_lr: float = 3e-4
+    warmup_steps: int = 100
+    decay_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    state_dtype: torch.dtype = torch.float32   # m/v dtype (bf16 for ≥100B)
+    # path policy of the global-norm reduction (repro_torch.core.policy;
+    # None: the tcu_reduce kernel)
+    policy: str | None = None
+
+
+def lr_at(cfg: OptConfig, step) -> torch.Tensor:
+    """Linear warmup to ``peak_lr`` over ``warmup_steps``, then a cosine
+    down to ``min_lr_ratio * peak_lr`` at ``decay_steps``; f32, on
+    ``step``'s device."""
+    step = torch.as_tensor(step).float()
+    warm = cfg.peak_lr * step / max(cfg.warmup_steps, 1)
+    prog = torch.clamp((step - cfg.warmup_steps)
+                       / max(cfg.decay_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cos = cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * 0.5 * (
+        1 + torch.cos(math.pi * prog))
+    return torch.where(step < cfg.warmup_steps, warm, cfg.peak_lr * cos)
+
+
+def _device(params) -> torch.device:
+    return tree.leaves(params)[0].device
+
+
+def init_opt_state(params, cfg: OptConfig):
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=cfg.state_dtype, device=p.device)
+
+    return {
+        "m": tree.map_tree(zeros, params),
+        "v": tree.map_tree(zeros, params),
+        "step": torch.zeros((), dtype=torch.int32, device=_device(params)),
+    }
+
+
+def global_norm(grads, *, policy: str | None = None) -> torch.Tensor:
+    """sqrt(Σ Σx²) with each leaf's Σx² through the dispatch switch (the
+    ``tcu_reduce`` kernel on ``tile``, the matmul form on ``fused``,
+    ``torch.sum`` on ``baseline``), summed over the leaves in the
+    reference's order."""
+    sq = [dispatch.reduce(torch.square(g.float()).reshape(1, -1),
+                          policy=policy)[0]
+          for g in tree.leaves(grads)]
+    return torch.sqrt(torch.sum(torch.stack(sq)))
+
+
+def clip_scale(gnorm: torch.Tensor, cfg: OptConfig) -> torch.Tensor:
+    """The factor that scales the gradients to a global norm of at most
+    ``clip_norm``."""
+    return torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+
+
+def split_leaves(params, out, n: int) -> list:
+    """``out``, a tree of n-tuples on ``params``' structure -> n trees."""
+    return [tree.map_tree(lambda _, o, i=i: o[i], params, out)
+            for i in range(n)]
+
+
+@torch.no_grad()
+def adamw_update(grads, opt_state, params, cfg: OptConfig):
+    """-> (new_params, new_opt_state, metrics). params/grads f32."""
+    step = opt_state["step"] + 1
+    gnorm = global_norm(grads, policy=cfg.policy)
+    scale = clip_scale(gnorm, cfg)
+    lr = lr_at(cfg, step)
+    b1, b2 = cfg.b1, cfg.b2
+    bc1 = 1 - b1 ** step.float()
+    bc2 = 1 - b2 ** step.float()
+
+    def upd(p, g, m, v):
+        g = g.float() * scale
+        m_new = b1 * m.float() + (1 - b1) * g
+        v_new = b2 * v.float() + (1 - b2) * g * g
+        update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
+        p_new = p - lr * (update + cfg.weight_decay * p)
+        return (p_new, m_new.to(cfg.state_dtype),
+                v_new.to(cfg.state_dtype))
+
+    out = tree.map_tree(upd, params, grads, opt_state["m"], opt_state["v"])
+    new_p, new_m, new_v = split_leaves(params, out, 3)
+    metrics = {"grad_norm": gnorm, "lr": lr}
+    return new_p, {"m": new_m, "v": new_v, "step": step}, metrics

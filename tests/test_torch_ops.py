@@ -374,6 +374,9 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.models, repro_torch.configs.mamba2_1_3b\n"
         "import repro_torch.obs, repro_torch.obs.cli, "
         "repro_torch.obs.profiling\n"
+        "import repro_torch.launch.train, repro_torch.training, "
+        "repro_torch.optim.adafactor, repro_torch.data, "
+        "repro_torch.checkpoint\n"
         "ops.reduce(torch.ones(2, 16), policy='tile')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
