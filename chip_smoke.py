@@ -24,26 +24,41 @@ Phases:
    llama3.2-1b FULL (16 layers), and mamba2-1.3b FULL again under
    ``policy="ssd=tile_logdepth"``, random weights from seed 0, to four
    requests of up to 512 prompt tokens, 16 new
-   tokens each. Each serve run must show its layer kernel once per layer
+   tokens each; then the MoE family at its published widths with its
+   depth cut to fit the card (``MOE_LAYERS``): qwen3-moe-235b-a22b at 4 of
+   94 layers (11.20 B parameters) and grok-1-314b at 2 of 64 (11.45 B).
+   Each serve run must show its layer kernel once per layer
    per prefill (48 SSD, 16 flash-attention, 48 local SSD launches, and no
    linear SSD launch in the log-depth run), every SSD launch on the
    tensor-core instance of the chunk body (the served type is bf16), and
-   2 x layers + 1 RMSNorm launches per forward (97, 33). Each prefill's
-   last-token logits, and the logits of two decode steps from its cache,
-   are held against the same model on the kernels' plain versions, and its
+   2 x layers + 1 RMSNorm launches per forward (97, 33), and for MoE one
+   ``tcu_scan`` launch (the capacity offsets) per MoE layer per forward.
+   Each prefill's last-token logits, and the logits of two decode steps
+   from its cache, are held against the same model on the kernels' plain
+   versions (MoE: its first ``PARITY_LAYERS`` layers, the served model
+   freed before their f32 copy; the tokens whose top-k experts differ
+   between the two paths are printed), and its
    device time is split by kind of kernel with ``torch.profiler``, and the
    "other" kernels' time by the op that launched them, from a Chrome trace
    of ``repro_torch.obs.profiling.tracing`` (the ten largest); 15
    decode steps on the host clock against their device time give the
    card's idle share. These three runs use the wave scheduler.
-   Then the continuous scheduler (the default): mamba2-1.3b FULL and
-   llama3.2-1b FULL, 8 requests of up to 512 prompt tokens and 16 new
+   Before the serve runs, the ragged ops (``ops.ragged_reduce``,
+   ``ops.ragged_scan``: one-hot matmuls, no kernel in the reference) under
+   ``tile`` against ``baseline`` at the MoE router's (32, 936) ids in
+   [0, 128) and on 65536 ids in 128 sorted segments: counts and ranks
+   equal, the counts' exclusive scan on ``tcu_scan.cu`` equal to
+   ``torch.cumsum``'s bit for bit, and ``guard_contiguous`` inside a CUDA
+   graph's capture (NaN for unsorted ids, no host read).
+   Then the continuous scheduler (the default): mamba2-1.3b FULL,
+   llama3.2-1b FULL and qwen3-moe (4 layers), 8 requests of up to 512 prompt tokens and 16 new
    tokens each on 4 slots, chunks of 16, every tick one block step
    replayed from a CUDA graph. A warm-up request of the same capacity
    bucket captures both graphs (T = 16 and T = 1); the measured run must
    capture none, admit and finish 8 requests with at least 4 slot
    refills, give every request tokens, and count 2 x layers + 1 RMSNorm
-   launches a tick (a replay adds what its capture counted). One T = 16
+   launches a tick, and for MoE L ``tcu_scan`` (a replay adds what its
+   capture counted). One T = 16
    and one T = 1 tick from the graph are held against the eager step on a
    clone of the cache (the same argmax for every active slot);
    ``torch.profiler`` over a replayed tick must show the RMSNorm kernel 2
@@ -52,12 +67,14 @@ Phases:
    f32, each request's first-token logits are held against its
    ``prefill_last`` alone (B = 1, on the kernels) and the engine on the
    kernels against the same engine on the plain versions, both within
-   1e-3 of the largest logit. Printed: tok/s, TTFT, ticks by T, host ms a
-   tick, device ms a tick by kind, the idle share of the T = 1 ticks, the
-   capture time, peak memory, and a T = 1 tick alone, graphed and eager.
+   1e-3 of the largest logit (MoE: at its first ``PARITY_LAYERS`` layers).
+   Printed: tok/s, TTFT, ticks by T, host ms a tick, device ms a tick by
+   kind, the idle share of the T = 1 ticks, the capture time, peak memory,
+   a T = 1 tick alone, graphed and eager, and the parameter bytes a tick
+   reads over the card's memory rate.
    Then the paged KV pool (``cache_kind="paged"``, pages of 16 rows, 64 a
-   slot at capacity 1024), FULL, bf16, 4 slots, chunks of 16: both models
-   serve the continuous runs' 8 requests, whose tokens must equal those
+   slot at capacity 1024), FULL, bf16, 4 slots, chunks of 16: the three
+   models serve the continuous runs' 8 requests, whose tokens must equal those
    ring runs', with no capture in the measured run and 2 x layers + 1
    RMSNorm kernels a replayed tick; the largest logit difference from the
    ring run over all ticks is printed, and on llama's 320-page pool the
@@ -111,8 +128,10 @@ Phases:
 3. Per kernel: the kernel against its plain version on the card at the main
    path's shapes (the reduce and scan at 2^24 elements from 2^20 rows of 16
    to one row, the reduce also on the global norm's largest rows, RMSNorm also at the served decode and prefill shapes,
-   the continuous T = 16 tick's 64 rows, flash attention also on its
-   D = 128 instance, the SSD scan also at the
+   the continuous T = 16 tick's 64 rows, the MoE widths 4096 and 6144,
+   flash attention also on its D = 128 instance and at the MoE waves'
+   heads, the scan also on the MoE router's (groups, experts) counts,
+   bit for bit, the SSD scan also at the
    served wave and on a 64-chunk chain, the weighted scan from 65536 rows
    of 256 to one row of 2^24 and in bf16, its local pass also at 16 rows of
    2^20), with the error and its
@@ -333,6 +352,32 @@ def reduce_scan_cases(torch, kops, ref, gen):
     return out
 
 
+# the MoE router's exclusive scans of (groups, experts) counts, as served:
+# (rows, experts, where)
+MOE_SCANS = ((16, 128, "qwen3-moe wave prefill"),
+             (32, 128, "qwen3-moe T=16 tick"),
+             (4, 128, "qwen3-moe decode step, T=1 tick"),
+             (16, 8, "grok-1 wave prefill"), (4, 8, "grok-1 decode step"))
+
+
+def moe_scan_cases(torch, kops, ref, gen):
+    """tcu_scan.cu at the MoE router's served shapes on whole-number f32
+    counts, as the router's are: held to the plain version bit for bit
+    (tolerance 0; three exact bf16 parts keep whole numbers below 2^24
+    exact)."""
+    out = []
+    for rows, n, where in MOE_SCANS:
+        x = torch.randint(0, 16, (rows, n), generator=gen, device="cuda",
+                          dtype=torch.float32)
+        out.append(dict(
+            kernel="tcu_scan", label=f"float32 rows={rows} n={n} ({where})",
+            primary=False, run=lambda x=x: kops.segmented_scan(x),
+            plain=lambda x=x: ref.segmented_scan_ref(x),
+            library=lambda x=x: torch.cumsum(x, dim=-1), rtol=0.0,
+            nbytes=2 * nbytes(x), ops=x.numel(), dtype=torch.float32))
+    return out
+
+
 def ssd_inputs(torch, gen, bsz, seqlen, nheads, hdim, ngroups, nstate,
                dtype):
     def rn(*shape):
@@ -480,11 +525,12 @@ def rmsnorm_cases(torch, kops, ref, gen):
 
     out = []
     # the ops pass's shapes, then the served ones: a decode step's 4 rows
-    # (llama d 2048, mamba's inner norm d 4096; the continuous T = 1 tick),
-    # the continuous T = 16 tick's 64 rows, and the wave mamba prefill's
-    # 1872 rows (4 x 468)
+    # (llama d 2048, mamba's inner norm and qwen3-moe d 4096, grok-1 d 6144;
+    # the continuous T = 1 tick), the continuous T = 16 tick's 64 rows, and
+    # the wave prefill's 1872 rows (4 x 468)
     for rows, d in ((2048, 2048), (2048, 4096), (4, 2048), (4, 4096),
-                    (64, 2048), (64, 4096), (1872, 2048), (1872, 4096)):
+                    (64, 2048), (64, 4096), (1872, 2048), (1872, 4096),
+                    (4, 6144), (1872, 6144)):
         x = torch.randn(rows, d, generator=gen, device="cuda").to(
             torch.bfloat16)
         w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(
@@ -556,6 +602,10 @@ def attention_cases(torch, kops, gen):
             (1, 4096, 4096, 32, 8, 64, True, 1024, torch.bfloat16, False),
             # the kernel's D = 128 instance
             (4, 512, 512, 32, 8, 128, True, None, torch.bfloat16, False),
+            # the served MoE waves: qwen3-moe (64 / 4 heads) and grok-1
+            # (48 / 8), D = 128, left-padded to 468
+            (4, 468, 468, 64, 4, 128, True, None, torch.bfloat16, False),
+            (4, 468, 468, 48, 8, 128, True, None, torch.bfloat16, False),
             (1, 100, 1000, 4, 2, 64, True, None, torch.float32, False)):
         def rn(*shape):
             return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
@@ -613,6 +663,7 @@ def check_kernels(smoke: Smoke, kops, ref) -> dict:
     torch = smoke.torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = (reduce_scan_cases(torch, kops, ref, gen)
+             + moe_scan_cases(torch, kops, ref, gen)
              + ssd_cases(torch, kops, ref, gen)
              + weighted_cases(torch, kops, ref, gen)
              + rmsnorm_cases(torch, kops, ref, gen)
@@ -845,10 +896,117 @@ def ops_pass(smoke: Smoke, ops, ref):
                        f" (tol {tol})")
 
 
+# the ragged ops' cases: (label, ids shape, n_segments, ids sorted)
+RAGGED = (("MoE router (32, 936) ids in [0, 128)", (32, 936), 128, False),
+          ("1-D 65536 ids, 128 sorted segments", (65536,), 128, True))
+
+
+def ragged_pass(smoke: Smoke, ops, kops) -> dict:
+    """The ragged ops on the card: ``tile`` (their one-hot matmul forms; the
+    reference has no kernel for them) against ``baseline`` (``scatter_add``,
+    ``cumsum`` and a gather) at the MoE router's shape and on one long row.
+    Counts of ones and within-segment ranks must be equal; the capacity
+    offsets of the counts (``ops.scan`` exclusive, ``tcu_scan.cu``) must
+    equal an exclusive ``torch.cumsum`` bit for bit; the scan of random
+    values within 1e-3 of the largest. Then ``guard_contiguous`` inside a
+    CUDA graph's capture, where no device value may be read: unsorted ids
+    poison the replayed output with NaN, sorted ones leave it as the eager
+    scan. Returns the launches and each op's times beside its baseline's."""
+    from repro_torch.core import ragged
+
+    torch = smoke.torch
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    kops.reset_launches()
+    rows = []
+    for label, shape, segs, srt in RAGGED:
+        ids = torch.randint(0, segs, shape, generator=gen, device="cuda")
+        if srt:
+            ids = ids.sort(dim=-1).values
+        ones = torch.ones(shape, device="cuda")
+        x = torch.randn(shape, generator=gen, device="cuda")
+        sorted_ids = ids.sort(dim=-1).values
+        counts = ops.ragged_reduce(ones, ids, segs)
+        offsets = ops.scan(counts, exclusive=True)
+        cum = torch.cumsum(counts, dim=-1)
+        want_off = torch.cat([torch.zeros_like(cum[..., :1]),
+                              cum[..., :-1]], dim=-1)
+        ranks = ops.ragged_scan(ones, sorted_ids, segs)
+        got_scan = ops.ragged_scan(x, sorted_ids, segs)
+        want_scan = ops.ragged_scan(x, sorted_ids, segs, policy="baseline")
+        err = (got_scan - want_scan).abs().max().item()
+        tol = 1e-3 * max(1.0, want_scan.abs().max().item())
+        checks = {
+            "counts": torch.equal(counts, ops.ragged_reduce(
+                ones, ids, segs, policy="baseline")),
+            "counts sum": counts.sum().item() == ones.numel(),
+            "offsets": torch.equal(offsets, want_off),
+            "ranks": torch.equal(ranks, ops.ragged_scan(
+                ones, sorted_ids, segs, policy="baseline")),
+            "scan": err <= tol}
+        times = {}
+        for op, fn in (("reduce", lambda p: ops.ragged_reduce(x, ids, segs,
+                                                              policy=p)),
+                       ("scan", lambda p: ops.ragged_scan(x, sorted_ids,
+                                                          segs, policy=p))):
+            for p in ("tile", "baseline"):
+                times[f"{op} {p}"] = smoke.time_ms(lambda p=p, fn=fn: fn(p))
+        # bytes: x and ids read once, the output written once; the
+        # function's work is one add an element
+        io = nbytes(x, ids)
+        bounds = {"reduce": bound(io + 4 * counts.numel(), x.numel(),
+                                  torch.float32)[0],
+                  "scan": bound(io + nbytes(x), x.numel(),
+                                torch.float32)[0]}
+        rec = dict(label=label, checks=checks, scan_max_abs_err=err,
+                   scan_tol=tol, ms=times, bound_ms=bounds)
+        rows.append(rec)
+        print(f"ragged [{label}]: {checks}; scan of random values "
+              f"max_abs_err={err:.3e} (tol {tol:.3e}); ms (tile, baseline): "
+              f"reduce {times['reduce tile']:.4f}, "
+              f"{times['reduce baseline']:.4f}; scan "
+              f"{times['scan tile']:.4f}, {times['scan baseline']:.4f}; "
+              f"bound ms (bytes): reduce {bounds['reduce']:.5f}, scan "
+              f"{bounds['scan']:.5f} ({smi_line()})", flush=True)
+        for name, ok in checks.items():
+            if not ok:
+                smoke.fail(f"ragged [{label}]: {name} of tile and baseline "
+                           "differ")
+    # the guard inside a capture: no host read, NaN for unsorted ids
+    x = torch.randn(4, 936, generator=gen, device="cuda")
+    good = torch.randint(0, 128, (4, 936), generator=gen,
+                         device="cuda").sort(dim=-1).values
+    bad = good.flip(-1)
+    try:
+        ragged.tcu_ragged_segment_scan(x, bad, 128, debug=True)
+        smoke.fail("ragged: guard_contiguous did not raise on unsorted ids "
+                   "outside a capture")
+    except ValueError:
+        pass
+    eager = ragged.tcu_ragged_segment_scan(x, good, 128, debug=True)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_bad = ragged.tcu_ragged_segment_scan(x, bad, 128, debug=True)
+        out_good = ragged.tcu_ragged_segment_scan(x, good, 128, debug=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    guard = dict(bad_all_nan=bool(out_bad.isnan().all()),
+                 good_equals_eager=bool(torch.equal(out_good, eager)))
+    print(f"ragged: guard_contiguous under a CUDA graph's capture {guard}",
+          flush=True)
+    if not all(guard.values()):
+        smoke.fail(f"ragged: guard_contiguous under capture {guard}")
+    counts = kops.launch_counts()
+    if counts["tcu_scan"] != len(RAGGED):
+        smoke.fail(f"ragged: {counts['tcu_scan']} tcu_scan launches, want "
+                   f"{len(RAGGED)} (the offsets)")
+    return {"launches": counts, "cases": rows, "guard": guard}
+
+
 KINDS = ("flash_attention", "ssd_scan", "local_ssd", "rmsnorm", "gemm")
-# tcu_reduce.cu's kernels, kind "reduce" (torch's own reductions are
-# "other")
+# tcu_reduce.cu's kernels, kind "reduce", and tcu_scan.cu's, kind "scan"
+# (torch's own reductions and scans are "other")
 REDUCE_KERNELS = ("piece_totals", "tcu_reduce_combine")
+SCAN_KERNELS = ("piece_scan", "tcu_scan_carry")
 PRELUDE_SPINS = 16
 
 
@@ -884,11 +1042,13 @@ def kernel_events(torch, fn) -> list | None:
 
 def kind_of(name: str) -> str:
     """This repository's kernels by name (``tcu_reduce.cu``'s as
-    ``reduce``), matrix products (cuBLAS/CUTLASS kernels) as ``gemm``, the
-    rest as ``other``."""
+    ``reduce``, ``tcu_scan.cu``'s as ``scan``), matrix products
+    (cuBLAS/CUTLASS kernels) as ``gemm``, the rest as ``other``."""
     name = name.lower()
     if any(k in name for k in REDUCE_KERNELS):
         return "reduce"
+    if any(k in name for k in SCAN_KERNELS):
+        return "scan"
     kind = next((k for k in KINDS if k in name), None)
     if kind is None and any(t in name for t in ("gemm", "xmma", "cutlass",
                                                  "nvjet")):
@@ -900,7 +1060,7 @@ def split_by_kind(events) -> dict | None:
     """Device ms of ``kernel_events`` by ``kind_of`` each kernel. A
     diagnostic: None, printed as not measured, when the profiler saw no
     device time."""
-    split = dict.fromkeys((*KINDS, "reduce", "other"), 0.0)
+    split = dict.fromkeys((*KINDS, "reduce", "scan", "other"), 0.0)
     for name, _, ms in events or ():
         split[kind_of(name)] += max(ms, 0.0)
     if sum(split.values()) <= 0:
@@ -981,21 +1141,93 @@ def other_by_op(fn, label: str, top: int = 10) -> dict:
 SERVED = (("mamba2-1.3b", None, "ssd_scan", "matmul_local_ssd"),
           ("llama3.2-1b", None, "flash_attention", None),
           ("mamba2-1.3b", "ssd=tile_logdepth", "matmul_local_ssd",
-           "ssd_scan"))
+           "ssd_scan"),
+          ("qwen3-moe-235b-a22b", None, "flash_attention", None),
+          ("grok-1-314b", None, "flash_attention", None))
+# the MoE models at their published widths with their depth cut: qwen3-moe's
+# 94 layers of 2.488 B parameters are 468 GB in bf16, grok-1's 64 of 4.92 B
+# 630 GB, and one card holds 80 GB
+MOE_LAYERS = {"qwen3-moe-235b-a22b": 4, "grok-1-314b": 2}
+
+
+def full_engine(serve, arch: str, **kw):
+    """A serving engine of ``arch`` at its published widths, random weights
+    from seed 0: ``serve.build_engine``'s FULL, or for an MoE model its
+    recipe on the FULL config cut to ``MOE_LAYERS[arch]`` layers."""
+    if arch not in MOE_LAYERS:
+        return serve.build_engine(arch, "full", device="cuda", seed=0, **kw)
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import build_lm
+    from repro_torch.models.common import init_params
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    full = configs.get(arch).FULL
+    bundle = build_lm(dataclasses.replace(full, n_layers=MOE_LAYERS[arch]))
+    print(f"serve: {arch} cut to {MOE_LAYERS[arch]} of {full.n_layers} "
+          f"layers at its published widths: {bundle.n_params / 1e9:.2f}B of "
+          f"{build_lm(full).n_params / 1e9:.2f}B parameters "
+          f"({2 * bundle.n_params / 1e9:.1f} GB in bf16)", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(bundle.params_pspec, gen, bundle.cfg.dtype)
+    return ServingEngine(bundle, params, ServeConfig(seed=0, **kw))
+
+
+def moe_layers(cfg) -> int:
+    """The MoE layers of ``cfg``: each launches ``tcu_scan.cu`` once a
+    forward (its capacity offsets)."""
+    return cfg.n_layers if cfg.family == "moe" else 0
+
+
+def gate_depth(cfg) -> int:
+    """The depth the logit gates run at: the whole model, or for MoE
+    ``PARITY_LAYERS`` of its layers, whose f32 copy fits beside nothing
+    else (qwen3-moe's 2 layers are 24.9 GB in f32)."""
+    return min(cfg.n_layers, PARITY_LAYERS) if moe_layers(cfg) else \
+        cfg.n_layers
+
+
+@contextlib.contextmanager
+def routing(torch, sink: list):
+    """Record in ``sink`` each MoE layer's expert choices (the forward's only
+    ``torch.topk`` calls), as (tokens, k) rows sorted within each token."""
+    real = torch.topk
+
+    def topk(*args, **kwargs):
+        out = real(*args, **kwargs)
+        sink.append(out.indices.sort(dim=-1).values.reshape(
+            -1, out.indices.shape[-1]))
+        return out
+
+    torch.topk = topk
+    try:
+        yield sink
+    finally:
+        torch.topk = real
+
+
+def routing_flips(a: list, b: list) -> tuple[int, int]:
+    """(token-layer pairs, tokens) whose top-k expert set differs between
+    two recorded forwards of the same tokens."""
+    if not a:
+        return 0, 0
+    diff = [(x != y).any(-1) for x, y in zip(a, b)]
+    return (sum(int(d.sum()) for d in diff),
+            int(sum(d.long() for d in diff).gt(0).sum()))
 
 
 def serve_pass(smoke: Smoke, serve, kops, arch: str, policy: str | None,
                per_layer: str, absent: str | None):
-    """``arch`` FULL through the serving engine under ``policy``; returns
-    its numbers."""
+    """``arch`` FULL (MoE: its depth cut) through the serving engine under
+    ``policy``; returns its numbers."""
     from repro_torch.models import build_lm
     from repro_torch.models.common import cast_tree
     from repro_torch.models.lm import pad_cache_seq
 
     torch = smoke.torch
-    engine = serve.build_engine(arch, "full", device="cuda", policy=policy,
-                                slots=4, max_new=16, scheduler="wave",
-                                seed=0)
+    engine = full_engine(serve, arch, policy=policy, slots=4, max_new=16,
+                         scheduler="wave")
     cfg = engine.bundle.cfg
     print(f"serve: {cfg.name} {cfg.n_layers} layers d_model={cfg.d_model} "
           f"{engine.bundle.n_params / 1e9:.3f}B params {cfg.dtype}, "
@@ -1019,18 +1251,22 @@ def serve_pass(smoke: Smoke, serve, kops, arch: str, policy: str | None,
     n_tok = sum(len(r.tokens) for r in results)
     first = min(r.first_token_s for r in results)
     last = max(r.finish_s for r in results)
+    ttft = [1e3 * (r.first_token_s - r.arrival_s) for r in results]
     stats = dict(
         requests=len(results), prompt_lens=[r.prompt_len for r in results],
         tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
-        first_token_s=first,
+        first_token_s=first, ttft_ms_median=statistics.median(ttft),
+        ttft_ms_max=max(ttft),
         decode_ms_per_token=(1e3 * (last - first) / max(engine.decodes, 1)),
         prefills=engine.prefills, decodes=engine.decodes,
         peak_mem_gb=peak_gb, launches=counts)
     print(f"serve: {len(results)} requests, prompt lens "
           f"{stats['prompt_lens']}, {n_tok} tokens in {wall:.3f}s "
           f"({stats['tok_per_s']:.2f} tok/s), first token at "
-          f"{1e3 * first:.1f} ms, decode {stats['decode_ms_per_token']:.2f} "
-          f"ms/step, peak memory {peak_gb:.2f} GB", flush=True)
+          f"{1e3 * first:.1f} ms (TTFT median {stats['ttft_ms_median']:.1f} "
+          f"max {stats['ttft_ms_max']:.1f} ms), decode "
+          f"{stats['decode_ms_per_token']:.2f} ms/step, peak memory "
+          f"{peak_gb:.2f} GB", flush=True)
     print(f"serve: launches {counts} over {engine.prefills} prefill(s) and "
           f"{engine.decodes} decode step(s); SSD instances "
           f"{instance_text(instances)}", flush=True)
@@ -1040,8 +1276,10 @@ def serve_pass(smoke: Smoke, serve, kops, arch: str, policy: str | None,
                    f"every {cfg.dtype} launch on the tensor cores")
     if any(len(r.tokens) == 0 for r in results):
         smoke.fail("serve: a request produced no tokens")
+    forwards = engine.prefills + engine.decodes
     want_layer = cfg.n_layers * engine.prefills
-    want_norm = (2 * cfg.n_layers + 1) * (engine.prefills + engine.decodes)
+    want_norm = (2 * cfg.n_layers + 1) * forwards
+    want_scan = moe_layers(cfg) * forwards
     if counts[per_layer] != want_layer or engine.prefills < 1:
         smoke.fail(f"serve: {counts[per_layer]} {per_layer} launches, want "
                    f"{want_layer} ({cfg.n_layers} per prefill)")
@@ -1051,6 +1289,9 @@ def serve_pass(smoke: Smoke, serve, kops, arch: str, policy: str | None,
     if counts["rmsnorm"] < want_norm:
         smoke.fail(f"serve: {counts['rmsnorm']} RMSNorm launches, want >= "
                    f"{want_norm} ({2 * cfg.n_layers + 1} per forward)")
+    if counts["tcu_scan"] != want_scan:
+        smoke.fail(f"serve: {counts['tcu_scan']} tcu_scan launches, want "
+                   f"{want_scan} (one per MoE layer per forward)")
 
     # prefill, kernels against plain versions, on the served wave's batch
     plen = max(r.prompt_len for r in results)
@@ -1060,22 +1301,16 @@ def serve_pass(smoke: Smoke, serve, kops, arch: str, policy: str | None,
             r.prompt.astype("int64"))
     batch = {"tokens": tokens.cuda()}
 
-    params_by_dtype = {}
-
-    def model(path, dtype):
-        if dtype not in params_by_dtype:
-            params_by_dtype[dtype] = cast_tree(engine.params, dtype)
-        bundle = build_lm(dataclasses.replace(cfg, policy=path, dtype=dtype))
-        return bundle, params_by_dtype[dtype]
-
-    def prefill_fn(path, dtype):
-        bundle, params = model(path, dtype)
+    def prefill_fn(path, dtype, params, depth=cfg.n_layers):
+        bundle = build_lm(dataclasses.replace(cfg, policy=path, dtype=dtype,
+                                              n_layers=depth))
         return lambda: bundle.prefill_last(params, batch)[0].float()
 
-    def decoded(path, steps=2):
+    def decoded(path, params, depth, steps=2):
         """Logits of ``steps`` f32 decode steps from the prefill's cache:
         the state handed from prefill to decode is in them."""
-        bundle, params = model(path, torch.float32)
+        bundle = build_lm(dataclasses.replace(
+            cfg, policy=path, dtype=torch.float32, n_layers=depth))
         _, cache = bundle.prefill_last(params, batch)
         cache = pad_cache_seq(cache, steps)
         for _ in range(steps):
@@ -1083,8 +1318,8 @@ def serve_pass(smoke: Smoke, serve, kops, arch: str, policy: str | None,
                 params, cache, {"tokens": batch["tokens"][:, -1:]})
         return logits.float()
 
-    kern_bf16 = prefill_fn(policy, torch.bfloat16)
-    plain_bf16 = prefill_fn("baseline", torch.bfloat16)
+    kern_bf16 = prefill_fn(policy, torch.bfloat16, engine.params)
+    plain_bf16 = prefill_fn("baseline", torch.bfloat16, engine.params)
     prefill_ms = smoke.time_ms(kern_bf16, max_iters=5)
     prefill_spread = smoke.spread
     plain_prefill_ms = smoke.time_ms(plain_bf16, max_iters=3)
@@ -1095,27 +1330,6 @@ def serve_pass(smoke: Smoke, serve, kops, arch: str, policy: str | None,
           f"launched them (obs.profiling.tracing, one prefill; "
           f"{smi_line()}): total {other['other_ms']}, largest "
           f"{other['top']}", flush=True)
-    got, want = kern_bf16(), plain_bf16()
-    # the same weights in f32 on both paths: kernels and plain versions
-    # agree to about 1e-6 per op, so every layer stack of the port stays
-    # within 1e-3 of the largest logit
-    got32 = prefill_fn(policy, torch.float32)()
-    want32 = prefill_fn("baseline", torch.float32)()
-    err32 = (got32 - want32).abs().max().item()
-    tol32 = 1e-3 * want32.abs().max().item()
-    dec_got, dec_want = decoded(policy), decoded("baseline")
-    params_by_dtype.pop(torch.float32)
-    dec_err = (dec_got - dec_want).abs().max().item()
-    dec_tol = 1e-3 * dec_want.abs().max().item()
-    # bf16: every norm and every SSD or attention output of a forward
-    # rounds to bf16, and the two paths may round a value one ulp apart. The
-    # bf16 tolerance is the bf16 error of the plain path itself, measured
-    # against its f32 run, twice over: two bf16 results each that far from
-    # the f32 one are at most twice that far apart.
-    noise = (want - want32).abs().max().item()
-    err = (got - want).abs().max().item()
-    tol = 2.0 * noise
-    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
     print(f"serve: prefill B=4 L={plen}: {prefill_ms:.2f} ms on the kernels "
           f"(device time; min {prefill_spread['min']:.2f} max "
           f"{prefill_spread['max']:.2f}"
@@ -1123,21 +1337,7 @@ def serve_pass(smoke: Smoke, serve, kops, arch: str, policy: str | None,
           f"{plain_prefill_ms:.2f} ms on the plain versions; device time by "
           f"kind (torch.profiler, one prefill): "
           f"{split if split else 'not measured'}", flush=True)
-    print(f"serve: last-token logits, kernels vs plain versions: f32 "
-          f"max_abs_err={err32:.4e} (tol {tol32:.4e}); bf16 max_abs_err="
-          f"{err:.4e} (tol {tol:.4e} = 2 x the plain bf16 run's distance "
-          f"from f32); kernels bf16 vs plain f32 "
-          f"{(got - want32).abs().max().item():.4e}; max |logit| "
-          f"{want32.abs().max().item():.3f}; argmax agreement {agree:.2f}; "
-          f"f32 logits after 2 decode steps from the prefill's cache "
-          f"max_abs_err={dec_err:.4e} (tol {dec_tol:.4e})", flush=True)
-    finite = bool(torch.isfinite(got).all() and torch.isfinite(got32).all()
-                  and torch.isfinite(dec_got).all())
-    if not (err32 <= tol32 and err <= tol and dec_err <= dec_tol
-            and finite):
-        smoke.fail(f"serve: logits disagree with the plain model: prefill "
-                   f"f32 {err32} (tol {tol32}), bf16 {err} (tol {tol}); "
-                   f"decode f32 {dec_err} (tol {dec_tol})")
+    del kern_bf16, plain_bf16
     # decode steps of the served model, each on the host clock, against the
     # device time of their kernels: the card's idle share during decode
     n_steps, n_prof = 15, 5
@@ -1170,6 +1370,68 @@ def serve_pass(smoke: Smoke, serve, kops, arch: str, policy: str | None,
           f"the card {'not measured' if idle is None else f'{idle[0]:.3f}'}"
           f"{'' if idle is None else f' ({idle[1]:.3f} to {idle[2]:.3f})'}",
           flush=True)
+    del cache, decode
+
+    # the logit gates, at gate_depth (the served model, or MoE's first
+    # PARITY_LAYERS layers): bf16 on the served weights, then the served
+    # model is freed for the f32 copy
+    depth = gate_depth(cfg)
+    params = dict(engine.params, blocks=engine.params["blocks"][:depth])
+    routes = {k: [] for k in ("bf16", "bf16 plain", "f32", "f32 plain")}
+    with routing(torch, routes["bf16"]):
+        got = prefill_fn(policy, torch.bfloat16, params, depth)()
+    with routing(torch, routes["bf16 plain"]):
+        want = prefill_fn("baseline", torch.bfloat16, params, depth)()
+    params = cast_tree(params, torch.float32)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same weights in f32 on both paths: kernels and plain versions
+    # agree to about 1e-6 per op, so every layer stack of the port stays
+    # within 1e-3 of the largest logit
+    with routing(torch, routes["f32"]):
+        got32 = prefill_fn(policy, torch.float32, params, depth)()
+    with routing(torch, routes["f32 plain"]):
+        want32 = prefill_fn("baseline", torch.float32, params, depth)()
+    err32 = (got32 - want32).abs().max().item()
+    tol32 = 1e-3 * want32.abs().max().item()
+    dec_got = decoded(policy, params, depth)
+    dec_want = decoded("baseline", params, depth)
+    del params
+    dec_err = (dec_got - dec_want).abs().max().item()
+    dec_tol = 1e-3 * dec_want.abs().max().item()
+    # bf16: every norm and every SSD or attention output of a forward
+    # rounds to bf16, and the two paths may round a value one ulp apart. The
+    # bf16 tolerance is the bf16 error of the plain path itself, measured
+    # against its f32 run, twice over: two bf16 results each that far from
+    # the f32 one are at most twice that far apart.
+    noise = (want - want32).abs().max().item()
+    err = (got - want).abs().max().item()
+    tol = 2.0 * noise
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    flips = {dt: routing_flips(routes[dt], routes[f"{dt} plain"])
+             for dt in ("f32", "bf16")}
+    print(f"serve: last-token logits at {depth} of {cfg.n_layers} layers, "
+          f"kernels vs plain versions: f32 "
+          f"max_abs_err={err32:.4e} (tol {tol32:.4e}); bf16 max_abs_err="
+          f"{err:.4e} (tol {tol:.4e} = 2 x the plain bf16 run's distance "
+          f"from f32); kernels bf16 vs plain f32 "
+          f"{(got - want32).abs().max().item():.4e}; max |logit| "
+          f"{want32.abs().max().item():.3f}; argmax agreement {agree:.2f}; "
+          f"f32 logits after 2 decode steps from the prefill's cache "
+          f"max_abs_err={dec_err:.4e} (tol {dec_tol:.4e})"
+          + ("" if not moe_layers(cfg) else
+             f"; tokens whose top-{cfg.experts_per_tok} experts differ "
+             f"between the kernel and the plain path (token-layer pairs, "
+             f"tokens of {tokens.numel()}): f32 {flips['f32']}, bf16 "
+             f"{flips['bf16']}"), flush=True)
+    finite = bool(torch.isfinite(got).all() and torch.isfinite(got32).all()
+                  and torch.isfinite(dec_got).all())
+    if not (err32 <= tol32 and err <= tol and dec_err <= dec_tol
+            and finite):
+        smoke.fail(f"serve: logits disagree with the plain model: prefill "
+                   f"f32 {err32} (tol {tol32}), bf16 {err} (tol {tol}); "
+                   f"decode f32 {dec_err} (tol {dec_tol})")
     stats.update(prefill_ms=prefill_ms, plain_prefill_ms=plain_prefill_ms,
                  prefill_device_ms_by_kind=split,
                  prefill_other_ms_by_op=other, decode_step_ms=step_ms,
@@ -1178,16 +1440,19 @@ def serve_pass(smoke: Smoke, serve, kops, arch: str, policy: str | None,
                  decode_device_ms_by_kind=dsplit,
                  decode_idle_share=None if idle is None else idle[0],
                  decode_idle_share_range=None if idle is None else idle[1:],
+                 gate_layers=depth,
                  logits_f32_max_abs_err=err32, logits_f32_tol=tol32,
                  logits_bf16_max_abs_err=err, logits_bf16_tol=tol,
                  decode_logits_f32_max_abs_err=dec_err,
                  decode_logits_f32_tol=dec_tol)
+    if moe_layers(cfg):
+        stats["routing_flips"] = flips
     return stats
 
 
 # the continuous scheduler's runs: the reference's default serving path,
 # every tick one block step replayed from a CUDA graph
-CONTINUOUS = ("mamba2-1.3b", "llama3.2-1b")
+CONTINUOUS = ("mamba2-1.3b", "llama3.2-1b", "qwen3-moe-235b-a22b")
 
 
 def clone_tree(tree):
@@ -1338,20 +1603,44 @@ def profiled_replays(smoke: Smoke, engine, inputs: dict, label: str,
                        for t, evs in profiled.items()}}
 
 
+def weight_floor(params) -> dict:
+    """The parameter bytes a forward reads, all and the experts' (every
+    expert runs in a block step: the grouped products take them all), and
+    each over the card's memory rate: a floor under a T = 1 tick."""
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [t for v in tree.values() for t in leaves(v)]
+        if isinstance(tree, list):
+            return [t for v in tree for t in leaves(v)]
+        return [tree]
+
+    # the embedding is gathered a row a token; an untied head is read whole
+    read = {k: v for k, v in params.items()
+            if k != "embed" or "head" not in params}
+    experts = [t for blk in params["blocks"] if "moe" in blk
+               for name, t in blk["moe"].items() if name != "router"]
+    out = {}
+    for key, ts in (("all", leaves(read)), ("experts", experts)):
+        out[f"{key}_gb"] = nbytes(*ts) / 1e9
+        out[f"{key}_floor_ms"] = nbytes(*ts) / HBM_BYTES_PER_S * 1e3
+    return out
+
+
 def continuous_pass(smoke: Smoke, serve, kops, arch: str, ring_ref: dict):
-    """``arch`` FULL under the continuous scheduler: 8 requests of up to 512
-    prompt tokens on 4 slots, chunks of 16; returns its numbers and leaves
-    the bf16 run's tokens and logits by tick in ``ring_ref[arch]``."""
+    """``arch`` FULL (MoE: its depth cut) under the continuous scheduler: 8
+    requests of up to 512 prompt tokens on 4 slots, chunks of 16; returns
+    its numbers and leaves the bf16 run's tokens and logits by tick in
+    ``ring_ref[arch]``."""
     from repro_torch.models import build_lm
     from repro_torch.models.common import cast_tree
     from repro_torch.serving import Request, ServeConfig, ServingEngine
 
     torch = smoke.torch
-    engine = serve.build_engine(arch, "full", device="cuda", slots=4,
-                                max_new=16, scheduler="continuous",
-                                prefill_chunk=16, seed=0)
+    engine = full_engine(serve, arch, slots=4, max_new=16,
+                         scheduler="continuous", prefill_chunk=16)
     cfg = engine.bundle.cfg
     norms = 2 * cfg.n_layers + 1
+    scans = moe_layers(cfg)
     print(f"serve: {cfg.name} {cfg.n_layers} layers {cfg.dtype}, "
           f"scheduler=continuous, 4 slots, prefill_chunk 16", flush=True)
     reqs = serve.make_requests(8, 512, cfg.vocab, seed=0)
@@ -1388,6 +1677,9 @@ def continuous_pass(smoke: Smoke, serve, kops, arch: str, ring_ref: dict):
     if counts["rmsnorm"] != norms * m["n_ticks"]:
         smoke.fail(f"continuous {arch}: {counts['rmsnorm']} RMSNorm launches "
                    f"counted, want {norms} x {m['n_ticks']} ticks")
+    if counts["tcu_scan"] != scans * m["n_ticks"]:
+        smoke.fail(f"continuous {arch}: {counts['tcu_scan']} tcu_scan "
+                   f"launches counted, want {scans} x {m['n_ticks']} ticks")
 
     # one T = 16 and one T = 1 tick from the graph against the eager step
     # on a clone of the cache, with the same inputs
@@ -1448,6 +1740,7 @@ def continuous_pass(smoke: Smoke, serve, kops, arch: str, ring_ref: dict):
     busy1 = sum(split[1].values()) if split[1] else None
     idle = (None if busy1 is None or not by_t[1] else
             1.0 - busy1 / statistics.median(by_t[1]))
+    floor = weight_floor(engine.params)
     print(f"serve: device ms a tick by kind (torch.profiler, replayed): "
           f"T=16 {split[16] or 'not measured'}; T=1 (mean of {n_prof}) "
           f"{split[1] or 'not measured'}; idle share of the T=1 ticks "
@@ -1455,7 +1748,11 @@ def continuous_pass(smoke: Smoke, serve, kops, arch: str, ring_ref: dict):
           f"launches in three profiled replays {per_replay}; a T=1 tick "
           f"alone, host "
           f"ms: graphed {ms_text(loop['graphed'])}, eager "
-          f"{ms_text(loop['eager'])}", flush=True)
+          f"{ms_text(loop['eager'])}; the parameters a tick reads "
+          f"{floor['all_gb']:.2f} GB, a floor of "
+          f"{floor['all_floor_ms']:.3f} ms at 3.35 TB/s (experts "
+          f"{floor['experts_gb']:.2f} GB, {floor['experts_floor_ms']:.3f} "
+          f"ms)", flush=True)
     stats = dict(
         scheduler="continuous", **run_stats(m),
         admits=len(admits), refills=len(refills), finishes=len(finishes),
@@ -1463,11 +1760,15 @@ def continuous_pass(smoke: Smoke, serve, kops, arch: str, ring_ref: dict):
         capture_s=graphs["capture_s"], rmsnorm_per_replay=per_replay,
         device_ms_by_kind=split, top_kernels=top, idle_share_t1=idle,
         replay_vs_eager=replay_err, t1_tick_ms_graphed=loop["graphed"],
-        t1_tick_ms_eager=loop["eager"])
-    # f32: the engine on the kernels against each request's prefill alone,
-    # and against the same engine on the plain versions
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-    params32 = cast_tree(engine.params, torch.float32)
+        t1_tick_ms_eager=loop["eager"], weight_floor=floor)
+    # f32 (MoE: its first PARITY_LAYERS layers): the engine on the kernels
+    # against each request's prefill alone, and against the same engine on
+    # the plain versions
+    depth = gate_depth(cfg)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, n_layers=depth)
+    params32 = cast_tree(dict(engine.params,
+                              blocks=engine.params["blocks"][:depth]),
+                         torch.float32)
     del engine, m, ticks
     gc.collect()
     torch.cuda.empty_cache()
@@ -1482,15 +1783,28 @@ def continuous_pass(smoke: Smoke, serve, kops, arch: str, ring_ref: dict):
     eng, rec, res = runs[None]
     slot_of = {e["uid"]: e["slot"] for e in eng.trace
                if e["event"] == "admit"}
-    first_err, first_tol = 0.0, 0.0
+    # MoE capacity couples the tokens of a group: a tick's groups of 2
+    # tokens fit any expert's capacity of 8, but a prompt alone (one group
+    # of up to 255 tokens a capacity of 128) may drop some, so the prompt
+    # alone is held at a capacity where no token drops (its error at the
+    # served capacity is printed)
+    alone = eng.bundle
+    if moe_layers(cfg):
+        alone = build_lm(dataclasses.replace(
+            cfg32, capacity_factor=float(cfg.n_experts)))
+    first_err, first_tol, served_err = 0.0, 0.0, 0.0
     for r in res:
         tick = r.admitted_tick + -(-r.prompt_len // 16) - 1
         got = rec[tick][3][slot_of[r.uid]]
-        prompt = torch.from_numpy(reqs[r.uid].prompt.astype("int64"))
-        want = eng.bundle.prefill_last(
-            eng.params, {"tokens": prompt[None].cuda()})[0][0, -1].float()
+        prompt = {"tokens": torch.from_numpy(
+            reqs[r.uid].prompt.astype("int64"))[None].cuda()}
+        want = alone.prefill_last(eng.params, prompt)[0][0, -1].float()
         first_err = max(first_err, (got - want).abs().max().item())
         first_tol = max(first_tol, 1e-3 * want.abs().max().item())
+        if alone is not eng.bundle:
+            served = eng.bundle.prefill_last(eng.params, prompt)[0][0, -1]
+            served_err = max(served_err,
+                             (got - served.float()).abs().max().item())
     plain_rec = runs["baseline"][1]
     path_err, path_tol, compared = 0.0, 0.0, 0
     for (_, _, ins, lg), (_, _, pins, plg) in zip(rec, plain_rec):
@@ -1500,9 +1814,13 @@ def continuous_pass(smoke: Smoke, serve, kops, arch: str, ring_ref: dict):
         path_err = max(path_err, (lg[live] - plg[live]).abs().max().item())
         path_tol = max(path_tol, 1e-3 * plg[live].abs().max().item())
         compared += 1
+    note = ("" if alone is eng.bundle else
+            f", capacity for every token; at the served capacity "
+            f"max_abs_err={served_err:.4e}")
     print(f"serve: f32 first-token logits, continuous engine vs each "
-          f"request's prefill alone (B=1, kernels): max_abs_err="
-          f"{first_err:.4e} (tol {first_tol:.4e}); f32 continuous engine, "
+          f"request's prefill alone (B=1, kernels; {depth} of "
+          f"{cfg.n_layers} layers): max_abs_err={first_err:.4e} (tol "
+          f"{first_tol:.4e}{note}); f32 continuous engine, "
           f"kernels vs plain versions over {compared} of {len(rec)} ticks: "
           f"max_abs_err={path_err:.4e} (tol {path_tol:.4e})", flush=True)
     if not first_err <= first_tol:
@@ -1513,6 +1831,7 @@ def continuous_pass(smoke: Smoke, serve, kops, arch: str, ring_ref: dict):
                    f"{path_err} (tol {path_tol}) over {compared} ticks")
     stats.update(first_token_f32_max_abs_err=first_err,
                  first_token_f32_tol=first_tol,
+                 first_token_f32_served_capacity_err=served_err,
                  plain_f32_max_abs_err=path_err, plain_f32_tol=path_tol,
                  plain_f32_ticks_compared=compared)
     return stats
@@ -1526,7 +1845,7 @@ def same_inputs(a: dict, b: dict) -> bool:
 
 # the paged KV pool: the continuous scheduler's other cache kind, on the
 # same runs, then the traffic it is for
-PAGED = ("mamba2-1.3b", "llama3.2-1b")
+PAGED = ("mamba2-1.3b", "llama3.2-1b", "qwen3-moe-235b-a22b")
 
 
 def warm_request(vocab: int, n: int):
@@ -1565,9 +1884,8 @@ def paged_parity(smoke: Smoke, serve, kops, arch: str, ring_ref: dict):
     measured run, and a replayed tick launches 2 x layers + 1 RMSNorm
     kernels."""
     torch = smoke.torch
-    engine = serve.build_engine(arch, "full", device="cuda", slots=4,
-                                max_new=16, prefill_chunk=16,
-                                cache_kind="paged", seed=0)
+    engine = full_engine(serve, arch, slots=4, max_new=16, prefill_chunk=16,
+                         cache_kind="paged")
     cfg = engine.bundle.cfg
     norms = 2 * cfg.n_layers + 1
     reqs = serve.make_requests(8, 512, cfg.vocab, seed=0)
@@ -1593,6 +1911,9 @@ def paged_parity(smoke: Smoke, serve, kops, arch: str, ring_ref: dict):
     if counts["rmsnorm"] != norms * m["n_ticks"]:
         smoke.fail(f"{label}: {counts['rmsnorm']} RMSNorm launches counted, "
                    f"want {norms} x {m['n_ticks']} ticks")
+    if counts["tcu_scan"] != moe_layers(cfg) * m["n_ticks"]:
+        smoke.fail(f"{label}: {counts['tcu_scan']} tcu_scan launches "
+                   f"counted, want {moe_layers(cfg)} x {m['n_ticks']} ticks")
     inputs = last_inputs(m)
     prof = profiled_replays(smoke, engine, inputs, label, norms)
     split = {t: split_by_kind(ev) for t, ev in prof["events"].items()}
@@ -2396,7 +2717,8 @@ def main() -> int:
                 smoke.fail(f"ops pass launched {name} no time")
         stats = {}
         launches = dict(ops_counts)
-        runs = [(f"{arch} wave" + ("" if policy is None else f" {policy}"),
+        runs = [("ragged ops", lambda: ragged_pass(smoke, ops, kops))]
+        runs += [(f"{arch} wave" + ("" if policy is None else f" {policy}"),
                  lambda a=arch, p=policy, pl=per_layer, ab=absent:
                  serve_pass(smoke, serve, kops, a, p, pl, ab))
                 for arch, policy, per_layer, absent in SERVED]

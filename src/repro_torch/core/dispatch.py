@@ -10,6 +10,9 @@ Every op takes ``policy=`` (see :mod:`repro_torch.core.policy`) and runs:
                 kernels of ``csrc/matmul_scan.cu`` and the log-depth tree of
                 ``kernels/matmul_scan.py`` (the other ops raise)
 
+The ragged ops have no kernel in the reference either: ``tile`` and
+``fused`` run their one-hot matmul forms (``repro_torch.core.ragged``).
+
 Each op resolves its path with the bucket-axis size the reference's
 ``dispatch._resolve`` passes (reduce, scan, weighted_scan: the last axis;
 attention and ssd: the sequence axis), so an observability session records
@@ -20,6 +23,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.policy import _emit_resolution, resolve
+from repro_torch.core.ragged import (
+    guard_contiguous,
+    tcu_ragged_segment_reduce,
+    tcu_ragged_segment_scan,
+)
 from repro_torch.core.reduce import tcu_segmented_reduce
 from repro_torch.core.scan import tcu_scan, tcu_weighted_scan
 from repro_torch.core.ssd import CHUNK, ssd_chunked
@@ -93,6 +101,67 @@ def weighted_scan(x: torch.Tensor, log_a: torch.Tensor, *,
     if p == "tile_logdepth":
         return kops.weighted_scan_logdepth(x, log_a)
     return kops.weighted_scan(x, log_a)
+
+
+# ---------------------------------------------------------------------------
+# ragged (irregular) segments, the paper's footnote-4 case
+
+
+def ragged_reduce(x: torch.Tensor, seg_ids: torch.Tensor, n_segments: int,
+                  *, policy: str | None = None) -> torch.Tensor:
+    """Bucketed segmented sum: ``x (..., n)`` + ``seg_ids`` -> f32
+    ``(..., n_segments)``. ``tile``/``fused``: the one-hot matmul form;
+    ``baseline``: torch's segment sum (``scatter_add``). ``seg_ids`` may
+    carry leading batch dims; any id order is valid, and ids outside
+    ``[0, n_segments)`` contribute nowhere."""
+    p = _resolve(policy, "ragged_reduce", x, x.shape[-1])
+    if p == "baseline":
+        return _segment_sum_baseline(x, seg_ids, n_segments)
+    return tcu_ragged_segment_reduce(x, seg_ids, n_segments)
+
+
+def ragged_scan(x: torch.Tensor, seg_ids: torch.Tensor, n_segments: int, *,
+                policy: str | None = None,
+                debug: bool = False) -> torch.Tensor:
+    """Within-segment inclusive prefix sum -> f32, the shape of ``x``.
+    ``seg_ids`` must be non-decreasing on every path (``debug=True``
+    validates, :func:`~repro_torch.core.ragged.guard_contiguous`).
+    ``tile``/``fused``: the matmul form; ``baseline``: ``cumsum``, the
+    segment sum and a gather."""
+    p = _resolve(policy, "ragged_scan", x, x.shape[-1])
+    if p == "baseline":
+        out = _ragged_scan_baseline(x, seg_ids, n_segments)
+        return guard_contiguous(seg_ids, out) if debug else out
+    return tcu_ragged_segment_scan(x, seg_ids, n_segments, debug=debug)
+
+
+def _segment_sum_baseline(x: torch.Tensor, seg_ids: torch.Tensor,
+                          n_segments: int) -> torch.Tensor:
+    """The reference's ``jax.ops.segment_sum`` over the trailing axis:
+    ``scatter_add`` into one more bucket that takes the ids out of range
+    and is dropped."""
+    xf = x.float()
+    ids = torch.broadcast_to(seg_ids, xf.shape).long()
+    ids = torch.where((ids >= 0) & (ids < n_segments), ids, n_segments)
+    out = xf.new_zeros(*xf.shape[:-1], n_segments + 1)
+    return out.scatter_add_(-1, ids, xf)[..., :n_segments]
+
+
+def _ragged_scan_baseline(x: torch.Tensor, seg_ids: torch.Tensor,
+                          n_segments: int) -> torch.Tensor:
+    """Global ``cumsum`` minus the gathered totals of the preceding
+    segments. The gather follows the reference's ``take_along_axis``: a
+    negative id counts from the end, an id out of range reads NaN."""
+    xf = x.float()
+    gs = torch.cumsum(xf, dim=-1)
+    totals = _segment_sum_baseline(x, seg_ids, n_segments)     # (..., S)
+    prior = torch.cat([torch.zeros_like(totals[..., :1]),
+                       torch.cumsum(totals, dim=-1)[..., :-1]], dim=-1)
+    ids = torch.broadcast_to(seg_ids, xf.shape).long()
+    ids = torch.where(ids < 0, ids + n_segments, ids)
+    inside = (ids >= 0) & (ids < n_segments)
+    got = prior.gather(-1, ids.clamp(0, n_segments - 1))
+    return gs - torch.where(inside, got, torch.nan)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,

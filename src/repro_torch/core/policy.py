@@ -33,7 +33,8 @@ import torch
 from repro_torch.obs import runtime
 
 PATHS = ("tile", "fused", "baseline", "tile_logdepth")
-OPS = ("reduce", "scan", "weighted_scan", "rmsnorm", "attention", "ssd")
+OPS = ("reduce", "scan", "weighted_scan", "ragged_reduce", "ragged_scan",
+       "rmsnorm", "attention", "ssd")
 LOGDEPTH_OPS = ("scan", "weighted_scan", "ssd")
 DEFAULT_PATH = "tile"
 MAX_BAND = 20                       # the reference autotune's largest band

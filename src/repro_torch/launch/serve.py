@@ -22,9 +22,11 @@ requests as open-loop Poisson arrivals.
 Randomly initialised weights from a ``torch.Generator`` seeded with
 ``--seed``; synthetic prompts from a numpy generator with the same seed. By
 default the model runs on the CUDA card through the Hopper kernels:
-RMSNorm in every layer, and in the wave's prefill also the SSD chunk scan
-or flash attention (the continuous block step runs the recurrence and
-decode attention as torch ops, as the reference does). ``--device cpu``
+RMSNorm in every layer, the MoE models' capacity offsets (``tcu_scan.cu``)
+in every MoE layer, and in the wave's prefill also the SSD chunk scan or
+flash attention (the continuous block step runs the recurrence and decode
+attention as torch ops, as the reference does). The MoE configs at FULL
+do not fit one card; ``chip_smoke.py`` serves them with their depth cut. ``--device cpu``
 runs the same path on each kernel's plain version. Under the wave
 scheduler, ``--policy
 ssd=tile_logdepth`` prefills every Mamba layer through the log-depth
@@ -98,7 +100,8 @@ def main(argv=None) -> ServingEngine:
     ``kv_stats()`` hold the run."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="mamba2-1.3b",
-                    help="mamba2-1.3b or llama3.2-1b")
+                    choices=tuple(configs.ARCHS),
+                    help="an architecture of repro_torch.configs")
     ap.add_argument("--config", choices=("smoke", "full"), default="full")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)

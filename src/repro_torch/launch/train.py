@@ -18,9 +18,10 @@ Counterpart of ``repro.launch.train`` on one device:
   * data order is a pure function of (seed, step) (``data/pipeline.py``).
 
 By default the model runs on the CUDA card through the Hopper kernels:
-RMSNorm in every layer, flash attention (llama) or the SSD chunk scan
-(mamba) in every layer, each launched again when its layer is recomputed in
-backward, and the global norm's ``tcu_reduce`` once per parameter leaf.
+RMSNorm in every layer, flash attention (llama, MoE) or the SSD chunk scan
+(mamba) in every layer and the capacity offsets' ``tcu_scan`` in every MoE
+layer, each launched again when its layer is recomputed in backward, and
+the global norm's ``tcu_reduce`` once per parameter leaf.
 ``--device cpu`` runs the same path on each kernel's plain version. The
 learning-rate schedule is the reference's (warmup ``min(20, --steps)``,
 cosine to ``--steps``) unless ``--warmup-steps`` or ``--decay-steps`` fix
@@ -60,7 +61,8 @@ def main(argv=None) -> dict[int, float]:
     """Parse ``argv`` and train; returns each step's loss."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b",
-                    help="mamba2-1.3b or llama3.2-1b")
+                    choices=tuple(configs.ARCHS),
+                    help="an architecture of repro_torch.configs")
     ap.add_argument("--config", choices=("smoke", "full"), default="smoke")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=SMOKE_BATCH * 2)

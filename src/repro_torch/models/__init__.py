@@ -1,4 +1,5 @@
-"""Model zoo of the port: the dense (llama) and ssm (mamba2) families."""
+"""Model zoo of the port: the dense (llama), moe (qwen3-moe, grok-1) and ssm
+(mamba2) families."""
 from repro_torch.models.layers import ModelConfig
 from repro_torch.models.lm import Bundle, build_lm
 

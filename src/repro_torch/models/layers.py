@@ -1,5 +1,5 @@
-"""Layer implementations: GQA attention, SwiGLU MLP, the Mamba-2 (SSD)
-mixer.
+"""Layer implementations: GQA attention, SwiGLU MLP, token-choice MoE, the
+Mamba-2 (SSD) mixer.
 
 Functional, as in the reference: ``<layer>_pspec(cfg)`` declares one
 layer's parameters, ``<layer>_apply`` runs the full sequence,
@@ -10,12 +10,15 @@ value on the host (the step is captured in a CUDA graph);
 :func:`attn_decode_paged` does the same over the paged KV pool. Attention, the
 SSD and the norms go
 through ``repro_torch.core.dispatch`` under ``ModelConfig.policy`` (None:
-the Hopper kernels). Parameter layouts are the reference's, e.g.
+the Hopper kernels), and so do the MoE router's counts (a ragged reduce) and
+capacity offsets (an exclusive scan, ``tcu_scan.cu`` on the card). Parameter
+layouts are the reference's, e.g.
 ``in_proj`` is ``(d, e)`` and ``y = x @ W``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
@@ -29,7 +32,7 @@ from repro_torch.models.xla_attention import decode_attention
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # "ssm" and "dense" are ported
+    family: str                    # "dense", "moe" and "ssm" are ported
     n_layers: int
     d_model: int
     vocab: int
@@ -41,6 +44,16 @@ class ModelConfig:
     norm_eps: float = 1e-5
     swa_window: int | None = None
     tie_embeddings: bool = False
+    # MoE
+    n_experts: int = 0
+    experts_per_tok: int = 0
+    moe_d_ff: int = 0
+    capacity_factor: float = 1.25
+    # routing granularity: "grouped" routes and dispatches within
+    # ``gcd(tokens, moe_groups)`` contiguous token groups (the reference's
+    # default); "global" sorts the whole batch at once
+    moe_impl: str = "grouped"
+    moe_groups: int = 32
     # SSM (Mamba-2)
     ssm_state: int = 0
     ssm_head_dim: int = 64
@@ -233,6 +246,106 @@ def mlp_pspec(cfg: ModelConfig):
 
 def mlp_apply(p, cfg: ModelConfig, x):
     return swiglu(x, p["w_in"], p["w_gate"], p["w_out"])
+
+
+# ---------------------------------------------------------------------------
+# MoE (token-choice top-k, sort-based capacity dispatch)
+
+
+def moe_pspec(cfg: ModelConfig):
+    """One MoE layer's parameters: the router and each expert's SwiGLU."""
+    d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    return {"router": PSpec((d, e), "normal"),
+            "w_in": PSpec((e, d, f)), "w_gate": PSpec((e, d, f)),
+            "w_out": PSpec((e, f, d))}
+
+
+def moe_apply(p, cfg: ModelConfig, x):
+    """Token-choice top-k with capacity; the counts and offsets are the
+    paper's ragged reduce and exclusive scan. Returns (y, aux_loss)."""
+    if cfg.moe_impl == "grouped":
+        return moe_apply_grouped(p, cfg, x)
+    return moe_apply_global(p, cfg, x)
+
+
+def moe_apply_grouped(p, cfg: ModelConfig, x):
+    """Group-local token-choice top-k MoE (the reference's default): the
+    ``b * s`` tokens, row-major, split into ``gcd(b * s, moe_groups)``
+    contiguous groups, each routed, sorted and given its own capacity;
+    silu in the native dtype."""
+    groups = math.gcd(x.shape[0] * x.shape[1], cfg.moe_groups)
+    return _moe(p, cfg, x, groups, native_silu=True)
+
+
+def moe_apply_global(p, cfg: ModelConfig, x):
+    """Whole-batch sort dispatch (the reference's measured baseline): one
+    group of every token; silu in f32."""
+    return _moe(p, cfg, x, 1, native_silu=False)
+
+
+def _moe(p, cfg: ModelConfig, x, g: int, *, native_silu: bool):
+    """The reference's sort-based dispatch over ``g`` groups of ``tg``
+    tokens, ``n = tg * k`` routed slots a group. Each group's slots are
+    sorted by expert (stable, as ``jnp.argsort``); an expert takes its first
+    ``cap`` slots and drops the rest. The capacity buffer is laid out
+    expert-major, ``(e, g * cap, d)``, so that every expert's rows are one
+    matrix of a batched product without a copy; the k weighted outputs of
+    each token are summed over k in a fixed order (the reference's
+    scatter-add, without atomics). Returns ((b, s, d), aux)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.experts_per_tok
+    t = b * s
+    tg, dev = t // g, x.device
+    n = tg * k
+    xg = x.reshape(g, tg, d)
+    probs = torch.softmax((xg @ p["router"]).float(), dim=-1)  # (g, tg, e)
+    top_w, top_i = torch.topk(probs, k, dim=-1)               # (g, tg, k)
+    top_w = top_w / top_w.sum(-1, keepdim=True)
+    e_flat = top_i.reshape(g, n)
+    order = torch.argsort(e_flat, dim=-1, stable=True)        # per group
+    inv = torch.empty_like(order).scatter_(                   # slot -> sorted
+        1, order, torch.arange(n, device=dev).expand(g, n))
+    group = torch.arange(g, device=dev)[:, None]
+
+    # per-(group, expert) counts: a ragged reduce of ones over the
+    # assignment; the capacity offsets: an exclusive scan over the experts
+    counts = dispatch.ragged_reduce(
+        torch.ones(g, n, device=dev), e_flat, e, policy=cfg.policy)  # (g, e)
+    offsets = dispatch.scan(counts, exclusive=True, policy=cfg.policy)
+    start = offsets.long()               # whole numbers, exact below 2^24
+    rank = inv - start.gather(1, e_flat)          # rank within its expert
+    cap = max(8, int(cfg.capacity_factor * n / e + 127) // 128 * 128)
+    keep = rank < cap
+
+    # dispatch as a slot -> token gather: slot (expert, group, c) holds the
+    # group's sorted position start + c while c < min(count, cap); an empty
+    # slot reads row t, a row of zeros after the tokens
+    slots = torch.arange(cap, device=dev)
+    pos = (start[..., None] + slots).clamp(max=n - 1)         # (g, e, cap)
+    valid = slots < counts.clamp(max=cap)[..., None]
+    tok = order.gather(1, pos.reshape(g, e * cap)) // k
+    rows = tok + group * tg
+    rows = torch.where(valid.reshape(g, e * cap), rows, t)
+    rows = rows.view(g, e, cap).transpose(0, 1).reshape(-1)   # expert-major
+    h = torch.cat([x.reshape(t, d), x.new_zeros(1, d)]).index_select(0, rows)
+    h = h.view(e, g * cap, d)
+    up = torch.bmm(h, p["w_in"])
+    gate = torch.bmm(h, p["w_gate"])
+    act = (F.silu(gate) if native_silu
+           else F.silu(gate.float()).to(up.dtype)) * up
+    y = torch.bmm(act, p["w_out"]).view(e * g * cap, d)
+
+    # combine: each routed slot reads its output row, weighted, or nothing
+    # when its expert was full
+    at = (e_flat * g + group) * cap + rank
+    y_tok = y.index_select(0, torch.where(keep, at, 0).reshape(-1))
+    w = (top_w.reshape(g, n) * keep).reshape(-1, 1).to(y.dtype)
+    out = (y_tok * w).view(t, k, d).sum(1).to(x.dtype)
+
+    # switch-style load-balance aux: E * <f_e, p_e>, the mean over groups
+    frac = counts / counts.sum(-1, keepdim=True).clamp(min=1.0)
+    aux = e * torch.mean(torch.sum(frac * probs.mean(1), dim=-1))
+    return out.reshape(b, s, d), aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,27 +1,34 @@
-"""Decoder-only LM assembly: the dense (llama) and ssm (Mamba-2) families.
+"""Decoder-only LM assembly: the dense (llama), moe (qwen3-moe, grok-1) and
+ssm (Mamba-2) families.
 
 Counterpart of ``repro.models.lm`` for the families ported so far. The
 reference scans a stacked layer axis with ``lax.scan``; here the layers are
-a list and the loop is a Python loop. The decode cache keeps the
-reference's stacked layout, ``attn.k``/``attn.v`` ``(n_layers, B, S, Hkv,
-Dh)`` for dense and ``mamba.conv (n_layers, B, K-1, C)``/``mamba.state
-(n_layers, B, H, P, N)`` for ssm, and :func:`lm_decode` updates it in place
-(one layer's slice at a time) instead of rebuilding it every token. The
-prefill cache holds exactly the prompt's positions; a server grows its
-sequence axis with :func:`pad_cache_seq` before decoding.
+a list and the loop is a Python loop. A moe layer is a dense layer with
+:func:`~repro_torch.models.layers.moe_apply` in place of the MLP, and
+:func:`lm_apply` sums its auxiliary load-balance loss over the layers. The
+decode cache keeps the reference's stacked layout, ``attn.k``/``attn.v``
+``(n_layers, B, S, Hkv, Dh)`` for dense and moe and ``mamba.conv (n_layers,
+B, K-1, C)``/``mamba.state (n_layers, B, H, P, N)`` for ssm, and
+:func:`lm_decode` updates it in place (one layer's slice at a time) instead
+of rebuilding it every token. The prefill cache holds exactly the prompt's
+positions; a server grows its sequence axis with :func:`pad_cache_seq`
+before decoding.
 
 The continuous scheduler's cache (:func:`lm_cache_pspec` with
 ``per_slot_pos=True``) is a ring of ``min(capacity, swa_window)`` rows a
 slot with a position per slot, stepped by :func:`lm_decode_block`, or the
 paged pool (``kind="paged"``) stepped by :func:`lm_decode_block_paged`.
 Those steps take the sliding window; the wave path (:func:`lm_apply`,
-:func:`lm_decode`) does not yet.
+:func:`lm_decode`) does not yet. As in the reference, the MoE layers route
+every token of a block step, the ones past a slot's ``n_valid`` too, and
+those take capacity like the rest.
 
 Training: :func:`lm_loss` is the mean token cross-entropy of
-:func:`lm_apply`; ``Bundle.loss`` takes the train state's stacked
-parameters. With gradients on, each layer of the forward runs under
-``cfg.remat_policy`` (:func:`_remat`): its activations are recomputed in
-backward, the layer's kernels launched again.
+:func:`lm_apply` plus ``MOE_AUX_WEIGHT`` times its auxiliary loss;
+``Bundle.loss`` takes the train state's stacked parameters. With gradients
+on, each layer of the forward runs under ``cfg.remat_policy``
+(:func:`_remat`): its activations are recomputed in backward, the layer's
+kernels launched again.
 """
 from __future__ import annotations
 
@@ -45,7 +52,9 @@ from repro_torch.models.common import (
 )
 
 
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "moe", "ssm")
+ATTN_FAMILIES = ("dense", "moe")     # attention layers and a KV cache
+MOE_AUX_WEIGHT = 0.01
 # the reference's dots_with_no_batch_dims_saveable: a matmul without batch
 # dims is an mm (``x @ W`` folds its leading dims into rows) or an addmm
 _SAVED_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -99,6 +108,9 @@ class Bundle:
     prefill_last: Callable   # (params, batch) -> (last logits, cache)
     decode: Callable         # (params, cache, batch) -> (logits, cache)
     n_params: int = 0
+    # parameters a token meets: every expert's share of the MoE blocks
+    # replaced by k experts' (the reference's count, router included)
+    n_active_params: int = 0
     # (batch, smax, per_slot_pos=False, kind="ring", pool_pages=0,
     # page_rows=0, state_pages=0) -> PSpec tree
     cache_pspec: Callable = None
@@ -119,9 +131,11 @@ def lm_pspec(cfg: L.ModelConfig):
     }
     if not cfg.tie_embeddings:
         p["head"] = PSpec((v, d), "normal")
-    if cfg.family == "dense":
+    if cfg.family in ATTN_FAMILIES:
+        ffn = "moe" if cfg.family == "moe" else "mlp"
+        ffn_pspec = L.moe_pspec if cfg.family == "moe" else L.mlp_pspec
         p["blocks"] = [{"ln1": PSpec((d,), "ones"), "attn": L.attn_pspec(cfg),
-                        "ln2": PSpec((d,), "ones"), "mlp": L.mlp_pspec(cfg)}
+                        "ln2": PSpec((d,), "ones"), ffn: ffn_pspec(cfg)}
                        for _ in range(cfg.n_layers)]
     else:
         p["blocks"] = [{"ln": PSpec((d,), "ones"),
@@ -134,18 +148,26 @@ def _head(params, cfg):
     return params["embed"] if cfg.tie_embeddings else params["head"]
 
 
+def _ffn(lp, cfg: L.ModelConfig, m_in):
+    """The feed-forward half of an attention layer: (out, MoE aux or
+    None)."""
+    if "moe" in lp:
+        return L.moe_apply(lp["moe"], cfg, m_in)
+    return L.mlp_apply(lp["mlp"], cfg, m_in), None
+
+
 def lm_apply(params, cfg: L.ModelConfig, batch, *, collect_cache=False,
              last_only=False):
     """Full-sequence forward. Returns (logits, aux, cache-or-None).
 
     ``last_only`` unembeds just the final position (serving prefill), which
     avoids the (B, S, vocab) logits tensor. ``aux`` is the MoE auxiliary
-    loss of the reference, zero for these families."""
+    loss summed over the layers, an f32 scalar (zero without MoE layers)."""
     _require_ported(cfg)
     _require_unwindowed(cfg)
     h = embed_tokens(params["embed"], batch["tokens"])
     b, s, _ = h.shape
-    if cfg.family == "dense":
+    if cfg.family in ATTN_FAMILIES:
         # positions from 0 in every row, left padding included, as in the
         # reference
         positions = torch.arange(s, device=h.device).expand(b, s)
@@ -156,19 +178,22 @@ def lm_apply(params, cfg: L.ModelConfig, batch, *, collect_cache=False,
                                      positions=positions)
             h = h + a_out
             m_in = rmsnorm(h, lp["ln2"], cfg.norm_eps, cfg.policy)
-            return (h + L.mlp_apply(lp["mlp"], cfg, m_in),
-                    kv if collect_cache else None)
+            m_out, aux = _ffn(lp, cfg, m_in)
+            return h + m_out, aux, kv if collect_cache else None
     else:
         def layer(h, lp):
             m_in = rmsnorm(h, lp["ln"], cfg.norm_eps, cfg.policy)
             out, cache = L.mamba_apply(lp["mamba"], cfg, m_in,
                                        collect_cache=collect_cache)
-            return h + out, cache
+            return h + out, None, cache
     if torch.is_grad_enabled():
         layer = _remat(layer, cfg.remat_policy)
     caches = []
+    aux_total = torch.zeros((), device=h.device)
     for lp in params["blocks"]:
-        h, cache = layer(h, lp)
+        h, aux, cache = layer(h, lp)
+        if aux is not None:
+            aux_total = aux_total + aux
         caches.append(cache)
     if last_only:
         h = h[:, -1:]
@@ -177,22 +202,21 @@ def lm_apply(params, cfg: L.ModelConfig, batch, *, collect_cache=False,
     cache = None
     if collect_cache:
         cache = {"pos": s}
-        if cfg.family == "dense":
+        if cfg.family in ATTN_FAMILIES:
             cache["attn"] = {"k": torch.stack([k for k, _ in caches]),
                              "v": torch.stack([v for _, v in caches])}
         else:
             cache["mamba"] = {
                 "conv": torch.stack([c["conv"] for c in caches]),
                 "state": torch.stack([c["state"] for c in caches])}
-    return logits, torch.zeros((), device=h.device), cache
+    return logits, aux_total, cache
 
 
 def lm_loss(params, cfg: L.ModelConfig, batch) -> torch.Tensor:
     """Mean token cross-entropy of :func:`lm_apply` on ``batch`` {tokens,
-    labels (B, S)}; the reference adds its MoE auxiliary loss, zero for
-    these families."""
-    logits, _, _ = lm_apply(params, cfg, batch)
-    return cross_entropy(logits, batch["labels"])
+    labels (B, S)} plus ``MOE_AUX_WEIGHT`` times its MoE auxiliary loss."""
+    logits, aux, _ = lm_apply(params, cfg, batch)
+    return cross_entropy(logits, batch["labels"]) + MOE_AUX_WEIGHT * aux
 
 
 def pad_cache_seq(cache, extra: int):
@@ -213,7 +237,7 @@ def lm_decode(params, cfg: L.ModelConfig, cache, batch):
     _require_unwindowed(cfg)
     h = embed_tokens(params["embed"], batch["tokens"])       # (B, 1, d)
     pos = cache["pos"]
-    if cfg.family == "dense":
+    if cfg.family in ATTN_FAMILIES:
         k, v = cache["attn"]["k"], cache["attn"]["v"]
         if pos >= k.shape[2]:
             raise ValueError(f"KV cache of {k.shape[2]} positions is full at "
@@ -223,7 +247,7 @@ def lm_decode(params, cfg: L.ModelConfig, cache, batch):
             h = h + L.attn_decode(lp["attn"], cfg, a_in,
                                   {"k": k[i], "v": v[i]}, pos=pos)
             m_in = rmsnorm(h, lp["ln2"], cfg.norm_eps, cfg.policy)
-            h = h + L.mlp_apply(lp["mlp"], cfg, m_in)
+            h = h + _ffn(lp, cfg, m_in)[0]
     else:
         conv, state = cache["mamba"]["conv"], cache["mamba"]["state"]
         for i, lp in enumerate(params["blocks"]):
@@ -244,10 +268,11 @@ def lm_cache_pspec(cfg: L.ModelConfig, batch: int, smax: int,
                    state_pages: int = 0):
     """Decode-cache declaration. ``per_slot_pos=True`` declares the
     continuous-batching layout: ``pos`` is a (batch,) vector, one position
-    per slot. Dense: a KV ring of ``min(smax, swa_window)`` rows a slot;
-    ssm: conv history and state.
+    per slot. Dense and moe: a KV ring of ``min(smax, swa_window)`` rows a
+    slot; ssm: conv history and state.
 
-    ``kind="paged"`` swaps the dense family's per-slot rings for one pool of
+    ``kind="paged"`` swaps the attention families' per-slot rings for one
+    pool of
     ``pool_pages`` pages of ``page_rows`` rows shared by every slot (block
     tables map slots to pages, ``serving/kvpool.py``); the ssm family keeps
     its live per-slot conv and state and adds a pool of ``state_pages``
@@ -260,7 +285,7 @@ def lm_cache_pspec(cfg: L.ModelConfig, batch: int, smax: int,
         raise ValueError(f"cache kind must be 'ring' or 'paged', got {kind!r}")
     cache: dict[str, Any] = {
         "pos": PSpec((batch,) if per_slot_pos else (), "zeros", torch.int32)}
-    if cfg.family == "dense":
+    if cfg.family in ATTN_FAMILIES:
         if kind == "paged":
             cache["attn"] = L.attn_page_cache_pspec(cfg, cfg.n_layers,
                                                     pool_pages, page_rows)
@@ -297,7 +322,7 @@ def lm_decode_block(params, cfg: L.ModelConfig, cache, batch, *,
     reset = torch.as_tensor(reset_mask, device=dev).bool()
     pos = torch.where(reset, 0, cache["pos"])
     h = embed_tokens(params["embed"], tokens)                # (B, T, d)
-    if cfg.family == "dense":
+    if cfg.family in ATTN_FAMILIES:
         k, v = cache["attn"]["k"], cache["attn"]["v"]
         for i, lp in enumerate(params["blocks"]):
             a_in = rmsnorm(h, lp["ln1"], cfg.norm_eps, cfg.policy)
@@ -305,7 +330,7 @@ def lm_decode_block(params, cfg: L.ModelConfig, cache, batch, *,
                 lp["attn"], cfg, a_in, {"k": k[i], "v": v[i], "pos": pos},
                 n_valid=n_valid)
             m_in = rmsnorm(h, lp["ln2"], cfg.norm_eps, cfg.policy)
-            h = h + L.mlp_apply(lp["mlp"], cfg, m_in)
+            h = h + _ffn(lp, cfg, m_in)[0]
     else:
         conv, state = cache["mamba"]["conv"], cache["mamba"]["state"]
         for i, lp in enumerate(params["blocks"]):
@@ -375,7 +400,8 @@ def lm_decode_block_paged(params, cfg: L.ModelConfig, cache, batch, *,
 
     ``page`` carries the host manager's plan of the tick
     (``serving/kvpool.py``): ``reset_pos`` (B,), the start position of each
-    reset slot (> 0 when a shared prefix is skipped). Dense adds ``tables``
+    reset slot (> 0 when a shared prefix is skipped). Dense and moe add
+    ``tables``
     (B, MP), the block tables, and ``kv_src``, ``kv_dst``: the copy-on-write
     page copies (:func:`repro_torch.serving.kvpool.cow_pairs`), applied to
     every layer's pool in place before the layers. Where the reference
@@ -394,7 +420,7 @@ def lm_decode_block_paged(params, cfg: L.ModelConfig, cache, batch, *,
     pos = torch.where(reset, torch.as_tensor(page["reset_pos"], device=dev),
                       cache["pos"])
     h = embed_tokens(params["embed"], tokens)                # (B, T, d)
-    if cfg.family == "dense":
+    if cfg.family in ATTN_FAMILIES:
         k, v = cache["attn"]["k"], cache["attn"]["v"]
         src = torch.as_tensor(page["kv_src"], device=dev).long().reshape(-1)
         dst = torch.as_tensor(page["kv_dst"], device=dev).long().reshape(-1)
@@ -407,7 +433,7 @@ def lm_decode_block_paged(params, cfg: L.ModelConfig, cache, batch, *,
                 lp["attn"], cfg, a_in, {"k": k[i], "v": v[i], "pos": pos},
                 n_valid=n_valid, tables=tables)
             m_in = rmsnorm(h, lp["ln2"], cfg.norm_eps, cfg.policy)
-            h = h + L.mlp_apply(lp["mlp"], cfg, m_in)
+            h = h + _ffn(lp, cfg, m_in)[0]
     else:
         conv, state = cache["mamba"]["conv"], cache["mamba"]["state"]
         snap = cache["snap"]
@@ -463,8 +489,16 @@ def build_lm(cfg: L.ModelConfig) -> Bundle:
         return lm_cache_pspec(cfg, batch, smax, per_slot_pos=per_slot_pos,
                               **kind_kwargs)
 
+    n = count_params(pspec)
+    n_active = n
+    if cfg.family == "moe":
+        moe = [blk["moe"] for blk in pspec["blocks"]]
+        moe_total = count_params(moe)
+        n_active = (n - moe_total + moe_total // cfg.n_experts
+                    * cfg.experts_per_tok
+                    + count_params([m["router"] for m in moe]))
     return Bundle(cfg=cfg, params_pspec=pspec, loss=loss,
                   prefill_last=prefill_last,
-                  decode=decode, n_params=count_params(pspec),
+                  decode=decode, n_params=n, n_active_params=n_active,
                   cache_pspec=cache_pspec, decode_block=decode_block,
                   decode_block_paged=decode_block_paged)

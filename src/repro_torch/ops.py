@@ -14,9 +14,12 @@ kernel's plain version::
     ops.ssd(x, dt, a, b, c, policy="fused")
     ops.attention(q, k, v, window=128)  # flash_attention.cu
     ops.scan(x, policy="tile_logdepth") # matmul_scan.cu + a log-depth tree
+    ops.ragged_reduce(x, seg_ids, 8)    # one-hot matmul (no kernel)
 """
 from repro_torch.core.dispatch import (  # noqa: F401  (the public API)
     attention,
+    ragged_reduce,
+    ragged_scan,
     reduce,
     rmsnorm,
     scan,
@@ -24,4 +27,5 @@ from repro_torch.core.dispatch import (  # noqa: F401  (the public API)
     weighted_scan,
 )
 
-__all__ = ["attention", "reduce", "rmsnorm", "scan", "ssd", "weighted_scan"]
+__all__ = ["attention", "ragged_reduce", "ragged_scan", "reduce", "rmsnorm",
+           "scan", "ssd", "weighted_scan"]

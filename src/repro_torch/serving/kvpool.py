@@ -69,7 +69,7 @@ from repro_torch.kernels.layout import KV_PAGE_ROW_MULTIPLE, KV_PAGE_ROWS
 from repro_torch.obs import runtime as _obs
 
 # families with a paged attention KV pool / with SSM conv+state snapshots
-# (the reference's lists; only dense and ssm are ported)
+# (the reference's lists; dense, moe and ssm are ported)
 KV_FAMILIES = ("dense", "vlm", "moe", "hybrid")
 STATE_FAMILIES = ("ssm", "hybrid")
 

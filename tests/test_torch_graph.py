@@ -16,12 +16,14 @@ import torch
 
 from repro_torch.configs import llama3_2_1b as tllama
 from repro_torch.configs import mamba2_1_3b as tmamba
+from repro_torch.configs import qwen3_moe_235b_a22b as tqwen
 from repro_torch.kernels import ops as kops
 from repro_torch.models import build_lm
 from repro_torch.models.common import init_params
 from repro_torch.serving import Request, ServeConfig, ServingEngine
 
-CONFIGS = {"llama": tllama.SMOKE, "mamba": tmamba.SMOKE}
+CONFIGS = {"llama": tllama.SMOKE, "mamba": tmamba.SMOKE,
+           "qwen3": tqwen.SMOKE}
 
 
 @pytest.fixture
@@ -61,7 +63,7 @@ def engine_after_mixed_run(arch, device, cache_kind="ring"):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cache_kind", ["ring", "paged"])
-@pytest.mark.parametrize("arch", ["llama", "mamba"])
+@pytest.mark.parametrize("arch", list(CONFIGS))
 def test_graph_count_bounded_by_buckets(arch, cache_kind, cuda):
     """A mixed-length run captures one graph per step shape (T = chunk and
     T = 1) and a second run of the same bucket captures none."""
@@ -74,13 +76,16 @@ def test_graph_count_bounded_by_buckets(arch, cache_kind, cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["llama", "mamba"])
+@pytest.mark.parametrize("arch", list(CONFIGS))
 def test_graph_replay_matches_eager_step(arch, cuda):
     """Each graph replayed on the engine's cache against the eager step on a
     clone of it with the same inputs: the same logits and cache. The
-    replay counts its RMSNorm launches, which its wrapper cannot."""
+    replay counts its RMSNorm and scan launches, which their wrappers
+    cannot."""
     eng = engine_after_mixed_run(arch, cuda)
     norms = 2 * eng.bundle.cfg.n_layers + 1
+    # an MoE layer's capacity offsets: one tcu_scan.cu launch
+    scans = eng.bundle.cfg.n_layers if eng.bundle.cfg.family == "moe" else 0
     rng = np.random.default_rng(3)
     for t_len, n_valid, reset in ((4, [4, 3, 1, 0], [True, False, False,
                                                      False]),
@@ -89,9 +94,11 @@ def test_graph_replay_matches_eager_step(arch, cuda):
         nv, rs = np.array(n_valid), np.array(reset)
         inputs = eng._step_inputs(tok, nv, rs, None)
         clone = clone_tree(eng._cache)
-        before = kops.launch_counts()["rmsnorm"]
+        before = kops.launch_counts()
         got = eng._graphs[t_len].replay(inputs).clone()
-        assert kops.launch_counts()["rmsnorm"] == before + norms
+        after = kops.launch_counts()
+        assert after["rmsnorm"] == before["rmsnorm"] + norms
+        assert after["tcu_scan"] == before["tcu_scan"] + scans
         want = eager_on(eng, clone, inputs)
         live = torch.from_numpy(nv > 0).to(cuda)
         torch.testing.assert_close(got[live], want[live], rtol=0, atol=1e-6)
@@ -112,7 +119,7 @@ def eager_on(eng, cache, inputs):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["llama", "mamba"])
+@pytest.mark.parametrize("arch", list(CONFIGS))
 def test_paged_graph_replay_matches_eager_step(arch, cuda):
     """The paged step replayed with a page plan that resets a slot onto a
     shared prefix, copies a page on write, saves and loads snapshots,
@@ -121,6 +128,8 @@ def test_paged_graph_replay_matches_eager_step(arch, cuda):
     eng = engine_after_mixed_run(arch, cuda, "paged")
     kv = eng._kv
     norms = 2 * eng.bundle.cfg.n_layers + 1
+    # an MoE layer's capacity offsets: one tcu_scan.cu launch
+    scans = eng.bundle.cfg.n_layers if eng.bundle.cfg.family == "moe" else 0
     rng = np.random.default_rng(3)
     nb = eng.cfg.slots
     for t_len, n_valid, reset in ((4, [4, 3, 1, 0], [True, False, False,
@@ -140,9 +149,11 @@ def test_paged_graph_replay_matches_eager_step(arch, cuda):
         nv, rs = np.array(n_valid), np.array(reset)
         inputs = eng._step_inputs(tok, nv, rs, plan)
         clone = clone_tree(eng._cache)
-        before = kops.launch_counts()["rmsnorm"]
+        before = kops.launch_counts()
         got = eng._graphs[t_len].replay(inputs).clone()
-        assert kops.launch_counts()["rmsnorm"] == before + norms
+        after = kops.launch_counts()
+        assert after["rmsnorm"] == before["rmsnorm"] + norms
+        assert after["tcu_scan"] == before["tcu_scan"] + scans
         want = eager_on(eng, clone, inputs)
         live = torch.from_numpy(nv > 0).to(cuda)
         torch.testing.assert_close(got[live], want[live], rtol=0, atol=1e-6)

@@ -131,6 +131,25 @@ def test_reduce_scan_rows_and_piece_edges(cuda, rows, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 128), (4, 128)])
+def test_exclusive_scan_of_expert_counts_is_exact(cuda, shape):
+    """The MoE router's capacity offsets: whole-number f32 counts of
+    (groups, 128 experts), scanned exclusive through ``ops.scan`` on
+    ``tcu_scan.cu``, equal ``torch.cumsum`` bit for bit: the f32 operands
+    are split into three exact bf16 parts, so whole numbers below 2^24 stay
+    exact."""
+    from repro_torch import ops
+
+    g = torch.Generator(device=cuda).manual_seed(shape[0])
+    counts = torch.randint(0, 300, shape, generator=g, device=cuda).float()
+    before = kops.launch_counts()["tcu_scan"]
+    got = ops.scan(counts, exclusive=True)
+    assert kops.launch_counts()["tcu_scan"] == before + 1
+    want = torch.cumsum(counts, dim=-1) - counts
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(16, 1 << 20), (1, 1 << 24),
                                    (65536, 256), (3, 1_000_003)])
 def test_reduce_scan_are_deterministic(cuda, shape):

@@ -229,9 +229,9 @@ def test_unported_archs_and_families_name_the_roadmap():
     with pytest.raises(KeyError):
         tconfigs.get("no-such-arch")
     assert tconfigs.get("llama3.2-1b").FULL.family == "dense"
-    moe = dataclasses.replace(tllama.SMOKE, family="moe")
+    hybrid = dataclasses.replace(tllama.SMOKE, family="hybrid")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_lm(moe)
+        build_lm(hybrid)
     # a windowed model builds (the continuous block step takes the window);
     # its wave path does not yet
     swa = dataclasses.replace(tllama.SMOKE, swa_window=8)

@@ -102,14 +102,13 @@ def test_several_waves_and_budgets_identical_to_jax(ref_weights):
 
 def test_unported_scheduler_names_the_roadmap():
     """The continuous scheduler and its paged KV pool are ported; the paged
-    cache of the hybrid and moe families waits for those families, and the
-    wave scheduler takes no paged cache, as in the reference."""
+    cache of the hybrid family waits for that family, and the wave
+    scheduler takes no paged cache, as in the reference."""
     assert ServeConfig(cache_kind="paged").cache_kind == "paged"
-    for family in ("hybrid", "moe"):
-        cfg = dataclasses.replace(tllama.SMOKE, family=family)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lm_cache_pspec(cfg, 2, 32, per_slot_pos=True, kind="paged",
-                           pool_pages=4, page_rows=16, state_pages=2)
+    cfg = dataclasses.replace(tllama.SMOKE, family="hybrid")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        lm_cache_pspec(cfg, 2, 32, per_slot_pos=True, kind="paged",
+                       pool_pages=4, page_rows=16, state_pages=2)
     with pytest.raises(ValueError, match="continuous"):
         tserve.main(["--config", "smoke", "--device", "cpu",
                      "--cache", "paged", "--scheduler", "wave"])
