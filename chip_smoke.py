@@ -26,13 +26,17 @@ Phases:
    requests of up to 512 prompt tokens, 16 new
    tokens each; then the MoE family at its published widths with its
    depth cut to fit the card (``MOE_LAYERS``): qwen3-moe-235b-a22b at 4 of
-   94 layers (11.20 B parameters) and grok-1-314b at 2 of 64 (11.45 B).
-   Each serve run must show its layer kernel once per layer
-   per prefill (48 SSD, 16 flash-attention, 48 local SSD launches, and no
-   linear SSD launch in the log-depth run), every SSD launch on the
-   tensor-core instance of the chunk body (the served type is bf16), and
-   2 x layers + 1 RMSNorm launches per forward (97, 33), and for MoE one
-   ``tcu_scan`` launch (the capacity offsets) per MoE layer per forward.
+   94 layers (11.20 B parameters) and grok-1-314b at 2 of 64 (11.45 B);
+   then the hybrid zamba2-2.7b whole (54 Mamba-2 layers, the shared
+   attention block after every 6th, 2.44 B). Each serve run must show the
+   launches ``forward_launches`` gives its family: its layer kernel once
+   per layer per prefill (48 SSD, 16 flash-attention, 48 local SSD
+   launches, and no linear SSD launch in the log-depth run; zamba2 54 SSD
+   and 9 flash attention, one a use of the shared block), every SSD launch
+   on the tensor-core instance of the chunk body (the served type is
+   bf16), 2 x layers + 2 x shared-block uses + 1 RMSNorm launches per
+   forward (97, 33, 127), and for MoE one ``tcu_scan`` launch (the
+   capacity offsets) per MoE layer per forward.
    Each prefill's last-token logits, and the logits of two decode steps
    from its cache, are held against the same model on the kernels' plain
    versions (MoE: its first ``PARITY_LAYERS`` layers, the served model
@@ -51,18 +55,19 @@ Phases:
    ``torch.cumsum``'s bit for bit, and ``guard_contiguous`` inside a CUDA
    graph's capture (NaN for unsorted ids, no host read).
    Then the continuous scheduler (the default): mamba2-1.3b FULL,
-   llama3.2-1b FULL and qwen3-moe (4 layers), 8 requests of up to 512 prompt tokens and 16 new
+   llama3.2-1b FULL, qwen3-moe (4 layers) and zamba2-2.7b FULL, 8 requests
+   of up to 512 prompt tokens and 16 new
    tokens each on 4 slots, chunks of 16, every tick one block step
    replayed from a CUDA graph. A warm-up request of the same capacity
    bucket captures both graphs (T = 16 and T = 1); the measured run must
    capture none, admit and finish 8 requests with at least 4 slot
-   refills, give every request tokens, and count 2 x layers + 1 RMSNorm
-   launches a tick, and for MoE L ``tcu_scan`` (a replay adds what its
-   capture counted). One T = 16
+   refills, give every request tokens, and count a forward's RMSNorm
+   launches a tick (2 x layers + 1, zamba2 127), and for MoE L
+   ``tcu_scan`` (a replay adds what its capture counted). One T = 16
    and one T = 1 tick from the graph are held against the eager step on a
    clone of the cache (the same argmax for every active slot);
-   ``torch.profiler`` over a replayed tick must show the RMSNorm kernel 2
-   x layers + 1 times (97, 33; the largest count of three profiled ticks,
+   ``torch.profiler`` over a replayed tick must show the RMSNorm kernel as
+   many times (97, 33, 127; the largest count of three profiled ticks,
    as the profiler may drop a record) and splits its device time by kind. In
    f32, each request's first-token logits are held against its
    ``prefill_last`` alone (B = 1, on the kernels) and the engine on the
@@ -73,11 +78,11 @@ Phases:
    a T = 1 tick alone, graphed and eager, and the parameter bytes a tick
    reads over the card's memory rate.
    Then the paged KV pool (``cache_kind="paged"``, pages of 16 rows, 64 a
-   slot at capacity 1024), FULL, bf16, 4 slots, chunks of 16: the three
+   slot at capacity 1024), FULL, bf16, 4 slots, chunks of 16: the four
    models serve the continuous runs' 8 requests, whose tokens must equal those
-   ring runs', with no capture in the measured run and 2 x layers + 1
-   RMSNorm kernels a replayed tick; the largest logit difference from the
-   ring run over all ticks is printed, and on llama's 320-page pool the
+   ring runs', with no capture in the measured run and a forward's RMSNorm
+   kernels a replayed tick; the largest logit difference from the
+   ring run over all ticks is printed, and on each KV pool the
    copy-on-write copy of a tick is timed in the reference's form (the whole
    pool gathered) and the port's (the copied pages only). llama3.2-1b
    serves 8 requests that share a 392-token prefix under the ring and the
@@ -107,20 +112,34 @@ Phases:
    trace must hold one ``serving/block_step`` range a tick and RMSNorm
    kernel records. Printed: the T = 1 tick's host ms in each of the three
    runs, beside the card's name and power limit.
+   Then internvl2-76b at its published widths cut to ``VLM_LAYERS`` (4 of
+   80 layers, 5.55 B parameters): ``prefill_last`` on the wave's 4 prompts
+   behind a random stub prefix of 256 x 3200, then 15 decode steps, with
+   the launches of ``forward_launches`` (RMSNorm 9 and flash attention 4 a
+   prefill, RMSNorm 9 a step), finite logits, the prefill timed on the
+   kernels and the plain versions and a decode step on the host clock;
+   then, the bf16 model freed, the f32 logits of the prefill and two
+   decode steps at ``PARITY_LAYERS`` layers, kernels against plain
+   versions within 1e-3 of the largest logit.
    Then training (``repro_torch.training``, outside inference mode):
-   mamba2-1.3b and llama3.2-1b FULL, bf16 compute, f32 master weights,
+   mamba2-1.3b and llama3.2-1b FULL and zamba2-2.7b at its full widths cut
+   to 12 of 54 layers (``TRAIN_LAYERS``: two uses of the shared block,
+   0.77 B parameters), bf16 compute, f32 master weights,
    AdamW at the reference's ``OptConfig`` defaults, remat ``none``, batches
    of 4 x 512 from ``SyntheticLMPipeline(seed=0)``. 8 steps on one fixed
    batch (every loss finite, the last below the first), then 6 timed steps
    on the pipeline's batches (prefetch thread), each run with its launch
-   counts from 0 and gated per step: RMSNorm 2L + 1 forward and 2L again in
-   the recompute of each layer, flash attention (llama) or the SSD (mamba,
-   every launch on the tensor-core instance) twice a layer, ``tcu_reduce``
+   counts from 0 and gated per step (``train_launches``): RMSNorm 2L + 2G
+   + 1 forward and 2L again in the recompute of each layer (the shared
+   block is not recomputed), flash attention (llama) or the SSD (mamba,
+   zamba2; every launch on the tensor-core instance) twice a layer, and
+   flash attention once a use of zamba2's shared block, ``tcu_reduce``
    once per parameter leaf (the global norm), no other kernel. Printed:
    step host ms (median, range; synchronised), tok/s, one step's device ms
    by kind from ``torch.profiler`` and the idle share, peak GB, and the
    global norm's ``tcu_reduce`` over the real leaves against ``torch.sum``.
-   In f32 at 2 layers (full width): one step on the kernels against the
+   In f32 at 2 layers (zamba2: 6, one group; full width): one step on the
+   kernels against the
    same step under ``policy="baseline"`` (loss rtol 1e-4, grad_norm rtol
    1e-3, gradients and params per leaf against the leaf's largest; see
    ``update_gate``), then the state checkpointed and restored bit for bit
@@ -129,10 +148,13 @@ Phases:
    path's shapes (the reduce and scan at 2^24 elements from 2^20 rows of 16
    to one row, the reduce also on the global norm's largest rows, RMSNorm also at the served decode and prefill shapes,
    the continuous T = 16 tick's 64 rows, the MoE widths 4096 and 6144,
-   flash attention also on its D = 128 instance and at the MoE waves'
-   heads, the scan also on the MoE router's (groups, experts) counts,
+   zamba2's 5120 and internvl2's 8192,
+   flash attention also on its D = 128 instance, at the MoE waves'
+   heads, at zamba2's D = 80 and at internvl2's stub and prompts, the scan
+   also on the MoE router's (groups, experts) counts,
    bit for bit, the SSD scan also at the
-   served wave and on a 64-chunk chain, the weighted scan from 65536 rows
+   served waves (mamba2, zamba2's 80 heads and N = 64) and on a 64-chunk
+   chain, the weighted scan from 65536 rows
    of 256 to one row of 2^24 and in bf16, its local pass also at 16 rows of
    2^20), with the error and its
    tolerance (flash attention row by row, against each output row's RMS),
@@ -410,6 +432,12 @@ def ssd_cases(torch, kops, ref, gen):
                                   ((1, 4096, 64, 64, 1, 128), torch.bfloat16,
                                    False),
                                   ((2, 300, 8, 64, 2, 128), torch.float32,
+                                   False),
+                                  # zamba2-2.7b's served wave (80 heads,
+                                  # N = 64) and its train step
+                                  ((4, 468, 80, 64, 1, 64), torch.bfloat16,
+                                   False),
+                                  ((4, 512, 80, 64, 1, 64), torch.bfloat16,
                                    False)):
         ins = ssd_inputs(torch, gen, *shape, dtype)
         bsz, seqlen, nheads, hdim, ngroups, nstate = shape
@@ -525,12 +553,16 @@ def rmsnorm_cases(torch, kops, ref, gen):
 
     out = []
     # the ops pass's shapes, then the served ones: a decode step's 4 rows
-    # (llama d 2048, mamba's inner norm and qwen3-moe d 4096, grok-1 d 6144;
-    # the continuous T = 1 tick), the continuous T = 16 tick's 64 rows, and
-    # the wave prefill's 1872 rows (4 x 468)
+    # (llama d 2048, mamba's inner norm and qwen3-moe d 4096, grok-1 d 6144,
+    # zamba2's residual d 2560 and its shared-block and inner norms d 5120,
+    # internvl2 d 8192; the continuous T = 1 tick), the continuous T = 16
+    # tick's 64 rows, the wave prefill's 1872 rows (4 x 468), internvl2's
+    # 2896 (4 x (256 + 468)) and zamba2's train step's 2048 (4 x 512)
     for rows, d in ((2048, 2048), (2048, 4096), (4, 2048), (4, 4096),
                     (64, 2048), (64, 4096), (1872, 2048), (1872, 4096),
-                    (4, 6144), (1872, 6144)):
+                    (4, 6144), (1872, 6144), (1872, 2560), (4, 2560),
+                    (64, 2560), (2048, 2560), (1872, 5120), (4, 5120),
+                    (64, 5120), (2048, 5120), (4, 8192), (2896, 8192)):
         x = torch.randn(rows, d, generator=gen, device="cuda").to(
             torch.bfloat16)
         w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(
@@ -606,6 +638,12 @@ def attention_cases(torch, kops, gen):
             # (48 / 8), D = 128, left-padded to 468
             (4, 468, 468, 64, 4, 128, True, None, torch.bfloat16, False),
             (4, 468, 468, 48, 8, 128, True, None, torch.bfloat16, False),
+            # zamba2's shared block (D = 80 on the D = 128 instance), served
+            # and in its train step, and internvl2's stub prefix and prompts
+            # (256 + 468 rows)
+            (4, 468, 468, 32, 32, 80, True, None, torch.bfloat16, False),
+            (4, 512, 512, 32, 32, 80, True, None, torch.bfloat16, False),
+            (4, 724, 724, 64, 8, 128, True, None, torch.bfloat16, False),
             (1, 100, 1000, 4, 2, 64, True, None, torch.float32, False)):
         def rn(*shape):
             return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
@@ -1143,7 +1181,10 @@ SERVED = (("mamba2-1.3b", None, "ssd_scan", "matmul_local_ssd"),
           ("mamba2-1.3b", "ssd=tile_logdepth", "matmul_local_ssd",
            "ssd_scan"),
           ("qwen3-moe-235b-a22b", None, "flash_attention", None),
-          ("grok-1-314b", None, "flash_attention", None))
+          ("grok-1-314b", None, "flash_attention", None),
+          # the whole model: flash attention in each use of the shared block
+          # is gated beside the SSD by forward_launches
+          ("zamba2-2.7b", None, "ssd_scan", "matmul_local_ssd"))
 # the MoE models at their published widths with their depth cut: qwen3-moe's
 # 94 layers of 2.488 B parameters are 468 GB in bf16, grok-1's 64 of 4.92 B
 # 630 GB, and one card holds 80 GB
@@ -1178,6 +1219,31 @@ def moe_layers(cfg) -> int:
     """The MoE layers of ``cfg``: each launches ``tcu_scan.cu`` once a
     forward (its capacity offsets)."""
     return cfg.n_layers if cfg.family == "moe" else 0
+
+
+def forward_launches(cfg, policy: str | None = None,
+                     prefill: bool = True) -> dict:
+    """Kernel launches of one forward of ``cfg`` by family, L its layers and
+    G the hybrid's groups (its shared block's uses; 0 elsewhere): RMSNorm
+    two a layer, two a use of the shared block and the final norm (2L + 2G
+    + 1), ``tcu_scan`` one a MoE layer, and in a prefill (the wave's
+    ``lm_apply``) the layer kernels: flash attention one an attention layer
+    or a use of the shared block, the SSD one a Mamba layer
+    (``matmul_local_ssd`` under ``ssd=tile_logdepth``). A decode step and a
+    continuous tick run decode attention and the SSD recurrence as torch
+    ops: RMSNorm and ``tcu_scan`` only."""
+    from repro_torch.models.lm import ATTN_FAMILIES, STATE_FAMILIES, n_groups
+
+    layers, groups = cfg.n_layers, n_groups(cfg)
+    out = {"rmsnorm": 2 * layers + 2 * groups + 1,
+           "tcu_scan": moe_layers(cfg)}
+    if prefill:
+        ssd = ("matmul_local_ssd" if policy and "ssd=tile_logdepth" in policy
+               else "ssd_scan")
+        out["flash_attention"] = (layers if cfg.family in ATTN_FAMILIES
+                                  else groups)
+        out[ssd] = layers if cfg.family in STATE_FAMILIES else 0
+    return out
 
 
 def gate_depth(cfg) -> int:
@@ -1217,14 +1283,210 @@ def routing_flips(a: list, b: list) -> tuple[int, int]:
             int(sum(d.long() for d in diff).gt(0).sum()))
 
 
-def serve_pass(smoke: Smoke, serve, kops, arch: str, policy: str | None,
-               per_layer: str, absent: str | None):
-    """``arch`` FULL (MoE: its depth cut) through the serving engine under
-    ``policy``; returns its numbers."""
+def wave_tokens(torch, reqs):
+    """The requests' prompts as one batch on the card, left-padded to the
+    longest, as the wave scheduler lays them out."""
+    plen = max(len(r.prompt) for r in reqs)
+    tokens = torch.zeros((len(reqs), plen), dtype=torch.long)
+    for i, r in enumerate(reqs):
+        tokens[i, plen - len(r.prompt):] = torch.from_numpy(
+            r.prompt.astype("int64"))
+    return tokens.cuda()
+
+
+def batch_text(batch) -> str:
+    bsz, plen = batch["tokens"].shape
+    stub = batch.get("stub")
+    return f"B={bsz} " + ("" if stub is None else
+                          f"stub {stub.shape[1]} + ") + f"L={plen}"
+
+
+def as_dtype(batch, dtype):
+    """``batch`` with its floating inputs (a VLM's stub) in ``dtype``."""
+    return {k: v.to(dtype) if v.is_floating_point() else v
+            for k, v in batch.items()}
+
+
+def prefill_fn(cfg, batch, path, dtype, params, depth=None):
+    """One ``prefill_last`` of ``cfg`` under ``path`` in ``dtype`` at
+    ``depth`` layers (all by default): its last-token logits in f32."""
+    from repro_torch.models import build_lm
+
+    bundle = build_lm(dataclasses.replace(
+        cfg, policy=path, dtype=dtype, n_layers=depth or cfg.n_layers))
+    batch = as_dtype(batch, dtype)
+    return lambda: bundle.prefill_last(params, batch)[0].float()
+
+
+def prefill_timing(smoke: Smoke, cfg, params, batch, policy: str | None,
+                   tag: str, label: str) -> dict:
+    """The prefill of ``batch`` on the kernels (device time) and on the
+    plain versions, its device time by kind, and its "other" kernels by the
+    op that launched them."""
+    torch = smoke.torch
+    kern = prefill_fn(cfg, batch, policy, cfg.dtype, params)
+    plain = prefill_fn(cfg, batch, "baseline", cfg.dtype, params)
+    prefill_ms = smoke.time_ms(kern, max_iters=5)
+    spread = smoke.spread
+    plain_ms = smoke.time_ms(plain, max_iters=3)
+    split = device_split(torch, kern)
+    other = other_by_op(kern, label)
+    print(f"{tag}: prefill device ms of the 'other' kernels by the op that "
+          f"launched them (obs.profiling.tracing, one prefill; "
+          f"{smi_line()}): total {other['other_ms']}, largest "
+          f"{other['top']}", flush=True)
+    print(f"{tag}: prefill {batch_text(batch)}: {prefill_ms:.2f} ms on the "
+          f"kernels (device time; min {spread['min']:.2f} max "
+          f"{spread['max']:.2f}"
+          f"{', HOST-BOUND' if spread['host_bound'] else ''}), "
+          f"{plain_ms:.2f} ms on the plain versions; device time by kind "
+          f"(torch.profiler, one prefill): "
+          f"{split if split else 'not measured'}", flush=True)
+    return dict(prefill_ms=prefill_ms, plain_prefill_ms=plain_ms,
+                prefill_device_ms_by_kind=split,
+                prefill_other_ms_by_op=other)
+
+
+def decode_timing(smoke: Smoke, bundle, params, batch, tag: str,
+                  n_steps: int = 15, n_prof: int = 5) -> dict:
+    """Decode steps from the prefill of ``batch``, each on the host clock,
+    against the device time of their kernels: the card's idle share during
+    decode."""
+    from repro_torch.models.lm import pad_cache_seq
+
+    torch = smoke.torch
+    _, cache = bundle.prefill_last(params, batch)
+    cache = pad_cache_seq(cache, 1 + n_steps + n_prof)
+    step = {"tokens": batch["tokens"][:, -1:]}
+
+    def decode():
+        bundle.decode(params, cache, step)
+
+    decode()
+    torch.cuda.synchronize()
+    step_times = []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        decode()
+        torch.cuda.synchronize()
+        step_times.append(1e3 * (time.perf_counter() - t0))
+    step_ms = statistics.median(step_times)
+    dsplit = device_split(torch, lambda: [decode() for _ in range(n_prof)])
+    if dsplit:
+        dsplit = {k: round(v / n_prof, 4) for k, v in dsplit.items()}
+    busy = sum(dsplit.values()) if dsplit else None
+    idle = None if busy is None else [1.0 - busy / t for t in (
+        step_ms, min(step_times), max(step_times))]
+    print(f"{tag}: decode step {step_ms:.3f} ms on the host clock (median "
+          f"of {n_steps}, min {min(step_times):.3f} max "
+          f"{max(step_times):.3f}); device time per step by kind (mean of "
+          f"{n_prof}) {dsplit if dsplit else 'not measured'}; idle share of "
+          f"the card {'not measured' if idle is None else f'{idle[0]:.3f}'}"
+          f"{'' if idle is None else f' ({idle[1]:.3f} to {idle[2]:.3f})'}",
+          flush=True)
+    return dict(decode_step_ms=step_ms, decode_step_ms_min=min(step_times),
+                decode_step_ms_max=max(step_times),
+                decode_device_ms_by_kind=dsplit,
+                decode_idle_share=None if idle is None else idle[0],
+                decode_idle_share_range=None if idle is None else idle[1:])
+
+
+def logit_gates(smoke: Smoke, cfg, box: list, batch, policy: str | None,
+                depth: int, tag: str) -> dict:
+    """The last-token logits of the prefill of ``batch`` at ``depth``
+    layers, kernels against plain versions, in ``cfg.dtype`` on the weights
+    in ``box`` (a one-element list, emptied so that those weights are freed
+    before their f32 copy is made) and in f32, and the f32 logits of two
+    decode steps from the prefill's cache. Fails the run where they
+    disagree."""
     from repro_torch.models import build_lm
     from repro_torch.models.common import cast_tree
     from repro_torch.models.lm import pad_cache_seq
 
+    torch = smoke.torch
+    params = box.pop()
+
+    def decoded(path, params, steps=2):
+        """Logits of ``steps`` f32 decode steps from the prefill's cache:
+        the state handed from prefill to decode is in them."""
+        bundle = build_lm(dataclasses.replace(
+            cfg, policy=path, dtype=torch.float32, n_layers=depth))
+        _, cache = bundle.prefill_last(params, as_dtype(batch, torch.float32))
+        cache = pad_cache_seq(cache, steps)
+        for _ in range(steps):
+            logits, cache = bundle.decode(
+                params, cache, {"tokens": batch["tokens"][:, -1:]})
+        return logits.float()
+
+    routes = {k: [] for k in ("bf16", "bf16 plain", "f32", "f32 plain")}
+    with routing(torch, routes["bf16"]):
+        got = prefill_fn(cfg, batch, policy, cfg.dtype, params, depth)()
+    with routing(torch, routes["bf16 plain"]):
+        want = prefill_fn(cfg, batch, "baseline", cfg.dtype, params, depth)()
+    params = cast_tree(params, torch.float32)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same weights in f32 on both paths: kernels and plain versions
+    # agree to about 1e-6 per op, so every layer stack of the port stays
+    # within 1e-3 of the largest logit
+    with routing(torch, routes["f32"]):
+        got32 = prefill_fn(cfg, batch, policy, torch.float32, params, depth)()
+    with routing(torch, routes["f32 plain"]):
+        want32 = prefill_fn(cfg, batch, "baseline", torch.float32, params,
+                            depth)()
+    err32 = (got32 - want32).abs().max().item()
+    tol32 = 1e-3 * want32.abs().max().item()
+    dec_got = decoded(policy, params)
+    dec_want = decoded("baseline", params)
+    del params
+    dec_err = (dec_got - dec_want).abs().max().item()
+    dec_tol = 1e-3 * dec_want.abs().max().item()
+    # bf16: every norm and every SSD or attention output of a forward
+    # rounds to bf16, and the two paths may round a value one ulp apart. The
+    # bf16 tolerance is the bf16 error of the plain path itself, measured
+    # against its f32 run, twice over: two bf16 results each that far from
+    # the f32 one are at most twice that far apart.
+    noise = (want - want32).abs().max().item()
+    err = (got - want).abs().max().item()
+    tol = 2.0 * noise
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    flips = {dt: routing_flips(routes[dt], routes[f"{dt} plain"])
+             for dt in ("f32", "bf16")}
+    print(f"{tag}: last-token logits at {depth} of {cfg.n_layers} layers, "
+          f"kernels vs plain versions: f32 "
+          f"max_abs_err={err32:.4e} (tol {tol32:.4e}); bf16 max_abs_err="
+          f"{err:.4e} (tol {tol:.4e} = 2 x the plain bf16 run's distance "
+          f"from f32); kernels bf16 vs plain f32 "
+          f"{(got - want32).abs().max().item():.4e}; max |logit| "
+          f"{want32.abs().max().item():.3f}; argmax agreement {agree:.2f}; "
+          f"f32 logits after 2 decode steps from the prefill's cache "
+          f"max_abs_err={dec_err:.4e} (tol {dec_tol:.4e})"
+          + ("" if not moe_layers(cfg) else
+             f"; tokens whose top-{cfg.experts_per_tok} experts differ "
+             f"between the kernel and the plain path (token-layer pairs, "
+             f"tokens of {batch['tokens'].numel()}): f32 {flips['f32']}, "
+             f"bf16 {flips['bf16']}"), flush=True)
+    finite = bool(torch.isfinite(got).all() and torch.isfinite(got32).all()
+                  and torch.isfinite(dec_got).all())
+    if not (err32 <= tol32 and err <= tol and dec_err <= dec_tol
+            and finite):
+        smoke.fail(f"{tag}: logits disagree with the plain model: prefill "
+                   f"f32 {err32} (tol {tol32}), bf16 {err} (tol {tol}); "
+                   f"decode f32 {dec_err} (tol {dec_tol})")
+    out = dict(gate_layers=depth,
+               logits_f32_max_abs_err=err32, logits_f32_tol=tol32,
+               logits_bf16_max_abs_err=err, logits_bf16_tol=tol,
+               decode_logits_f32_max_abs_err=dec_err,
+               decode_logits_f32_tol=dec_tol)
+    if moe_layers(cfg):
+        out["routing_flips"] = flips
+    return out
+
+
+def serve_pass(smoke: Smoke, serve, kops, arch: str, policy: str | None,
+               per_layer: str, absent: str | None):
+    """``arch`` FULL (MoE: its depth cut) through the serving engine under
+    ``policy``; returns its numbers."""
     torch = smoke.torch
     engine = full_engine(serve, arch, policy=policy, slots=4, max_new=16,
                          scheduler="wave")
@@ -1276,183 +1538,47 @@ def serve_pass(smoke: Smoke, serve, kops, arch: str, policy: str | None,
                    f"every {cfg.dtype} launch on the tensor cores")
     if any(len(r.tokens) == 0 for r in results):
         smoke.fail("serve: a request produced no tokens")
-    forwards = engine.prefills + engine.decodes
-    want_layer = cfg.n_layers * engine.prefills
-    want_norm = (2 * cfg.n_layers + 1) * forwards
-    want_scan = moe_layers(cfg) * forwards
-    if counts[per_layer] != want_layer or engine.prefills < 1:
+    per_prefill = forward_launches(cfg, policy)
+    per_step = forward_launches(cfg, policy, prefill=False)
+    want = {k: n * engine.prefills + per_step.get(k, 0) * engine.decodes
+            for k, n in per_prefill.items()}
+    if counts[per_layer] != want[per_layer] or engine.prefills < 1:
         smoke.fail(f"serve: {counts[per_layer]} {per_layer} launches, want "
-                   f"{want_layer} ({cfg.n_layers} per prefill)")
+                   f"{want[per_layer]} ({per_prefill[per_layer]} per "
+                   "prefill)")
     if absent is not None and counts[absent]:
         smoke.fail(f"serve: {counts[absent]} {absent} launches under "
                    f"policy {policy!r}, want 0")
-    if counts["rmsnorm"] < want_norm:
+    if counts["rmsnorm"] < want["rmsnorm"]:
         smoke.fail(f"serve: {counts['rmsnorm']} RMSNorm launches, want >= "
-                   f"{want_norm} ({2 * cfg.n_layers + 1} per forward)")
-    if counts["tcu_scan"] != want_scan:
-        smoke.fail(f"serve: {counts['tcu_scan']} tcu_scan launches, want "
-                   f"{want_scan} (one per MoE layer per forward)")
+                   f"{want['rmsnorm']} ({per_step['rmsnorm']} per forward)")
+    for k in ("tcu_scan", "flash_attention"):
+        if counts[k] != want[k]:
+            smoke.fail(f"serve: {counts[k]} {k} launches, want {want[k]} "
+                       f"({per_prefill[k]} a prefill, {per_step.get(k, 0)} "
+                       "a decode step)")
 
     # prefill, kernels against plain versions, on the served wave's batch
-    plen = max(r.prompt_len for r in results)
-    tokens = torch.zeros((4, plen), dtype=torch.long)
-    for i, r in enumerate(reqs):
-        tokens[i, plen - len(r.prompt):] = torch.from_numpy(
-            r.prompt.astype("int64"))
-    batch = {"tokens": tokens.cuda()}
-
-    def prefill_fn(path, dtype, params, depth=cfg.n_layers):
-        bundle = build_lm(dataclasses.replace(cfg, policy=path, dtype=dtype,
-                                              n_layers=depth))
-        return lambda: bundle.prefill_last(params, batch)[0].float()
-
-    def decoded(path, params, depth, steps=2):
-        """Logits of ``steps`` f32 decode steps from the prefill's cache:
-        the state handed from prefill to decode is in them."""
-        bundle = build_lm(dataclasses.replace(
-            cfg, policy=path, dtype=torch.float32, n_layers=depth))
-        _, cache = bundle.prefill_last(params, batch)
-        cache = pad_cache_seq(cache, steps)
-        for _ in range(steps):
-            logits, cache = bundle.decode(
-                params, cache, {"tokens": batch["tokens"][:, -1:]})
-        return logits.float()
-
-    kern_bf16 = prefill_fn(policy, torch.bfloat16, engine.params)
-    plain_bf16 = prefill_fn("baseline", torch.bfloat16, engine.params)
-    prefill_ms = smoke.time_ms(kern_bf16, max_iters=5)
-    prefill_spread = smoke.spread
-    plain_prefill_ms = smoke.time_ms(plain_bf16, max_iters=3)
-    split = device_split(torch, kern_bf16)
-    other = other_by_op(kern_bf16, f"prefill-{arch}-{policy or 'tile'}"
-                        .replace("=", "_"))
-    print(f"serve: prefill device ms of the 'other' kernels by the op that "
-          f"launched them (obs.profiling.tracing, one prefill; "
-          f"{smi_line()}): total {other['other_ms']}, largest "
-          f"{other['top']}", flush=True)
-    print(f"serve: prefill B=4 L={plen}: {prefill_ms:.2f} ms on the kernels "
-          f"(device time; min {prefill_spread['min']:.2f} max "
-          f"{prefill_spread['max']:.2f}"
-          f"{', HOST-BOUND' if prefill_spread['host_bound'] else ''}), "
-          f"{plain_prefill_ms:.2f} ms on the plain versions; device time by "
-          f"kind (torch.profiler, one prefill): "
-          f"{split if split else 'not measured'}", flush=True)
-    del kern_bf16, plain_bf16
-    # decode steps of the served model, each on the host clock, against the
-    # device time of their kernels: the card's idle share during decode
-    n_steps, n_prof = 15, 5
-    _, cache = engine.bundle.prefill_last(engine.params, batch)
-    cache = pad_cache_seq(cache, 1 + n_steps + n_prof)
-    step = {"tokens": batch["tokens"][:, -1:]}
-
-    def decode():
-        engine.bundle.decode(engine.params, cache, step)
-
-    decode()
-    torch.cuda.synchronize()
-    step_times = []
-    for _ in range(n_steps):
-        t0 = time.perf_counter()
-        decode()
-        torch.cuda.synchronize()
-        step_times.append(1e3 * (time.perf_counter() - t0))
-    step_ms = statistics.median(step_times)
-    dsplit = device_split(torch, lambda: [decode() for _ in range(n_prof)])
-    if dsplit:
-        dsplit = {k: round(v / n_prof, 4) for k, v in dsplit.items()}
-    busy = sum(dsplit.values()) if dsplit else None
-    idle = None if busy is None else [1.0 - busy / t for t in (
-        step_ms, min(step_times), max(step_times))]
-    print(f"serve: decode step {step_ms:.3f} ms on the host clock (median "
-          f"of {n_steps}, min {min(step_times):.3f} max "
-          f"{max(step_times):.3f}); device time per step by kind (mean of "
-          f"{n_prof}) {dsplit if dsplit else 'not measured'}; idle share of "
-          f"the card {'not measured' if idle is None else f'{idle[0]:.3f}'}"
-          f"{'' if idle is None else f' ({idle[1]:.3f} to {idle[2]:.3f})'}",
-          flush=True)
-    del cache, decode
-
+    batch = {"tokens": wave_tokens(torch, reqs)}
+    stats.update(prefill_timing(
+        smoke, cfg, engine.params, batch, policy, "serve",
+        f"prefill-{arch}-{policy or 'tile'}".replace("=", "_")))
+    stats.update(decode_timing(smoke, engine.bundle, engine.params, batch,
+                               "serve"))
     # the logit gates, at gate_depth (the served model, or MoE's first
-    # PARITY_LAYERS layers): bf16 on the served weights, then the served
-    # model is freed for the f32 copy
+    # PARITY_LAYERS layers), on the served weights; the engine is freed
+    # before the f32 copy is made
     depth = gate_depth(cfg)
-    params = dict(engine.params, blocks=engine.params["blocks"][:depth])
-    routes = {k: [] for k in ("bf16", "bf16 plain", "f32", "f32 plain")}
-    with routing(torch, routes["bf16"]):
-        got = prefill_fn(policy, torch.bfloat16, params, depth)()
-    with routing(torch, routes["bf16 plain"]):
-        want = prefill_fn("baseline", torch.bfloat16, params, depth)()
-    params = cast_tree(params, torch.float32)
+    box = [dict(engine.params, blocks=engine.params["blocks"][:depth])]
     del engine
-    gc.collect()
-    torch.cuda.empty_cache()
-    # the same weights in f32 on both paths: kernels and plain versions
-    # agree to about 1e-6 per op, so every layer stack of the port stays
-    # within 1e-3 of the largest logit
-    with routing(torch, routes["f32"]):
-        got32 = prefill_fn(policy, torch.float32, params, depth)()
-    with routing(torch, routes["f32 plain"]):
-        want32 = prefill_fn("baseline", torch.float32, params, depth)()
-    err32 = (got32 - want32).abs().max().item()
-    tol32 = 1e-3 * want32.abs().max().item()
-    dec_got = decoded(policy, params, depth)
-    dec_want = decoded("baseline", params, depth)
-    del params
-    dec_err = (dec_got - dec_want).abs().max().item()
-    dec_tol = 1e-3 * dec_want.abs().max().item()
-    # bf16: every norm and every SSD or attention output of a forward
-    # rounds to bf16, and the two paths may round a value one ulp apart. The
-    # bf16 tolerance is the bf16 error of the plain path itself, measured
-    # against its f32 run, twice over: two bf16 results each that far from
-    # the f32 one are at most twice that far apart.
-    noise = (want - want32).abs().max().item()
-    err = (got - want).abs().max().item()
-    tol = 2.0 * noise
-    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-    flips = {dt: routing_flips(routes[dt], routes[f"{dt} plain"])
-             for dt in ("f32", "bf16")}
-    print(f"serve: last-token logits at {depth} of {cfg.n_layers} layers, "
-          f"kernels vs plain versions: f32 "
-          f"max_abs_err={err32:.4e} (tol {tol32:.4e}); bf16 max_abs_err="
-          f"{err:.4e} (tol {tol:.4e} = 2 x the plain bf16 run's distance "
-          f"from f32); kernels bf16 vs plain f32 "
-          f"{(got - want32).abs().max().item():.4e}; max |logit| "
-          f"{want32.abs().max().item():.3f}; argmax agreement {agree:.2f}; "
-          f"f32 logits after 2 decode steps from the prefill's cache "
-          f"max_abs_err={dec_err:.4e} (tol {dec_tol:.4e})"
-          + ("" if not moe_layers(cfg) else
-             f"; tokens whose top-{cfg.experts_per_tok} experts differ "
-             f"between the kernel and the plain path (token-layer pairs, "
-             f"tokens of {tokens.numel()}): f32 {flips['f32']}, bf16 "
-             f"{flips['bf16']}"), flush=True)
-    finite = bool(torch.isfinite(got).all() and torch.isfinite(got32).all()
-                  and torch.isfinite(dec_got).all())
-    if not (err32 <= tol32 and err <= tol and dec_err <= dec_tol
-            and finite):
-        smoke.fail(f"serve: logits disagree with the plain model: prefill "
-                   f"f32 {err32} (tol {tol32}), bf16 {err} (tol {tol}); "
-                   f"decode f32 {dec_err} (tol {dec_tol})")
-    stats.update(prefill_ms=prefill_ms, plain_prefill_ms=plain_prefill_ms,
-                 prefill_device_ms_by_kind=split,
-                 prefill_other_ms_by_op=other, decode_step_ms=step_ms,
-                 decode_step_ms_min=min(step_times),
-                 decode_step_ms_max=max(step_times),
-                 decode_device_ms_by_kind=dsplit,
-                 decode_idle_share=None if idle is None else idle[0],
-                 decode_idle_share_range=None if idle is None else idle[1:],
-                 gate_layers=depth,
-                 logits_f32_max_abs_err=err32, logits_f32_tol=tol32,
-                 logits_bf16_max_abs_err=err, logits_bf16_tol=tol,
-                 decode_logits_f32_max_abs_err=dec_err,
-                 decode_logits_f32_tol=dec_tol)
-    if moe_layers(cfg):
-        stats["routing_flips"] = flips
+    stats.update(logit_gates(smoke, cfg, box, batch, policy, depth, "serve"))
     return stats
 
 
 # the continuous scheduler's runs: the reference's default serving path,
 # every tick one block step replayed from a CUDA graph
-CONTINUOUS = ("mamba2-1.3b", "llama3.2-1b", "qwen3-moe-235b-a22b")
+CONTINUOUS = ("mamba2-1.3b", "llama3.2-1b", "qwen3-moe-235b-a22b",
+              "zamba2-2.7b")
 
 
 def clone_tree(tree):
@@ -1639,8 +1765,8 @@ def continuous_pass(smoke: Smoke, serve, kops, arch: str, ring_ref: dict):
     engine = full_engine(serve, arch, slots=4, max_new=16,
                          scheduler="continuous", prefill_chunk=16)
     cfg = engine.bundle.cfg
-    norms = 2 * cfg.n_layers + 1
-    scans = moe_layers(cfg)
+    tick = forward_launches(cfg, prefill=False)
+    norms, scans = tick["rmsnorm"], tick["tcu_scan"]
     print(f"serve: {cfg.name} {cfg.n_layers} layers {cfg.dtype}, "
           f"scheduler=continuous, 4 slots, prefill_chunk 16", flush=True)
     reqs = serve.make_requests(8, 512, cfg.vocab, seed=0)
@@ -1845,7 +1971,8 @@ def same_inputs(a: dict, b: dict) -> bool:
 
 # the paged KV pool: the continuous scheduler's other cache kind, on the
 # same runs, then the traffic it is for
-PAGED = ("mamba2-1.3b", "llama3.2-1b", "qwen3-moe-235b-a22b")
+PAGED = ("mamba2-1.3b", "llama3.2-1b", "qwen3-moe-235b-a22b",
+         "zamba2-2.7b")
 
 
 def warm_request(vocab: int, n: int):
@@ -1887,7 +2014,7 @@ def paged_parity(smoke: Smoke, serve, kops, arch: str, ring_ref: dict):
     engine = full_engine(serve, arch, slots=4, max_new=16, prefill_chunk=16,
                          cache_kind="paged")
     cfg = engine.bundle.cfg
-    norms = 2 * cfg.n_layers + 1
+    norms = forward_launches(cfg, prefill=False)["rmsnorm"]
     reqs = serve.make_requests(8, 512, cfg.vocab, seed=0)
     for r in reqs:
         r.max_new = 16
@@ -1928,7 +2055,7 @@ def paged_parity(smoke: Smoke, serve, kops, arch: str, ring_ref: dict):
                  kv=kv, logit_diff_vs_ring=diff, ticks_compared=compared,
                  rmsnorm_per_replay=prof["per_replay"],
                  device_ms_by_kind=split)
-    if cfg.family == "dense":
+    if "attn" in engine._cache:
         stats["kv_copy"] = kv_copy_forms(smoke, engine)
     return stats
 
@@ -2386,11 +2513,93 @@ def sampling_pass(smoke: Smoke, serve, kops):
                 launches=counts)
 
 
+# the VLM at its published widths with its depth cut: internvl2-76b's 80
+# layers and stub projection are 70.6 B parameters, 141 GB in bf16
+VLM_ARCH, VLM_LAYERS, VLM_STEPS = "internvl2-76b", 4, 15
+
+
+def vlm_pass(smoke: Smoke, serve, kops) -> dict:
+    """internvl2-76b at its published widths cut to ``VLM_LAYERS`` layers:
+    ``prefill_last`` on the wave's 4 prompts (left-padded) behind a random
+    stub prefix of 256 x 3200, then ``VLM_STEPS`` greedy decode steps of
+    ``Bundle.decode`` (tokens only, as the reference's), launches gated by
+    ``forward_launches``. Then the served models' timings and logit gates
+    (``prefill_timing``, ``decode_timing``, ``logit_gates``), the gates at
+    ``PARITY_LAYERS`` layers."""
+    from repro_torch import configs
+    from repro_torch.models import build_lm
+    from repro_torch.models.common import init_params
+    from repro_torch.models.lm import pad_cache_seq
+
+    torch = smoke.torch
+    full = configs.get(VLM_ARCH).FULL
+    cfg = dataclasses.replace(full, n_layers=VLM_LAYERS)
+    bundle = build_lm(cfg)
+    print(f"vlm: {VLM_ARCH} cut to {VLM_LAYERS} of {full.n_layers} layers at "
+          f"its published widths: {bundle.n_params / 1e9:.2f}B of "
+          f"{build_lm(full).n_params / 1e9:.2f}B parameters "
+          f"({2 * bundle.n_params / 1e9:.1f} GB in bf16); stub "
+          f"{cfg.stub_tokens} x {cfg.stub_dim}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(bundle.params_pspec, gen, cfg.dtype)
+    reqs = serve.make_requests(4, 512, cfg.vocab, seed=0)
+    stub = torch.randn(4, cfg.stub_tokens, cfg.stub_dim, generator=gen,
+                       device="cuda").to(cfg.dtype)
+    batch = {"tokens": wave_tokens(torch, reqs), "stub": stub}
+
+    def generate(steps):
+        logits, cache = bundle.prefill_last(params, batch)
+        cache = pad_cache_seq(cache, steps)
+        out = [logits.float()]
+        for _ in range(steps):
+            nxt = torch.argmax(out[-1][:, -1], dim=-1, keepdim=True)
+            logits, cache = bundle.decode(params, cache, {"tokens": nxt})
+            out.append(logits.float())
+        torch.cuda.synchronize()
+        return out
+
+    generate(1)                                     # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()
+    logits = generate(VLM_STEPS)
+    counts = kops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_prefill = forward_launches(cfg)
+    per_step = forward_launches(cfg, prefill=False)
+    want = {k: per_prefill.get(k, 0) + VLM_STEPS * per_step.get(k, 0)
+            for k in counts}
+    print(f"vlm: prefill and {VLM_STEPS} decode steps: launches {counts}; "
+          f"peak memory {peak_gb:.2f} GB ({smi_line()})", flush=True)
+    if counts != want:
+        smoke.fail(f"vlm: launches {counts}, want {want} ({per_prefill} a "
+                   f"prefill, {per_step} a decode step)")
+    if not all(bool(torch.isfinite(lg).all()) for lg in logits):
+        smoke.fail("vlm: non-finite logits")
+    if tuple(logits[0].shape) != (4, 1, cfg.vocab):
+        smoke.fail(f"vlm: prefill logits of shape {tuple(logits[0].shape)}")
+    del logits
+    stats = dict(layers=VLM_LAYERS, n_params=bundle.n_params,
+                 prompt_lens=[len(r.prompt) for r in reqs],
+                 peak_mem_gb=peak_gb, launches=counts)
+    stats.update(prefill_timing(smoke, cfg, params, batch, None, "vlm",
+                                f"prefill-{VLM_ARCH}"))
+    stats.update(decode_timing(smoke, bundle, params, batch, "vlm"))
+    box = [dict(params, blocks=params["blocks"][:PARITY_LAYERS])]
+    del params
+    stats.update(logit_gates(smoke, cfg, box, batch, None, PARITY_LAYERS,
+                             "vlm"))
+    return stats
+
+
 # ---------------------------------------------------------------------------
 # training: repro_torch.training's step on both models, FULL, bf16 compute,
 # f32 masters, AdamW at the reference's OptConfig defaults, remat "none"
 
-TRAIN_ARCHS = ("llama3.2-1b", "mamba2-1.3b")
+TRAIN_ARCHS = ("llama3.2-1b", "mamba2-1.3b", "zamba2-2.7b")
+# zamba2 at full width with its depth cut: the whole model's f32 masters and
+# AdamW state are about 39 GB before activations; 12 layers are 2 uses of
+# the shared block, 0.77 B parameters
+TRAIN_LAYERS = {"zamba2-2.7b": 12}
 TRAIN_BATCH, TRAIN_SEQ = 4, 512     # the kernel table's rows 3 and 5
 FIXED_STEPS, TIMED_STEPS = 8, 6
 PARITY_LAYERS = 2                   # depth of the f32 parity gate alone
@@ -2400,17 +2609,32 @@ CKPT_DIR = OBS_DIR.parent / "smoke_train_ckpt"
 
 
 def train_launches(cfg, n_leaves: int, kernels) -> dict:
-    """Kernel launches of one train step: RMSNorm 2L + 1 forward and 2L
-    again when remat recomputes each layer in backward, the layer kernel
-    (flash attention or the SSD) once forward and once recomputed, and
-    ``tcu_reduce`` once per parameter leaf (the global norm); no other."""
-    layers = cfg.n_layers
+    """Kernel launches of one train step: a forward's
+    (``forward_launches``), and the layers' again when remat recomputes
+    each layer in backward (RMSNorm 2L, the layer kernel and the MoE scan;
+    not the final norm, nor the hybrid's shared block, which is not
+    rematerialised: RMSNorm 4L + 2G + 1, flash attention 2L or G, the SSD
+    2L), and ``tcu_reduce`` once per parameter leaf (the global norm); no
+    other."""
+    from repro_torch.models.lm import ATTN_FAMILIES, n_groups
+
     want = dict.fromkeys(kernels, 0)
-    want["rmsnorm"] = 4 * layers + 1
-    layer_kernel = "flash_attention" if cfg.family == "dense" else "ssd_scan"
-    want[layer_kernel] = 2 * layers
+    fwd = forward_launches(cfg)
+    want.update(fwd)
+    groups = n_groups(cfg)
+    want["rmsnorm"] += fwd["rmsnorm"] - 2 * groups - 1
+    if cfg.family in ATTN_FAMILIES:
+        want["flash_attention"] += fwd["flash_attention"]
+    want["ssd_scan"] += fwd["ssd_scan"]
+    want["tcu_scan"] += fwd["tcu_scan"]
     want["tcu_reduce"] = n_leaves
     return want
+
+
+def parity_depth(cfg) -> int:
+    """The depth of the f32 train parity gate: ``PARITY_LAYERS``, or for the
+    hybrid one group (its shared block once)."""
+    return max(PARITY_LAYERS, cfg.shared_attn_every)
 
 
 def scaled(counts: dict, k: int) -> dict:
@@ -2431,8 +2655,15 @@ def train_pass(smoke: Smoke, kops, arch: str) -> dict:
     from repro_torch.training import init_train_state, make_train_step
 
     torch = smoke.torch
-    cfg = configs.get(arch).FULL
+    full = configs.get(arch).FULL
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS.get(
+        arch, full.n_layers))
     bundle = build_lm(cfg)
+    if cfg.n_layers != full.n_layers:
+        print(f"train: {arch} cut to {cfg.n_layers} of {full.n_layers} "
+              f"layers at its published widths: {bundle.n_params / 1e9:.2f}B "
+              f"of {build_lm(full).n_params / 1e9:.2f}B parameters",
+              flush=True)
     opt_cfg = OptConfig()
     state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
                              bundle, opt_cfg)
@@ -2455,7 +2686,7 @@ def train_pass(smoke: Smoke, kops, arch: str) -> dict:
     if fixed != scaled(per_step, FIXED_STEPS):
         smoke.fail(f"train {arch}: launches over {FIXED_STEPS} steps "
                    f"{fixed}, want {scaled(per_step, FIXED_STEPS)}")
-    if cfg.family == "ssm" and instances != {
+    if fixed["ssd_scan"] and instances != {
             ("ssd_scan", "mma"): fixed["ssd_scan"]}:
         smoke.fail(f"train {arch}: SSD instances "
                    f"{instance_text(instances)}, want every launch on mma")
@@ -2498,7 +2729,8 @@ def train_pass(smoke: Smoke, kops, arch: str) -> dict:
                            sum(x.numel() for x in sq), torch.float32)[0]
     del sq, state, metrics, batch
     tok_s = TRAIN_BATCH * TRAIN_SEQ / (med / 1e3)
-    print(f"train {arch} FULL bf16, B={TRAIN_BATCH} S={TRAIN_SEQ}: "
+    print(f"train {arch} FULL widths, {cfg.n_layers} layers, bf16, "
+          f"B={TRAIN_BATCH} S={TRAIN_SEQ}: "
           f"losses of {FIXED_STEPS} steps on one batch "
           f"{[round(x, 4) for x in losses]}; launches a step {per_step} "
           f"(SSD instances {instance_text(instances)}); {TIMED_STEPS} "
@@ -2578,8 +2810,9 @@ def train_parity(smoke: Smoke, arch: str) -> dict:
                                       value_and_grad)
 
     torch = smoke.torch
-    cfg = dataclasses.replace(configs.get(arch).FULL,
-                              n_layers=PARITY_LAYERS, dtype=torch.float32)
+    full = configs.get(arch).FULL
+    cfg = dataclasses.replace(full, n_layers=parity_depth(full),
+                              dtype=torch.float32)
     paths = {"kernels": None, "baseline": "baseline"}
     bundles = {k: build_lm(dataclasses.replace(cfg, policy=p))
                for k, p in paths.items()}
@@ -2612,7 +2845,7 @@ def train_parity(smoke: Smoke, arch: str) -> dict:
         else:
             gate = update_gate(sa["params"], sb["params"], old)
         ok = loss <= 1e-4 and gnorm <= 1e-3 and gate["worst"] <= 1.0
-        print(f"train {arch} f32 {PARITY_LAYERS} layers, {label}: loss rel "
+        print(f"train {arch} f32 {cfg.n_layers} layers, {label}: loss rel "
               f"{loss:.3e} (tol 1e-4), grad_norm rel {gnorm:.3e} (tol 1e-3),"
               f" params worst {gate['worst']:.3f} of tolerance, "
               f"{gate['beyond_plain']} of {gate['elements']} elements beyond "
@@ -2737,7 +2970,9 @@ def main() -> int:
                  ("mamba2-1.3b multi-turn",
                   lambda: multi_turn_pass(smoke, serve, kops)),
                  ("llama3.2-1b sampling",
-                  lambda: sampling_pass(smoke, serve, kops))]
+                  lambda: sampling_pass(smoke, serve, kops)),
+                 (f"{VLM_ARCH} stub prefill and decode",
+                  lambda: vlm_pass(smoke, serve, kops))]
         for run, fn in runs:
             try:
                 stats[run] = fn()

@@ -1,8 +1,9 @@
 """Architecture registry: ``get(arch_id)`` -> config module with FULL / SMOKE.
 
-mamba2-1.3b, llama3.2-1b, qwen3-moe-235b-a22b and grok-1-314b are ported
-so far; the reference's other architectures are listed so that asking for
-one names the plan instead of failing obscurely.
+mamba2-1.3b, llama3.2-1b, qwen3-moe-235b-a22b, grok-1-314b, zamba2-2.7b
+and internvl2-76b are ported so far; the reference's other architectures
+are listed so that asking for one names the plan instead of failing
+obscurely.
 """
 from __future__ import annotations
 
@@ -10,11 +11,12 @@ import importlib
 
 ARCHS = {"mamba2-1.3b": "mamba2_1_3b", "llama3.2-1b": "llama3_2_1b",
          "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
-         "grok-1-314b": "grok_1_314b"}
+         "grok-1-314b": "grok_1_314b", "zamba2-2.7b": "zamba2_2_7b",
+         "internvl2-76b": "internvl2_76b"}
 
 NOT_PORTED = (
-    "zamba2-2.7b", "internvl2-76b", "internlm2-20b", "deepseek-67b",
-    "h2o-danube-3-4b", "seamless-m4t-medium",
+    "internlm2-20b", "deepseek-67b", "h2o-danube-3-4b",
+    "seamless-m4t-medium",
 )
 
 

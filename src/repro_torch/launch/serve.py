@@ -2,6 +2,7 @@
 
     python -m repro_torch.launch.serve                  # mamba2-1.3b FULL
     python -m repro_torch.launch.serve --arch llama3.2-1b --cache paged
+    python -m repro_torch.launch.serve --arch zamba2-2.7b
     python -m repro_torch.launch.serve --scheduler wave \
         --policy ssd=tile_logdepth
     python -m repro_torch.launch.serve --config smoke --device cpu
@@ -24,9 +25,14 @@ Randomly initialised weights from a ``torch.Generator`` seeded with
 default the model runs on the CUDA card through the Hopper kernels:
 RMSNorm in every layer, the MoE models' capacity offsets (``tcu_scan.cu``)
 in every MoE layer, and in the wave's prefill also the SSD chunk scan or
-flash attention (the continuous block step runs the recurrence and decode
-attention as torch ops, as the reference does). The MoE configs at FULL
-do not fit one card; ``chip_smoke.py`` serves them with their depth cut. ``--device cpu``
+flash attention (zamba2: the SSD in each of its 54 Mamba layers, flash
+attention in each of the shared block's 9 uses; the continuous block step
+runs the recurrence and decode attention as torch ops, as the reference
+does). The MoE configs and internvl2-76b at FULL do not fit one card;
+``chip_smoke.py`` runs them with their depth cut. internvl2-76b is served
+text-only by the continuous scheduler (its block step embeds tokens, as the
+reference's does); its wave prefill needs the stub prefix, which the
+synthetic requests do not carry, and raises. ``--device cpu``
 runs the same path on each kernel's plain version. Under the wave
 scheduler, ``--policy
 ssd=tile_logdepth`` prefills every Mamba layer through the log-depth

@@ -18,10 +18,13 @@ Counterpart of ``repro.launch.train`` on one device:
   * data order is a pure function of (seed, step) (``data/pipeline.py``).
 
 By default the model runs on the CUDA card through the Hopper kernels:
-RMSNorm in every layer, flash attention (llama, MoE) or the SSD chunk scan
-(mamba) in every layer and the capacity offsets' ``tcu_scan`` in every MoE
-layer, each launched again when its layer is recomputed in backward, and
-the global norm's ``tcu_reduce`` once per parameter leaf.
+RMSNorm in every layer, flash attention (llama, MoE, internvl2) or the SSD
+chunk scan (mamba, zamba2's Mamba layers) in every layer, flash attention in
+every use of zamba2's shared block and the capacity offsets' ``tcu_scan`` in
+every MoE layer, each layer's launched again when it is recomputed in
+backward (the shared block is not), and the global norm's ``tcu_reduce``
+once per parameter leaf. A vlm's batches carry a zero stub prefix, as the
+reference's do.
 ``--device cpu`` runs the same path on each kernel's plain version. The
 learning-rate schedule is the reference's (warmup ``min(20, --steps)``,
 cosine to ``--steps``) unless ``--warmup-steps`` or ``--decay-steps`` fix
@@ -137,6 +140,10 @@ def run(args, obs_sess=None) -> dict[int, float]:
     last_ckpt_t = time.time()
     for step in range(start, args.steps):
         batch = data.device_batch(step)
+        if cfg.stub_tokens:
+            batch["stub"] = torch.zeros(
+                (args.batch, cfg.stub_tokens, cfg.stub_dim), dtype=cfg.dtype,
+                device=device)
         t0 = time.perf_counter()
         with _prof.span("train/step"):
             state, metrics = step_fn(state, batch)

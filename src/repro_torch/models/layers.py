@@ -32,7 +32,8 @@ from repro_torch.models.xla_attention import decode_attention
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # "dense", "moe" and "ssm" are ported
+    family: str                    # dense | moe | ssm | hybrid | vlm (encdec
+    #                                is the reference's one not ported)
     n_layers: int
     d_model: int
     vocab: int
@@ -61,6 +62,13 @@ class ModelConfig:
     conv_kernel: int = 4
     expand: int = 2
     ssd_chunk: int = 128           # chunk of the ``fused`` SSD form
+    # hybrid (Zamba2-style): one shared attention block after every
+    # ``shared_attn_every`` Mamba layers
+    shared_attn_every: int = 0
+    # modality stub (vlm): ``stub_tokens`` prefix embeddings of width
+    # ``stub_dim``, fed past the frontend and projected to d_model
+    stub_tokens: int = 0
+    stub_dim: int = 0
     dtype: torch.dtype = torch.bfloat16
     # activation checkpointing of each layer in training: none (recompute
     # the layer in backward) | dots (keep the matmul outputs) | off
@@ -85,14 +93,18 @@ class ModelConfig:
 # attention
 
 
-def attn_pspec(cfg: ModelConfig):
-    """One attention layer's parameters."""
-    d, dh, hq, hkv = cfg.d_model, cfg.dh, cfg.n_heads, cfg.n_kv_heads
+def attn_pspec(cfg: ModelConfig, d_in: int | None = None):
+    """One attention layer's parameters; q, k and v project from ``d_in``
+    (None: d_model)."""
+    d = d_in or cfg.d_model
+    dh, hq, hkv = cfg.dh, cfg.n_heads, cfg.n_kv_heads
     return {
         "wq": PSpec((d, hq * dh)),
         "wk": PSpec((d, hkv * dh)),
         "wv": PSpec((d, hkv * dh)),
-        "wo": PSpec((hq * dh, d)),
+        # wo always projects back to the residual width (Zamba2's shared
+        # block reads concat(h, embeddings) of width 2 d_model)
+        "wo": PSpec((hq * dh, cfg.d_model)),
     }
 
 

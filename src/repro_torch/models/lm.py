@@ -1,18 +1,28 @@
-"""Decoder-only LM assembly: the dense (llama), moe (qwen3-moe, grok-1) and
-ssm (Mamba-2) families.
+"""Decoder-only LM assembly: the dense (llama), vlm (internvl2), moe
+(qwen3-moe, grok-1), ssm (Mamba-2) and hybrid (Zamba2) families.
 
-Counterpart of ``repro.models.lm`` for the families ported so far. The
-reference scans a stacked layer axis with ``lax.scan``; here the layers are
-a list and the loop is a Python loop. A moe layer is a dense layer with
+Counterpart of ``repro.models.lm``; the reference's encdec family
+(``repro.models.encdec``) is the one not ported yet. The reference scans a
+stacked layer axis with ``lax.scan``; here the layers are a list and the
+loop is a Python loop. A moe layer is a dense layer with
 :func:`~repro_torch.models.layers.moe_apply` in place of the MLP, and
-:func:`lm_apply` sums its auxiliary load-balance loss over the layers. The
-decode cache keeps the reference's stacked layout, ``attn.k``/``attn.v``
-``(n_layers, B, S, Hkv, Dh)`` for dense and moe and ``mamba.conv (n_layers,
-B, K-1, C)``/``mamba.state (n_layers, B, H, P, N)`` for ssm, and
-:func:`lm_decode` updates it in place (one layer's slice at a time) instead
-of rebuilding it every token. The prefill cache holds exactly the prompt's
-positions; a server grows its sequence axis with :func:`pad_cache_seq`
-before decoding.
+:func:`lm_apply` sums its auxiliary load-balance loss over the layers. A
+vlm is the dense family with a stub prefix: ``batch["stub"]`` (B,
+stub_tokens, stub_dim), the frontend's patch embeddings, projected by
+``stub_proj`` and put before the tokens (:func:`_embed_input`); its loss
+covers the text tail, and its decode steps embed tokens only, as the
+reference's do. The hybrid is the ssm family's Mamba layers in groups of
+``shared_attn_every``, each group followed by one shared attention + MLP
+block (one parameter tree, ``params["shared"]``) over ``concat(h, emb)``,
+emb the input's embeddings (:func:`_shared_block`).
+
+The decode cache keeps the reference's stacked layout, ``attn.k``/``attn.v``
+``(kv layers, B, S, Hkv, Dh)`` (a layer a block, or the hybrid's a group)
+and ``mamba.conv (n_layers, B, K-1, C)``/``mamba.state (n_layers, B, H, P,
+N)``, and :func:`lm_decode` updates it in place (one layer's slice at a
+time) instead of rebuilding it every token. The prefill cache holds exactly
+the prompt's positions; a server grows its sequence axis with
+:func:`pad_cache_seq` before decoding.
 
 The continuous scheduler's cache (:func:`lm_cache_pspec` with
 ``per_slot_pos=True``) is a ring of ``min(capacity, swa_window)`` rows a
@@ -28,7 +38,8 @@ Training: :func:`lm_loss` is the mean token cross-entropy of
 ``Bundle.loss`` takes the train state's stacked parameters. With gradients
 on, each layer of the forward runs under ``cfg.remat_policy``
 (:func:`_remat`): its activations are recomputed in backward, the layer's
-kernels launched again.
+kernels launched again. The hybrid's shared block is not recomputed, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -52,8 +63,10 @@ from repro_torch.models.common import (
 )
 
 
-FAMILIES = ("dense", "moe", "ssm")
-ATTN_FAMILIES = ("dense", "moe")     # attention layers and a KV cache
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+ATTN_FAMILIES = ("dense", "vlm", "moe")   # an attention layer in every block
+STATE_FAMILIES = ("ssm", "hybrid")        # Mamba layers: conv and state
+KV_FAMILIES = ATTN_FAMILIES + ("hybrid",)   # a KV cache
 MOE_AUX_WEIGHT = 0.01
 # the reference's dots_with_no_batch_dims_saveable: a matmul without batch
 # dims is an mm (``x @ W`` folds its leading dims into rows) or an addmm
@@ -87,6 +100,10 @@ def _require_ported(cfg: L.ModelConfig) -> None:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported to PyTorch yet; "
             "see ROADMAP.md for the order of the remaining families")
+    every = cfg.shared_attn_every
+    if cfg.family == "hybrid" and (every < 1 or cfg.n_layers % every):
+        raise ValueError(f"a hybrid needs n_layers ({cfg.n_layers}) to be a "
+                         f"multiple of shared_attn_every ({every})")
 
 
 def _require_unwindowed(cfg: L.ModelConfig) -> None:
@@ -131,16 +148,25 @@ def lm_pspec(cfg: L.ModelConfig):
     }
     if not cfg.tie_embeddings:
         p["head"] = PSpec((v, d), "normal")
+    if cfg.stub_tokens:
+        p["stub_proj"] = PSpec((cfg.stub_dim, d))
     if cfg.family in ATTN_FAMILIES:
         ffn = "moe" if cfg.family == "moe" else "mlp"
         ffn_pspec = L.moe_pspec if cfg.family == "moe" else L.mlp_pspec
         p["blocks"] = [{"ln1": PSpec((d,), "ones"), "attn": L.attn_pspec(cfg),
                         "ln2": PSpec((d,), "ones"), ffn: ffn_pspec(cfg)}
                        for _ in range(cfg.n_layers)]
-    else:
+    if cfg.family in STATE_FAMILIES:
         p["blocks"] = [{"ln": PSpec((d,), "ones"),
                         "mamba": L.mamba_pspec(cfg)}
                        for _ in range(cfg.n_layers)]
+    if cfg.family == "hybrid":
+        # Zamba2's shared transformer block over concat(h, embeddings): one
+        # tree, not stacked, used after every group
+        p["shared"] = {"ln_in": PSpec((2 * d,), "ones"),
+                       "attn": L.attn_pspec(cfg, d_in=2 * d),
+                       "ln_mlp": PSpec((d,), "ones"),
+                       "mlp": L.mlp_pspec(cfg)}
     return p
 
 
@@ -156,45 +182,102 @@ def _ffn(lp, cfg: L.ModelConfig, m_in):
     return L.mlp_apply(lp["mlp"], cfg, m_in), None
 
 
+def n_groups(cfg: L.ModelConfig) -> int:
+    """The hybrid's groups of ``shared_attn_every`` Mamba layers, each
+    followed by the shared block: its KV cache's layers (0 elsewhere)."""
+    return (cfg.n_layers // cfg.shared_attn_every
+            if cfg.family == "hybrid" else 0)
+
+
+def _kv_layers(cfg: L.ModelConfig) -> int:
+    return n_groups(cfg) if cfg.family == "hybrid" else cfg.n_layers
+
+
+def _group_end(cfg: L.ModelConfig, i: int) -> int | None:
+    """The group that Mamba layer ``i`` closes in the hybrid, whose shared
+    block runs next; None elsewhere."""
+    if cfg.family != "hybrid" or (i + 1) % cfg.shared_attn_every:
+        return None
+    return (i + 1) // cfg.shared_attn_every - 1
+
+
+def _shared_block(sp, cfg: L.ModelConfig, h, emb0, attend):
+    """Zamba2's shared attention + MLP block: attention over the norm of
+    ``concat(h, emb0)`` (B, S, 2d), ``attend(p, x)`` being the path's
+    attention, which returns (out, what the path keeps); then the SwiGLU MLP.
+    Returns (h, what ``attend`` kept)."""
+    a_in = rmsnorm(torch.cat([h, emb0], dim=-1), sp["ln_in"], cfg.norm_eps,
+                   cfg.policy)
+    a_out, kept = attend(sp["attn"], a_in)
+    h = h + a_out
+    m_in = rmsnorm(h, sp["ln_mlp"], cfg.norm_eps, cfg.policy)
+    return h + L.mlp_apply(sp["mlp"], cfg, m_in), kept
+
+
+def _embed_input(params, cfg: L.ModelConfig, batch):
+    """tokens, after the projected stub prefix where the model takes one
+    (vlm): (B, P + S, d)."""
+    if cfg.stub_tokens and "stub" not in batch:
+        raise ValueError(
+            f"{cfg.name} takes a stub prefix: batch['stub'] of shape (B, "
+            f"{cfg.stub_tokens}, {cfg.stub_dim}), the frontend's patch "
+            "embeddings; none was given")
+    h = embed_tokens(params["embed"], batch["tokens"])
+    if cfg.stub_tokens:
+        prefix = batch["stub"].to(h.dtype) @ params["stub_proj"]
+        h = torch.cat([prefix, h], dim=1)
+    return h
+
+
 def lm_apply(params, cfg: L.ModelConfig, batch, *, collect_cache=False,
              last_only=False):
     """Full-sequence forward. Returns (logits, aux, cache-or-None).
 
     ``last_only`` unembeds just the final position (serving prefill), which
     avoids the (B, S, vocab) logits tensor. ``aux`` is the MoE auxiliary
-    loss summed over the layers, an f32 scalar (zero without MoE layers)."""
+    loss summed over the layers, an f32 scalar (zero without MoE layers).
+    A vlm's ``batch`` carries ``stub`` (B, stub_tokens, stub_dim), whose
+    projection comes before the tokens; the logits cover both."""
     _require_ported(cfg)
     _require_unwindowed(cfg)
-    h = embed_tokens(params["embed"], batch["tokens"])
+    h = _embed_input(params, cfg, batch)
     b, s, _ = h.shape
-    if cfg.family in ATTN_FAMILIES:
-        # positions from 0 in every row, left padding included, as in the
-        # reference
-        positions = torch.arange(s, device=h.device).expand(b, s)
+    emb0 = h
+    # positions from 0 in every row, left padding included, as in the
+    # reference
+    positions = torch.arange(s, device=h.device).expand(b, s)
 
+    def attend(p, x):
+        return L.attn_apply(p, cfg, x, positions=positions)
+
+    if cfg.family in ATTN_FAMILIES:
         def layer(h, lp):
             a_in = rmsnorm(h, lp["ln1"], cfg.norm_eps, cfg.policy)
-            a_out, kv = L.attn_apply(lp["attn"], cfg, a_in,
-                                     positions=positions)
+            a_out, kv = attend(lp["attn"], a_in)
             h = h + a_out
             m_in = rmsnorm(h, lp["ln2"], cfg.norm_eps, cfg.policy)
             m_out, aux = _ffn(lp, cfg, m_in)
             return h + m_out, aux, kv if collect_cache else None
-    else:
+    elif cfg.family in STATE_FAMILIES:
         def layer(h, lp):
             m_in = rmsnorm(h, lp["ln"], cfg.norm_eps, cfg.policy)
             out, cache = L.mamba_apply(lp["mamba"], cfg, m_in,
                                        collect_cache=collect_cache)
             return h + out, None, cache
     if torch.is_grad_enabled():
+        # the layers only: the hybrid's shared block is not recomputed, as
+        # in the reference
         layer = _remat(layer, cfg.remat_policy)
-    caches = []
+    caches, kvs = [], []
     aux_total = torch.zeros((), device=h.device)
-    for lp in params["blocks"]:
+    for i, lp in enumerate(params["blocks"]):
         h, aux, cache = layer(h, lp)
         if aux is not None:
             aux_total = aux_total + aux
         caches.append(cache)
+        if _group_end(cfg, i) is not None:
+            h, kv = _shared_block(params["shared"], cfg, h, emb0, attend)
+            kvs.append(kv)
     if last_only:
         h = h[:, -1:]
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps, cfg.policy)
@@ -203,20 +286,26 @@ def lm_apply(params, cfg: L.ModelConfig, batch, *, collect_cache=False,
     if collect_cache:
         cache = {"pos": s}
         if cfg.family in ATTN_FAMILIES:
-            cache["attn"] = {"k": torch.stack([k for k, _ in caches]),
-                             "v": torch.stack([v for _, v in caches])}
-        else:
+            kvs = caches
+        if cfg.family in STATE_FAMILIES:
             cache["mamba"] = {
                 "conv": torch.stack([c["conv"] for c in caches]),
                 "state": torch.stack([c["state"] for c in caches])}
+        if cfg.family in KV_FAMILIES:
+            cache["attn"] = {"k": torch.stack([k for k, _ in kvs]),
+                             "v": torch.stack([v for _, v in kvs])}
     return logits, aux_total, cache
 
 
 def lm_loss(params, cfg: L.ModelConfig, batch) -> torch.Tensor:
     """Mean token cross-entropy of :func:`lm_apply` on ``batch`` {tokens,
-    labels (B, S)} plus ``MOE_AUX_WEIGHT`` times its MoE auxiliary loss."""
+    labels (B, S)} plus ``MOE_AUX_WEIGHT`` times its MoE auxiliary loss; a
+    vlm's over the text tail only (the logits after the stub prefix)."""
     logits, aux, _ = lm_apply(params, cfg, batch)
-    return cross_entropy(logits, batch["labels"]) + MOE_AUX_WEIGHT * aux
+    labels = batch["labels"]
+    if cfg.stub_tokens:
+        logits = logits[:, -labels.shape[1]:]
+    return cross_entropy(logits, labels) + MOE_AUX_WEIGHT * aux
 
 
 def pad_cache_seq(cache, extra: int):
@@ -229,34 +318,62 @@ def pad_cache_seq(cache, extra: int):
     return cache
 
 
+def _step_layers(params, cfg: L.ModelConfig, cache, h, attend, mix,
+                 mamba_in):
+    """The layers of a decode step over ``h`` (the tokens' embeddings).
+
+    Attention families: every layer attends through ``attend(p, x, i)``
+    (KV layer ``i``), then its FFN. State families: every Mamba layer runs
+    ``mix(p, x, {conv, state})`` from ``mamba_in(i)``, its layer's state at
+    the step's start, and its new conv history and state are written into
+    the cache in place; the hybrid runs the shared block after each group,
+    attending through the group's KV layer, over ``concat(h, emb)``."""
+    emb0 = h
+    for i, lp in enumerate(params["blocks"]):
+        if cfg.family in ATTN_FAMILIES:
+            a_in = rmsnorm(h, lp["ln1"], cfg.norm_eps, cfg.policy)
+            h = h + attend(lp["attn"], a_in, i)
+            m_in = rmsnorm(h, lp["ln2"], cfg.norm_eps, cfg.policy)
+            h = h + _ffn(lp, cfg, m_in)[0]
+        elif cfg.family in STATE_FAMILIES:
+            m_in = rmsnorm(h, lp["ln"], cfg.norm_eps, cfg.policy)
+            out, c = mix(lp["mamba"], m_in, mamba_in(i))
+            cache["mamba"]["conv"][i].copy_(c["conv"])
+            cache["mamba"]["state"][i].copy_(c["state"])
+            h = h + out
+        g = _group_end(cfg, i)
+        if g is not None:
+            h = _shared_block(params["shared"], cfg, h, emb0,
+                              lambda p, x, g=g: (attend(p, x, g), None))[0]
+    return h
+
+
 def lm_decode(params, cfg: L.ModelConfig, cache, batch):
     """One decode step. batch {"tokens": (B, 1)} -> (logits, cache); the
-    cache's tensors are updated in place (dense: the new token's k, v at
-    row ``pos``)."""
+    cache's tensors are updated in place (the new token's k, v at row
+    ``pos``; conv history and state). The tokens alone are embedded: a
+    vlm's stub went in with the prefill."""
     _require_ported(cfg)
     _require_unwindowed(cfg)
     h = embed_tokens(params["embed"], batch["tokens"])       # (B, 1, d)
     pos = cache["pos"]
-    if cfg.family in ATTN_FAMILIES:
-        k, v = cache["attn"]["k"], cache["attn"]["v"]
-        if pos >= k.shape[2]:
-            raise ValueError(f"KV cache of {k.shape[2]} positions is full at "
-                             f"position {pos}; grow it with pad_cache_seq")
-        for i, lp in enumerate(params["blocks"]):
-            a_in = rmsnorm(h, lp["ln1"], cfg.norm_eps, cfg.policy)
-            h = h + L.attn_decode(lp["attn"], cfg, a_in,
-                                  {"k": k[i], "v": v[i]}, pos=pos)
-            m_in = rmsnorm(h, lp["ln2"], cfg.norm_eps, cfg.policy)
-            h = h + _ffn(lp, cfg, m_in)[0]
-    else:
-        conv, state = cache["mamba"]["conv"], cache["mamba"]["state"]
-        for i, lp in enumerate(params["blocks"]):
-            m_in = rmsnorm(h, lp["ln"], cfg.norm_eps, cfg.policy)
-            out, c = L.mamba_decode(lp["mamba"], cfg, m_in,
-                                    {"conv": conv[i], "state": state[i]})
-            conv[i].copy_(c["conv"])
-            state[i].copy_(c["state"])
-            h = h + out
+    kv = cache.get("attn")
+    if kv is not None and pos >= kv["k"].shape[2]:
+        raise ValueError(f"KV cache of {kv['k'].shape[2]} positions is full "
+                         f"at position {pos}; grow it with pad_cache_seq")
+
+    def attend(p, x, i):
+        return L.attn_decode(p, cfg, x, {"k": kv["k"][i], "v": kv["v"][i]},
+                             pos=pos)
+
+    def mix(p, x, c):
+        return L.mamba_decode(p, cfg, x, c)
+
+    def mamba_in(i):
+        return {"conv": cache["mamba"]["conv"][i],
+                "state": cache["mamba"]["state"][i]}
+
+    h = _step_layers(params, cfg, cache, h, attend, mix, mamba_in)
     cache["pos"] = pos + 1
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps, cfg.policy)
     return unembed(h, _head(params, cfg)), cache
@@ -268,14 +385,14 @@ def lm_cache_pspec(cfg: L.ModelConfig, batch: int, smax: int,
                    state_pages: int = 0):
     """Decode-cache declaration. ``per_slot_pos=True`` declares the
     continuous-batching layout: ``pos`` is a (batch,) vector, one position
-    per slot. Dense and moe: a KV ring of ``min(smax, swa_window)`` rows a
-    slot; ssm: conv history and state.
+    per slot. Attention layers (dense, vlm, moe; the hybrid's shared block,
+    one KV layer a group): a KV ring of ``min(smax, swa_window)`` rows a
+    slot; Mamba layers (ssm, hybrid): conv history and state.
 
-    ``kind="paged"`` swaps the attention families' per-slot rings for one
-    pool of
+    ``kind="paged"`` swaps the per-slot KV rings for one pool of
     ``pool_pages`` pages of ``page_rows`` rows shared by every slot (block
-    tables map slots to pages, ``serving/kvpool.py``); the ssm family keeps
-    its live per-slot conv and state and adds a pool of ``state_pages``
+    tables map slots to pages, ``serving/kvpool.py``); the Mamba layers keep
+    their live per-slot conv and state and add a pool of ``state_pages``
     snapshots for prompt-boundary prefix sharing."""
     _require_ported(cfg)
     if kind == "paged" and not per_slot_pos:
@@ -285,18 +402,29 @@ def lm_cache_pspec(cfg: L.ModelConfig, batch: int, smax: int,
         raise ValueError(f"cache kind must be 'ring' or 'paged', got {kind!r}")
     cache: dict[str, Any] = {
         "pos": PSpec((batch,) if per_slot_pos else (), "zeros", torch.int32)}
-    if cfg.family in ATTN_FAMILIES:
-        if kind == "paged":
-            cache["attn"] = L.attn_page_cache_pspec(cfg, cfg.n_layers,
-                                                    pool_pages, page_rows)
-        else:
-            cache["attn"] = L.attn_cache_pspec(cfg, cfg.n_layers, batch, smax)
-            del cache["attn"]["pos"]
-    else:
+    if cfg.family in STATE_FAMILIES:
         cache["mamba"] = L.mamba_cache_pspec(cfg, cfg.n_layers, batch)
         if kind == "paged":
             cache["snap"] = L.mamba_snap_pspec(cfg, cfg.n_layers, state_pages)
+    if cfg.family in KV_FAMILIES:
+        if kind == "paged":
+            cache["attn"] = L.attn_page_cache_pspec(cfg, _kv_layers(cfg),
+                                                    pool_pages, page_rows)
+        else:
+            cache["attn"] = L.attn_cache_pspec(cfg, _kv_layers(cfg), batch,
+                                               smax)
+            del cache["attn"]["pos"]
     return cache
+
+
+def _last_logits(params, cfg: L.ModelConfig, h, n_valid):
+    """Logits (B, vocab) after each slot's last valid token (an idle slot's
+    row is junk the caller ignores)."""
+    last = torch.clamp(n_valid - 1, min=0)
+    h_last = h.gather(1, last[:, None, None].expand(h.shape[0], 1,
+                                                    h.shape[-1]))
+    h_last = rmsnorm(h_last, params["final_norm"], cfg.norm_eps, cfg.policy)
+    return unembed(h_last, _head(params, cfg))[:, 0]
 
 
 def lm_decode_block(params, cfg: L.ModelConfig, cache, batch, *,
@@ -308,7 +436,8 @@ def lm_decode_block(params, cfg: L.ModelConfig, cache, batch, *,
     slot's sequence state first (pos -> 0, conv and state -> 0), as on
     admission of a new request; stale KV rows need no clearing, the
     per-slot lengths hide them. One call serves chunked prefill and
-    single-token decode across slots.
+    single-token decode across slots. The tokens alone are embedded, as in
+    the reference (a vlm is served text-only here).
 
     The cache's tensors are updated in place, and nothing here reads a
     device value on the host, so the step can be captured in a CUDA graph
@@ -316,39 +445,30 @@ def lm_decode_block(params, cfg: L.ModelConfig, cache, batch, *,
     token, cache); an idle slot's row is junk the caller ignores."""
     _require_ported(cfg)
     tokens = batch["tokens"]
-    b, t_len = tokens.shape
     dev = tokens.device
     n_valid = torch.as_tensor(n_valid, device=dev).long()
     reset = torch.as_tensor(reset_mask, device=dev).bool()
     pos = torch.where(reset, 0, cache["pos"])
     h = embed_tokens(params["embed"], tokens)                # (B, T, d)
-    if cfg.family in ATTN_FAMILIES:
-        k, v = cache["attn"]["k"], cache["attn"]["v"]
-        for i, lp in enumerate(params["blocks"]):
-            a_in = rmsnorm(h, lp["ln1"], cfg.norm_eps, cfg.policy)
-            h = h + L.attn_decode_block(
-                lp["attn"], cfg, a_in, {"k": k[i], "v": v[i], "pos": pos},
-                n_valid=n_valid)
-            m_in = rmsnorm(h, lp["ln2"], cfg.norm_eps, cfg.policy)
-            h = h + _ffn(lp, cfg, m_in)[0]
-    else:
-        conv, state = cache["mamba"]["conv"], cache["mamba"]["state"]
-        for i, lp in enumerate(params["blocks"]):
-            m_in = rmsnorm(h, lp["ln"], cfg.norm_eps, cfg.policy)
-            out, c = L.mamba_decode_block(
-                lp["mamba"], cfg, m_in,
-                {"conv": torch.where(reset[:, None, None], 0, conv[i]),
-                 "state": torch.where(reset[:, None, None, None], 0,
-                                      state[i])},
-                n_valid=n_valid)
-            conv[i].copy_(c["conv"])
-            state[i].copy_(c["state"])
-            h = h + out
+    kv = cache.get("attn")
+
+    def attend(p, x, i):
+        return L.attn_decode_block(
+            p, cfg, x, {"k": kv["k"][i], "v": kv["v"][i], "pos": pos},
+            n_valid=n_valid)
+
+    def mix(p, x, c):
+        return L.mamba_decode_block(p, cfg, x, c, n_valid=n_valid)
+
+    def mamba_in(i):
+        m = cache["mamba"]
+        return {"conv": torch.where(reset[:, None, None], 0, m["conv"][i]),
+                "state": torch.where(reset[:, None, None, None], 0,
+                                     m["state"][i])}
+
+    h = _step_layers(params, cfg, cache, h, attend, mix, mamba_in)
     cache["pos"].copy_(pos + n_valid)
-    last = torch.clamp(n_valid - 1, min=0)
-    h_last = h.gather(1, last[:, None, None].expand(b, 1, h.shape[-1]))
-    h_last = rmsnorm(h_last, params["final_norm"], cfg.norm_eps, cfg.policy)
-    return unembed(h_last, _head(params, cfg))[:, 0], cache
+    return _last_logits(params, cfg, h, n_valid), cache
 
 
 def _snap_plan(reset: torch.Tensor, load: torch.Tensor,
@@ -400,64 +520,58 @@ def lm_decode_block_paged(params, cfg: L.ModelConfig, cache, batch, *,
 
     ``page`` carries the host manager's plan of the tick
     (``serving/kvpool.py``): ``reset_pos`` (B,), the start position of each
-    reset slot (> 0 when a shared prefix is skipped). Dense and moe add
-    ``tables``
-    (B, MP), the block tables, and ``kv_src``, ``kv_dst``: the copy-on-write
-    page copies (:func:`repro_torch.serving.kvpool.cow_pairs`), applied to
-    every layer's pool in place before the layers. Where the reference
-    gathers the whole pool through its ``kv_copy`` (identity but where a
-    fresh page reads its source), the pairs copy only those pages; the
-    result is the same. Ssm adds ``snap_save`` and ``snap_load`` (B,):
-    snapshot pages to save the slot's pre-tick state into, and to load a
-    reset slot's state from (-1: none). The cache is updated in place;
-    returns (logits (B, vocab) after each slot's last valid token, cache)."""
+    reset slot (> 0 when a shared prefix is skipped). A KV pool (dense, vlm,
+    moe, hybrid) adds ``tables`` (B, MP), the block tables, and ``kv_src``,
+    ``kv_dst``: the copy-on-write page copies
+    (:func:`repro_torch.serving.kvpool.cow_pairs`), applied to every KV
+    layer's pool in place before the layers. Where the reference gathers
+    the whole pool through its ``kv_copy`` (identity but where a fresh page
+    reads its source), the pairs copy only those pages; the result is the
+    same. Mamba layers (ssm, hybrid) add ``snap_save`` and ``snap_load``
+    (B,): snapshot pages to save the slot's pre-tick state into, and to
+    load a reset slot's state from (-1: none), planned once for every
+    layer before the layers. The cache is updated in place; returns (logits
+    (B, vocab) after each slot's last valid token, cache)."""
     _require_ported(cfg)
     tokens = batch["tokens"]
-    b, t_len = tokens.shape
     dev = tokens.device
     n_valid = torch.as_tensor(n_valid, device=dev).long()
     reset = torch.as_tensor(reset_mask, device=dev).bool()
     pos = torch.where(reset, torch.as_tensor(page["reset_pos"], device=dev),
                       cache["pos"])
     h = embed_tokens(params["embed"], tokens)                # (B, T, d)
-    if cfg.family in ATTN_FAMILIES:
-        k, v = cache["attn"]["k"], cache["attn"]["v"]
+    kv, tables, conv0, plan = cache.get("attn"), None, None, None
+    if kv is not None:
         src = torch.as_tensor(page["kv_src"], device=dev).long().reshape(-1)
         dst = torch.as_tensor(page["kv_dst"], device=dev).long().reshape(-1)
-        for c in (k, v):
+        for c in kv.values():
             c.index_copy_(1, dst, c.index_select(1, src))
         tables = torch.as_tensor(page["tables"], device=dev).long()
-        for i, lp in enumerate(params["blocks"]):
-            a_in = rmsnorm(h, lp["ln1"], cfg.norm_eps, cfg.policy)
-            h = h + L.attn_decode_paged(
-                lp["attn"], cfg, a_in, {"k": k[i], "v": v[i], "pos": pos},
-                n_valid=n_valid, tables=tables)
-            m_in = rmsnorm(h, lp["ln2"], cfg.norm_eps, cfg.policy)
-            h = h + _ffn(lp, cfg, m_in)[0]
-    else:
-        conv, state = cache["mamba"]["conv"], cache["mamba"]["state"]
-        snap = cache["snap"]
+    if cfg.family in STATE_FAMILIES:
         plan = _snap_plan(
             reset, torch.as_tensor(page["snap_load"], device=dev).long(),
             torch.as_tensor(page["snap_save"], device=dev).long())
         # the conv histories are small: every layer's at once; the states
         # layer by layer, where one layer's stays in L2
-        conv0 = _snap_io(conv, snap["conv"], plan, dim=1)
-        for i, lp in enumerate(params["blocks"]):
-            m_in = rmsnorm(h, lp["ln"], cfg.norm_eps, cfg.policy)
-            out, c = L.mamba_decode_block(
-                lp["mamba"], cfg, m_in,
-                {"conv": conv0[i],
-                 "state": _snap_io(state[i], snap["state"][i], plan)},
-                n_valid=n_valid)
-            conv[i].copy_(c["conv"])
-            state[i].copy_(c["state"])
-            h = h + out
+        conv0 = _snap_io(cache["mamba"]["conv"], cache["snap"]["conv"], plan,
+                         dim=1)
+
+    def attend(p, x, i):
+        return L.attn_decode_paged(
+            p, cfg, x, {"k": kv["k"][i], "v": kv["v"][i], "pos": pos},
+            n_valid=n_valid, tables=tables)
+
+    def mix(p, x, c):
+        return L.mamba_decode_block(p, cfg, x, c, n_valid=n_valid)
+
+    def mamba_in(i):
+        return {"conv": conv0[i],
+                "state": _snap_io(cache["mamba"]["state"][i],
+                                  cache["snap"]["state"][i], plan)}
+
+    h = _step_layers(params, cfg, cache, h, attend, mix, mamba_in)
     cache["pos"].copy_(pos + n_valid)
-    last = torch.clamp(n_valid - 1, min=0)
-    h_last = h.gather(1, last[:, None, None].expand(b, 1, h.shape[-1]))
-    h_last = rmsnorm(h_last, params["final_norm"], cfg.norm_eps, cfg.policy)
-    return unembed(h_last, _head(params, cfg))[:, 0], cache
+    return _last_logits(params, cfg, h, n_valid), cache
 
 
 def build_lm(cfg: L.ModelConfig) -> Bundle:

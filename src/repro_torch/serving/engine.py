@@ -20,8 +20,9 @@ Continuous scheduler (counterpart of ``repro.serving.engine``'s default):
 slot through block tables, prompt prefixes shared page by page (a shared
 slot starts at the shared length and skips those prefill ticks),
 copy-on-write of a shared page before a divergent write, admission deferred
-under pool pressure, and for the ssm family a pool of state snapshots that a
-request extending a registered prompt loads instead of prefilling it. The
+under pool pressure, and for the ssm and hybrid families a pool of state
+snapshots that a request extending a registered prompt loads instead of
+prefilling it. The
 host manager plans each tick; the plan is more inputs of the same step.
 
 On a CUDA device each step shape is captured once in a ``torch.cuda.

@@ -66,12 +66,9 @@ from typing import Any
 import numpy as np
 
 from repro_torch.kernels.layout import KV_PAGE_ROW_MULTIPLE, KV_PAGE_ROWS
-from repro_torch.obs import runtime as _obs
-
 # families with a paged attention KV pool / with SSM conv+state snapshots
-# (the reference's lists; dense, moe and ssm are ported)
-KV_FAMILIES = ("dense", "vlm", "moe", "hybrid")
-STATE_FAMILIES = ("ssm", "hybrid")
+from repro_torch.models.lm import KV_FAMILIES, STATE_FAMILIES
+from repro_torch.obs import runtime as _obs
 
 __all__ = ["KV_PAGE_ROWS", "PagePool", "PrefixTrie", "PagedKVManager",
            "cow_pairs", "validate_page_rows"]

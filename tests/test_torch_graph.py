@@ -17,13 +17,15 @@ import torch
 from repro_torch.configs import llama3_2_1b as tllama
 from repro_torch.configs import mamba2_1_3b as tmamba
 from repro_torch.configs import qwen3_moe_235b_a22b as tqwen
+from repro_torch.configs import zamba2_2_7b as tzamba
 from repro_torch.kernels import ops as kops
 from repro_torch.models import build_lm
 from repro_torch.models.common import init_params
+from repro_torch.models.lm import n_groups
 from repro_torch.serving import Request, ServeConfig, ServingEngine
 
 CONFIGS = {"llama": tllama.SMOKE, "mamba": tmamba.SMOKE,
-           "qwen3": tqwen.SMOKE}
+           "qwen3": tqwen.SMOKE, "zamba2": tzamba.SMOKE}
 
 
 @pytest.fixture
@@ -32,6 +34,12 @@ def cuda():
         pytest.skip("needs an NVIDIA Hopper card; the block step's CUDA "
                     "graph and its RMSNorm kernel have no CPU mode")
     return torch.device("cuda")
+
+
+def rmsnorms_a_step(cfg):
+    """RMSNorm launches of one step: two a layer and the final norm, and
+    the hybrid's shared block two a use."""
+    return 2 * cfg.n_layers + 2 * n_groups(cfg) + 1
 
 
 def clone_tree(tree):
@@ -83,7 +91,7 @@ def test_graph_replay_matches_eager_step(arch, cuda):
     replay counts its RMSNorm and scan launches, which their wrappers
     cannot."""
     eng = engine_after_mixed_run(arch, cuda)
-    norms = 2 * eng.bundle.cfg.n_layers + 1
+    norms = rmsnorms_a_step(eng.bundle.cfg)
     # an MoE layer's capacity offsets: one tcu_scan.cu launch
     scans = eng.bundle.cfg.n_layers if eng.bundle.cfg.family == "moe" else 0
     rng = np.random.default_rng(3)
@@ -127,7 +135,7 @@ def test_paged_graph_replay_matches_eager_step(arch, cuda):
     and cache."""
     eng = engine_after_mixed_run(arch, cuda, "paged")
     kv = eng._kv
-    norms = 2 * eng.bundle.cfg.n_layers + 1
+    norms = rmsnorms_a_step(eng.bundle.cfg)
     # an MoE layer's capacity offsets: one tcu_scan.cu launch
     scans = eng.bundle.cfg.n_layers if eng.bundle.cfg.family == "moe" else 0
     rng = np.random.default_rng(3)

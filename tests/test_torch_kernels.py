@@ -343,6 +343,8 @@ def assert_ssd_close(ins, dtype):
     (2, 100, 4, 16, 2, 8),        # N = 8 and P = 16 padded up to the tile
     (2, 130, 4, 64, 2, 128),      # G = 2 with H = 4
     (1, 4096, 8, 64, 1, 128),     # a 64-chunk chain through the ring
+    (2, 468, 80, 64, 1, 64),      # zamba2's served wave: H = 80, N = 64
+    (2, 512, 80, 64, 1, 64),      # zamba2's train step: whole chunks
 ])
 def test_ssd_mma_instance_matches_plain(cuda, shape, dtype):
     before = kops.instance_counts().get(("ssd_scan", "mma"), 0)
@@ -463,13 +465,17 @@ def test_rmsnorm_kernel_matches_plain(cuda, d, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("w_f32", [False, True])
-@pytest.mark.parametrize("d", [8, 100, 2048, 4096, 20000])
-@pytest.mark.parametrize("rows", [1, 4, 33, 527, 528, 1872])
+@pytest.mark.parametrize("d", [8, 100, 2048, 2560, 4096, 5120, 8192, 20000])
+@pytest.mark.parametrize("rows", [1, 4, 33, 64, 527, 528, 1872, 2048])
 def test_rmsnorm_kernel_at_each_threads_per_row(cuda, rows, d, w_f32):
     """bf16 rows on both sides of the warp-per-row / block-per-row switch
     (527 and 528 rows), at widths that fill whole 16-byte vectors (2048,
     4096), a part of one (8), none evenly (100), and more than a block's
-    registers hold (20000, streamed), with the weight in bf16 or f32.
+    registers hold (20000, streamed), with the weight in bf16 or f32;
+    2560 (zamba2's residual width, its rows split unevenly in 16-byte
+    vectors), 5120 (zamba2's shared-block and inner norms) and 8192
+    (internvl2's width) at the rows they are served and trained at (4, 64,
+    1872, 2048).
     Tolerance: the output rounds once to bf16 on both sides."""
     g = torch.Generator(device=cuda).manual_seed(rows * d)
     x = torch.randn(rows, d, generator=g, device=cuda).to(torch.bfloat16)
@@ -538,6 +544,8 @@ def assert_attention_close(q, k, v, got, **kw):
     ((2, 200, 200, 4, 2, 16), True, None),      # D below the 64 instance
     ((2, 200, 200, 4, 2, 48), True, None),
     ((2, 130, 130, 4, 1, 96), True, None),      # D below the 128 instance
+    ((2, 468, 468, 32, 32, 80), True, None),    # zamba2's shared block
+    ((2, 512, 512, 32, 32, 80), True, None),    # ... in its train step
     ((2, 40, 40, 4, 2, 64), True, None),        # Lk below one KV tile
     ((3, 1, 300, 8, 2, 64), True, None),        # one query row
     ((1, 2048, 2048, 4, 1, 64), True, 256),     # long, windowed

@@ -101,11 +101,11 @@ def test_several_waves_and_budgets_identical_to_jax(ref_weights):
 
 
 def test_unported_scheduler_names_the_roadmap():
-    """The continuous scheduler and its paged KV pool are ported; the paged
-    cache of the hybrid family waits for that family, and the wave
+    """The continuous scheduler and its paged KV pool are ported; the
+    cache of the encdec family waits for that family, and the wave
     scheduler takes no paged cache, as in the reference."""
     assert ServeConfig(cache_kind="paged").cache_kind == "paged"
-    cfg = dataclasses.replace(tllama.SMOKE, family="hybrid")
+    cfg = dataclasses.replace(tllama.SMOKE, family="encdec")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lm_cache_pspec(cfg, 2, 32, per_slot_pos=True, kind="paged",
                        pool_pages=4, page_rows=16, state_pages=2)
