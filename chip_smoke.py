@@ -25,21 +25,27 @@ Phases:
    ``policy="ssd=tile_logdepth"``, random weights from seed 0, to four
    requests of up to 512 prompt tokens, 16 new
    tokens each; then the MoE family at its published widths with its
-   depth cut to fit the card (``MOE_LAYERS``): qwen3-moe-235b-a22b at 4 of
+   depth cut to fit the card (``CUTS``): qwen3-moe-235b-a22b at 4 of
    94 layers (11.20 B parameters) and grok-1-314b at 2 of 64 (11.45 B);
    then the hybrid zamba2-2.7b whole (54 Mamba-2 layers, the shared
-   attention block after every 6th, 2.44 B). Each serve run must show the
+   attention block after every 6th, 2.44 B); then the last dense configs:
+   internlm2-20b whole (48 layers, 19.86 B, 39.7 GB in bf16), deepseek-67b
+   at its published widths cut to 4 of 95 layers (``CUTS``, 4.45 B) and
+   h2o-danube-3-4b whole (24 layers, head dim 120, a sliding window of
+   4096 that the served prompts stay inside). Each serve run must show the
    launches ``forward_launches`` gives its family: its layer kernel once
    per layer per prefill (48 SSD, 16 flash-attention, 48 local SSD
    launches, and no linear SSD launch in the log-depth run; zamba2 54 SSD
    and 9 flash attention, one a use of the shared block), every SSD launch
    on the tensor-core instance of the chunk body (the served type is
    bf16), 2 x layers + 2 x shared-block uses + 1 RMSNorm launches per
-   forward (97, 33, 127), and for MoE one ``tcu_scan`` launch (the
-   capacity offsets) per MoE layer per forward.
+   forward (97, 33, 127; internlm2 97, deepseek 9, danube 49), and for MoE
+   one ``tcu_scan`` launch (the capacity offsets) per MoE layer per
+   forward.
    Each prefill's last-token logits, and the logits of two decode steps
    from its cache, are held against the same model on the kernels' plain
-   versions (MoE: its first ``PARITY_LAYERS`` layers, the served model
+   versions (a model whose f32 copy passes ``F32_GATE_BYTES``, as the MoE
+   cuts and internlm2: its first ``PARITY_LAYERS`` layers, the served model
    freed before their f32 copy; the tokens whose top-k experts differ
    between the two paths are printed), and its
    device time is split by kind of kernel with ``torch.profiler``, and the
@@ -55,7 +61,9 @@ Phases:
    ``torch.cumsum``'s bit for bit, and ``guard_contiguous`` inside a CUDA
    graph's capture (NaN for unsorted ids, no host read).
    Then the continuous scheduler (the default): mamba2-1.3b FULL,
-   llama3.2-1b FULL, qwen3-moe (4 layers) and zamba2-2.7b FULL, 8 requests
+   llama3.2-1b FULL, qwen3-moe (4 layers), zamba2-2.7b FULL and
+   h2o-danube-3-4b FULL (its ring 1024 rows a slot, inside its window), 8
+   requests
    of up to 512 prompt tokens and 16 new
    tokens each on 4 slots, chunks of 16, every tick one block step
    replayed from a CUDA graph. A warm-up request of the same capacity
@@ -67,18 +75,20 @@ Phases:
    and one T = 1 tick from the graph are held against the eager step on a
    clone of the cache (the same argmax for every active slot);
    ``torch.profiler`` over a replayed tick must show the RMSNorm kernel as
-   many times (97, 33, 127; the largest count of three profiled ticks,
+   many times (97, 33, 127, 49; the largest count of three profiled ticks,
    as the profiler may drop a record) and splits its device time by kind. In
    f32, each request's first-token logits are held against its
    ``prefill_last`` alone (B = 1, on the kernels) and the engine on the
    kernels against the same engine on the plain versions, both within
-   1e-3 of the largest logit (MoE: at its first ``PARITY_LAYERS`` layers).
+   1e-3 of the largest logit (MoE: at its first ``PARITY_LAYERS`` layers,
+   ``gate_depth``).
    Printed: tok/s, TTFT, ticks by T, host ms a tick, device ms a tick by
    kind, the idle share of the T = 1 ticks, the capture time, peak memory,
    a T = 1 tick alone, graphed and eager, and the parameter bytes a tick
    reads over the card's memory rate.
    Then the paged KV pool (``cache_kind="paged"``, pages of 16 rows, 64 a
-   slot at capacity 1024), FULL, bf16, 4 slots, chunks of 16: the four
+   slot at capacity 1024; h2o-danube's window rounds to 4096 rows, above
+   that), FULL, bf16, 4 slots, chunks of 16: the five
    models serve the continuous runs' 8 requests, whose tokens must equal those
    ring runs', with no capture in the measured run and a forward's RMSNorm
    kernels a replayed tick; the largest logit difference from the
@@ -112,34 +122,52 @@ Phases:
    trace must hold one ``serving/block_step`` range a tick and RMSNorm
    kernel records. Printed: the T = 1 tick's host ms in each of the three
    runs, beside the card's name and power limit.
-   Then internvl2-76b at its published widths cut to ``VLM_LAYERS`` (4 of
-   80 layers, 5.55 B parameters): ``prefill_last`` on the wave's 4 prompts
-   behind a random stub prefix of 256 x 3200, then 15 decode steps, with
-   the launches of ``forward_launches`` (RMSNorm 9 and flash attention 4 a
-   prefill, RMSNorm 9 a step), finite logits, the prefill timed on the
-   kernels and the plain versions and a decode step on the host clock;
-   then, the bf16 model freed, the f32 logits of the prefill and two
-   decode steps at ``PARITY_LAYERS`` layers, kernels against plain
+   Then h2o-danube-3-4b whole on one prompt of 6144 tokens, past its
+   window of 4096 (``window_pass``): ``prefill_last`` (flash attention at
+   L = 6144, D = 120, with the window), the ring of 4096 rows it leaves,
+   then 15 decode steps on that ring, launches gated, the prefill timed
+   on the kernels and the plain versions; in f32 at ``PARITY_LAYERS``
+   layers each step's logits within 1e-3 of the largest of the
+   teacher-forced forward over the longer sequence.
+   Then the models whose prefill takes a frontend's output
+   (``FRONTENDS``), driven through ``prefill_last`` and ``decode`` as the
+   wave scheduler cannot (it has no stub or frames to pass):
+   internvl2-76b at its published widths cut to 4 of 80 layers (5.55 B
+   parameters) behind a random stub prefix of 256 x 3200, and the
+   encoder-decoder seamless-m4t-medium whole (12 + 12 layers, 0.98 B) on
+   random frames of 4 x 512 x 1024: ``prefill_last`` on the wave's 4
+   prompts, the cache grown by 15 rows, then 15 greedy decode steps, with
+   the launches of ``forward_launches`` (internvl2: RMSNorm 9 and flash
+   attention 4 a prefill, RMSNorm 9 a step; seamless: RMSNorm 62 and flash
+   attention 36 a prefill, 12 of them the encoder's and 12 the
+   cross-attention's, both without a causal mask, and RMSNorm 37 a step),
+   finite logits, the prefill timed on the kernels and the plain versions
+   and a decode step on the host clock; then, the bf16 model freed, the
+   f32 logits of the prefill and two decode steps (internvl2 at
+   ``PARITY_LAYERS`` layers, seamless whole), kernels against plain
    versions within 1e-3 of the largest logit.
    Then training (``repro_torch.training``, outside inference mode):
-   mamba2-1.3b and llama3.2-1b FULL and zamba2-2.7b at its full widths cut
+   mamba2-1.3b and llama3.2-1b FULL, zamba2-2.7b at its full widths cut
    to 12 of 54 layers (``TRAIN_LAYERS``: two uses of the shared block,
-   0.77 B parameters), bf16 compute, f32 master weights,
+   0.77 B parameters) and seamless-m4t-medium whole (zero frames of 4 x
+   512 beside the tokens, as the reference's train CLI feeds), bf16
+   compute, f32 master weights,
    AdamW at the reference's ``OptConfig`` defaults, remat ``none``, batches
    of 4 x 512 from ``SyntheticLMPipeline(seed=0)``. 8 steps on one fixed
    batch (every loss finite, the last below the first), then 6 timed steps
    on the pipeline's batches (prefetch thread), each run with its launch
    counts from 0 and gated per step (``train_launches``): RMSNorm 2L + 2G
    + 1 forward and 2L again in the recompute of each layer (the shared
-   block is not recomputed), flash attention (llama) or the SSD (mamba,
-   zamba2; every launch on the tensor-core instance) twice a layer, and
+   block is not recomputed; seamless 2 (2E + 3D) + 2), flash attention
+   (llama; seamless's three kinds) or the SSD (mamba, zamba2; every launch
+   on the tensor-core instance) twice a layer, and
    flash attention once a use of zamba2's shared block, ``tcu_reduce``
    once per parameter leaf (the global norm), no other kernel. Printed:
    step host ms (median, range; synchronised), tok/s, one step's device ms
    by kind from ``torch.profiler`` and the idle share, peak GB, and the
    global norm's ``tcu_reduce`` over the real leaves against ``torch.sum``.
-   In f32 at 2 layers (zamba2: 6, one group; full width): one step on the
-   kernels against the
+   In f32 at 2 layers (zamba2: 6, one group; seamless 2 + 2, on random
+   frames; full width): one step on the kernels against the
    same step under ``policy="baseline"`` (loss rtol 1e-4, grad_norm rtol
    1e-3, gradients and params per leaf against the leaf's largest; see
    ``update_gate``), then the state checkpointed and restored bit for bit
@@ -148,10 +176,14 @@ Phases:
    path's shapes (the reduce and scan at 2^24 elements from 2^20 rows of 16
    to one row, the reduce also on the global norm's largest rows, RMSNorm also at the served decode and prefill shapes,
    the continuous T = 16 tick's 64 rows, the MoE widths 4096 and 6144,
-   zamba2's 5120 and internvl2's 8192,
+   zamba2's 5120, internvl2's and deepseek's 8192, seamless's 1024 and
+   h2o-danube's 3840 (6144 rows: its long prompt),
    flash attention also on its D = 128 instance, at the MoE waves'
-   heads, at zamba2's D = 80 and at internvl2's stub and prompts, the scan
-   also on the MoE router's (groups, experts) counts,
+   heads, at zamba2's D = 80, at internvl2's stub and prompts, at
+   deepseek's 64 / 8 heads, at seamless's encoder and cross-attention
+   (no causal mask, Lq 468 against Lk 512) and at h2o-danube's D = 120,
+   the wave and the 6144-token prompt with its window (each also in
+   f32), the scan also on the MoE router's (groups, experts) counts,
    bit for bit, the SSD scan also at the
    served waves (mamba2, zamba2's 80 heads and N = 64) and on a 64-chunk
    chain, the weighted scan from 65536 rows
@@ -553,16 +585,20 @@ def rmsnorm_cases(torch, kops, ref, gen):
 
     out = []
     # the ops pass's shapes, then the served ones: a decode step's 4 rows
-    # (llama d 2048, mamba's inner norm and qwen3-moe d 4096, grok-1 d 6144,
-    # zamba2's residual d 2560 and its shared-block and inner norms d 5120,
-    # internvl2 d 8192; the continuous T = 1 tick), the continuous T = 16
+    # (llama d 2048, mamba's inner norm and qwen3-moe d 4096, grok-1 and
+    # internlm2 d 6144, zamba2's residual d 2560 and its shared-block and
+    # inner norms d 5120, internvl2 and deepseek d 8192, seamless d 1024,
+    # h2o-danube d 3840; the continuous T = 1 tick), the continuous T = 16
     # tick's 64 rows, the wave prefill's 1872 rows (4 x 468), internvl2's
-    # 2896 (4 x (256 + 468)) and zamba2's train step's 2048 (4 x 512)
+    # 2896 (4 x (256 + 468)), the train steps' and seamless's encoder's
+    # 2048 (4 x 512) and h2o-danube's long prompt's 6144
     for rows, d in ((2048, 2048), (2048, 4096), (4, 2048), (4, 4096),
                     (64, 2048), (64, 4096), (1872, 2048), (1872, 4096),
                     (4, 6144), (1872, 6144), (1872, 2560), (4, 2560),
                     (64, 2560), (2048, 2560), (1872, 5120), (4, 5120),
-                    (64, 5120), (2048, 5120), (4, 8192), (2896, 8192)):
+                    (64, 5120), (2048, 5120), (4, 8192), (2896, 8192),
+                    (1872, 8192), (2048, 1024), (1872, 1024), (4, 1024),
+                    (1872, 3840), (6144, 3840), (4, 3840), (64, 3840)):
         x = torch.randn(rows, d, generator=gen, device="cuda").to(
             torch.bfloat16)
         w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(
@@ -607,7 +643,7 @@ def attention_gate(kops, q, k, v, causal, window):
     once, and the kernel also rounds P before P V, which puts it at 1.0 to
     1.35 times the plain version's distance (CPU emulation over the test
     shapes). f32: within 1e-4; three-part bf16 operands and f32 sums leave
-    3e-5 on an H100."""
+    2e-5 on an H100, over 468 keys a row or 4096."""
     def plain(*ts):
         return kops.attention_plain(*ts, causal=causal, window=window)
 
@@ -644,7 +680,25 @@ def attention_cases(torch, kops, gen):
             (4, 468, 468, 32, 32, 80, True, None, torch.bfloat16, False),
             (4, 512, 512, 32, 32, 80, True, None, torch.bfloat16, False),
             (4, 724, 724, 64, 8, 128, True, None, torch.bfloat16, False),
-            (1, 100, 1000, 4, 2, 64, True, None, torch.float32, False)):
+            (1, 100, 1000, 4, 2, 64, True, None, torch.float32, False),
+            # deepseek-67b's wave (64 / 8 heads of 128)
+            (4, 468, 468, 64, 8, 128, True, None, torch.bfloat16, False),
+            # seamless-m4t: the encoder over 512 frames and the decoder's
+            # cross-attention from the 468-token wave over them, both
+            # without a causal mask, then the decoder's self-attention
+            # (16 / 16 heads) at the wave and in the train step
+            (4, 512, 512, 16, 16, 64, False, None, torch.bfloat16, False),
+            (4, 468, 512, 16, 16, 64, False, None, torch.bfloat16, False),
+            (4, 468, 468, 16, 16, 64, True, None, torch.bfloat16, False),
+            (4, 512, 512, 16, 16, 64, True, None, torch.bfloat16, False),
+            # h2o-danube's head dim 120 (the D = 128 instance, 8 columns of
+            # zero fill): the served wave, and the long prompt past its
+            # window of 4096; both also on the f32 instance (its f32 logit
+            # gates), whose 16-column wmma tiles take D = 120 zero-padded
+            (4, 468, 468, 32, 8, 120, True, None, torch.bfloat16, False),
+            (1, 6144, 6144, 32, 8, 120, True, 4096, torch.bfloat16, False),
+            (4, 468, 468, 32, 8, 120, True, None, torch.float32, False),
+            (1, 6144, 6144, 32, 8, 120, True, 4096, torch.float32, False)):
         def rn(*shape):
             return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
@@ -652,13 +706,14 @@ def attention_cases(torch, kops, gen):
                                                                dh)
         # the library call: torch's SDPA in its (B, H, S, D) layout, with
         # the same mask (bottom-right aligned, window) where is_causal's
-        # top-left alignment or the window differ; K/V repeated outside the
-        # timed call where this torch has no enable_gqa
+        # top-left alignment or the window differ, and none without a
+        # causal mask or a window; K/V repeated outside the timed call where
+        # this torch has no enable_gqa
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         if not gqa:
             kt, vt = (t.repeat_interleave(hq // hkv, dim=1) for t in (kt, vt))
         mask = None
-        if lq != lk or window is not None:
+        if (causal and lq != lk) or window is not None:
             qpos = torch.arange(lq, device="cuda")[:, None] + (lk - lq)
             kpos = torch.arange(lk, device="cuda")[None, :]
             mask = kpos <= qpos if causal else torch.ones_like(kpos > qpos)
@@ -1184,31 +1239,41 @@ SERVED = (("mamba2-1.3b", None, "ssd_scan", "matmul_local_ssd"),
           ("grok-1-314b", None, "flash_attention", None),
           # the whole model: flash attention in each use of the shared block
           # is gated beside the SSD by forward_launches
-          ("zamba2-2.7b", None, "ssd_scan", "matmul_local_ssd"))
-# the MoE models at their published widths with their depth cut: qwen3-moe's
-# 94 layers of 2.488 B parameters are 468 GB in bf16, grok-1's 64 of 4.92 B
-# 630 GB, and one card holds 80 GB
-MOE_LAYERS = {"qwen3-moe-235b-a22b": 4, "grok-1-314b": 2}
+          ("zamba2-2.7b", None, "ssd_scan", "matmul_local_ssd"),
+          # the last dense configs: internlm2-20b whole (39.7 GB in bf16),
+          # deepseek-67b cut (CUTS), h2o-danube-3-4b whole (head dim 120 and
+          # its window of 4096, which the served prompts stay inside)
+          ("internlm2-20b", None, "flash_attention", None),
+          ("deepseek-67b", None, "flash_attention", None),
+          ("h2o-danube-3-4b", None, "flash_attention", None))
+# the models served at their published widths with their depth cut to fit
+# the card's 80 GB: qwen3-moe's 94 layers of 2.488 B parameters are 468 GB
+# in bf16, grok-1's 64 of 4.92 B 630 GB, deepseek-67b's 95 of 0.69 B 134.9 GB
+CUTS = {"qwen3-moe-235b-a22b": 4, "grok-1-314b": 2, "deepseek-67b": 4}
+# the logit gates take the served model whole where its f32 copy is at most
+# this, else its first PARITY_LAYERS layers (internlm2-20b is 79 GB in f32,
+# qwen3-moe's 4 layers 45 GB)
+F32_GATE_BYTES = 40e9
 
 
 def full_engine(serve, arch: str, **kw):
     """A serving engine of ``arch`` at its published widths, random weights
-    from seed 0: ``serve.build_engine``'s FULL, or for an MoE model its
-    recipe on the FULL config cut to ``MOE_LAYERS[arch]`` layers."""
-    if arch not in MOE_LAYERS:
+    from seed 0: ``serve.build_engine``'s FULL, or for a model in ``CUTS``
+    its recipe on the FULL config cut to ``CUTS[arch]`` layers."""
+    if arch not in CUTS:
         return serve.build_engine(arch, "full", device="cuda", seed=0, **kw)
     import torch
 
     from repro_torch import configs
-    from repro_torch.models import build_lm
+    from repro_torch.models import build
     from repro_torch.models.common import init_params
     from repro_torch.serving import ServeConfig, ServingEngine
 
     full = configs.get(arch).FULL
-    bundle = build_lm(dataclasses.replace(full, n_layers=MOE_LAYERS[arch]))
-    print(f"serve: {arch} cut to {MOE_LAYERS[arch]} of {full.n_layers} "
+    bundle = build(dataclasses.replace(full, n_layers=CUTS[arch]))
+    print(f"serve: {arch} cut to {CUTS[arch]} of {full.n_layers} "
           f"layers at its published widths: {bundle.n_params / 1e9:.2f}B of "
-          f"{build_lm(full).n_params / 1e9:.2f}B parameters "
+          f"{build(full).n_params / 1e9:.2f}B parameters "
           f"({2 * bundle.n_params / 1e9:.1f} GB in bf16)", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_params(bundle.params_pspec, gen, bundle.cfg.dtype)
@@ -1231,9 +1296,18 @@ def forward_launches(cfg, policy: str | None = None,
     or a use of the shared block, the SSD one a Mamba layer
     (``matmul_local_ssd`` under ``ssd=tile_logdepth``). A decode step and a
     continuous tick run decode attention and the SSD recurrence as torch
-    ops: RMSNorm and ``tcu_scan`` only."""
+    ops: RMSNorm and ``tcu_scan`` only. The encoder-decoder (E encoder, D
+    decoder layers): a prefill RMSNorm 2E + 1 + 3D + 1 and flash attention
+    E + 2D (the encoder's, the decoder's self- and cross-attention), a
+    decode step RMSNorm 3D + 1."""
     from repro_torch.models.lm import ATTN_FAMILIES, STATE_FAMILIES, n_groups
 
+    if cfg.family == "encdec":
+        enc, dec = cfg.enc_layers, cfg.n_layers
+        if not prefill:
+            return {"rmsnorm": 3 * dec + 1, "tcu_scan": 0}
+        return {"rmsnorm": 2 * enc + 3 * dec + 2, "tcu_scan": 0,
+                "flash_attention": enc + 2 * dec, "ssd_scan": 0}
     layers, groups = cfg.n_layers, n_groups(cfg)
     out = {"rmsnorm": 2 * layers + 2 * groups + 1,
            "tcu_scan": moe_layers(cfg)}
@@ -1247,11 +1321,20 @@ def forward_launches(cfg, policy: str | None = None,
 
 
 def gate_depth(cfg) -> int:
-    """The depth the logit gates run at: the whole model, or for MoE
-    ``PARITY_LAYERS`` of its layers, whose f32 copy fits beside nothing
-    else (qwen3-moe's 2 layers are 24.9 GB in f32)."""
-    return min(cfg.n_layers, PARITY_LAYERS) if moe_layers(cfg) else \
-        cfg.n_layers
+    """The depth the logit gates run at: the whole model where its f32 copy
+    takes at most ``F32_GATE_BYTES``, else its first ``PARITY_LAYERS``
+    layers, whose f32 copy fits beside nothing else (qwen3-moe's 2 layers
+    are 24.9 GB in f32)."""
+    from repro_torch.models import build
+
+    if 4 * build(cfg).n_params <= F32_GATE_BYTES:
+        return cfg.n_layers
+    return min(cfg.n_layers, PARITY_LAYERS)
+
+
+def first_layers(params, depth: int):
+    """The parameters of a decoder-only model's first ``depth`` layers."""
+    return dict(params, blocks=params["blocks"][:depth])
 
 
 @contextlib.contextmanager
@@ -1310,9 +1393,9 @@ def as_dtype(batch, dtype):
 def prefill_fn(cfg, batch, path, dtype, params, depth=None):
     """One ``prefill_last`` of ``cfg`` under ``path`` in ``dtype`` at
     ``depth`` layers (all by default): its last-token logits in f32."""
-    from repro_torch.models import build_lm
+    from repro_torch.models import build
 
-    bundle = build_lm(dataclasses.replace(
+    bundle = build(dataclasses.replace(
         cfg, policy=path, dtype=dtype, n_layers=depth or cfg.n_layers))
     batch = as_dtype(batch, dtype)
     return lambda: bundle.prefill_last(params, batch)[0].float()
@@ -1351,12 +1434,17 @@ def decode_timing(smoke: Smoke, bundle, params, batch, tag: str,
                   n_steps: int = 15, n_prof: int = 5) -> dict:
     """Decode steps from the prefill of ``batch``, each on the host clock,
     against the device time of their kernels: the card's idle share during
-    decode."""
+    decode. The cache grows by a row a step, but never past a sliding
+    window: a ring of the window's rows takes every position."""
     from repro_torch.models.lm import pad_cache_seq
 
     torch = smoke.torch
     _, cache = bundle.prefill_last(params, batch)
-    cache = pad_cache_seq(cache, 1 + n_steps + n_prof)
+    grow, window = 1 + n_steps + n_prof, bundle.cfg.swa_window
+    if window is not None and "attn" in cache:
+        rows = cache["attn"]["k"].shape[2]
+        grow = max(0, min(rows + grow, window) - rows)
+    cache = pad_cache_seq(cache, grow)
     step = {"tokens": batch["tokens"][:, -1:]}
 
     def decode():
@@ -1399,7 +1487,7 @@ def logit_gates(smoke: Smoke, cfg, box: list, batch, policy: str | None,
     before their f32 copy is made) and in f32, and the f32 logits of two
     decode steps from the prefill's cache. Fails the run where they
     disagree."""
-    from repro_torch.models import build_lm
+    from repro_torch.models import build
     from repro_torch.models.common import cast_tree
     from repro_torch.models.lm import pad_cache_seq
 
@@ -1409,7 +1497,7 @@ def logit_gates(smoke: Smoke, cfg, box: list, batch, policy: str | None,
     def decoded(path, params, steps=2):
         """Logits of ``steps`` f32 decode steps from the prefill's cache:
         the state handed from prefill to decode is in them."""
-        bundle = build_lm(dataclasses.replace(
+        bundle = build(dataclasses.replace(
             cfg, policy=path, dtype=torch.float32, n_layers=depth))
         _, cache = bundle.prefill_last(params, as_dtype(batch, torch.float32))
         cache = pad_cache_seq(cache, steps)
@@ -1565,11 +1653,11 @@ def serve_pass(smoke: Smoke, serve, kops, arch: str, policy: str | None,
         f"prefill-{arch}-{policy or 'tile'}".replace("=", "_")))
     stats.update(decode_timing(smoke, engine.bundle, engine.params, batch,
                                "serve"))
-    # the logit gates, at gate_depth (the served model, or MoE's first
-    # PARITY_LAYERS layers), on the served weights; the engine is freed
-    # before the f32 copy is made
+    # the logit gates, at gate_depth (the served model, or the first
+    # PARITY_LAYERS layers of one whose f32 copy does not fit), on the served
+    # weights; the engine is freed before the f32 copy is made
     depth = gate_depth(cfg)
-    box = [dict(engine.params, blocks=engine.params["blocks"][:depth])]
+    box = [first_layers(engine.params, depth)]
     del engine
     stats.update(logit_gates(smoke, cfg, box, batch, policy, depth, "serve"))
     return stats
@@ -1578,7 +1666,7 @@ def serve_pass(smoke: Smoke, serve, kops, arch: str, policy: str | None,
 # the continuous scheduler's runs: the reference's default serving path,
 # every tick one block step replayed from a CUDA graph
 CONTINUOUS = ("mamba2-1.3b", "llama3.2-1b", "qwen3-moe-235b-a22b",
-              "zamba2-2.7b")
+              "zamba2-2.7b", "h2o-danube-3-4b")
 
 
 def clone_tree(tree):
@@ -1887,14 +1975,12 @@ def continuous_pass(smoke: Smoke, serve, kops, arch: str, ring_ref: dict):
         device_ms_by_kind=split, top_kernels=top, idle_share_t1=idle,
         replay_vs_eager=replay_err, t1_tick_ms_graphed=loop["graphed"],
         t1_tick_ms_eager=loop["eager"], weight_floor=floor)
-    # f32 (MoE: its first PARITY_LAYERS layers): the engine on the kernels
+    # f32 (at gate_depth): the engine on the kernels
     # against each request's prefill alone, and against the same engine on
     # the plain versions
     depth = gate_depth(cfg)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32, n_layers=depth)
-    params32 = cast_tree(dict(engine.params,
-                              blocks=engine.params["blocks"][:depth]),
-                         torch.float32)
+    params32 = cast_tree(first_layers(engine.params, depth), torch.float32)
     del engine, m, ticks
     gc.collect()
     torch.cuda.empty_cache()
@@ -1971,8 +2057,10 @@ def same_inputs(a: dict, b: dict) -> bool:
 
 # the paged KV pool: the continuous scheduler's other cache kind, on the
 # same runs, then the traffic it is for
+# (h2o-danube: the pool's window rounding runs, its 4096 rows a slot above
+# the 1024-row capacity these requests need, which stay inside the window)
 PAGED = ("mamba2-1.3b", "llama3.2-1b", "qwen3-moe-235b-a22b",
-         "zamba2-2.7b")
+         "zamba2-2.7b", "h2o-danube-3-4b")
 
 
 def warm_request(vocab: int, n: int):
@@ -2513,39 +2601,64 @@ def sampling_pass(smoke: Smoke, serve, kops):
                 launches=counts)
 
 
-# the VLM at its published widths with its depth cut: internvl2-76b's 80
-# layers and stub projection are 70.6 B parameters, 141 GB in bf16
-VLM_ARCH, VLM_LAYERS, VLM_STEPS = "internvl2-76b", 4, 15
+# the models whose prefill takes a frontend's output beside the tokens:
+# (arch, layers served (None: all), the frontend's input, the gates' depth
+# (None: all), tag). internvl2-76b at its published widths with its depth
+# cut (its 80 layers and stub projection are 70.6 B parameters, 141 GB in
+# bf16) behind a random stub prefix of 256 x 3200 patch embeddings;
+# seamless-m4t-medium whole (12 + 12 layers, 0.98 B parameters, 1.96 GB in
+# bf16, 3.9 GB in f32 for its gates) on random frames of 4 x 512 x 1024
+FRONTENDS = (("internvl2-76b", 4, "stub", 2, "vlm"),
+             ("seamless-m4t-medium", None, "frames", None, "encdec"))
+DIRECT_STEPS = 15
+ENCDEC_FRAMES = 512
 
 
-def vlm_pass(smoke: Smoke, serve, kops) -> dict:
-    """internvl2-76b at its published widths cut to ``VLM_LAYERS`` layers:
-    ``prefill_last`` on the wave's 4 prompts (left-padded) behind a random
-    stub prefix of 256 x 3200, then ``VLM_STEPS`` greedy decode steps of
-    ``Bundle.decode`` (tokens only, as the reference's), launches gated by
-    ``forward_launches``. Then the served models' timings and logit gates
-    (``prefill_timing``, ``decode_timing``, ``logit_gates``), the gates at
-    ``PARITY_LAYERS`` layers."""
+def frontend_input(torch, cfg, kind: str, gen):
+    """The frontend's output, random from ``gen``: the vlm's stub prefix
+    (4, stub_tokens, stub_dim) or the encoder-decoder's frames (4,
+    ENCDEC_FRAMES, d_model)."""
+    shape = ((4, cfg.stub_tokens, cfg.stub_dim) if kind == "stub" else
+             (4, ENCDEC_FRAMES, cfg.d_model))
+    return torch.randn(*shape, generator=gen, device="cuda").to(cfg.dtype)
+
+
+def frontend_pass(smoke: Smoke, serve, kops, arch: str, layers, kind: str,
+                  gate_layers, tag: str) -> dict:
+    """``arch`` at its published widths (cut to ``layers`` layers):
+    ``prefill_last`` on the wave's 4 prompts (left-padded) with the
+    frontend's input, then ``DIRECT_STEPS`` greedy decode steps of
+    ``Bundle.decode`` from the cache grown by that many rows (tokens only,
+    as the reference's), launches gated by ``forward_launches``. Then the
+    served models' timings and logit gates (``prefill_timing``,
+    ``decode_timing``, ``logit_gates``), the gates at ``gate_layers``
+    layers. The wave scheduler cannot serve either model (it has no stub or
+    frames to give), so the bundle is driven directly, as the reference's
+    ``bundle.prefill`` and ``bundle.decode`` serve it."""
     from repro_torch import configs
-    from repro_torch.models import build_lm
+    from repro_torch.models import build
     from repro_torch.models.common import init_params
     from repro_torch.models.lm import pad_cache_seq
 
     torch = smoke.torch
-    full = configs.get(VLM_ARCH).FULL
-    cfg = dataclasses.replace(full, n_layers=VLM_LAYERS)
-    bundle = build_lm(cfg)
-    print(f"vlm: {VLM_ARCH} cut to {VLM_LAYERS} of {full.n_layers} layers at "
-          f"its published widths: {bundle.n_params / 1e9:.2f}B of "
-          f"{build_lm(full).n_params / 1e9:.2f}B parameters "
-          f"({2 * bundle.n_params / 1e9:.1f} GB in bf16); stub "
-          f"{cfg.stub_tokens} x {cfg.stub_dim}", flush=True)
+    full = configs.get(arch).FULL
+    cfg = dataclasses.replace(full, n_layers=layers or full.n_layers)
+    bundle = build(cfg)
+    print(f"{tag}: {arch} at its published widths, {cfg.n_layers} of "
+          f"{full.n_layers} layers"
+          + (f" (and {cfg.enc_layers} encoder layers)" if cfg.enc_layers
+             else "")
+          + f": {bundle.n_params / 1e9:.3f}B of "
+          f"{build(full).n_params / 1e9:.3f}B parameters "
+          f"({2 * bundle.n_params / 1e9:.2f} GB in bf16)", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_params(bundle.params_pspec, gen, cfg.dtype)
     reqs = serve.make_requests(4, 512, cfg.vocab, seed=0)
-    stub = torch.randn(4, cfg.stub_tokens, cfg.stub_dim, generator=gen,
-                       device="cuda").to(cfg.dtype)
-    batch = {"tokens": wave_tokens(torch, reqs), "stub": stub}
+    batch = {"tokens": wave_tokens(torch, reqs),
+             kind: frontend_input(torch, cfg, kind, gen)}
+    print(f"{tag}: {kind} {tuple(batch[kind].shape)}, prompts "
+          f"{[len(r.prompt) for r in reqs]} left-padded to "
+          f"{batch['tokens'].shape[1]}", flush=True)
 
     def generate(steps):
         logits, cache = bundle.prefill_last(params, batch)
@@ -2561,33 +2674,133 @@ def vlm_pass(smoke: Smoke, serve, kops) -> dict:
     generate(1)                                     # warm-up
     torch.cuda.reset_peak_memory_stats()
     kops.reset_launches()
-    logits = generate(VLM_STEPS)
+    logits = generate(DIRECT_STEPS)
     counts = kops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     per_prefill = forward_launches(cfg)
     per_step = forward_launches(cfg, prefill=False)
-    want = {k: per_prefill.get(k, 0) + VLM_STEPS * per_step.get(k, 0)
+    want = {k: per_prefill.get(k, 0) + DIRECT_STEPS * per_step.get(k, 0)
             for k in counts}
-    print(f"vlm: prefill and {VLM_STEPS} decode steps: launches {counts}; "
-          f"peak memory {peak_gb:.2f} GB ({smi_line()})", flush=True)
+    print(f"{tag}: prefill and {DIRECT_STEPS} decode steps: launches "
+          f"{counts}; peak memory {peak_gb:.2f} GB ({smi_line()})",
+          flush=True)
     if counts != want:
-        smoke.fail(f"vlm: launches {counts}, want {want} ({per_prefill} a "
+        smoke.fail(f"{tag}: launches {counts}, want {want} ({per_prefill} a "
                    f"prefill, {per_step} a decode step)")
     if not all(bool(torch.isfinite(lg).all()) for lg in logits):
-        smoke.fail("vlm: non-finite logits")
+        smoke.fail(f"{tag}: non-finite logits")
     if tuple(logits[0].shape) != (4, 1, cfg.vocab):
-        smoke.fail(f"vlm: prefill logits of shape {tuple(logits[0].shape)}")
+        smoke.fail(f"{tag}: prefill logits of shape "
+                   f"{tuple(logits[0].shape)}")
     del logits
-    stats = dict(layers=VLM_LAYERS, n_params=bundle.n_params,
+    stats = dict(layers=cfg.n_layers, enc_layers=cfg.enc_layers,
+                 n_params=bundle.n_params,
                  prompt_lens=[len(r.prompt) for r in reqs],
                  peak_mem_gb=peak_gb, launches=counts)
-    stats.update(prefill_timing(smoke, cfg, params, batch, None, "vlm",
-                                f"prefill-{VLM_ARCH}"))
-    stats.update(decode_timing(smoke, bundle, params, batch, "vlm"))
-    box = [dict(params, blocks=params["blocks"][:PARITY_LAYERS])]
+    stats.update(prefill_timing(smoke, cfg, params, batch, None, tag,
+                                f"prefill-{arch}"))
+    stats.update(decode_timing(smoke, bundle, params, batch, tag))
+    depth = gate_layers or cfg.n_layers
+    box = [params if depth == cfg.n_layers else first_layers(params, depth)]
     del params
-    stats.update(logit_gates(smoke, cfg, box, batch, None, PARITY_LAYERS,
-                             "vlm"))
+    stats.update(logit_gates(smoke, cfg, box, batch, None, depth, tag))
+    return stats
+
+
+# h2o-danube whole on one prompt past its sliding window of 4096: the
+# prefill's flash attention at L = 6144 and D = 120 with the window, the
+# ring of 4096 rows it leaves, and decode steps on that ring
+WINDOW_ARCH, WINDOW_PROMPT, WINDOW_STEPS = "h2o-danube-3-4b", 6144, 15
+
+
+def window_pass(smoke: Smoke, kops) -> dict:
+    """``WINDOW_ARCH`` FULL, bf16: ``prefill_last`` on one prompt of
+    ``WINDOW_PROMPT`` tokens, then ``WINDOW_STEPS`` decode steps on the
+    ring it leaves (not grown), each fed the next token of a longer
+    sequence; launches gated by ``forward_launches``, the ring's rows, the
+    prefill's device time on the kernels and the plain versions, a decode
+    step on the host clock and the card's idle share (``decode_timing``).
+    Then, the bf16 model freed, the same in f32 at ``PARITY_LAYERS``
+    layers: each step's logits (and the prefill's) within 1e-3 of the
+    largest of the teacher-forced forward on the plain versions over the
+    longer sequence at that position. A wrong ring order passes every
+    prefill check and shows only here."""
+    from repro_torch import configs
+    from repro_torch.models import build
+    from repro_torch.models.common import cast_tree, init_params
+    from repro_torch.models.lm import lm_apply
+
+    torch = smoke.torch
+    cfg = configs.get(WINDOW_ARCH).FULL
+    bundle = build(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(bundle.params_pspec, gen, cfg.dtype)
+    seq = torch.randint(3, cfg.vocab, (1, WINDOW_PROMPT + WINDOW_STEPS),
+                        generator=gen, device="cuda")
+    prompt = {"tokens": seq[:, :WINDOW_PROMPT]}
+
+    def generate(b, p):
+        logits, cache = b.prefill_last(p, prompt)
+        out = [logits[:, -1].float()]
+        for i in range(WINDOW_STEPS):
+            tok = seq[:, WINDOW_PROMPT + i:WINDOW_PROMPT + i + 1]
+            logits, cache = b.decode(p, cache, {"tokens": tok})
+            out.append(logits[:, -1].float())
+        torch.cuda.synchronize()
+        return out, cache
+
+    generate(bundle, params)                        # warm-up
+    kops.reset_launches()
+    out, cache = generate(bundle, params)
+    counts = kops.launch_counts()
+    rows = cache["attn"]["k"].shape[2]
+    per_prefill = forward_launches(cfg)
+    per_step = forward_launches(cfg, prefill=False)
+    want = {k: per_prefill.get(k, 0) + WINDOW_STEPS * per_step.get(k, 0)
+            for k in counts}
+    if counts != want:
+        smoke.fail(f"window: launches {counts}, want {want}")
+    if rows != cfg.swa_window:
+        smoke.fail(f"window: the prefill left a cache of {rows} rows, want "
+                   f"the ring of {cfg.swa_window}")
+    if not all(bool(torch.isfinite(lg).all()) for lg in out):
+        smoke.fail("window: non-finite logits")
+    del out, cache
+    stats = dict(prompt=WINDOW_PROMPT, window=cfg.swa_window, ring_rows=rows,
+                 launches=counts)
+    print(f"window: {WINDOW_ARCH} whole, one prompt of {WINDOW_PROMPT} "
+          f"tokens past its window of {cfg.swa_window}: launches {counts} "
+          f"(want {want}); ring of {rows} rows ({smi_line()})", flush=True)
+    stats.update(prefill_timing(smoke, cfg, params, prompt, None, "window",
+                                f"prefill-{WINDOW_ARCH}-{WINDOW_PROMPT}"))
+    stats.update(decode_timing(smoke, bundle, params, prompt, "window",
+                               n_steps=WINDOW_STEPS))
+
+    params = cast_tree(first_layers(params, PARITY_LAYERS), torch.float32)
+    gc.collect()
+    torch.cuda.empty_cache()
+    b32 = build(dataclasses.replace(cfg, dtype=torch.float32,
+                                    n_layers=PARITY_LAYERS))
+    # the teacher-forced forward on the plain versions: the prefill's
+    # logits and the ring steps are held against a path without the kernels
+    forced = lm_apply(params, dataclasses.replace(b32.cfg, policy="baseline"),
+                      {"tokens": seq})[0][0].float()
+    want32 = forced[WINDOW_PROMPT - 1:]
+    got32 = torch.stack(generate(b32, params)[0])[:, 0]
+    err = (got32 - want32).abs().amax(-1)
+    tol = 1e-3 * want32.abs().max().item()
+    print(f"window: f32 at {PARITY_LAYERS} of {cfg.n_layers} layers, the "
+          f"prefill's last logits and {WINDOW_STEPS} ring decode steps "
+          f"against the teacher-forced forward over "
+          f"{WINDOW_PROMPT + WINDOW_STEPS} tokens: max_abs_err by step "
+          f"{[f'{e:.2e}' for e in err.tolist()]} (tol {tol:.3e})",
+          flush=True)
+    if not err.max().item() <= tol:
+        smoke.fail(f"window: ring decode {err.max().item()} from the "
+                   f"teacher-forced forward (tol {tol})")
+    stats.update(f32_layers=PARITY_LAYERS,
+                 decode_vs_forward_f32_max_abs_err=err.max().item(),
+                 decode_vs_forward_f32_tol=tol)
     return stats
 
 
@@ -2595,7 +2808,8 @@ def vlm_pass(smoke: Smoke, serve, kops) -> dict:
 # training: repro_torch.training's step on both models, FULL, bf16 compute,
 # f32 masters, AdamW at the reference's OptConfig defaults, remat "none"
 
-TRAIN_ARCHS = ("llama3.2-1b", "mamba2-1.3b", "zamba2-2.7b")
+TRAIN_ARCHS = ("llama3.2-1b", "mamba2-1.3b", "zamba2-2.7b",
+               "seamless-m4t-medium")
 # zamba2 at full width with its depth cut: the whole model's f32 masters and
 # AdamW state are about 39 GB before activations; 12 layers are 2 uses of
 # the shared block, 0.77 B parameters
@@ -2614,16 +2828,18 @@ def train_launches(cfg, n_leaves: int, kernels) -> dict:
     each layer in backward (RMSNorm 2L, the layer kernel and the MoE scan;
     not the final norm, nor the hybrid's shared block, which is not
     rematerialised: RMSNorm 4L + 2G + 1, flash attention 2L or G, the SSD
-    2L), and ``tcu_reduce`` once per parameter leaf (the global norm); no
-    other."""
+    2L; the encoder-decoder's layers all, not its two final norms: RMSNorm
+    2 (2E + 3D) + 2, flash attention 2 (E + 2D)), and ``tcu_reduce`` once
+    per parameter leaf (the global norm); no other."""
     from repro_torch.models.lm import ATTN_FAMILIES, n_groups
 
     want = dict.fromkeys(kernels, 0)
     fwd = forward_launches(cfg)
     want.update(fwd)
     groups = n_groups(cfg)
-    want["rmsnorm"] += fwd["rmsnorm"] - 2 * groups - 1
-    if cfg.family in ATTN_FAMILIES:
+    final_norms = 2 if cfg.family == "encdec" else 1
+    want["rmsnorm"] += fwd["rmsnorm"] - 2 * groups - final_norms
+    if cfg.family in ATTN_FAMILIES + ("encdec",):
         want["flash_attention"] += fwd["flash_attention"]
     want["ssd_scan"] += fwd["ssd_scan"]
     want["tcu_scan"] += fwd["tcu_scan"]
@@ -2633,8 +2849,32 @@ def train_launches(cfg, n_leaves: int, kernels) -> dict:
 
 def parity_depth(cfg) -> int:
     """The depth of the f32 train parity gate: ``PARITY_LAYERS``, or for the
-    hybrid one group (its shared block once)."""
+    hybrid one group (its shared block once); the encoder-decoder's
+    encoder is cut to the same."""
     return max(PARITY_LAYERS, cfg.shared_attn_every)
+
+
+def parity_cfg(full):
+    """``full`` at ``parity_depth``, in f32."""
+    import torch
+
+    depth = parity_depth(full)
+    return dataclasses.replace(
+        full, n_layers=depth, dtype=torch.float32,
+        enc_layers=min(full.enc_layers, depth))
+
+
+def with_frames(torch, cfg, batch, gen=None):
+    """An encoder-decoder's batch gains the frontend's frames (B, S,
+    d_model): zeros, as the reference's train CLI feeds, or random from
+    ``gen``; other models' batches are returned as they are."""
+    if cfg.family != "encdec":
+        return batch
+    bsz, seq = batch["tokens"].shape
+    frames = (torch.zeros(bsz, seq, cfg.d_model, device="cuda") if gen is None
+              else torch.randn(bsz, seq, cfg.d_model, generator=gen,
+                               device="cuda"))
+    return dict(batch, frames=frames.to(cfg.dtype))
 
 
 def scaled(counts: dict, k: int) -> dict:
@@ -2650,7 +2890,7 @@ def train_pass(smoke: Smoke, kops, arch: str) -> dict:
     against ``torch.sum``. Returns its numbers."""
     from repro_torch import configs, tree
     from repro_torch.data import DataConfig, SyntheticLMPipeline
-    from repro_torch.models import build_lm
+    from repro_torch.models import build
     from repro_torch.optim import OptConfig
     from repro_torch.training import init_train_state, make_train_step
 
@@ -2658,11 +2898,11 @@ def train_pass(smoke: Smoke, kops, arch: str) -> dict:
     full = configs.get(arch).FULL
     cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS.get(
         arch, full.n_layers))
-    bundle = build_lm(cfg)
+    bundle = build(cfg)
     if cfg.n_layers != full.n_layers:
         print(f"train: {arch} cut to {cfg.n_layers} of {full.n_layers} "
               f"layers at its published widths: {bundle.n_params / 1e9:.2f}B "
-              f"of {build_lm(full).n_params / 1e9:.2f}B parameters",
+              f"of {build(full).n_params / 1e9:.2f}B parameters",
               flush=True)
     opt_cfg = OptConfig()
     state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
@@ -2673,7 +2913,7 @@ def train_pass(smoke: Smoke, kops, arch: str) -> dict:
     data = SyntheticLMPipeline(DataConfig(
         vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
         seed=0), device="cuda")
-    batch = data.device_batch(0)
+    batch = with_frames(torch, cfg, data.device_batch(0))
     torch.cuda.synchronize()
 
     kops.reset_launches()
@@ -2701,6 +2941,7 @@ def train_pass(smoke: Smoke, kops, arch: str) -> dict:
     kops.reset_launches()
     for _ in range(TIMED_STEPS):
         _, batch = next(batches)
+        batch = with_frames(torch, cfg, batch)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
@@ -2804,24 +3045,25 @@ def train_parity(smoke: Smoke, arch: str) -> dict:
     from repro_torch import configs, tree
     from repro_torch.checkpoint import ckpt
     from repro_torch.data import DataConfig, SyntheticLMPipeline
-    from repro_torch.models import build_lm
+    from repro_torch.models import build
     from repro_torch.optim import OptConfig
     from repro_torch.training import (init_train_state, make_train_step,
                                       value_and_grad)
 
     torch = smoke.torch
-    full = configs.get(arch).FULL
-    cfg = dataclasses.replace(full, n_layers=parity_depth(full),
-                              dtype=torch.float32)
+    cfg = parity_cfg(configs.get(arch).FULL)
     paths = {"kernels": None, "baseline": "baseline"}
-    bundles = {k: build_lm(dataclasses.replace(cfg, policy=p))
+    bundles = {k: build(dataclasses.replace(cfg, policy=p))
                for k, p in paths.items()}
     opts = {k: OptConfig(policy=p) for k, p in paths.items()}
     state0 = init_train_state(torch.Generator(device="cuda").manual_seed(1),
                               bundles["kernels"], opts["kernels"])
-    batch = SyntheticLMPipeline(DataConfig(
+    # an encoder-decoder's frames random, so that the gate sees its encoder
+    # and cross-attention (zero frames give a zero memory)
+    batch = with_frames(torch, cfg, SyntheticLMPipeline(DataConfig(
         vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
-        seed=0), device="cuda").device_batch(0)
+        seed=0), device="cuda").device_batch(0),
+        torch.Generator(device="cuda").manual_seed(2))
     grads = {k: value_and_grad(b, state0["params"], batch)[1]
              for k, b in bundles.items()}
     dgrad = [(a - b).abs().max() for a, b in zip(
@@ -2971,9 +3213,14 @@ def main() -> int:
                   lambda: multi_turn_pass(smoke, serve, kops)),
                  ("llama3.2-1b sampling",
                   lambda: sampling_pass(smoke, serve, kops)),
-                 (f"{VLM_ARCH} stub prefill and decode",
-                  lambda: vlm_pass(smoke, serve, kops))]
+                 (f"{WINDOW_ARCH} window prefill and ring decode",
+                  lambda: window_pass(smoke, kops))]
+        runs += [(f"{arch} {kind} prefill and decode",
+                  lambda a=arch, n=layers, k=kind, g=gate, t=tag:
+                  frontend_pass(smoke, serve, kops, a, n, k, g, t))
+                 for arch, layers, kind, gate, tag in FRONTENDS]
         for run, fn in runs:
+            t_run = time.perf_counter()
             try:
                 stats[run] = fn()
             except Exception as exc:
@@ -2981,12 +3228,15 @@ def main() -> int:
                 stats[run] = {"launches": {k: 0 for k in ops_counts}}
             gc.collect()
             torch.cuda.empty_cache()
+            print(f"phase {run}: {time.perf_counter() - t_run:.1f} s",
+                  flush=True)
             for k in launches:
                 launches[k] += stats[run]["launches"][k]
 
     # training, outside inference mode
     for arch in TRAIN_ARCHS:
         run = f"{arch} train"
+        t_run = time.perf_counter()
         try:
             stats[run] = train_pass(smoke, kops, arch)
         except Exception as exc:
@@ -2994,12 +3244,17 @@ def main() -> int:
             stats[run] = {"launches": {k: 0 for k in ops_counts}}
         gc.collect()
         torch.cuda.empty_cache()
+        print(f"phase {run}: {time.perf_counter() - t_run:.1f} s",
+              flush=True)
         for k in launches:
             launches[k] += stats[run]["launches"][k]
 
     with torch.inference_mode():
+        t_run = time.perf_counter()
         rows = check_kernels(smoke, kops, ref)
         whole_ops = compare_whole_ops(smoke, ops, ref)
+        print(f"phase kernels: {time.perf_counter() - t_run:.1f} s",
+              flush=True)
 
     kernels = []
     for name, k in kops.KERNELS.items():

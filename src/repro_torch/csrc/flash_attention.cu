@@ -52,8 +52,9 @@
 //     (B, Lq, Hq, D); rows at or past Lq and columns at or past D are not
 //     stored.
 //   The kernel is built for D = 64 and D = 128; a head dim that is a
-//   multiple of 16 below either runs on the next one up, its extra columns
-//   zero-filled by TMA and never stored. A design with 128 query rows per
+//   multiple of 8 below either runs on the next one up (h2o-danube's 120 and
+//   zamba2's 80 on the D = 128 one), its extra columns zero-filled by TMA
+//   (a row of 8 16-bit values is TMA's 16-byte unit) and never stored. A design with 128 query rows per
 //   block, a producer warpgroup and two consumer warpgroups taking turns
 //   (setmaxnreg, one block per SM) measured slower at the serving shape
 //   (PERF.md).
@@ -62,9 +63,13 @@
 // served type): every product staged through shared memory with 16x16x16
 // wmma fragments, each f32 operand split into three bf16 parts (hi + mid +
 // lo, as in tcu_reduce/tcu_scan) keeping the six part products whose order
-// is at most 2^-16, which leaves an error near f32 rounding. One block per
-// (64 query rows, query head, batch), four warps of 16 rows, K and V tiles
-// of 64 rows staged synchronously.
+// is at most 2^-16, which leaves an error near f32 rounding. Each KV tile's
+// P V and row sums start from zero in the tensor cores and join the running
+// O and l in f32 adds, since the tensor cores' own adds truncate. One block
+// per (64 query rows, query head, batch), four warps of 16 rows, K and V
+// tiles of 64 rows staged synchronously. A head dim that is a multiple of 8 but
+// not of 16 is staged with zero columns up to the next multiple of 16, the
+// width of a wmma fragment; they add nothing to Q K^T and are not stored.
 #include <type_traits>
 
 #include "hopper.cuh"
@@ -498,6 +503,11 @@ constexpr int kFaPadH = 8;
 constexpr int kFaLdS = kFaBK + kFaPadF;   // scores
 constexpr int kFaLdP = kFaBK + kFaPadH;   // probabilities
 
+// the staged operands' width: D rounded up to a whole wmma fragment
+__host__ __device__ constexpr int fa_width(int D) {
+  return (D + kTile - 1) / kTile * kTile;
+}
+
 __host__ __device__ constexpr int fa_ld_qkv(int D, int parts) {
   return parts == 1 ? D + kFaPadH : D;
 }
@@ -530,11 +540,12 @@ __device__ __forceinline__ void put_f32(OT* s, int plane, int idx, float v) {
 }
 
 // Stage rows [0, nrows) x [0, D) of a strided (rows, D) slice into s (row
-// stride ld) as tensor-core operands; rows at or past `valid` are zero.
+// stride ld) as tensor-core operands; rows at or past `valid` are zero, and
+// so are columns [D, Dp).
 template <typename T, bool VEC>
 __device__ __forceinline__ void stage_rows(const T* __restrict__ base,
                                            long long row_stride, int valid,
-                                           int nrows, int D, int ld,
+                                           int nrows, int D, int Dp, int ld,
                                            typename Operand<T>::type* s,
                                            int tid) {
   using OT = typename Operand<T>::type;
@@ -564,6 +575,19 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ base,
       put_f32<OT, PARTS>(s, plane, r * ld + c, v);
     }
   }
+  const int pad = Dp - D;
+  for (int i = tid; i < nrows * pad; i += kFaThreads)
+    put_f32<OT, PARTS>(s, plane, (i / pad) * ld + D + i % pad, 0.f);
+}
+
+// s (a 16 x 16 tile of row stride ld) += acc, in f32 adds that round to
+// nearest: fragments of one type map their elements alike
+__device__ __forceinline__ void add_into(float* s, int ld, const FragC& acc) {
+  FragC run;
+  wmma::load_matrix_sync(run, s, ld, wmma::mem_row_major);
+#pragma unroll
+  for (int i = 0; i < run.num_elements; ++i) run.x[i] += acc.x[i];
+  wmma::store_matrix_sync(s, run, ld, wmma::mem_row_major);
 }
 
 template <typename T, bool VEC>
@@ -575,7 +599,8 @@ __global__ void __launch_bounds__(kFaThreads)
   constexpr int PARTS = Operand<T>::parts;
   extern __shared__ __align__(128) unsigned char fa_smem[];
   const int D = d.D;
-  const int ldq = fa_ld_qkv(D, PARTS), ldo = D + kFaPadF;
+  const int Dp = fa_width(D);  // operand columns: D, then zeros
+  const int ldq = fa_ld_qkv(Dp, PARTS), ldo = Dp + kFaPadF;
   float* sS = reinterpret_cast<float*>(fa_smem);  // (BQ, BK) scores
   float* sO = sS + kFaBQ * kFaLdS;                // (BQ, D) accumulators
   float* sL = sO + kFaBQ * ldo;                   // (BQ, 16) l, replicated
@@ -591,7 +616,7 @@ __global__ void __launch_bounds__(kFaThreads)
   const int q_valid = min(kFaBQ, d.Lq - q0);
 
   stage_rows<T, VEC>(q + b * d.sqb + (long long)q0 * d.sqs + h * d.sqh,
-                     d.sqs, q_valid, kFaBQ, D, ldq, sQ, tid);
+                     d.sqs, q_valid, kFaBQ, D, Dp, ldq, sQ, tid);
   for (int i = tid; i < kFaBQ * ldo; i += kFaThreads) sO[i] = 0.f;
   for (int i = tid; i < kFaBQ * kTile; i += kFaThreads) sL[i] = 0.f;
   __syncthreads();  // Q and the zeroed rows are every warp's from here on
@@ -619,16 +644,16 @@ __global__ void __launch_bounds__(kFaThreads)
     __syncthreads();  // every warp is done with the previous K, V tiles
     const int k_valid = min(kFaBK, d.Lk - j0);
     stage_rows<T, VEC>(kb + (long long)j0 * d.sks, d.sks, k_valid, kFaBK, D,
-                       ldq, sK, tid);
+                       Dp, ldq, sK, tid);
     stage_rows<T, VEC>(vb + (long long)j0 * d.svs, d.svs, k_valid, kFaBK, D,
-                       ldq, sV, tid);
+                       Dp, ldq, sV, tid);
     __syncthreads();
 
     // 1. S = Q K^T for this warp's 16 rows
     for (int n = 0; n < kFaBK / kTile; ++n) {
       FragC acc;
       wmma::fill_fragment(acc, 0.f);
-      for (int kk = 0; kk < D; kk += kTile) {
+      for (int kk = 0; kk < Dp; kk += kTile) {
 #pragma unroll
         for (int pa = 0; pa < PARTS; ++pa) {
           FragA<OT> fa;
@@ -675,18 +700,23 @@ __global__ void __launch_bounds__(kFaThreads)
       put_f32<OT, PARTS>(sP, pplane, wrow * kFaLdP + c, p);
     }
     m = m_new;
-    const int hd = D / 2;
+    const int hd = Dp / 2;
     for (int j = 0; j < hd; ++j)
       sO[wrow * ldo + half * hd + (j + lane) % hd] *= corr;
     for (int j = 0; j < kTile / 2; ++j)
       sL[wrow * kTile + half * (kTile / 2) + ((j + lane) & 7)] *= corr;
     __syncwarp();
 
-    // 3. O += P V and l += P @ 1 for this warp's rows
-    for (int n = 0; n < D / kTile; ++n) {
+    // 3. O += P V and l += P @ 1 for this warp's rows. A tile's products
+    // sum from zero in the tensor cores, whose adds truncate; the running
+    // O and l take each tile's sum in an f32 add that rounds to nearest. (A
+    // running sum kept in the accumulator fragment lost up to an ulp a
+    // product, always towards zero: 1.3e-4 of a row over 4096 keys on an
+    // H100.)
+    for (int n = 0; n < Dp / kTile; ++n) {
       FragC acc;
       float* o = sO + warp * kTile * ldo + n * kTile;
-      wmma::load_matrix_sync(acc, o, ldo, wmma::mem_row_major);
+      wmma::fill_fragment(acc, 0.f);
       for (int kk = 0; kk < kFaBK; kk += kTile) {
 #pragma unroll
         for (int pa = 0; pa < PARTS; ++pa) {
@@ -702,12 +732,12 @@ __global__ void __launch_bounds__(kFaThreads)
           }
         }
       }
-      wmma::store_matrix_sync(o, acc, ldo, wmma::mem_row_major);
+      add_into(o, ldo, acc);
     }
     {
       FragC acc;
       float* l = sL + warp * kTile * kTile;
-      wmma::load_matrix_sync(acc, l, kTile, wmma::mem_row_major);
+      wmma::fill_fragment(acc, 0.f);
       for (int kk = 0; kk < kFaBK; kk += kTile) {
 #pragma unroll
         for (int pa = 0; pa < PARTS; ++pa) {
@@ -717,7 +747,7 @@ __global__ void __launch_bounds__(kFaThreads)
           wmma::mma_sync(acc, fa, ones, acc);
         }
       }
-      wmma::store_matrix_sync(l, acc, kTile, wmma::mem_row_major);
+      add_into(l, kTile, acc);
     }
   }
   __syncwarp();
@@ -743,7 +773,7 @@ static int launch_f32(const void* q, const void* k, const void* v,
                    d.sqs % V == 0 && d.sks % V == 0 && d.svs % V == 0 &&
                    d.sqb % V == 0 && d.skb % V == 0 && d.svb % V == 0 &&
                    d.sqh % V == 0 && d.skh % V == 0 && d.svh % V == 0;
-  const size_t smem = fa_smem_bytes<OT>(d.D, Operand<T>::parts);
+  const size_t smem = fa_smem_bytes<OT>(fa_width(d.D), Operand<T>::parts);
   auto kern = vec ? flash_attention_kernel<T, true>
                   : flash_attention_kernel<T, false>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -762,7 +792,7 @@ static int launch_f32(const void* q, const void* k, const void* v,
 // and Lk keys in this dtype.
 extern "C" long long flash_attention_smem_bytes(int D, int Lk, int dtype) {
   if (dtype == rt::kF32)
-    return (long long)rt::fa_smem_bytes<__nv_bfloat16>(D, 3);
+    return (long long)rt::fa_smem_bytes<__nv_bfloat16>(rt::fa_width(D), 3);
   if (D > 64) return rt::FhSmem<128, 64>::kTotal;
   return Lk <= rt::kFhShortLk ? rt::FhSmem<64, 64>::kTotal
                               : rt::FhSmem<64, 128>::kTotal;
@@ -770,7 +800,7 @@ extern "C" long long flash_attention_smem_bytes(int D, int Lk, int dtype) {
 
 // q (B, Lq, Hq, D), k/v (B, Lk, Hkv, D) with their strides (the last dim
 // contiguous), out (B, Lq, Hq, D) contiguous, all of one dtype. D a
-// multiple of 16 and at most 128; Hq a multiple of Hkv; window 0 for none.
+// multiple of 8 and at most 128; Hq a multiple of Hkv; window 0 for none.
 // f16 / bf16 also need 16-byte aligned q, k, v and strides that are
 // multiples of 16 bytes (TMA's rule; the Python wrapper copies a view that
 // breaks it). The tiles are the kernels' own.
@@ -781,7 +811,7 @@ extern "C" int flash_attention_launch(
     long long sqh, long long skb, long long sks, long long skh,
     long long svb, long long svs, long long svh, void* stream) {
   if (B < 1 || Lq < 1 || Lk < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv ||
-      D < 16 || D % 16 || D > rt::kFaMaxD || window < 0 || Hq > 65535 ||
+      D < 8 || D % 8 || D > rt::kFaMaxD || window < 0 || Hq > 65535 ||
       B > 65535)
     return (int)cudaErrorInvalidValue;
   const rt::FaDims d{B,   Lq,  Lk,  Hq,  Hkv, D,   window, causal != 0,

@@ -40,6 +40,10 @@ from repro_torch.kernels.layout import MMA_TILE, WARP
 from repro_torch.kernels.matmul_scan import tree_scan, tree_weighted
 from repro_torch.obs import runtime
 
+# flash attention's head dims step by 8: a row of 8 16-bit values is the
+# 16 bytes a TMA row copy moves (the kernel pads up to its 64 or 128)
+FLASH_HEAD_DIM_STEP = 8
+
 
 @dataclasses.dataclass
 class Kernel:
@@ -470,9 +474,9 @@ def _attention_fwd(q, k, v, *, causal: bool = True,
     if hq % hkv:
         raise ValueError(f"flash_attention: Hq={hq} is not a multiple of "
                          f"Hkv={hkv}")
-    if dh % MMA_TILE or dh > 128:
+    if dh % FLASH_HEAD_DIM_STEP or dh > 128:
         raise ValueError(f"flash_attention: head dim {dh} must be a "
-                         f"multiple of {MMA_TILE} and at most 128")
+                         f"multiple of {FLASH_HEAD_DIM_STEP} and at most 128")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} must be >= 1")
     code = _dtype_code(q, "flash_attention")
@@ -503,7 +507,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``(B, Sk, Hkv, D)`` -> ``(B, Sq, Hq, D)`` in q's dtype. GQA by head
     index, ends aligned by ``Sk - Sq``; ``scale`` defaults to ``D**-0.5``.
     Any lengths; on a CUDA tensor it raises on a head dim that is not a
-    multiple of 16 or above 128 (differentiable)."""
+    multiple of 8 or above 128 (differentiable). A head dim below 64 or 128
+    runs on that instance of the kernel, zero-padded."""
     if runtime.ACTIVE is not None:
         _invoked("attention", q.shape[1], q)
     return _via_plain(_attention_fwd, attention_plain, q, k, v,

@@ -3,6 +3,8 @@
     python -m repro_torch.launch.serve                  # mamba2-1.3b FULL
     python -m repro_torch.launch.serve --arch llama3.2-1b --cache paged
     python -m repro_torch.launch.serve --arch zamba2-2.7b
+    python -m repro_torch.launch.serve --arch h2o-danube-3-4b --config smoke \
+        --device cpu
     python -m repro_torch.launch.serve --scheduler wave \
         --policy ssd=tile_logdepth
     python -m repro_torch.launch.serve --config smoke --device cpu
@@ -28,11 +30,15 @@ in every MoE layer, and in the wave's prefill also the SSD chunk scan or
 flash attention (zamba2: the SSD in each of its 54 Mamba layers, flash
 attention in each of the shared block's 9 uses; the continuous block step
 runs the recurrence and decode attention as torch ops, as the reference
-does). The MoE configs and internvl2-76b at FULL do not fit one card;
-``chip_smoke.py`` runs them with their depth cut. internvl2-76b is served
-text-only by the continuous scheduler (its block step embeds tokens, as the
-reference's does); its wave prefill needs the stub prefix, which the
-synthetic requests do not carry, and raises. ``--device cpu``
+does). The MoE configs, deepseek-67b and internvl2-76b at FULL do not fit
+one card; ``chip_smoke.py`` runs them with their depth cut. internvl2-76b is
+served text-only by the continuous scheduler (its block step embeds tokens,
+as the reference's does); its wave prefill needs the stub prefix, which the
+synthetic requests do not carry, and raises. h2o-danube-3-4b's sliding
+window is taken on every scheduler; its wave raises where prompt and budget
+pass the window. seamless-m4t-medium (the encoder-decoder) has no block
+step: the engine warns and falls back to the wave, whose prefill raises for
+the missing ``frames``, as the reference's fails on that key. ``--device cpu``
 runs the same path on each kernel's plain version. Under the wave
 scheduler, ``--policy
 ssd=tile_logdepth`` prefills every Mamba layer through the log-depth
@@ -57,7 +63,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch import device as devmod
-from repro_torch.models import build_lm
+from repro_torch.models import build
 from repro_torch.models.common import init_params
 from repro_torch.obs import cli as obs_cli
 from repro_torch.serving import Request, ServeConfig, ServingEngine
@@ -79,7 +85,7 @@ def build_engine(arch: str = "mamba2-1.3b", config: str = "full", *,
                             temperature=temperature, seed=seed)
     mod = configs.get(arch)
     cfg = mod.FULL if config == "full" else mod.SMOKE
-    bundle = build_lm(cfg)
+    bundle = build(cfg)
     gen = torch.Generator(device=devmod.resolve(device)).manual_seed(seed)
     params = init_params(bundle.params_pspec, gen, cfg.dtype)
     return ServingEngine(bundle, params, serve_cfg)

@@ -3,6 +3,8 @@ reporting and deterministic resume.
 
     python -m repro_torch.launch.train --arch llama3.2-1b --config full
     python -m repro_torch.launch.train --config smoke --device cpu --steps 4
+    python -m repro_torch.launch.train --arch seamless-m4t-medium \
+        --config smoke --device cpu --steps 4
     python -m repro_torch.launch.train --arch mamba2-1.3b --config full \
         --batch 4 --seq 512 --steps 20 --obs-events events.jsonl \
         --metrics-out metrics.prom
@@ -17,14 +19,17 @@ Counterpart of ``repro.launch.train`` on one device:
     running median are flagged;
   * data order is a pure function of (seed, step) (``data/pipeline.py``).
 
-By default the model runs on the CUDA card through the Hopper kernels:
-RMSNorm in every layer, flash attention (llama, MoE, internvl2) or the SSD
-chunk scan (mamba, zamba2's Mamba layers) in every layer, flash attention in
-every use of zamba2's shared block and the capacity offsets' ``tcu_scan`` in
-every MoE layer, each layer's launched again when it is recomputed in
-backward (the shared block is not), and the global norm's ``tcu_reduce``
-once per parameter leaf. A vlm's batches carry a zero stub prefix, as the
-reference's do.
+Every architecture of ``repro_torch.configs`` trains. By default the model
+runs on the CUDA card through the Hopper kernels: RMSNorm in every layer,
+flash attention (the dense models, MoE, internvl2; seamless-m4t's encoder
+without a causal mask and its decoder's self- and cross-attention) or the
+SSD chunk scan (mamba, zamba2's Mamba layers) in every layer, flash
+attention in every use of zamba2's shared block and the capacity offsets'
+``tcu_scan`` in every MoE layer, each layer's launched again when it is
+recomputed in backward (the shared block is not), and the global norm's
+``tcu_reduce`` once per parameter leaf. A vlm's batches carry a zero stub
+prefix, and an encoder-decoder's zero frames of ``(batch, seq, d_model)``
+beside its tokens and labels, as the reference's do.
 ``--device cpu`` runs the same path on each kernel's plain version. The
 learning-rate schedule is the reference's (warmup ``min(20, --steps)``,
 cosine to ``--steps``) unless ``--warmup-steps`` or ``--decay-steps`` fix
@@ -49,7 +54,7 @@ from repro_torch import configs
 from repro_torch import device as devmod
 from repro_torch.checkpoint import ckpt
 from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
-from repro_torch.models import build_lm
+from repro_torch.models import build
 from repro_torch.obs import cli as obs_cli
 from repro_torch.obs import profiling as _prof
 from repro_torch.optim import OptConfig
@@ -105,7 +110,7 @@ def run(args, obs_sess=None) -> dict[int, float]:
     cfg = mod.SMOKE if args.config == "smoke" else mod.FULL
     if args.policy is not None:
         cfg = dataclasses.replace(cfg, policy=args.policy)
-    bundle = build_lm(cfg)
+    bundle = build(cfg)
     device = devmod.resolve(args.device)
     opt_cfg = OptConfig(
         peak_lr=args.lr,
@@ -143,6 +148,10 @@ def run(args, obs_sess=None) -> dict[int, float]:
         if cfg.stub_tokens:
             batch["stub"] = torch.zeros(
                 (args.batch, cfg.stub_tokens, cfg.stub_dim), dtype=cfg.dtype,
+                device=device)
+        if cfg.family == "encdec":
+            batch["frames"] = torch.zeros(
+                (args.batch, args.seq, cfg.d_model), dtype=cfg.dtype,
                 device=device)
         t0 = time.perf_counter()
         with _prof.span("train/step"):

@@ -6,7 +6,8 @@ materialised by :func:`init_params` from an explicit ``torch.Generator``
 with the reference's init rules. The reference stacks layers on a leading
 axis for ``lax.scan``; the port's forward takes a list with one entry per
 layer. The train state keeps the reference's stacked leaves
-(:func:`stack_pspec`), and :func:`unstack_blocks` views them as that list.
+(:func:`stack_pspec`), and :func:`unstack_blocks` views them as that list
+(``blocks``, or the encoder-decoder's ``enc`` and ``dec``).
 :func:`params_from_numpy` takes the JAX package's parameter tree, as numpy
 arrays, into the port's layout, and :func:`params_to_numpy` back.
 """
@@ -80,16 +81,28 @@ def count_params(tree) -> int:
     return math.prod(tree.shape)
 
 
+# the layer stacks of a parameter tree: the decoder-only models' ``blocks``,
+# the encoder-decoder's ``enc`` and ``dec``
+STACKS = ("blocks", "enc", "dec")
+
+
+def _stack_lens(cfg) -> dict:
+    return {"blocks": cfg.n_layers, "enc": cfg.enc_layers,
+            "dec": cfg.n_layers}
+
+
 def stack_pspec(tree):
-    """A parameter declaration with the per-layer list of ``tree["blocks"]``
-    stacked into ``(n_layers, ...)`` leaves, the reference's layout (the
+    """A parameter declaration with each per-layer list of ``STACKS``
+    stacked into ``(layers, ...)`` leaves, the reference's layout (the
     train state's). Each layer's leaf keeps its init rule; ``fan_in`` reads
     ``shape[-2]``, so a stacked leaf draws from the same distribution."""
-    blocks = tree["blocks"]
-    out = {k: v for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = _map_tree(
-        lambda ps: dataclasses.replace(ps, shape=(len(blocks), *ps.shape)),
-        blocks[0])
+    out = dict(tree)
+    for key in STACKS:
+        if key in tree:
+            layers = tree[key]
+            out[key] = _map_tree(
+                lambda ps, n=len(layers): dataclasses.replace(
+                    ps, shape=(n, *ps.shape)), layers[0])
     return out
 
 
@@ -111,31 +124,35 @@ def tree_from_numpy(tree, *, device=None):
 
 
 def unstack_blocks(params, cfg):
-    """Stacked parameters (``blocks`` leaves ``(n_layers, ...)``) -> the
-    forward's layout: ``blocks`` a list of per-layer trees of views.
+    """Stacked parameters (the leaves of ``blocks``, or of ``enc`` and
+    ``dec``, ``(layers, ...)``) -> the forward's layout: each stack a list
+    of per-layer trees of views.
 
     The views are ``torch.unbind``'s, whose backward stacks the layers'
     gradients in one tensor, so gradients reach the stacked leaf."""
-    views = []
+    out = dict(params)
+    for key, n in _stack_lens(cfg).items():
+        if key not in params:
+            continue
+        views = []
 
-    def split(t):
-        if t.shape[0] != cfg.n_layers:
-            raise ValueError(f"stacked leaf {tuple(t.shape)} does not lead "
-                             f"with n_layers={cfg.n_layers}")
-        views.append(torch.unbind(t, 0))
-        return len(views) - 1
+        def split(t, key=key, n=n):
+            if t.shape[0] != n:
+                raise ValueError(f"stacked leaf {tuple(t.shape)} of {key!r} "
+                                 f"does not lead with its {n} layers")
+            views.append(torch.unbind(t, 0))
+            return len(views) - 1
 
-    index = _map_tree(split, params["blocks"])
-    out = {k: v for k, v in params.items() if k != "blocks"}
-    out["blocks"] = [_map_tree(lambda j, i=i: views[j][i], index)
-                     for i in range(cfg.n_layers)]
+        index = _map_tree(split, params[key])
+        out[key] = [_map_tree(lambda j, i=i, views=views: views[j][i], index)
+                    for i in range(n)]
     return out
 
 
 def params_from_numpy(tree, cfg, *, device=None):
     """The reference's parameter tree (``jax.tree.map(np.asarray, params)``)
     -> the port's: leaves become tensors on ``device`` with their dtype, and
-    the stacked ``(n_layers, ...)`` leaves of ``tree["blocks"]`` are split
+    the stacked ``(layers, ...)`` leaves of each of ``STACKS`` are split
     into a list of per-layer trees."""
     return unstack_blocks(tree_from_numpy(tree, device=device), cfg)
 
@@ -149,15 +166,15 @@ def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def params_to_numpy(params):
     """The inverse of :func:`params_from_numpy`: tensors -> numpy arrays in
-    the reference's layout, a per-layer ``blocks`` list stacked back into
-    ``(n_layers, ...)`` leaves (stacked leaves stay as they are). bf16
+    the reference's layout, each per-layer list of ``STACKS`` stacked back
+    into ``(layers, ...)`` leaves (stacked leaves stay as they are). bf16
     leaves come back as float32 arrays, which hold them exactly."""
-    blocks = params["blocks"]
-    if isinstance(blocks, list):
-        blocks = _map_tree(lambda *ls: torch.stack(ls), blocks[0],
-                           *blocks[1:])
-    out = {k: v for k, v in params.items() if k != "blocks"}
-    out["blocks"] = blocks
+    out = dict(params)
+    for key in STACKS:
+        layers = params.get(key)
+        if isinstance(layers, list):
+            out[key] = _map_tree(lambda *ls: torch.stack(ls), layers[0],
+                                 *layers[1:])
     return _map_tree(_leaf_to_numpy, out)
 
 

@@ -32,8 +32,7 @@ from repro_torch.models.xla_attention import decode_attention
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe | ssm | hybrid | vlm (encdec
-    #                                is the reference's one not ported)
+    family: str                    # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
     d_model: int
     vocab: int
@@ -65,6 +64,8 @@ class ModelConfig:
     # hybrid (Zamba2-style): one shared attention block after every
     # ``shared_attn_every`` Mamba layers
     shared_attn_every: int = 0
+    # enc-dec: the encoder's layers (``n_layers`` is the decoder's)
+    enc_layers: int = 0
     # modality stub (vlm): ``stub_tokens`` prefix embeddings of width
     # ``stub_dim``, fed past the frontend and projected to d_model
     stub_tokens: int = 0
@@ -108,36 +109,49 @@ def attn_pspec(cfg: ModelConfig, d_in: int | None = None):
     }
 
 
-def attn_apply(p, cfg: ModelConfig, x, *, positions, causal=True,
-               window=None):
-    """Self-attention. x (B,S,d), positions (B,S) -> (out (B,S,d), (k, v))
-    with k, v (B,S,Hkv,Dh) after rope, for the cache."""
+def attn_apply(p, cfg: ModelConfig, x, *, positions=None, causal=True,
+               window=None, kv=None):
+    """Attention over x (B,S,d) -> (out (B,S,d), (k, v)), k, v (B,Sk,Hkv,Dh)
+    for the cache. Self-attention by default: rope at ``positions`` (B,S)
+    on q and k. ``kv`` (B,Sk,d) makes it cross-attention: k and v project
+    from ``kv``, no rope and no causal mask, as in the reference."""
     b, s, _ = x.shape
     dh, hq, hkv = cfg.dh, cfg.n_heads, cfg.n_kv_heads
-    q = rope((x @ p["wq"]).reshape(b, s, hq, dh), positions, cfg.rope_theta)
-    k = rope((x @ p["wk"]).reshape(b, s, hkv, dh), positions, cfg.rope_theta)
-    v = (x @ p["wv"]).reshape(b, s, hkv, dh)
-    o = dispatch.attention(q, k, v, causal=causal, window=window,
-                           policy=cfg.policy)
+    src = x if kv is None else kv
+    sk = src.shape[1]
+    q = (x @ p["wq"]).reshape(b, s, hq, dh)
+    k = (src @ p["wk"]).reshape(b, sk, hkv, dh)
+    v = (src @ p["wv"]).reshape(b, sk, hkv, dh)
+    if positions is not None and kv is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    o = dispatch.attention(q, k, v, causal=causal and kv is None,
+                           window=window, policy=cfg.policy)
     return o.reshape(b, s, hq * dh) @ p["wo"], (k, v)
 
 
-def attn_decode(p, cfg: ModelConfig, x, cache, *, pos: int):
+def attn_decode(p, cfg: ModelConfig, x, cache, *, pos: int, window=None):
     """x (B,1,d); cache {k, v: (B,Smax,Hkv,Dh)} -> out (B,1,d).
 
-    Writes this token's k, v at row ``pos`` of the cache in place and
-    attends rows ``[0, pos]`` (the reference's scalar-position decode of
-    the wave path; the ring is :func:`attn_decode_block`'s)."""
+    The reference's scalar-position decode of the wave path. Without a
+    window this token's k, v go to row ``pos`` of the cache, in place, and
+    it attends rows ``[0, pos]`` (the callers raise first where ``pos`` is
+    past the cache, which the reference clamps onto its last row). With a
+    sliding window the cache is a ring: the token goes to row ``pos %
+    Smax`` and attends ``min(pos + 1, Smax)`` rows; rope takes the absolute
+    position, so the storage order does not change the softmax."""
     b = x.shape[0]
     dh, hq, hkv = cfg.dh, cfg.n_heads, cfg.n_kv_heads
+    kc, vc = cache["k"], cache["v"]
+    smax = kc.shape[1]
     posv = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
     q = rope((x @ p["wq"]).reshape(b, 1, hq, dh), posv, cfg.rope_theta)
     k = rope((x @ p["wk"]).reshape(b, 1, hkv, dh), posv, cfg.rope_theta)
     v = (x @ p["wv"]).reshape(b, 1, hkv, dh)
-    kc, vc = cache["k"], cache["v"]
-    kc[:, pos] = k[:, 0].to(kc.dtype)
-    vc[:, pos] = v[:, 0].to(vc.dtype)
-    o = decode_attention(q, kc, vc, pos + 1)
+    row = pos % smax if window is not None else pos
+    kc[:, row] = k[:, 0].to(kc.dtype)
+    vc[:, row] = v[:, 0].to(vc.dtype)
+    o = decode_attention(q, kc, vc, min(pos + 1, smax))
     return o.reshape(b, 1, hq * dh) @ p["wo"]
 
 

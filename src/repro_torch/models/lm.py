@@ -1,8 +1,9 @@
 """Decoder-only LM assembly: the dense (llama), vlm (internvl2), moe
 (qwen3-moe, grok-1), ssm (Mamba-2) and hybrid (Zamba2) families.
 
-Counterpart of ``repro.models.lm``; the reference's encdec family
-(``repro.models.encdec``) is the one not ported yet. The reference scans a
+Counterpart of ``repro.models.lm``; the encoder-decoder is
+:mod:`repro_torch.models.encdec`, and :func:`repro_torch.models.build`
+picks between the two. The reference scans a
 stacked layer axis with ``lax.scan``; here the layers are a list and the
 loop is a Python loop. A moe layer is a dense layer with
 :func:`~repro_torch.models.layers.moe_apply` in place of the MLP, and
@@ -22,14 +23,18 @@ and ``mamba.conv (n_layers, B, K-1, C)``/``mamba.state (n_layers, B, H, P,
 N)``, and :func:`lm_decode` updates it in place (one layer's slice at a
 time) instead of rebuilding it every token. The prefill cache holds exactly
 the prompt's positions; a server grows its sequence axis with
-:func:`pad_cache_seq` before decoding.
+:func:`pad_cache_seq` before decoding. With a sliding window the attention
+layers attend the last ``swa_window`` keys in the prefill, and a prompt
+longer than the window leaves a ring of ``swa_window`` rows, position p at
+row ``p % swa_window``, which :func:`lm_decode` writes and attends as a
+ring; it refuses a cache grown past the window, whose zero rows it would
+attend.
 
 The continuous scheduler's cache (:func:`lm_cache_pspec` with
 ``per_slot_pos=True``) is a ring of ``min(capacity, swa_window)`` rows a
 slot with a position per slot, stepped by :func:`lm_decode_block`, or the
 paged pool (``kind="paged"``) stepped by :func:`lm_decode_block_paged`.
-Those steps take the sliding window; the wave path (:func:`lm_apply`,
-:func:`lm_decode`) does not yet. As in the reference, the MoE layers route
+As in the reference, the MoE layers route
 every token of a block step, the ones past a slot's ``n_valid`` too, and
 those take capacity like the rest.
 
@@ -98,20 +103,13 @@ def _remat(fn, policy: str):
 def _require_ported(cfg: L.ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported to PyTorch yet; "
-            "see ROADMAP.md for the order of the remaining families")
+            f"model family {cfg.family!r} is not a decoder-only family of "
+            f"the port ({', '.join(FAMILIES)}); the encoder-decoder "
+            "('encdec') is built by repro_torch.models.build")
     every = cfg.shared_attn_every
     if cfg.family == "hybrid" and (every < 1 or cfg.n_layers % every):
         raise ValueError(f"a hybrid needs n_layers ({cfg.n_layers}) to be a "
                          f"multiple of shared_attn_every ({every})")
-
-
-def _require_unwindowed(cfg: L.ModelConfig) -> None:
-    if cfg.swa_window is not None:
-        raise NotImplementedError(
-            "the wave path (lm_apply, lm_decode) does not take a sliding "
-            "window in PyTorch yet; serve a windowed model with the "
-            "continuous scheduler (see ROADMAP.md)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,7 +237,6 @@ def lm_apply(params, cfg: L.ModelConfig, batch, *, collect_cache=False,
     A vlm's ``batch`` carries ``stub`` (B, stub_tokens, stub_dim), whose
     projection comes before the tokens; the logits cover both."""
     _require_ported(cfg)
-    _require_unwindowed(cfg)
     h = _embed_input(params, cfg, batch)
     b, s, _ = h.shape
     emb0 = h
@@ -253,7 +250,11 @@ def lm_apply(params, cfg: L.ModelConfig, batch, *, collect_cache=False,
     if cfg.family in ATTN_FAMILIES:
         def layer(h, lp):
             a_in = rmsnorm(h, lp["ln1"], cfg.norm_eps, cfg.policy)
-            a_out, kv = attend(lp["attn"], a_in)
+            # the sliding window in the attention layers, not in the
+            # hybrid's shared block, as in the reference
+            a_out, kv = L.attn_apply(lp["attn"], cfg, a_in,
+                                     positions=positions,
+                                     window=cfg.swa_window)
             h = h + a_out
             m_in = rmsnorm(h, lp["ln2"], cfg.norm_eps, cfg.policy)
             m_out, aux = _ffn(lp, cfg, m_in)
@@ -292,9 +293,20 @@ def lm_apply(params, cfg: L.ModelConfig, batch, *, collect_cache=False,
                 "conv": torch.stack([c["conv"] for c in caches]),
                 "state": torch.stack([c["state"] for c in caches])}
         if cfg.family in KV_FAMILIES:
-            cache["attn"] = {"k": torch.stack([k for k, _ in kvs]),
-                             "v": torch.stack([v for _, v in kvs])}
+            cache["attn"] = {n: _ring_order(cfg, torch.stack(
+                [kv[j] for kv in kvs]), s) for j, n in enumerate("kv")}
     return logits, aux_total, cache
+
+
+def _ring_order(cfg: L.ModelConfig, t: torch.Tensor, s: int) -> torch.Tensor:
+    """A prefill's stacked K or V ``(layers, B, s, Hkv, Dh)`` as the decode
+    cache holds it: as it is, or past a sliding window the ring of its last
+    ``window`` rows, position p at row ``p % window`` (the reference's
+    ``_build_cache_from_kv``)."""
+    w = cfg.swa_window
+    if not w or w >= s:
+        return t
+    return torch.roll(t[:, :, -w:], s % w, dims=2)
 
 
 def lm_loss(params, cfg: L.ModelConfig, batch) -> torch.Tensor:
@@ -309,12 +321,19 @@ def lm_loss(params, cfg: L.ModelConfig, batch) -> torch.Tensor:
 
 
 def pad_cache_seq(cache, extra: int):
-    """Grow the sequence axis of the KV cache by ``extra`` zero rows (the
-    reference's ``serving.engine._pad_cache_seq``); a cache without one
-    (ssm) is returned as it is."""
-    if "attn" in cache and extra > 0:
+    """Grow the sequence axis of the KV cache, and of an encoder-decoder's
+    self-attention cache, by ``extra`` zero rows (the reference's
+    ``serving.engine._pad_cache_seq``); a cache without one (ssm) is
+    returned as it is. A sliding window's ring must not grow: its decode
+    would attend the zero rows."""
+    if extra <= 0:
+        return cache
+    if "attn" in cache:
         cache["attn"] = {n: F.pad(t, (0, 0, 0, 0, 0, extra))
                          for n, t in cache["attn"].items()}
+    for n in ("self_k", "self_v"):
+        if n in cache:
+            cache[n] = F.pad(cache[n], (0, 0, 0, 0, 0, extra))
     return cache
 
 
@@ -354,17 +373,26 @@ def lm_decode(params, cfg: L.ModelConfig, cache, batch):
     ``pos``; conv history and state). The tokens alone are embedded: a
     vlm's stub went in with the prefill."""
     _require_ported(cfg)
-    _require_unwindowed(cfg)
     h = embed_tokens(params["embed"], batch["tokens"])       # (B, 1, d)
     pos = cache["pos"]
     kv = cache.get("attn")
-    if kv is not None and pos >= kv["k"].shape[2]:
-        raise ValueError(f"KV cache of {kv['k'].shape[2]} positions is full "
-                         f"at position {pos}; grow it with pad_cache_seq")
+    # the attention layers' window makes their cache a ring; the hybrid's
+    # shared block takes none, as in the reference
+    window = cfg.swa_window if cfg.family in ATTN_FAMILIES else None
+    if kv is not None:
+        rows = kv["k"].shape[2]
+        if window is not None and rows > window:
+            raise ValueError(
+                f"a KV cache of {rows} rows under a sliding window of "
+                f"{window}: a ring grown past the window would attend rows "
+                "outside it; grow a prefill's cache only up to the window")
+        if rows != window and pos >= rows:
+            raise ValueError(f"KV cache of {rows} positions is full at "
+                             f"position {pos}; grow it with pad_cache_seq")
 
     def attend(p, x, i):
         return L.attn_decode(p, cfg, x, {"k": kv["k"][i], "v": kv["v"][i]},
-                             pos=pos)
+                             pos=pos, window=window)
 
     def mix(p, x, c):
         return L.mamba_decode(p, cfg, x, c)
@@ -394,12 +422,12 @@ def lm_cache_pspec(cfg: L.ModelConfig, batch: int, smax: int,
     tables map slots to pages, ``serving/kvpool.py``); the Mamba layers keep
     their live per-slot conv and state and add a pool of ``state_pages``
     snapshots for prompt-boundary prefix sharing."""
-    _require_ported(cfg)
     if kind == "paged" and not per_slot_pos:
         raise ValueError("the paged cache is continuous-batching only "
                          "(per_slot_pos=True)")
     if kind not in ("ring", "paged"):
         raise ValueError(f"cache kind must be 'ring' or 'paged', got {kind!r}")
+    _require_ported(cfg)
     cache: dict[str, Any] = {
         "pos": PSpec((batch,) if per_slot_pos else (), "zeros", torch.int32)}
     if cfg.family in STATE_FAMILIES:

@@ -44,7 +44,14 @@ waves of up to ``slots``; prompts are left-padded to the wave's longest
 prompt (one scalar cache position; the padding is attended, as in the
 reference); the wave prefills once through ``Bundle.prefill_last``, grows
 the KV cache by the wave's budget, and decodes one token per step until
-every member has its budget or emitted EOS.
+every member has its budget or emitted EOS. A windowed model's wave must
+stay inside its window (prompt plus budget), else it raises before any
+launch: a prompt past the window leaves a ring, which the growth would
+break (the reference's wave attends zero rows there). An encoder-decoder
+has no block step: asked for the continuous scheduler, the engine warns
+and runs the wave, as the reference's does, and its prefill raises for the
+missing ``frames`` (the engine has none to give; the reference fails on the
+key).
 
 Observability (``repro_torch.obs``, off by default) records what the
 reference's engine records, under the same names: ``serving`` events and
@@ -70,7 +77,8 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import cast_tree, init_params
-from repro_torch.models.lm import Bundle, build_lm, pad_cache_seq
+from repro_torch.models import build
+from repro_torch.models.lm import Bundle, pad_cache_seq
 from repro_torch.obs import profiling as _prof
 from repro_torch.obs import runtime as _obs
 from repro_torch.serving import kvpool
@@ -220,8 +228,18 @@ class ServingEngine:
 
     def __init__(self, bundle: Bundle, params, cfg: ServeConfig):
         if cfg.policy is not None and bundle.cfg.policy != cfg.policy:
-            bundle = build_lm(dataclasses.replace(bundle.cfg,
-                                                  policy=cfg.policy))
+            bundle = build(dataclasses.replace(bundle.cfg,
+                                               policy=cfg.policy))
+        if cfg.scheduler == "continuous" and bundle.decode_block is None:
+            warnings.warn(
+                "bundle has no block-decode step (encoder-decoder); "
+                "falling back to the wave scheduler", stacklevel=2)
+            if cfg.cache_kind == "paged":
+                warnings.warn(
+                    "paged KV cache requires the continuous scheduler; "
+                    "ignoring cache_kind='paged'", stacklevel=2)
+            cfg = dataclasses.replace(cfg, scheduler="wave",
+                                      cache_kind="ring")
         self.bundle = bundle
         self.cfg = cfg
         self.scheduler = cfg.scheduler
@@ -696,6 +714,13 @@ class ServingEngine:
         budgets = [self._budget(r) for r in wave]
         wave_budget = max(budgets)
         plen = max(len(r.prompt) for r in wave)
+        swa = self.bundle.cfg.swa_window
+        if swa and plen + wave_budget > swa:
+            raise ValueError(
+                f"the wave's prompt ({plen} tokens) and budget "
+                f"({wave_budget}) pass the sliding window ({swa}): its cache "
+                "would grow past the window's ring; serve it with the "
+                "continuous scheduler")
         tokens = np.zeros((nb, plen), np.int64)
         for i, r in enumerate(wave):                # left-pad prompts
             tokens[i, plen - len(r.prompt):] = r.prompt

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import h2o_danube_3_4b as tdanube
 from repro_torch.configs import llama3_2_1b as tllama
 from repro_torch.configs import mamba2_1_3b as tmamba
 from repro_torch.configs import qwen3_moe_235b_a22b as tqwen
@@ -24,8 +25,11 @@ from repro_torch.models.common import init_params
 from repro_torch.models.lm import n_groups
 from repro_torch.serving import Request, ServeConfig, ServingEngine
 
+# danube's window of 32 makes its ring 32 rows a slot, and the mixed run's
+# prompts (up to 32 tokens and 4 new) wrap it
 CONFIGS = {"llama": tllama.SMOKE, "mamba": tmamba.SMOKE,
-           "qwen3": tqwen.SMOKE, "zamba2": tzamba.SMOKE}
+           "qwen3": tqwen.SMOKE, "zamba2": tzamba.SMOKE,
+           "danube": tdanube.SMOKE}
 
 
 @pytest.fixture

@@ -453,7 +453,7 @@ def test_ssd_mma_instance_reads_strided_model_layout(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [100, 2048])
+@pytest.mark.parametrize("d", [100, 1024, 2048, 3840])
 def test_rmsnorm_kernel_matches_plain(cuda, d, dtype):
     x = torch.randn(33, d, device=cuda).to(dtype)
     w = (torch.rand(d, device=cuda) + 0.5).to(dtype)
@@ -549,6 +549,14 @@ def assert_attention_close(q, k, v, got, **kw):
     ((2, 40, 40, 4, 2, 64), True, None),        # Lk below one KV tile
     ((3, 1, 300, 8, 2, 64), True, None),        # one query row
     ((1, 2048, 2048, 4, 1, 64), True, 256),     # long, windowed
+    # h2o-danube's head dim 120 (on the D = 128 instance, 8 columns of
+    # TMA zero fill), plain and windowed; a non-causal Lq != Lk, as the
+    # seamless decoder's cross-attention
+    ((2, 468, 468, 32, 8, 120), True, None),
+    ((1, 2048, 2048, 4, 1, 120), True, 256),
+    ((2, 100, 160, 4, 4, 64), False, None),
+    # h2o-danube's long prompt past its window: rows of 4096 keys
+    ((1, 6144, 6144, 4, 1, 120), True, 4096),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, shape, causal, window,
                                               dtype):

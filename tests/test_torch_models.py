@@ -224,24 +224,37 @@ def test_llama_configs_have_the_reference_numbers(size):
 
 
 def test_unported_archs_and_families_name_the_roadmap():
-    """The reference's archs still to port (the encoder-decoder and three
-    dense configs) and the encdec family name the plan."""
-    for arch in ("seamless-m4t-medium", "internlm2-20b", "deepseek-67b",
-                 "h2o-danube-3-4b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tconfigs.get(arch)
+    """Every arch of the reference is ported; an unknown arch is a
+    ``KeyError`` and an unknown family a ``NotImplementedError``. A
+    windowed model's wave prefill (logits and the ring it leaves) matches
+    the reference's."""
+    from repro import configs as jconfigs
+    from repro_torch.models import build
+
+    assert set(jconfigs.all_arch_ids()) <= set(tconfigs.ARCHS)
+    for arch in jconfigs.all_arch_ids():
+        assert tconfigs.get(arch).FULL.name == jconfigs.get(arch).FULL.name
     with pytest.raises(KeyError):
         tconfigs.get("no-such-arch")
-    assert tconfigs.get("llama3.2-1b").FULL.family == "dense"
-    encdec = dataclasses.replace(tllama.SMOKE, family="encdec")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_lm(encdec)
-    # a windowed model builds (the continuous block step takes the window);
-    # its wave path does not yet
+    with pytest.raises(NotImplementedError, match="family"):
+        build(dataclasses.replace(tllama.SMOKE, family="no-such-family"))
+    jcfg = dataclasses.replace(jllama.SMOKE, swa_window=8, policy="fused")
+    jb = jbuild(jcfg)
+    jp = init_params(jax.random.PRNGKey(0), jb.params_pspec, jcfg.dtype)
+    tokens = np.random.default_rng(0).integers(
+        0, jcfg.vocab, (2, 20)).astype(np.int32)
+    want, want_cache = jb.prefill_last(jp, {"tokens": tokens})
     swa = dataclasses.replace(tllama.SMOKE, swa_window=8)
     bundle = build_lm(swa)
-    params = tinit_params(bundle.params_pspec,
-                          torch.Generator().manual_seed(0), swa.dtype)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bundle.prefill_last(params, {"tokens": torch.zeros((1, 4),
-                                                           dtype=torch.long)})
+    params = params_from_numpy(jax.tree.map(np.asarray, jp), swa,
+                               device="cpu")
+    got, cache = bundle.prefill_last(
+        params, {"tokens": torch.from_numpy(tokens).long()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    assert cache["attn"]["k"].shape[2] == 8
+    np.testing.assert_allclose(cache["attn"]["k"].numpy(),
+                               np.asarray(want_cache["attn"]["k"]),
+                               rtol=1e-5, atol=1e-5)
+
+

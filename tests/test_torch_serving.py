@@ -102,13 +102,40 @@ def test_several_waves_and_budgets_identical_to_jax(ref_weights):
 
 def test_unported_scheduler_names_the_roadmap():
     """The continuous scheduler and its paged KV pool are ported; the
-    cache of the encdec family waits for that family, and the wave
-    scheduler takes no paged cache, as in the reference."""
+    encoder-decoder has no paged cache, as in the reference: its bundle's
+    declaration raises (the decoder-only one does not build it), and its
+    engine asked for one warns, falls back to the wave's ring, and raises on
+    the missing frames (the reference on their key). The wave scheduler
+    takes no paged cache."""
+    from repro.configs import seamless_m4t_medium as jseam
+    from repro.models.lm import lm_cache_pspec as jlm_cache_pspec
+    from repro_torch.configs import seamless_m4t_medium as tseam
+    from repro_torch.models import build
+
     assert ServeConfig(cache_kind="paged").cache_kind == "paged"
-    cfg = dataclasses.replace(tllama.SMOKE, family="encdec")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm_cache_pspec(cfg, 2, 32, per_slot_pos=True, kind="paged",
-                       pool_pages=4, page_rows=16, state_pages=2)
+    kw = dict(per_slot_pos=True, kind="paged", pool_pages=4, page_rows=16,
+              state_pages=2)
+    with pytest.raises(ValueError, match="no paged cache"):
+        jlm_cache_pspec(jseam.SMOKE, 2, 32, **kw)
+    tb = build(tseam.SMOKE)
+    with pytest.raises(ValueError, match="no paged cache"):
+        tb.cache_pspec(2, 32, **kw)
+    with pytest.raises(NotImplementedError, match="models.build"):
+        lm_cache_pspec(tseam.SMOKE, 2, 32, **kw)
+    jb = jbuild(jseam.SMOKE)
+    jp = init_params(jax.random.PRNGKey(0), jb.params_pspec,
+                     jseam.SMOKE.dtype)
+    prompt = np.arange(5, 12, dtype=np.int32)
+    with pytest.warns(UserWarning, match="ignoring cache_kind='paged'"):
+        jeng = JServingEngine(jb, jp, JServeConfig(cache_kind="paged"))
+    with pytest.raises(KeyError, match="frames"):
+        jeng.run([JRequest(uid=0, prompt=prompt)])
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), tseam.SMOKE,
+                           device="cpu")
+    with pytest.warns(UserWarning, match="ignoring cache_kind='paged'"):
+        teng = ServingEngine(tb, tp, ServeConfig(cache_kind="paged"))
+    with pytest.raises(ValueError, match="frames"):
+        teng.run([Request(uid=0, prompt=prompt)])
     with pytest.raises(ValueError, match="continuous"):
         tserve.main(["--config", "smoke", "--device", "cpu",
                      "--cache", "paged", "--scheduler", "wave"])
