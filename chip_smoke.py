@@ -118,7 +118,7 @@ Phases:
    ``repro_serving_tokens_total`` equal to the tokens returned, the four
    tick phases summing to the ticks within 1e-6 s a tick, as many ``kv_cow``
    events as CoW copies, the peak-pages gauge at the pool's peak, and a
-   resolution and a ``kernel_invoke`` event of RMSNorm on ``tile``; the
+   resolution and a ``kernel_invoke`` event of RMSNorm on ``tile_gpu``; the
    trace must hold one ``serving/block_step`` range a tick and RMSNorm
    kernel records. Printed: the T = 1 tick's host ms in each of the three
    runs, beside the card's name and power limit.
@@ -172,6 +172,33 @@ Phases:
    1e-3, gradients and params per leaf against the leaf's largest; see
    ``update_gate``), then the state checkpointed and restored bit for bit
    and a step from it against one from the state in memory.
+   After the wave runs, the kernel policy (``repro_torch.core.policy``,
+   ``.autotune``; the served runs above already run under its default,
+   ``auto``, which on the card resolves every op to ``tile_gpu`` by the
+   heuristic): for each op the default resolution and its one kernel
+   launch, ``interpret`` (the plain version, no launch) and ``tile_tpu``
+   (raises); ``backend="cpu"``, ``xla_tile``'s reduce against ``baseline``,
+   ``REPRO_KERNEL_PATH=fused`` and ``REPRO_AUTOTUNE=off`` through
+   ``default_policy()``; the host us of one memoised ``resolve``; the SSD
+   under ``"tile,ssd.q=32"`` at the served shape on the tensor-core
+   instance against its plain version, timed beside q = 64; every
+   log-depth candidate spec of the sweep under ``tile_logdepth`` against
+   the plain version, its ``kernel_invoke`` spec the geometry that ran;
+   ``attention.block_q`` warned once and left out of the spec. Then the
+   autotune table measured on the card over the reference's grid (bands
+   4-13, f32 and bf16), written to ``chiprun_out/autotune_gpu.json`` over
+   the checked-in ``cpu`` section, checked by ``check_default``, printed by
+   op with its crossovers; qwen3-moe (4 layers) served on the wave under
+   that table (the resolutions it moved off ``tile_gpu``; tokens equal to
+   the default wave run's; f32 prefill logits at ``PARITY_LAYERS`` layers
+   within 1e-3 of the default policy's); mamba2-1.3b whole on the wave
+   under ``ModelConfig(policy="tile,ssd.q=32")`` (48 SSD launches a
+   prefill at q = 32, all on the tensor cores; the prefill's SSD device ms
+   beside the default's; f32 logits at 2 layers within 1e-3 of the plain
+   path); the host time that resolving adds to a wave decode step (its
+   resolutions times one memoised resolve) within 5% of the step, and the
+   step under the default policy beside the step under ``"tile"``, in
+   turns (their ratio printed with its quartiles).
 3. Per kernel: the kernel against its plain version on the card at the main
    path's shapes (the reduce and scan at 2^24 elements from 2^20 rows of 16
    to one row, the reduce also on the global norm's largest rows, RMSNorm also at the served decode and prefill shapes,
@@ -522,11 +549,13 @@ def local_ssd_flops(bsz, seqlen, nheads, hdim, nstate, q=64):
 
 def logdepth_cases(torch, kops, ref, gen):
     """The three local passes of csrc/matmul_scan.cu, each with its block
-    size from ``layout.HOPPER`` as the log-depth ops run it."""
-    from repro_torch.kernels.layout import HOPPER
+    size from ``layout.DEFAULT_TUNING`` as the log-depth ops run it by
+    default."""
+    from repro_torch.kernels.layout import DEFAULT_TUNING
 
+    geo = DEFAULT_TUNING["gpu"]
     out = []
-    bn = HOPPER["scan_logdepth"]["block_n"]
+    bn = geo["scan"]["block_n"]
     for dtype, rows, n in ((torch.float16, N_ELEMS // 256, 256),
                            (torch.float32, N_ELEMS // 256, 256),
                            (torch.float32, 16, 1 << 20)):
@@ -543,7 +572,7 @@ def logdepth_cases(torch, kops, ref, gen):
                                              dtype=torch.float32),
             rtol=1e-3, nbytes=nbytes(x) + 4 * x.numel(), ops=x.numel(),
             dtype=dtype))
-    q = HOPPER["weighted_scan_logdepth"]["q"]
+    q = geo["weighted_scan"]["q"]
     for rows, n in ((64, 4096), (16, 1 << 20)):
         x = torch.randn(rows, n, generator=gen, device="cuda")
         la = -0.5 * torch.rand(rows, n, generator=gen, device="cuda")
@@ -555,7 +584,7 @@ def logdepth_cases(torch, kops, ref, gen):
             library=None, rtol=1e-4, nbytes=nbytes(x, la) + 4 * x.numel(),
             # one multiply-add per element (and one exp)
             ops=2 * x.numel(), dtype=torch.float32))
-    q = HOPPER["ssd_logdepth"]["q"]
+    q = geo["ssd"]["q"]
     for shape, dtype, primary in (((4, 512, 64, 64, 1, 128), torch.bfloat16,
                                    True),
                                   # the served wave, left-padded to 468
@@ -1626,6 +1655,8 @@ def serve_pass(smoke: Smoke, serve, kops, arch: str, policy: str | None,
                    f"every {cfg.dtype} launch on the tensor cores")
     if any(len(r.tokens) == 0 for r in results):
         smoke.fail("serve: a request produced no tokens")
+    if policy is None:
+        DEFAULT_TOKENS[arch] = [r.tokens for r in results]
     per_prefill = forward_launches(cfg, policy)
     per_step = forward_launches(cfg, policy, prefill=False)
     want = {k: n * engine.prefills + per_step.get(k, 0) * engine.decodes
@@ -2365,7 +2396,7 @@ def obs_pass(smoke: Smoke, serve, kops):
     per request; ``repro_serving_tokens_total`` the tokens returned; the
     four tick phases summing to the ticks within 1e-6 s a tick; ``kv_cow``
     events the pool's CoW copies and the peak-pages gauge its peak; a
-    resolution and a kernel_invoke event of RMSNorm on ``tile``; the trace
+    resolution and a kernel_invoke event of RMSNorm on ``tile_gpu``; the trace
     holding one ``serving/block_step`` range a tick and RMSNorm kernel
     records."""
     from repro_torch import obs
@@ -2441,9 +2472,9 @@ def obs_pass(smoke: Smoke, serve, kops):
             "peak pages gauge = kv_stats peak":
                 prom.get("repro_kvpool_peak_pages_in_use")
                 == kv["peak_pages_in_use"],
-            "rmsnorm resolution and kernel_invoke on tile":
-                ("rmsnorm", "tile", "kernel") in res
-                and ("rmsnorm", "tile") in inv,
+            "rmsnorm resolution and kernel_invoke on tile_gpu":
+                ("rmsnorm", "tile_gpu", "kernel") in res
+                and ("rmsnorm", "tile_gpu") in inv,
         }
         # mean ms of each phase a tick, from the run's own histograms
         head = "repro_serving_tick_phase_seconds_sum"
@@ -3135,6 +3166,564 @@ def train_parity(smoke: Smoke, arch: str) -> dict:
                 ckpt_save_s=save_s, ckpt_restore_s=restore_s)
 
 
+# ---------------------------------------------------------------------------
+# the kernel policy on the card (repro_torch.core.policy, .autotune)
+
+
+POLICY_MOE = "qwen3-moe-235b-a22b"
+POLICY_SSD = "mamba2-1.3b"
+TUNE_SPEC = "tile,ssd.q=32"          # the slice's served knob
+# the card's table: written here (chiprun_out/ is not committed), merged
+# over the checked-in cpu section
+AUTOTUNE_OUT = Path(__file__).resolve().parent / "chiprun_out" / \
+    "autotune_gpu.json"
+# samples of each contender of a bucket: a median of AUTOTUNE_ITERS event
+# pairs, each around AUTOTUNE_REPS calls (the grid is launch-bound)
+AUTOTUNE_ITERS, AUTOTUNE_REPS = 15, 5
+RESOLVE_CALLS = 20000
+DECODE_ROUNDS = 60                  # rounds of one decode step of each policy
+DEFAULT_TOKENS: dict = {}           # the served runs' tokens, by arch
+
+
+def op_calls(torch, ops, kops, ref, gen) -> dict:
+    """Each public op at a small card shape: (run under a policy, the
+    kernel it launches, its plain version)."""
+    x = torch.randn(64, 4096, generator=gen, device="cuda")
+    la = -0.5 * torch.rand(64, 4096, generator=gen, device="cuda")
+    h = torch.randn(64, 2048, generator=gen, device="cuda").bfloat16()
+    w = torch.ones(2048, device="cuda", dtype=torch.bfloat16)
+    ssd_in = ssd_inputs(torch, gen, 2, 256, 8, 64, 1, 128, torch.bfloat16)
+    q, k, v = (torch.randn(2, 256, heads, 64, generator=gen,
+                           device="cuda").bfloat16() for heads in (8, 2, 2))
+    return {
+        "reduce": (lambda p: ops.reduce(x, policy=p), "tcu_reduce",
+                   lambda: ref.segmented_reduce_ref(x)),
+        "scan": (lambda p: ops.scan(x, policy=p), "tcu_scan",
+                 lambda: ref.segmented_scan_ref(x)),
+        "weighted_scan": (lambda p: ops.weighted_scan(x, la, policy=p),
+                          "weighted_scan",
+                          lambda: ref.weighted_scan_ref(x, la)),
+        "rmsnorm": (lambda p: ops.rmsnorm(h, w, policy=p), "rmsnorm",
+                    lambda: ref.rmsnorm_ref(h, w)),
+        "attention": (lambda p: ops.attention(q, k, v, policy=p),
+                      "flash_attention",
+                      lambda: kops.attention_plain(q, k, v)),
+        "ssd": (lambda p: ops.ssd(*ssd_in, policy=p), "ssd_scan",
+                lambda: ref.ssd_scan_ref(*ssd_in)),
+    }
+
+
+def resolution_checks(smoke: Smoke, ops, kops, ref) -> dict:
+    """For each op on the card: the default ``auto`` resolves to
+    ``tile_gpu`` by the heuristic (the checked-in table has no ``gpu``
+    section) and launches its kernel once; ``interpret`` runs the plain
+    version (the same numbers, no launch); ``tile_tpu`` raises. Then
+    ``backend="cpu"`` gives ``interpret``, ``xla_tile``'s reduce matches
+    ``baseline``, ``REPRO_KERNEL_PATH=fused`` and ``REPRO_AUTOTUNE=off`` are
+    seen through ``default_policy()``, and one memoised ``resolve`` is
+    timed."""
+    import os
+
+    from repro_torch import obs
+    from repro_torch.core import policy as kpolicy
+
+    torch = smoke.torch
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    calls = op_calls(torch, ops, kops, ref, gen)
+    out: dict = {}
+    for op, (run, kernel, plain) in calls.items():
+        before = kops.launch_counts()[kernel]
+        with obs.using_obs() as sess:
+            run(None)
+        launched = kops.launch_counts()[kernel] - before
+        first = sess.events.events("resolution")[0]
+        got = (first["chosen_path"], first["table_src"], launched)
+        before = kops.launch_counts()[kernel]
+        errs, scales = max_err(run("interpret"), plain())
+        interp_ok = max(errs) <= 1e-6 * max(1.0, max(scales))
+        interp_launched = kops.launch_counts()[kernel] - before
+        try:
+            run("tile_tpu")
+            tpu = "ran"
+        except RuntimeError:
+            tpu = "raised"
+        out[op] = dict(default=got, interpret_err=max(errs),
+                       interpret_launches=interp_launched, tile_tpu=tpu)
+        print(f"policy: {op} default auto -> {got[0]} ({got[1]}), "
+              f"{kernel} launched {launched}; interpret max_abs_err vs "
+              f"plain {max(errs):.3e}, launches {interp_launched}; tile_tpu "
+              f"{tpu}", flush=True)
+        if got != ("tile_gpu", "heuristic", 1) or interp_launched or \
+                not interp_ok or tpu != "raised":
+            smoke.fail(f"policy: {op} resolves or runs wrong on the card: "
+                       f"{out[op]}")
+    x = torch.randn(64, 4096, generator=gen, device="cuda")
+    cpu_pref = kpolicy.KernelPolicy(path="tile", backend="cpu").resolve(
+        op="reduce", n=4096, dtype=x.dtype, device=x.device)
+    errs, scales = max_err(ops.reduce(x, policy="xla_tile"),
+                           ops.reduce(x, policy="baseline"))
+    xla_ok = max(errs) <= 2e-4 * max(1.0, max(scales))
+    env = {}
+    names = (kpolicy.ENV_PATH, kpolicy.ENV_AUTOTUNE)
+    try:
+        os.environ.update({kpolicy.ENV_PATH: "fused"})
+        with obs.using_obs() as sess:
+            ops.reduce(x)
+        env["REPRO_KERNEL_PATH=fused"] = (
+            kpolicy.default_policy().path,
+            sess.events.events("resolution")[0]["chosen_path"])
+        os.environ.pop(kpolicy.ENV_PATH)
+        os.environ.update({kpolicy.ENV_AUTOTUNE: "off"})
+        with obs.using_obs() as sess:
+            ops.scan(x)
+        ev = sess.events.events("resolution")[0]
+        env["REPRO_AUTOTUNE=off"] = (kpolicy.default_policy().autotune,
+                                     ev["chosen_path"], ev["table_src"])
+    finally:
+        for name in names:
+            os.environ.pop(name, None)
+    print(f"policy: backend='cpu' tile -> {cpu_pref}; xla_tile reduce vs "
+          f"baseline max_abs_err {max(errs):.3e}; env through "
+          f"default_policy(): {env}", flush=True)
+    if cpu_pref != "interpret" or not xla_ok or env != {
+            "REPRO_KERNEL_PATH=fused": ("fused", "fused"),
+            "REPRO_AUTOTUNE=off": ("off", "tile_gpu", "static")}:
+        smoke.fail(f"policy: backend/xla_tile/env checks: {cpu_pref}, "
+                   f"{errs}, {env}")
+    # one memoised resolution, as a model's eager op pays it
+    pol = kpolicy.get_policy()
+    resolve = pol.resolve
+    resolve(op="scan", n=4096, dtype=x.dtype, device=x.device)
+    t0 = time.perf_counter()
+    for _ in range(RESOLVE_CALLS):
+        resolve(op="scan", n=4096, dtype=x.dtype, device=x.device)
+    resolve_us = 1e6 * (time.perf_counter() - t0) / RESOLVE_CALLS
+    t0 = time.perf_counter()
+    for _ in range(RESOLVE_CALLS):
+        kpolicy.as_policy(None).resolve(op="scan", n=4096, dtype=x.dtype,
+                                        device=x.device)
+    default_us = 1e6 * (time.perf_counter() - t0) / RESOLVE_CALLS
+    t0 = time.perf_counter()
+    for _ in range(RESOLVE_CALLS):
+        kpolicy.as_policy("tile").resolve(op="scan", n=4096, dtype=x.dtype,
+                                          device=x.device)
+    string_us = 1e6 * (time.perf_counter() - t0) / RESOLVE_CALLS
+    print(f"policy: one memoised resolve {resolve_us:.3f} us; with the "
+          f"active policy looked up {default_us:.3f} us; with a string "
+          f"policy coerced {string_us:.3f} us (host clock, mean of "
+          f"{RESOLVE_CALLS}; {smi_line()})", flush=True)
+    return dict(ops=out, backend_cpu=cpu_pref, xla_tile_err=max(errs),
+                env=env, resolve_us=resolve_us,
+                resolve_default_us=default_us, resolve_string_us=string_us)
+
+
+def knob_checks(smoke: Smoke, ops, kops, ref) -> dict:
+    """``ssd.q=32`` at the served shape (B=4 L=468 H=64 P=64 N=128 bf16) on
+    the tensor-core instance, held against the plain version and timed
+    beside q = 64 (PERF.md row 3g); each log-depth candidate spec under
+    ``tile_logdepth`` held against the plain version of the op, its
+    ``kernel_invoke`` spec the clamped geometry, and timed; a knob no Hopper
+    kernel takes (``attention.block_q``) warns once and is left out of the
+    spec."""
+    import warnings
+
+    from repro_torch import obs
+    from repro_torch.core import policy as kpolicy
+    from repro_torch.kernels import layout
+
+    torch = smoke.torch
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    shape = (4, 468, 64, 64, 1, 128)
+    ins = ssd_inputs(torch, gen, *shape, torch.bfloat16)
+    before = kops.instance_counts()
+    with kpolicy.using_policy(TUNE_SPEC), obs.using_obs() as sess:
+        got = ops.ssd(*ins, return_state=True)
+    after = kops.instance_counts()
+    inst = {k: n - before.get(k, 0) for k, n in after.items()
+            if n != before.get(k, 0)}
+    (inv,) = sess.events.events("kernel_invoke")
+    errs, scales = max_err(got, ref.ssd_scan_ref(*ins, return_state=True))
+    tols = [8e-3 * max(1.0, sc) for sc in scales]
+    bsz, seqlen, nheads, hdim, _, nstate = shape
+    row = {}
+    for q in (spec["q"] for spec in layout.candidate_tuning("gpu", "ssd")):
+        ms = smoke.time_ms(lambda q=q: kops.ssd_scan(
+            *ins, tuning={"q": q}, return_state=True))
+        spread = smoke.spread
+        io = nbytes(*ins) + bsz * seqlen * nheads * hdim * 2 + \
+            bsz * nheads * hdim * nstate * 4
+        bms, by = bound(io, ssd_flops(bsz, seqlen, nheads, hdim, nstate, q),
+                        torch.bfloat16)
+        row[q] = dict(ms=ms, min=spread["min"], max=spread["max"],
+                      bound_ms=bms, bound_by=by)
+    plain_ms = smoke.time_ms(lambda: ref.ssd_scan_ref(*ins,
+                                                      return_state=True),
+                             max_iters=3)
+    print(f"policy: ssd under {TUNE_SPEC!r} at B={bsz} L={seqlen} "
+          f"H={nheads} P={hdim} N={nstate} bf16: instances {inst}, "
+          f"kernel_invoke tuning {inv['tuning']}, max_abs_err "
+          f"{[f'{e:.3e}' for e in errs]} (tol "
+          f"{[f'{t:.3e}' for t in tols]}); row 3g: "
+          + "; ".join(f"q={q} {r['ms']:.4f} ms (min {r['min']:.4f} max "
+                      f"{r['max']:.4f}, bound {r['bound_ms']:.4f} "
+                      f"{r['bound_by']})" for q, r in row.items())
+          + f"; plain {plain_ms:.4f} ms ({smi_line()})", flush=True)
+    if inst != {("ssd_scan", "mma"): 1} or inv["tuning"] != {"q": 32} or \
+            not all(e <= t for e, t in zip(errs, tols)):
+        smoke.fail(f"policy: ssd.q=32 did not run q = 32 on the tensor "
+                   f"cores within tolerance: {inst}, {inv['tuning']}, "
+                   f"{errs}")
+    # the log-depth candidates of the sweep, on long rows and the SSD wave
+    x = torch.randn(16, 1 << 20, generator=gen, device="cuda")
+    la = -0.5 * torch.rand(16, 1 << 20, generator=gen, device="cuda")
+    ssd_in = ssd_inputs(torch, gen, 4, 512, 64, 64, 1, 128, torch.bfloat16)
+    cases = {
+        "scan": (lambda p: ops.scan(x, policy=p),
+                 lambda: ref.segmented_scan_ref(x), 1e-3, x.shape[-1]),
+        "weighted_scan": (lambda p: ops.weighted_scan(x, la, policy=p),
+                          lambda: ref.weighted_scan_ref(x, la), 2e-3,
+                          x.shape[-1]),
+        "ssd": (lambda p: ops.ssd(*ssd_in, policy=p, return_state=True),
+                lambda: ref.ssd_scan_ref(*ssd_in, return_state=True), 8e-3,
+                ssd_in[0].shape[1]),
+    }
+    sweep = []
+    for op, specs in layout.LOGDEPTH_CANDIDATE_TUNING["gpu"].items():
+        run, plain, rtol, n = cases[op]
+        want = plain()
+        for spec in specs:
+            pol = kpolicy.KernelPolicy(path="tile_logdepth",
+                                       op_tuning={op: spec})
+            with obs.using_obs() as sess:
+                got = run(pol)
+            (inv,) = sess.events.events("kernel_invoke")
+            errs, scales = max_err(got, want)
+            tols = [rtol * max(1.0, sc) for sc in scales]
+            ms = smoke.time_ms(lambda pol=pol, run=run: run(pol))
+            ran = layout.clamp_spec("gpu", op, spec, n=n)
+            ok = all(e <= t for e, t in zip(errs, tols)) and \
+                inv["tuning"] == ran
+            sweep.append(dict(op=op, spec=inv["tuning"], ms=ms,
+                              max_abs_err=max(errs), tol=max(tols)))
+            print(f"policy: {op} tile_logdepth {inv['tuning']}: {ms:.4f} ms"
+                  f" (device, whole op), max_abs_err {max(errs):.3e} (tol "
+                  f"{max(tols):.3e}){'' if ok else '  <-- FAIL'}",
+                  flush=True)
+            if not ok:
+                smoke.fail(f"policy: {op} log-depth candidate {spec}: "
+                           f"{errs} > {tols} or spec {inv['tuning']} != "
+                           f"{ran}")
+    # a knob no Hopper kernel takes: warned once, left out of the spec
+    q, k, v = (torch.randn(2, 256, heads, 64, generator=gen,
+                           device="cuda").bfloat16() for heads in (8, 2, 2))
+    with warnings.catch_warnings(record=True) as rec, \
+            obs.using_obs() as sess:
+        warnings.simplefilter("always")
+        for _ in range(2):
+            kpolicy.invalidate_cache()      # resolve anew each time
+            ops.attention(q, k, v, policy="tile,attention.block_q=128")
+    warned = sum("attention.block_q" in str(r.message) for r in rec)
+    specs = [e["tuning"] for e in sess.events.events("kernel_invoke")]
+    print(f"policy: attention.block_q=128 warned {warned} time(s); "
+          f"kernel_invoke tuning {specs}", flush=True)
+    if warned != 1 or specs != [{}, {}]:
+        smoke.fail(f"policy: attention.block_q warned {warned} times, "
+                   f"specs {specs}")
+    return dict(ssd_q32=dict(instances={f"{a}/{b}": n for (a, b), n in
+                                        inst.items()},
+                             max_abs_err=max(errs)),
+                row_3g={str(q): r for q, r in row.items()},
+                ssd_plain_ms=plain_ms, logdepth_sweep=sweep,
+                block_q_warnings=warned)
+
+
+def crossovers(us_by_band: dict, a: str, b: str) -> list:
+    """The bands at which the faster of contenders ``a`` and ``b`` changes
+    (each given as ``band: winner-of-the-pair``)."""
+    out, last = [], None
+    for band, us in sorted(us_by_band.items()):
+        if a not in us or b not in us:
+            continue
+        win = a if us[a] <= us[b] else b
+        if win != last:
+            out.append(f"{band}:{win}")
+        last = win
+    return out
+
+
+def measured_auto(smoke: Smoke) -> dict:
+    """The autotune table measured on the card over the reference's grid
+    (every op, f32 and bf16, bands 4-13), written to ``AUTOTUNE_OUT``
+    merged over the checked-in ``cpu`` section and checked; each op's
+    winners by band and where ``tile``, ``baseline`` and ``tile_logdepth``
+    cross."""
+    from repro_torch.core import autotune
+
+    t0 = time.perf_counter()
+    measured = autotune.measure_table(device="cuda", iters=AUTOTUNE_ITERS,
+                                      reps=AUTOTUNE_REPS)
+    seconds = time.perf_counter() - t0
+    table = autotune.merge_tables(
+        autotune.load_table(autotune.DEFAULT_TABLE_PATH), measured)
+    AUTOTUNE_OUT.parent.mkdir(parents=True, exist_ok=True)
+    autotune.save_table(table, AUTOTUNE_OUT)
+    problems = {bk: autotune.check_default(AUTOTUNE_OUT, backend_key=bk)
+                for bk in ("gpu", "cpu")}
+    entries = measured["backends"]["gpu"]["entries"]
+    summary = {}
+    for op in autotune.OP_CONTENDERS:
+        for tag in ("f32", "bf16"):
+            us = {b: entries[f"{op}/{tag}/{b}"]["us"]
+                  for b in autotune.DEFAULT_BANDS}
+            wins = {b: entries[f"{op}/{tag}/{b}"]["path"]
+                    for b in autotune.DEFAULT_BANDS}
+            cross = {f"{a}|{b}": crossovers(us, a, b) for a, b in (
+                ("tile", "baseline"), ("tile", "tile_logdepth"),
+                ("baseline", "tile_logdepth"), ("tile", "fused"))}
+            summary[f"{op}/{tag}"] = dict(winners=wins, crossovers=cross)
+            print(f"autotune gpu {op}/{tag}: winners by band {wins}; "
+                  f"crossovers (band:faster) {cross}; us by band "
+                  + "; ".join(f"{b}: " + ",".join(
+                      f"{k} {v:.1f}" for k, v in sorted(us[b].items()))
+                      for b in autotune.DEFAULT_BANDS), flush=True)
+    print(f"autotune: measured {len(entries)} gpu buckets in {seconds:.1f} "
+          f"s (median of {AUTOTUNE_ITERS} event pairs of {AUTOTUNE_REPS} "
+          f"calls a contender), wrote {AUTOTUNE_OUT}; check_default "
+          f"{problems} ({smi_line()})", flush=True)
+    if any(problems.values()):
+        smoke.fail(f"autotune: the card's table fails check_default: "
+                   f"{problems}")
+    return dict(seconds=seconds, buckets=len(entries), summary=summary,
+                check=problems)
+
+
+def moe_under_table(smoke: Smoke, serve, kops) -> dict:
+    """qwen3-moe (``CUTS``) served on the wave under
+    ``KernelPolicy(autotune_table=AUTOTUNE_OUT)``: the resolutions the
+    card's table moved off ``tile_gpu``, its tokens against the default
+    run's, and its f32 prefill logits at ``PARITY_LAYERS`` layers against
+    the default policy's within 1e-3 of the largest."""
+    from repro_torch import obs
+    from repro_torch.core.policy import KernelPolicy
+    from repro_torch.models.common import cast_tree
+
+    torch = smoke.torch
+    table_pol = KernelPolicy(autotune_table=str(AUTOTUNE_OUT))
+    engine = full_engine(serve, POLICY_MOE, policy=table_pol, slots=4,
+                         max_new=16, scheduler="wave")
+    cfg = engine.bundle.cfg
+    engine.run(serve.make_requests(1, 16, cfg.vocab, seed=1))   # warm-up
+    reqs = serve.make_requests(4, 512, cfg.vocab, seed=0)
+    for r in reqs:
+        r.max_new = 16
+    kops.reset_launches()
+    with obs.using_obs() as sess:
+        results = engine.run(reqs)
+    torch.cuda.synchronize()
+    counts = kops.launch_counts()
+    tokens = [r.tokens for r in results]
+    src = str(AUTOTUNE_OUT)
+    res = sess.events.events("resolution")
+    moved = sorted({(e["op"], e["n"], e["dtype"], e["level"],
+                     e["chosen_path"]) for e in res
+                    if e["table_src"] == src
+                    and e["chosen_path"] != "tile_gpu"})
+    from_table = sorted({(e["op"], e["n"], e["dtype"], e["chosen_path"])
+                         for e in res if e["table_src"] == src})
+    want = DEFAULT_TOKENS.get(POLICY_MOE)
+    batch = {"tokens": wave_tokens(torch, reqs)}
+    params = first_layers(engine.params, PARITY_LAYERS)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = cast_tree(params, torch.float32)
+    got32 = prefill_fn(cfg, batch, table_pol, torch.float32, params,
+                       PARITY_LAYERS)()
+    want32 = prefill_fn(cfg, batch, None, torch.float32, params,
+                        PARITY_LAYERS)()
+    del params
+    err = (got32 - want32).abs().max().item()
+    tol = 1e-3 * want32.abs().max().item()
+    print(f"policy: {POLICY_MOE} wave under the card's table: launches "
+          f"{counts}; resolutions from the table {from_table}; moved off "
+          f"tile_gpu {moved}; tokens "
+          f"{'equal to' if tokens == want else 'DIFFER from'} the default "
+          f"run's{'' if want is not None else ' (no default run)'}; f32 "
+          f"prefill logits at {PARITY_LAYERS} layers vs the default policy "
+          f"max_abs_err {err:.4e} (tol {tol:.4e})", flush=True)
+    if want is None or tokens != want or not err <= tol or not from_table:
+        smoke.fail(f"policy: {POLICY_MOE} under the card's table: tokens "
+                   f"equal {tokens == want}, f32 logits {err} (tol {tol}), "
+                   f"table resolutions {from_table}")
+    return dict(launches=counts, moved=moved, from_table=from_table,
+                tokens_equal=tokens == want, logits_f32_max_abs_err=err,
+                logits_f32_tol=tol)
+
+
+def ssd_knob_pass(smoke: Smoke, serve, kops, resolve_us) -> dict:
+    """mamba2-1.3b whole on the wave under ``ModelConfig(policy=TUNE_SPEC)``:
+    48 SSD launches at q = 32 a prefill, every one on the tensor-core
+    instance; the prefill's SSD device ms beside the default policy's; the
+    f32 logits at ``PARITY_LAYERS`` layers against the plain path within
+    1e-3. Then the cost of resolving in a wave decode step: its
+    resolutions (``resolution`` events of one step under the default
+    policy) times ``resolve_us`` (one memoised resolve under the active
+    policy, timed by ``resolution_checks``) must stay within 5% of the
+    step's host ms. The step under the default policy and under the
+    explicit string ``"tile"``, in turns, is printed beside it: a ratio of
+    two host-clock steps of 40-60 ms, whose noise is of the size the gate
+    bounds."""
+    from repro_torch import obs
+    from repro_torch.models import build
+    from repro_torch.models.common import cast_tree
+    from repro_torch.models.lm import pad_cache_seq
+
+    torch = smoke.torch
+    engine = serve.build_engine(POLICY_SSD, "full", device="cuda", seed=0,
+                                policy=TUNE_SPEC, slots=4, max_new=16,
+                                scheduler="wave")
+    cfg = engine.bundle.cfg
+    engine.run(serve.make_requests(1, 16, cfg.vocab, seed=1))   # warm-up
+    reqs = serve.make_requests(4, 512, cfg.vocab, seed=0)
+    for r in reqs:
+        r.max_new = 16
+    engine.prefills = engine.decodes = 0
+    kops.reset_launches()
+    with obs.using_obs() as sess:
+        results = engine.run(reqs)
+    torch.cuda.synchronize()
+    counts = kops.launch_counts()
+    instances = kops.instance_counts()
+    ssd_specs = [e["tuning"] for e in sess.events.events("kernel_invoke")
+                 if e["op"] == "ssd_scan"]
+    want = cfg.n_layers * engine.prefills
+    q_ok = (counts["ssd_scan"] == len(ssd_specs) == want
+            and all(sp == {"q": 32} for sp in ssd_specs)
+            and instances.get(("ssd_scan", "mma"), 0) == want
+            and not instances.get(("ssd_scan", "fma")))
+    print(f"policy: {POLICY_SSD} wave under ModelConfig(policy="
+          f"{TUNE_SPEC!r}): {counts['ssd_scan']} ssd_scan launches over "
+          f"{engine.prefills} prefill(s) (want {want}), specs "
+          f"{sorted({str(sp) for sp in ssd_specs})}, instances "
+          f"{instance_text(instances)}; "
+          f"{sum(len(r.tokens) for r in results)} tokens", flush=True)
+    if not q_ok or any(len(r.tokens) == 0 for r in results):
+        smoke.fail(f"policy: {POLICY_SSD} under {TUNE_SPEC}: ssd launches "
+                   f"{counts['ssd_scan']} (want {want}), specs "
+                   f"{set(map(str, ssd_specs))}, instances {instances}")
+    batch = {"tokens": wave_tokens(torch, reqs)}
+    params = engine.params
+    split = {p: device_split(torch, prefill_fn(cfg, batch, p, cfg.dtype,
+                                               params))
+             for p in (TUNE_SPEC, None)}
+    ssd_ms = {str(p): (s or {}).get("ssd_scan") for p, s in split.items()}
+    # the wave's decode step, default policy against the string "tile", in
+    # turns on one cache each
+    bundles = {"default": build(dataclasses.replace(cfg, policy=None)),
+               "tile": build(dataclasses.replace(cfg, policy="tile"))}
+    step = {"tokens": batch["tokens"][:, -1:]}
+    caches = {k: pad_cache_seq(b.prefill_last(params, batch)[1], 2)
+              for k, b in bundles.items()}
+    times = {k: [] for k in bundles}
+    for k, b in bundles.items():
+        b.decode(params, caches[k], step)
+    torch.cuda.synchronize()
+    for i in range(DECODE_ROUNDS):
+        for k in (("default", "tile") if i % 2 == 0 else ("tile",
+                                                          "default")):
+            t0 = time.perf_counter()
+            bundles[k].decode(params, caches[k], step)
+            torch.cuda.synchronize()
+            times[k].append(1e3 * (time.perf_counter() - t0))
+    decode_ms = {k: statistics.median(v) for k, v in times.items()}
+    # the host clock drifts by tens of percent over the run: each round's
+    # two steps are neighbours in time, so the rounds' ratios are what the
+    # policies differ by (printed, not gated: see the docstring)
+    ratios = [d / t for d, t in zip(times["default"], times["tile"])]
+    ratio = statistics.median(ratios)
+    quartiles = statistics.quantiles(ratios, n=4)
+    with obs.using_obs() as sess:
+        bundles["default"].decode(params, caches["default"], step)
+    torch.cuda.synchronize()
+    resolutions = len(sess.events.events("resolution"))
+    resolve_ms = (float("nan") if resolve_us is None
+                  else resolutions * resolve_us / 1e3)
+    resolve_share = resolve_ms / decode_ms["default"]
+    print(f"policy: {POLICY_SSD} prefill {batch_text(batch)} SSD device ms "
+          f"(torch.profiler, one prefill) under {TUNE_SPEC!r} "
+          f"{ssd_ms[TUNE_SPEC]} vs the default {ssd_ms['None']}; wave "
+          f"decode step host ms (median of {DECODE_ROUNDS}, in turns): "
+          f"default policy {decode_ms['default']:.3f} (min "
+          f"{min(times['default']):.3f} max {max(times['default']):.3f}), "
+          f"policy 'tile' {decode_ms['tile']:.3f} (min "
+          f"{min(times['tile']):.3f} max {max(times['tile']):.3f}), "
+          f"ratio of a round's two steps median {ratio:.4f} quartiles "
+          f"{quartiles[0]:.4f} {quartiles[2]:.4f}; resolving in one "
+          f"default step: {resolutions} resolutions x {resolve_us} us = "
+          f"{resolve_ms:.4f} ms, {resolve_share:.5f} of the step "
+          f"({smi_line()})", flush=True)
+    if not resolutions or not resolve_share <= 0.05:
+        smoke.fail(f"policy: resolving adds {resolve_ms} ms "
+                   f"({resolutions} resolutions x {resolve_us} us) to a "
+                   f"{decode_ms['default']:.3f} ms decode step (want within "
+                   f"5%)")
+    depth = PARITY_LAYERS
+    del engine, bundles, caches
+    params = cast_tree(first_layers(params, depth), torch.float32)
+    gc.collect()
+    torch.cuda.empty_cache()
+    got32 = prefill_fn(cfg, batch, TUNE_SPEC, torch.float32, params,
+                       depth)()
+    want32 = prefill_fn(cfg, batch, "baseline", torch.float32, params,
+                        depth)()
+    err = (got32 - want32).abs().max().item()
+    tol = 1e-3 * want32.abs().max().item()
+    print(f"policy: {POLICY_SSD} f32 last-token logits at {depth} layers "
+          f"under {TUNE_SPEC!r} vs the plain path: max_abs_err {err:.4e} "
+          f"(tol {tol:.4e})", flush=True)
+    if not err <= tol:
+        smoke.fail(f"policy: {POLICY_SSD} under {TUNE_SPEC}: f32 logits "
+                   f"{err} > {tol}")
+    return dict(launches=counts, ssd_launches=counts["ssd_scan"],
+                ssd_device_ms=ssd_ms, decode_step_ms=decode_ms,
+                decode_ratio=ratio, decode_ratio_quartiles=quartiles,
+                decode_resolutions=resolutions, resolve_ms=resolve_ms,
+                resolve_share=resolve_share, logits_f32_max_abs_err=err,
+                logits_f32_tol=tol)
+
+
+def policy_pass(smoke: Smoke, serve, ops, kops, ref) -> dict:
+    """The kernel policy on the card: labels and env vars, tuning knobs,
+    the measured ``auto``, then the two served runs (each with its own
+    launch counts; their sum is this phase's)."""
+    stats: dict = {}
+    for name, fn in (("resolution", lambda: resolution_checks(
+                          smoke, ops, kops, ref)),
+                     ("knobs", lambda: knob_checks(smoke, ops, kops, ref)),
+                     ("autotune", lambda: measured_auto(smoke))):
+        try:
+            stats[name] = fn()
+        except Exception as exc:  # a phase that raises is a failed phase
+            smoke.fail(f"policy {name}: {exc!r}")
+    launches = {k: 0 for k in kops.KERNELS}
+    for name, fn in (("moe under the card's table",
+                      lambda: moe_under_table(smoke, serve, kops)),
+                     (f"{POLICY_SSD} {TUNE_SPEC}",
+                      lambda: ssd_knob_pass(
+                          smoke, serve, kops, stats.get("resolution", {}).get(
+                              "resolve_default_us")))):
+        try:
+            stats[name] = fn()
+            for k, n in stats[name]["launches"].items():
+                launches[k] += n
+        except Exception as exc:  # a phase that raises is a failed phase
+            smoke.fail(f"policy {name}: {exc!r}")
+        gc.collect()
+        smoke.torch.cuda.empty_cache()
+    stats["launches"] = launches
+    return stats
+
+
 def main() -> int:
     import torch
 
@@ -3177,7 +3766,6 @@ def main() -> int:
         for name, code in (("bf16", 2), ("f32", 0)) for dh in (64, 128)
         for lk in (512, 4096)), flush=True)
     smoke = Smoke(torch)
-
     with torch.inference_mode():
         kops.reset_launches()
         try:
@@ -3197,6 +3785,8 @@ def main() -> int:
                  lambda a=arch, p=policy, pl=per_layer, ab=absent:
                  serve_pass(smoke, serve, kops, a, p, pl, ab))
                 for arch, policy, per_layer, absent in SERVED]
+        runs += [("kernel policy", lambda: policy_pass(smoke, serve, ops,
+                                                       kops, ref))]
         ring_ref: dict = {}
         runs += [(f"{arch} continuous",
                   lambda a=arch: continuous_pass(smoke, serve, kops, a,

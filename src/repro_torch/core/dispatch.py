@@ -1,28 +1,38 @@
 """One switch for every reduce/scan/attention/SSD formulation of the port.
 
-Every op takes ``policy=`` (see :mod:`repro_torch.core.policy`) and runs:
+Counterpart of ``repro.core.dispatch``. Every op takes ``policy=`` (a
+:class:`~repro_torch.core.policy.KernelPolicy`, a string shorthand or a
+mapping; None: the active policy) and the per-call ``path=`` label, which
+beats the policy, and resolves through ``KernelPolicy.resolve`` with the
+bucket-axis size the reference passes (reduce, scan, weighted_scan and the
+ragged ops: the last axis; attention and ssd: the sequence axis) and the
+tensor's device:
 
-  ``tile``      the Hopper kernel through ``repro_torch.kernels.ops``
-  ``fused``     the matmul forms of ``repro_torch.core`` (torch matmuls);
-                for attention the blocked ``chunked_attention``
-  ``baseline``  ``torch.sum`` / ``torch.cumsum`` / the plain oracles
+  ``tile_gpu``  the Hopper kernel through ``repro_torch.kernels.ops``
+                (``tile`` on a CUDA tensor of an H100)
+  ``interpret`` the kernel's plain version (``tile`` on a CPU tensor)
   ``tile_logdepth``  scan, weighted_scan and ssd only: the carry-free local
                 kernels of ``csrc/matmul_scan.cu`` and the log-depth tree of
                 ``kernels/matmul_scan.py`` (the other ops raise)
+  ``fused``     the matmul forms of ``repro_torch.core`` (torch matmuls);
+                for attention the blocked ``chunked_attention``
+  ``xla_tile``  the paper's tile algebra for the reduce
+                (``formulation="tile"``), the fused forms for the others
+  ``baseline``  ``torch.sum`` / ``torch.cumsum`` / the plain oracles
 
-The ragged ops have no kernel in the reference either: ``tile`` and
-``fused`` run their one-hot matmul forms (``repro_torch.core.ragged``).
-
-Each op resolves its path with the bucket-axis size the reference's
-``dispatch._resolve`` passes (reduce, scan, weighted_scan: the last axis;
-attention and ssd: the sequence axis), so an observability session records
-the reference's ``resolution`` events.
+A kernel path resolves once more at level ``"kernel"`` under the
+reference registry's name of the op with the dispatch's label as the
+per-call label (``repro.kernels.backend.pallas_op``); its
+:class:`~repro_torch.core.policy.TuneSpec` is the geometry the wrapper
+runs. The ragged ops have no kernel in the reference either: every path
+but ``baseline`` runs their one-hot matmul forms
+(``repro_torch.core.ragged``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.policy import _emit_resolution, resolve
+from repro_torch.core import policy as kpolicy
 from repro_torch.core.ragged import (
     guard_contiguous,
     tcu_ragged_segment_reduce,
@@ -35,51 +45,62 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
 from repro_torch.obs import runtime
 
-KERNEL_PATHS = ("tile", "tile_logdepth")
+PATHS = kpolicy.DISPATCH_PATHS
 
 
-def _resolve(policy, op: str, x: torch.Tensor, n: int,
-             level: str = "dispatch") -> str:
-    return resolve(policy, op, n=n, dtype=x.dtype, level=level,
-                   device=x.device)
+def _resolve(pol: kpolicy.KernelPolicy, op: str, x: torch.Tensor, n: int,
+             path: str | None, level: str = "dispatch"
+             ) -> kpolicy.ResolvedPath:
+    return pol.resolve(op=op, n=n, dtype=x.dtype, level=level, explicit=path,
+                       device=x.device)
 
 
-def _kernel_level(op: str, x: torch.Tensor, n: int, path: str) -> None:
-    """The reference resolves a kernel path once more in its kernel
-    registry (``repro.kernels.backend.pallas_op``: level ``"kernel"``, the
-    registry's name of the op, the dispatch's choice as the per-call
-    label). The port's wrappers take the path as given, so that
-    resolution is recorded here (only called with a session active)."""
-    if path in KERNEL_PATHS:
-        _emit_resolution(op, n, x.dtype, "kernel", path, path, x.device)
+def _kernel(pol: kpolicy.KernelPolicy, name: str, x: torch.Tensor, n: int,
+            label: str) -> kpolicy.ResolvedPath:
+    """The registry's resolution of a kernel path: level ``"kernel"``, the
+    registry's name of the op, the dispatch's label as the per-call one."""
+    return _resolve(pol, name, x, n, label, level="kernel")
 
 
-def reduce(x: torch.Tensor, *, policy: str | None = None) -> torch.Tensor:
+def _no_logdepth(op: str) -> RuntimeError:
+    return RuntimeError(
+        f"{op}: no log-depth MatMulScan kernel for this op (tile_logdepth "
+        f"covers the scan family: {', '.join(kpolicy.LOGDEPTH_OPS)}); use "
+        "tile, fused or baseline, e.g. 'ssd=tile_logdepth'")
+
+
+def reduce(x: torch.Tensor, *, policy=None,
+           path: str | None = None) -> torch.Tensor:
     """Segmented sum over the last axis -> f32 ``(...,)``."""
-    p = _resolve(policy, "reduce", x, x.shape[-1])
+    pol = kpolicy.as_policy(policy)
+    p = _resolve(pol, "reduce", x, x.shape[-1], path)
     if p == "fused":
         return tcu_segmented_reduce(x, formulation="fused")
+    if p == "xla_tile":
+        return tcu_segmented_reduce(x, formulation="tile")
     if p == "baseline":
         return torch.sum(x.float(), dim=-1)
-    if runtime.ACTIVE is not None:
-        _kernel_level("segmented_reduce", x, x.shape[-1], p)
-    return kops.segmented_reduce(x)
+    kp = _kernel(pol, "segmented_reduce", x, x.shape[-1], p)
+    if kp == "tile_logdepth":
+        raise _no_logdepth("reduce")
+    return kops.segmented_reduce(x, path=kp, tuning=kp.tuning)
 
 
-def scan(x: torch.Tensor, *, policy: str | None = None,
+def scan(x: torch.Tensor, *, policy=None, path: str | None = None,
          exclusive: bool = False) -> torch.Tensor:
     """Prefix sum over the last axis -> f32, same shape."""
-    p = _resolve(policy, "scan", x, x.shape[-1])
-    if p == "fused":                   # core's scan is the tile algebra
+    pol = kpolicy.as_policy(policy)
+    p = _resolve(pol, "scan", x, x.shape[-1], path)
+    if p in ("fused", "xla_tile"):     # core's scan is the tile algebra
         return tcu_scan(x, exclusive=exclusive)
-    if runtime.ACTIVE is not None:
-        _kernel_level("segmented_scan", x, x.shape[-1], p)
     if p == "baseline":
         out = torch.cumsum(x.float(), dim=-1)
-    elif p == "tile_logdepth":
-        out = kops.segmented_scan_logdepth(x)
     else:
-        out = kops.segmented_scan(x)
+        kp = _kernel(pol, "segmented_scan", x, x.shape[-1], p)
+        if kp == "tile_logdepth":
+            out = kops.segmented_scan_logdepth(x, tuning=kp.tuning)
+        else:
+            out = kops.segmented_scan(x, path=kp, tuning=kp.tuning)
     if exclusive:
         # shift, never subtract: ``inclusive - x`` cancels catastrophically
         # when |x_i| dwarfs the running prefix
@@ -88,19 +109,19 @@ def scan(x: torch.Tensor, *, policy: str | None = None,
     return out
 
 
-def weighted_scan(x: torch.Tensor, log_a: torch.Tensor, *,
-                  policy: str | None = None) -> torch.Tensor:
+def weighted_scan(x: torch.Tensor, log_a: torch.Tensor, *, policy=None,
+                  path: str | None = None) -> torch.Tensor:
     """Decayed scan ``y_i = exp(log_a_i) * y_{i-1} + x_i`` -> f32."""
-    p = _resolve(policy, "weighted_scan", x, x.shape[-1])
-    if p == "fused":
+    pol = kpolicy.as_policy(policy)
+    p = _resolve(pol, "weighted_scan", x, x.shape[-1], path)
+    if p in ("fused", "xla_tile"):
         return tcu_weighted_scan(x, log_a)
     if p == "baseline":
         return ref.weighted_scan_ref(x, log_a)
-    if runtime.ACTIVE is not None:
-        _kernel_level("weighted_scan", x, x.shape[-1], p)
-    if p == "tile_logdepth":
-        return kops.weighted_scan_logdepth(x, log_a)
-    return kops.weighted_scan(x, log_a)
+    kp = _kernel(pol, "weighted_scan", x, x.shape[-1], p)
+    if kp == "tile_logdepth":
+        return kops.weighted_scan_logdepth(x, log_a, tuning=kp.tuning)
+    return kops.weighted_scan(x, log_a, path=kp, tuning=kp.tuning)
 
 
 # ---------------------------------------------------------------------------
@@ -108,30 +129,36 @@ def weighted_scan(x: torch.Tensor, log_a: torch.Tensor, *,
 
 
 def ragged_reduce(x: torch.Tensor, seg_ids: torch.Tensor, n_segments: int,
-                  *, policy: str | None = None) -> torch.Tensor:
+                  *, policy=None, path: str | None = None) -> torch.Tensor:
     """Bucketed segmented sum: ``x (..., n)`` + ``seg_ids`` -> f32
-    ``(..., n_segments)``. ``tile``/``fused``: the one-hot matmul form;
-    ``baseline``: torch's segment sum (``scatter_add``). ``seg_ids`` may
-    carry leading batch dims; any id order is valid, and ids outside
-    ``[0, n_segments)`` contribute nowhere."""
-    p = _resolve(policy, "ragged_reduce", x, x.shape[-1])
+    ``(..., n_segments)``. ``baseline``: torch's segment sum
+    (``scatter_add``); every other path: the one-hot matmul form.
+    ``seg_ids`` may carry leading batch dims; any id order is valid, and ids
+    outside ``[0, n_segments)`` contribute nowhere."""
+    pol = kpolicy.as_policy(policy)
+    p = _resolve(pol, "ragged_reduce", x, x.shape[-1], path)
     if p == "baseline":
         return _segment_sum_baseline(x, seg_ids, n_segments)
+    if p == "tile_logdepth":
+        raise _no_logdepth("ragged_reduce")
     return tcu_ragged_segment_reduce(x, seg_ids, n_segments)
 
 
 def ragged_scan(x: torch.Tensor, seg_ids: torch.Tensor, n_segments: int, *,
-                policy: str | None = None,
+                policy=None, path: str | None = None,
                 debug: bool = False) -> torch.Tensor:
     """Within-segment inclusive prefix sum -> f32, the shape of ``x``.
     ``seg_ids`` must be non-decreasing on every path (``debug=True``
     validates, :func:`~repro_torch.core.ragged.guard_contiguous`).
-    ``tile``/``fused``: the matmul form; ``baseline``: ``cumsum``, the
-    segment sum and a gather."""
-    p = _resolve(policy, "ragged_scan", x, x.shape[-1])
+    ``baseline``: ``cumsum``, the segment sum and a gather; every other
+    path: the matmul form."""
+    pol = kpolicy.as_policy(policy)
+    p = _resolve(pol, "ragged_scan", x, x.shape[-1], path)
     if p == "baseline":
         out = _ragged_scan_baseline(x, seg_ids, n_segments)
         return guard_contiguous(seg_ids, out) if debug else out
+    if p == "tile_logdepth":
+        raise _no_logdepth("ragged_scan")
     return tcu_ragged_segment_scan(x, seg_ids, n_segments, debug=debug)
 
 
@@ -165,24 +192,33 @@ def _ragged_scan_baseline(x: torch.Tensor, seg_ids: torch.Tensor,
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
-            policy: str | None = None) -> torch.Tensor:
+            policy=None, path: str | None = None) -> torch.Tensor:
     """RMSNorm over the last axis, in x's dtype. The reference has RMSNorm
     in its kernel registry only (``repro.kernels.ops.rmsnorm``), so it
-    resolves once, at level ``"kernel"``."""
-    if _resolve(policy, "rmsnorm", x, x.shape[-1], level="kernel") == "tile":
-        return kops.rmsnorm(x, w, eps=eps)
-    return ref.rmsnorm_ref(x, w, eps=eps)
+    resolves once, at level ``"kernel"``, where ``fused`` is the plain
+    version; its registry records that run as a ``kernel_invoke`` on
+    ``fused`` too, and so does the port."""
+    pol = kpolicy.as_policy(policy)
+    kp = _resolve(pol, "rmsnorm", x, x.shape[-1], path, level="kernel")
+    if kp == "fused":
+        if runtime.ACTIVE is not None:
+            kops._invoked("rmsnorm", x.shape[-1], x, "fused", {})
+        return ref.rmsnorm_ref(x, w, eps=eps)
+    if kp == "tile_logdepth":
+        raise _no_logdepth("rmsnorm")
+    return kops.rmsnorm(x, w, eps=eps, path=kp, tuning=kp.tuning)
 
 
 def attention(q, k, v, *, causal: bool = True, window: int | None = None,
-              scale: float | None = None,
-              policy: str | None = None) -> torch.Tensor:
+              scale: float | None = None, policy=None,
+              path: str | None = None) -> torch.Tensor:
     """Attention in the model layout: ``q (B, Sq, Hq, D)``, ``k``/``v``
-    ``(B, Sk, Hkv, D)`` -> ``(B, Sq, Hq, D)``. ``tile`` reads the model
+    ``(B, Sk, Hkv, D)`` -> ``(B, Sq, Hq, D)``. The kernel reads the model
     layout through strides, so no transposed copy is made; ``fused`` takes
     only the lengths the reference's ``chunked_attention`` takes."""
-    p = _resolve(policy, "attention", q, q.shape[1])
-    if p == "fused":
+    pol = kpolicy.as_policy(policy)
+    p = _resolve(pol, "attention", q, q.shape[1], path)
+    if p in ("fused", "xla_tile"):
         # lazy: repro_torch.models imports this module
         from repro_torch.models.xla_attention import chunked_attention
 
@@ -191,30 +227,35 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     if p == "baseline":
         return kops.attention_plain(q, k, v, causal=causal, window=window,
                                     scale=scale)
-    if runtime.ACTIVE is not None:
-        _kernel_level("attention", q, q.shape[1], p)
-    return kops.attention(q, k, v, causal=causal, window=window, scale=scale)
+    kp = _kernel(pol, "attention", q, q.shape[1], p)
+    if kp == "tile_logdepth":
+        raise _no_logdepth("attention")
+    return kops.attention(q, k, v, causal=causal, window=window, scale=scale,
+                          path=kp, tuning=kp.tuning)
 
 
-def ssd(x, dt, a, b, c, *, policy: str | None = None, chunk: int | None = None,
-        matmul_dtype: torch.dtype | None = None, return_state: bool = False):
+def ssd(x, dt, a, b, c, *, policy=None, path: str | None = None,
+        chunk: int | None = None, matmul_dtype: torch.dtype | None = None,
+        return_state: bool = False):
     """Mamba-2 SSD scan -> ``y (B, L, H, P)``; with ``return_state=True``
     also the final state ``(B, H, P, N)`` f32.
 
     ``chunk``/``matmul_dtype`` tune the ``fused`` form only; the kernels'
-    chunks are ``kernels/layout.HOPPER["ssd"]["q"]`` and
-    ``HOPPER["ssd_logdepth"]["q"]``.
+    chunk is the ``ssd.q`` knob (``KernelPolicy.op_tuning``, ``"tile,
+    ssd.q=32"``, ``--tune "ssd.q=32"``; default
+    ``layout.DEFAULT_TUNING["gpu"]["ssd"]``).
     """
-    p = _resolve(policy, "ssd", x, x.shape[1])
-    if p == "fused":
+    pol = kpolicy.as_policy(policy)
+    p = _resolve(pol, "ssd", x, x.shape[1], path)
+    if p in ("fused", "xla_tile"):
         y, h = ssd_chunked(x, dt, a, b, c, chunk=chunk or CHUNK,
                            matmul_dtype=matmul_dtype)
         return (y, h) if return_state else y
     if p == "baseline":
         return ref.ssd_scan_ref(x, dt, a, b, c, return_state=return_state)
-    if runtime.ACTIVE is not None:
-        _kernel_level("ssd_scan", x, x.shape[1], p)
-    if p == "tile_logdepth":
-        return kops.ssd_scan_logdepth(x, dt, a, b, c,
+    kp = _kernel(pol, "ssd_scan", x, x.shape[1], p)
+    if kp == "tile_logdepth":
+        return kops.ssd_scan_logdepth(x, dt, a, b, c, tuning=kp.tuning,
                                       return_state=return_state)
-    return kops.ssd_scan(x, dt, a, b, c, return_state=return_state)
+    return kops.ssd_scan(x, dt, a, b, c, path=kp, tuning=kp.tuning,
+                         return_state=return_state)

@@ -7,7 +7,11 @@ layout ``(B, L, H, P)`` through strides, indexes B and C by group
 ``h // (H / G)`` instead of repeating them per head, and writes ``y`` and the
 final state in the model layout.
 
-:data:`HOPPER` holds the geometry the CUDA kernels of ``csrc/`` run with.
+:data:`HOPPER` holds the launch plans of the CUDA kernels of ``csrc/`` that
+no caller tunes. :data:`DEFAULT_TUNING` holds the knobs a caller may set
+through a :class:`~repro_torch.core.policy.TuneSpec` (the SSD chunk, the
+log-depth family's blocks and tree): the reference's tables
+(``repro.kernels.layout``) with one ``"gpu"`` section in Hopper values.
 These numbers are chosen for an H100 (16x16x16 tensor-core fragments, at
 most 227 KB of shared memory per block); none is carried over from the TPU
 but the log-depth tree's ``radix`` and ``fan_in``, which shape the
@@ -21,15 +25,6 @@ MMA_TILE = 16          # tensor-core tile edge (rows of an mma, wmma edge)
 WARP = 32              # threads of a warp
 
 HOPPER = {
-    # SSD chunk, q = 64 steps. f16/bf16 (the tensor-core instance of
-    # csrc/ssd_chunk.cuh, q <= 64, P <= 64, N <= 128): four warps per
-    # (batch, head), each owning 16 rows p of the transposed state, which
-    # stays in f32 registers; a two-stage ring of 16-bit B, C, X tiles of
-    # 64 steps and the hi/lo G tiles take 108 KB of shared memory, so two
-    # chains share an SM and the served 256 chains run in one wave. f32
-    # (the FMA instance): the (N, P) state, B^T, C, X.dt and the q x q
-    # C.B^T block in about 130 KB of f32 shared memory, one block per SM.
-    "ssd": {"q": 64},
     # the weighted scan (csrc/weighted_scan.cu, loop csrc/wscan_tile.cuh): a
     # warp owns one piece (a row, or a column range of one) and walks it in
     # steps of 256 columns, 8 per lane, ``depth`` steps of 16-byte loads in
@@ -45,27 +40,6 @@ HOPPER = {
     "weighted_scan": {"step": 256, "depth": 4, "warps_per_sm": 16,
                       "min_steps": 16, "max_blocks_per_sm": 8,
                       "block_warps": 8},
-    # the log-depth family (tile_logdepth): the local passes of
-    # csrc/matmul_scan.cu, then a tree over the block totals.
-    # - scan: every ``block_n`` columns of a row are one piece of the
-    #   reduce/scan streaming loop (csrc/tcu_tile.cuh), scanned from zero; a
-    #   warp owns 16 pieces. 256 columns are eight f16 or sixteen f32 steps;
-    #   a 2^20-long row is 4096 independent pieces, and the tree then
-    #   combines 4096 totals per row in three levels.
-    # - weighted_scan: blocks of q columns on the weighted scan's streaming
-    #   loop, each restarted from zero (a segment of q / 8 lanes of a step);
-    #   q = 64 makes a 2^20-long row 16384 blocks, whose totals the tree
-    #   combines in four levels.
-    # - ssd: the chunk body of ssd_scan.cu without the carried state.
-    #   f16/bf16 at q <= 64: the same 108 KB ring, two blocks per SM, each
-    #   walking the chunks strided by the grid; f32: one block per chunk,
-    #   about 100 KB of f32 tiles at N = 128, P = 64.
-    # ``radix`` and ``fan_in`` are the tree's branching factor and base-case
-    # width: algorithm constants taken from the reference's layout (16 and
-    # 16 on both of its backends), not timings of any chip.
-    "scan_logdepth": {"block_n": 256, "radix": 16, "fan_in": 16},
-    "weighted_scan_logdepth": {"q": 64, "radix": 16, "fan_in": 16},
-    "ssd_logdepth": {"q": 64, "radix": 16, "fan_in": 16},
     # segmented reduce and scan (csrc/tcu_reduce.cu, tcu_scan.cu): a warp
     # owns 16 pieces (rows, or column ranges of rows) and walks them in
     # steps of 64 bytes per piece (16 f32 or 32 f16/bf16 columns), eight
@@ -109,6 +83,146 @@ MAX_SMEM = 232448
 # them), so that the block tables of the two packages compare one to one.
 KV_PAGE_ROW_MULTIPLE = 8
 KV_PAGE_ROWS = 2 * KV_PAGE_ROW_MULTIPLE
+
+# ---------------------------------------------------------------------------
+# tuning knobs (names from repro_torch.core.policy.KNOB_SCHEMA)
+#
+# Only knobs a Hopper kernel of the port takes have a value here:
+# - ssd.q: the chunk of csrc/ssd_scan.cu and of the local pass of
+#   csrc/matmul_scan.cu (tile_logdepth), a multiple of 16. At q = 64, f16/
+#   bf16 run the tensor-core instance of csrc/ssd_chunk.cuh (q <= 64, P <=
+#   64, N <= 128): four warps per (batch, head), each owning 16 rows p of
+#   the transposed state in f32 registers; a two-stage ring of 16-bit B, C,
+#   X tiles of 64 steps and the hi/lo G tiles take 108 KB of shared memory,
+#   so two chains share an SM and the served 256 chains run in one wave. f32
+#   (and q > 64) run the FMA instance: the (N, P) state, B^T, C, X.dt and the
+#   q x q C.B^T block in about 130 KB of f32 shared memory, one block an SM.
+# - scan.block_n: the log-depth local piece, whole steps of 32 columns of
+#   the reduce/scan streaming loop (csrc/tcu_tile.cuh), scanned from zero; a
+#   2^20-long row is 4096 pieces, whose totals the tree combines in three
+#   levels.
+# - weighted_scan.q: the log-depth local block on the weighted scan's
+#   streaming loop, a power of two from 32 to 128 (WEIGHTED_MAX_Q), each
+#   restarted from zero; q = 64 makes
+#   a 2^20-long row 16384 blocks, combined in four levels.
+# - radix, fan_in: the log-depth tree's branching factor and base-case
+#   width (kernels/matmul_scan.py), algorithm constants taken from the
+#   reference's layout (16 and 16), not timings of any chip.
+# The reference's other knobs (block_s, num_warps, num_stages, row_block,
+# block_d, block_q, block_k) shape Pallas or Triton tiles that have no
+# Hopper counterpart: the reduce, the linear scans, RMSNorm and flash
+# attention take their geometry from reduce_scan_plan, weighted_scan_plan,
+# rmsnorm_threads and the compiled flash instances, so their sections are
+# empty. The section also covers the plain versions the log-depth family
+# runs on a CPU tensor (the same blocks and tree).
+DEFAULT_TUNING = {
+    "gpu": {
+        "reduce": {},
+        "scan": {"block_n": 256, "radix": 16, "fan_in": 16},
+        "weighted_scan": {"q": 64, "radix": 16, "fan_in": 16},
+        "rmsnorm": {},
+        "attention": {},
+        "ssd": {"q": 64, "radix": 16, "fan_in": 16},
+        "ragged_reduce": {},
+        "ragged_scan": {},
+    },
+}
+
+# the knobs each kernel route takes, by resolved path label: the linear
+# kernels take the SSD chunk only; the log-depth family its blocks and tree
+KERNEL_KNOBS = {
+    "tile_gpu": {"ssd": ("q",)},
+    "tile_logdepth": {"scan": ("block_n", "radix", "fan_in"),
+                      "weighted_scan": ("q", "radix", "fan_in"),
+                      "ssd": ("q", "radix", "fan_in")},
+}
+
+# Candidate specs of the linear kernels (the first is the default). Only
+# the SSD chunk is a knob of a linear kernel, and the autotune sweep covers
+# the crossover ops only (reduce, scan, weighted_scan, the ragged ops), so
+# chip_smoke.py times these beside each other (PERF.md row 3g).
+CANDIDATE_TUNING = {
+    "gpu": {"ssd": ({"q": 64}, {"q": 32})},
+}
+
+# Candidate specs of the log-depth contender (its own table, as in the
+# reference: the linear sweep's clamp-dedupe compares executed dicts).
+LOGDEPTH_CANDIDATE_TUNING = {
+    "gpu": {
+        "scan": ({"block_n": 256, "radix": 16, "fan_in": 16},
+                 {"block_n": 256, "radix": 16, "fan_in": 64},
+                 {"block_n": 1024, "radix": 16, "fan_in": 16}),
+        "weighted_scan": ({"q": 64, "radix": 16, "fan_in": 16},
+                          {"q": 64, "radix": 32, "fan_in": 32},
+                          {"q": 128, "radix": 16, "fan_in": 16}),
+        "ssd": ({"q": 64, "radix": 16, "fan_in": 16},
+                {"q": 64, "radix": 32, "fan_in": 32},
+                {"q": 32, "radix": 16, "fan_in": 16}),
+    },
+}
+
+# Which hardware multiple each clampable knob carries, by the axis it tiles:
+# all of the port's knobs tile the axis the autotune table buckets by (the
+# segment or sequence length), so they clamp as soon as n is known, and the
+# resolved spec is the geometry that runs. None tiles the row axis.
+N_AXIS_KNOBS = {
+    "gpu": {"scan": {"block_n": 2 * MMA_TILE}, "weighted_scan": {"q": WARP},
+            "ssd": {"q": MMA_TILE}},
+}
+# the local weighted pass of csrc/matmul_scan.cu takes a power of two of at
+# most kWtMaxQ columns a block
+WEIGHTED_MAX_Q = 128
+
+
+def default_tuning(backend: str, op: str) -> dict:
+    """The default knob values for ``op`` on ``backend`` (a fresh dict;
+    empty for a backend the port has no kernels for)."""
+    return dict(DEFAULT_TUNING.get(backend, {}).get(op, {}))
+
+
+def candidate_tuning(backend: str, op: str) -> list[dict]:
+    """The sweepable candidate specs of ``op``'s linear kernel."""
+    return [dict(c) for c in CANDIDATE_TUNING.get(backend, {}).get(op, ())]
+
+
+def logdepth_candidate_tuning(backend: str, op: str) -> list[dict]:
+    """The sweepable candidate specs of ``op``'s ``tile_logdepth`` contender
+    (empty for ops without one)."""
+    return [dict(c)
+            for c in LOGDEPTH_CANDIDATE_TUNING.get(backend, {}).get(op, ())]
+
+
+def kernel_knobs(label: str, op: str) -> tuple[str, ...]:
+    """The knobs the code that runs ``op`` under the resolved ``label``
+    takes (none for the plain versions and the torch forms)."""
+    return KERNEL_KNOBS.get(label, {}).get(op, ())
+
+
+def clamp_spec(backend: str, op: str, knobs: dict, *,
+               n: int | None = None) -> dict:
+    """Clamp the knobs against the call's bucket-axis extent ``n`` with
+    :func:`fit_block` (see :data:`N_AXIS_KNOBS`; an unknown ``n`` leaves
+    them), the local weighted block to a power of two it takes."""
+    out = dict(knobs)
+    if op == "weighted_scan" and "q" in out:
+        q = min(int(out["q"]), WEIGHTED_MAX_Q)
+        out["q"] = max(WARP, 1 << (q.bit_length() - 1))
+    if n is None:
+        return out
+    for name, mult in N_AXIS_KNOBS.get(backend, {}).get(op, {}).items():
+        if name in out:
+            out[name] = fit_block(n, out[name], mult)
+    return out
+
+
+def knob(tuning, key: str, backend: str, op: str) -> int:
+    """One knob value from a TuneSpec-or-None, else the backend default
+    (direct callers of the wrappers pass no spec)."""
+    if tuning is not None:
+        v = tuning.get(key)
+        if v is not None:
+            return int(v)
+    return int(DEFAULT_TUNING[backend][op][key])
 
 
 def fit_block(size: int, block: int, multiple: int) -> int:

@@ -13,30 +13,42 @@ the kernel and whose backward differentiates a plain torch form of the same
 function at the saved inputs: each kernel agrees with that form to
 tolerance, so the form's gradient is the kernel's. The reduce, the scans,
 the weighted scans, RMSNorm and attention differentiate their plain
-version (the oracle of :data:`KERNELS`), and so does the log-depth SSD
-(``ssd_scan_logdepth``). The SSD wrapper of training's path
-(``ssd_scan``) differentiates ``core/ssd.py::ssd_chunked`` in f32
-(:func:`_ssd_grad_form`) instead of its oracle, a loop over the sequence
-whose graph would keep one ``(B, H, P, N)`` state a token.
+version (the oracle of :data:`KERNELS`). The two SSD wrappers
+(``ssd_scan``, ``ssd_scan_logdepth``) differentiate
+``core/ssd.py::ssd_chunked`` in f32 (:func:`_ssd_grad_form`) instead of
+their oracle, a loop over the sequence whose graph would keep one
+``(B, H, P, N)`` state a token.
+
+Each public wrapper takes the resolved ``path`` and ``tuning`` that
+``repro_torch.core.dispatch`` hands it (``KernelPolicy.resolve`` at level
+``"kernel"``). ``path="interpret"`` runs the plain version on any device,
+as asked; otherwise a CUDA tensor launches the kernel and a CPU tensor runs
+the plain version. The SSD chunk and the log-depth family's blocks and tree
+come from the :class:`~repro_torch.core.policy.TuneSpec` through
+``layout.knob``; a direct call without one runs the layout's defaults.
 
 With an observability session active, each public wrapper emits one
 ``kernel_invoke`` event and counts ``repro_kernel_invocations_total``
 (the reference's ``kernels/backend.py::_emit_invoke``), under the
-reference's registry name of the op.
+reference's registry name of the op, with the path label that ran
+(``tile_gpu``, ``interpret`` or ``tile_logdepth``) and the knobs it ran with
+as ``tuning`` (empty for a kernel that takes none, and for a plain
+version).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 from typing import Callable
 
 import torch
 
 from repro_torch import device as devmod
-from repro_torch.core.policy import dtype_tag
+from repro_torch.core.autotune import dtype_tag
 from repro_torch.core.ssd import ssd_chunked
 from repro_torch.kernels import build, layout, ref
-from repro_torch.kernels.layout import MMA_TILE, WARP
+from repro_torch.kernels.layout import MMA_TILE
 from repro_torch.kernels.matmul_scan import tree_scan, tree_weighted
 from repro_torch.obs import runtime
 
@@ -118,17 +130,34 @@ def instance_counts() -> dict[tuple[str, str], int]:
     return dict(INSTANCES)
 
 
-def _invoked(op: str, n: int, t: torch.Tensor, path: str = "tile") -> None:
+def _label(t: torch.Tensor, path) -> str:
+    """The path a wrapper's call runs: the resolved one, else the kernel on
+    a CUDA tensor and the plain version on a CPU tensor."""
+    if path is not None:
+        return str(path)
+    return "tile_gpu" if t.is_cuda else "interpret"
+
+
+def _forward(kernel_fwd, plain, t: torch.Tensor, label: str):
+    """The forward a wrapper runs: ``kernel_fwd`` (the kernel on a CUDA
+    tensor, the plain version on a CPU one), or the plain version on a CUDA
+    tensor when ``interpret`` was asked for."""
+    return plain if label == "interpret" and t.is_cuda else kernel_fwd
+
+
+def _invoked(op: str, n: int, t: torch.Tensor, path: str,
+             tuning: dict) -> None:
     """One ``kernel_invoke`` event and count for a wrapper's call of ``op``
-    on ``t`` (only called when an obs session is active). Under a CUDA
-    graph the wrappers run at the warm-up and the capture and never at a
-    replay, so the event fires then and not per replay, as the reference's
-    fires once per jit trace; replays are not counted into it."""
+    on ``t`` (only called when an obs session is active), with the knobs
+    the call ran with. Under a CUDA graph the wrappers run at the warm-up
+    and the capture and never at a replay, so the event fires then and not
+    per replay, as the reference's fires once per jit trace; replays are not
+    counted into it."""
     sess = runtime.ACTIVE
     if sess is None:
         return
     sess.emit("kernel_invoke", op=op, n=int(n), dtype=dtype_tag(t.dtype),
-              path=path, tuning=None)
+              path=path, tuning=tuning)
     sess.counter(
         "repro_kernel_invocations_total",
         "kernel-registry executions by op/path").inc(op=op, path=path)
@@ -223,11 +252,15 @@ def _reduce_fwd(x: torch.Tensor) -> torch.Tensor:
     return out.reshape(lead)
 
 
-def segmented_reduce(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis of ``x (..., n)`` -> f32 ``(...,)``."""
+def segmented_reduce(x: torch.Tensor, *, path=None,
+                     tuning=None) -> torch.Tensor:
+    """Sum over the last axis of ``x (..., n)`` -> f32 ``(...,)`` (no
+    knob)."""
+    label = _label(x, path)
     if runtime.ACTIVE is not None:
-        _invoked("segmented_reduce", x.shape[-1], x)
-    return _via_plain(_reduce_fwd, ref.segmented_reduce_ref, x)
+        _invoked("segmented_reduce", x.shape[-1], x, label, {})
+    fwd = _forward(_reduce_fwd, ref.segmented_reduce_ref, x, label)
+    return _via_plain(fwd, ref.segmented_reduce_ref, x)
 
 
 def _scan_fwd(x: torch.Tensor) -> torch.Tensor:
@@ -242,11 +275,15 @@ def _scan_fwd(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def segmented_scan(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix sum over the last axis -> f32, same shape."""
+def segmented_scan(x: torch.Tensor, *, path=None,
+                   tuning=None) -> torch.Tensor:
+    """Inclusive prefix sum over the last axis -> f32, same shape (no
+    knob)."""
+    label = _label(x, path)
     if runtime.ACTIVE is not None:
-        _invoked("segmented_scan", x.shape[-1], x)
-    return _via_plain(_scan_fwd, ref.segmented_scan_ref, x)
+        _invoked("segmented_scan", x.shape[-1], x, label, {})
+    fwd = _forward(_scan_fwd, ref.segmented_scan_ref, x, label)
+    return _via_plain(fwd, ref.segmented_scan_ref, x)
 
 
 # ---------------------------------------------------------------------------
@@ -307,7 +344,7 @@ def _last_contiguous(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
-def _ssd_fwd(x, dt, a, b, c, *, return_state: bool = True):
+def _ssd_fwd(x, dt, a, b, c, *, q: int, return_state: bool = True):
     if not x.is_cuda:
         return ref.ssd_scan_ref(x, dt, a, b, c, return_state=True)
     bsz, seqlen, nheads, hdim = x.shape
@@ -321,7 +358,6 @@ def _ssd_fwd(x, dt, a, b, c, *, return_state: bool = True):
     x, b, c = (_last_contiguous(t) for t in (x, b, c))
     dt = dt.float()
     lam = dt * a.float()                                  # (B, L, H) f32
-    q = layout.fit_block(seqlen, layout.HOPPER["ssd"]["q"], MMA_TILE)
     y, state = _launch_ssd(
         x, dt, lam, b, c, q=q, x_strides=_strides(x, 3),
         dt_strides=_strides(dt, 3), lam_strides=_strides(lam, 3),
@@ -339,14 +375,33 @@ def _ssd_grad_form(x, dt, a, b, c, *, return_state: bool = True):
                        c.float())
 
 
-def ssd_scan(x, dt, a, b, c, *, return_state: bool = False):
+def _ssd_plain(x, dt, a, b, c, *, return_state: bool = True):
+    return ref.ssd_scan_ref(x, dt, a, b, c, return_state=True)
+
+
+def ssd_chunk(seqlen: int, tuning=None) -> int:
+    """The chunk ``ssd_scan.cu`` runs at: the ``q`` knob of ``tuning`` (the
+    layout's default without one), clamped to the sequence in steps of
+    16."""
+    return layout.fit_block(seqlen, layout.knob(tuning, "q", "gpu", "ssd"),
+                            MMA_TILE)
+
+
+def ssd_scan(x, dt, a, b, c, *, path=None, tuning=None,
+             return_state: bool = False):
     """Mamba-2 SSD scan: ``x (B, L, H, P)``, ``dt (B, L, H)``, ``a (H,)``,
     ``b``/``c`` ``(B, L, G, N)`` -> ``y (B, L, H, P)`` in x's dtype; with
     ``return_state=True`` also the final state ``(B, H, P, N)`` f32
-    (differentiable, through :func:`_ssd_grad_form`)."""
+    (differentiable, through :func:`_ssd_grad_form`). The chunk is
+    :func:`ssd_chunk` of ``tuning``: f16/bf16 at q <= 64 run the
+    tensor-core instance, a larger q the FMA one."""
+    label = _label(x, path)
+    q = ssd_chunk(x.shape[1], tuning)
+    fwd = _forward(functools.partial(_ssd_fwd, q=q), _ssd_plain, x, label)
+    knobs = {} if label == "interpret" else {"q": q}
     if runtime.ACTIVE is not None:
-        _invoked("ssd_scan", x.shape[1], x)
-    y, state = _via_plain(_ssd_fwd, _ssd_grad_form, x, dt, a, b, c,
+        _invoked("ssd_scan", x.shape[1], x, label, knobs)
+    y, state = _via_plain(fwd, _ssd_grad_form, x, dt, a, b, c,
                           return_state=True)
     return (y, state) if return_state else y
 
@@ -386,11 +441,15 @@ def _weighted_fwd(x: torch.Tensor, log_a: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def weighted_scan(x: torch.Tensor, log_a: torch.Tensor) -> torch.Tensor:
-    """Decayed scan ``y_i = exp(log_a_i) * y_{i-1} + x_i`` -> f32."""
+def weighted_scan(x: torch.Tensor, log_a: torch.Tensor, *, path=None,
+                  tuning=None) -> torch.Tensor:
+    """Decayed scan ``y_i = exp(log_a_i) * y_{i-1} + x_i`` -> f32 (no
+    knob: the plan is ``layout.weighted_scan_plan``)."""
+    label = _label(x, path)
     if runtime.ACTIVE is not None:
-        _invoked("weighted_scan", x.shape[-1], x)
-    return _via_plain(_weighted_fwd, ref.weighted_scan_ref, x, log_a)
+        _invoked("weighted_scan", x.shape[-1], x, label, {})
+    fwd = _forward(_weighted_fwd, ref.weighted_scan_ref, x, label)
+    return _via_plain(fwd, ref.weighted_scan_ref, x, log_a)
 
 
 # ---------------------------------------------------------------------------
@@ -422,12 +481,15 @@ def _rmsnorm_fwd(x: torch.Tensor, w: torch.Tensor, *,
     return out.reshape(x.shape)
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
-            eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm over the last axis, in x's dtype (differentiable)."""
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
+            path=None, tuning=None) -> torch.Tensor:
+    """RMSNorm over the last axis, in x's dtype (differentiable; no knob:
+    the threads a row are ``layout.rmsnorm_threads``)."""
+    label = _label(x, path)
     if runtime.ACTIVE is not None:
-        _invoked("rmsnorm", x.shape[-1], x)
-    return _via_plain(_rmsnorm_fwd, ref.rmsnorm_ref, x, w, eps=eps)
+        _invoked("rmsnorm", x.shape[-1], x, label, {})
+    fwd = _forward(_rmsnorm_fwd, ref.rmsnorm_ref, x, label)
+    return _via_plain(fwd, ref.rmsnorm_ref, x, w, eps=eps)
 
 
 # ---------------------------------------------------------------------------
@@ -502,16 +564,20 @@ def _attention_fwd(q, k, v, *, causal: bool = True,
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int | None = None,
-              scale: float | None = None) -> torch.Tensor:
+              scale: float | None = None, path=None,
+              tuning=None) -> torch.Tensor:
     """Attention in the model layout: ``q (B, Sq, Hq, D)``, ``k``/``v``
     ``(B, Sk, Hkv, D)`` -> ``(B, Sq, Hq, D)`` in q's dtype. GQA by head
     index, ends aligned by ``Sk - Sq``; ``scale`` defaults to ``D**-0.5``.
     Any lengths; on a CUDA tensor it raises on a head dim that is not a
     multiple of 8 or above 128 (differentiable). A head dim below 64 or 128
-    runs on that instance of the kernel, zero-padded."""
+    runs on that instance of the kernel, zero-padded (no knob: the
+    kernel is compiled for its tiles)."""
+    label = _label(q, path)
     if runtime.ACTIVE is not None:
-        _invoked("attention", q.shape[1], q)
-    return _via_plain(_attention_fwd, attention_plain, q, k, v,
+        _invoked("attention", q.shape[1], q, label, {})
+    fwd = _forward(_attention_fwd, attention_plain, q, label)
+    return _via_plain(fwd, attention_plain, q, k, v,
                       causal=causal, window=window, scale=scale)
 
 
@@ -540,11 +606,19 @@ def matmul_local_scan(x: torch.Tensor, block_n: int) -> torch.Tensor:
     return out
 
 
-def _scan_logdepth_fwd(x: torch.Tensor) -> torch.Tensor:
-    geo = layout.HOPPER["scan_logdepth"]
+def _logdepth_knobs(op: str, n: int, tuning) -> dict:
+    """The knobs a log-depth op runs with: ``tuning``'s, else the layout's
+    defaults, clamped against the bucket axis ``n`` (``layout.clamp_spec``:
+    the block a whole number of the kernel's steps)."""
+    knobs = {k: layout.knob(tuning, k, "gpu", op)
+             for k in layout.kernel_knobs("tile_logdepth", op)}
+    return layout.clamp_spec("gpu", op, knobs, n=n)
+
+
+def _scan_logdepth_fwd(x: torch.Tensor, *, geo: dict) -> torch.Tensor:
     lead, n = x.shape[:-1], x.shape[-1]
     # whole 32-column steps of the streaming loop (f16/bf16; f32: two)
-    bn = layout.fit_block(n, geo["block_n"], 2 * MMA_TILE)
+    bn = geo["block_n"]
     local = matmul_local_scan(x.reshape(-1, n), bn)
     nb = -(-n // bn)
     if nb > 1:
@@ -560,12 +634,16 @@ def _scan_logdepth_fwd(x: torch.Tensor) -> torch.Tensor:
     return local.reshape(*lead, n)
 
 
-def segmented_scan_logdepth(x: torch.Tensor) -> torch.Tensor:
+def segmented_scan_logdepth(x: torch.Tensor, *,
+                            tuning=None) -> torch.Tensor:
     """Inclusive prefix sum over the last axis -> f32, by local block scans
-    and a log-depth tree over the block totals (differentiable)."""
+    of ``block_n`` columns and a log-depth tree of ``radix`` and ``fan_in``
+    over the block totals (differentiable)."""
+    geo = _logdepth_knobs("scan", x.shape[-1], tuning)
     if runtime.ACTIVE is not None:
-        _invoked("segmented_scan", x.shape[-1], x, "tile_logdepth")
-    return _via_plain(_scan_logdepth_fwd, ref.segmented_scan_ref, x)
+        _invoked("segmented_scan", x.shape[-1], x, "tile_logdepth", geo)
+    return _via_plain(functools.partial(_scan_logdepth_fwd, geo=geo),
+                      ref.segmented_scan_ref, x)
 
 
 def matmul_local_weighted(x: torch.Tensor, log_a: torch.Tensor,
@@ -591,12 +669,11 @@ def matmul_local_weighted(x: torch.Tensor, log_a: torch.Tensor,
     return out
 
 
-def _weighted_logdepth_fwd(x: torch.Tensor,
-                           log_a: torch.Tensor) -> torch.Tensor:
-    geo = layout.HOPPER["weighted_scan_logdepth"]
+def _weighted_logdepth_fwd(x: torch.Tensor, log_a: torch.Tensor, *,
+                           geo: dict) -> torch.Tensor:
     lead, n = x.shape[:-1], x.shape[-1]
     la = log_a.reshape(-1, n).float()
-    q = layout.fit_block(n, geo["q"], WARP)
+    q = geo["q"]
     local = matmul_local_weighted(x.reshape(-1, n), la, q)
     nb = -(-n // q)
     if nb > 1:
@@ -612,14 +689,16 @@ def _weighted_logdepth_fwd(x: torch.Tensor,
     return local.reshape(*lead, n)
 
 
-def weighted_scan_logdepth(x: torch.Tensor,
-                           log_a: torch.Tensor) -> torch.Tensor:
+def weighted_scan_logdepth(x: torch.Tensor, log_a: torch.Tensor, *,
+                           tuning=None) -> torch.Tensor:
     """Decayed scan ``y_i = exp(log_a_i) y_{i-1} + x_i`` -> f32, by local
-    block passes and a log-depth weighted tree (differentiable)."""
+    block passes of ``q`` columns and a log-depth weighted tree
+    (differentiable)."""
+    geo = _logdepth_knobs("weighted_scan", x.shape[-1], tuning)
     if runtime.ACTIVE is not None:
-        _invoked("weighted_scan", x.shape[-1], x, "tile_logdepth")
-    return _via_plain(_weighted_logdepth_fwd, ref.weighted_scan_ref, x,
-                      log_a)
+        _invoked("weighted_scan", x.shape[-1], x, "tile_logdepth", geo)
+    return _via_plain(functools.partial(_weighted_logdepth_fwd, geo=geo),
+                      ref.weighted_scan_ref, x, log_a)
 
 
 def matmul_local_ssd(x, dt, a, b, c, q: int):
@@ -660,11 +739,11 @@ def matmul_local_ssd(x, dt, a, b, c, q: int):
     return y, s
 
 
-def _ssd_logdepth_fwd(x, dt, a, b, c, *, return_state: bool = True):
-    geo = layout.HOPPER["ssd_logdepth"]
+def _ssd_logdepth_fwd(x, dt, a, b, c, *, geo: dict,
+                      return_state: bool = True):
     bsz, seqlen, nheads, hdim = x.shape
     ngroups, nstate = b.shape[2], b.shape[3]
-    q = layout.fit_block(seqlen, geo["q"], MMA_TILE)
+    q = geo["q"]
     y, s = matmul_local_ssd(x, dt, a, b, c, q)
     lam = (dt.float() * a.float()).transpose(1, 2)        # (B, H, L)
     lg = ref.pad_blocks(lam, q)                           # (B, H, nc, q)
@@ -686,12 +765,16 @@ def _ssd_logdepth_fwd(x, dt, a, b, c, *, return_state: bool = True):
     return y.to(x.dtype), state.contiguous()
 
 
-def ssd_scan_logdepth(x, dt, a, b, c, *, return_state: bool = False):
-    """Mamba-2 SSD scan by carry-free chunk passes and a log-depth tree over
-    the chunk states: the arguments and results of :func:`ssd_scan`
-    (differentiable)."""
+def ssd_scan_logdepth(x, dt, a, b, c, *, tuning=None,
+                      return_state: bool = False):
+    """Mamba-2 SSD scan by carry-free chunk passes of ``q`` steps and a
+    log-depth tree of ``radix`` and ``fan_in`` over the chunk states: the
+    arguments and results of :func:`ssd_scan`. Differentiable through
+    :func:`_ssd_grad_form`, the f32 chunked SSD, as :func:`ssd_scan` is
+    (the per-token oracle's graph would keep a state a token)."""
+    geo = _logdepth_knobs("ssd", x.shape[1], tuning)
     if runtime.ACTIVE is not None:
-        _invoked("ssd_scan", x.shape[1], x, "tile_logdepth")
-    y, state = _via_plain(_ssd_logdepth_fwd, ref.ssd_scan_ref, x, dt, a, b,
-                          c, return_state=True)
+        _invoked("ssd_scan", x.shape[1], x, "tile_logdepth", geo)
+    y, state = _via_plain(functools.partial(_ssd_logdepth_fwd, geo=geo),
+                          _ssd_grad_form, x, dt, a, b, c, return_state=True)
     return (y, state) if return_state else y

@@ -39,7 +39,9 @@ window is taken on every scheduler; its wave raises where prompt and budget
 pass the window. seamless-m4t-medium (the encoder-decoder) has no block
 step: the engine warns and falls back to the wave, whose prefill raises for
 the missing ``frames``, as the reference's fails on that key. ``--device cpu``
-runs the same path on each kernel's plain version. Under the wave
+runs the CPU's ``auto`` choice (``--policy tile``: each kernel's plain
+version). ``--tune "ssd.q=32"`` sets a kernel knob (see
+``repro_torch.core.policy``). Under the wave
 scheduler, ``--policy
 ssd=tile_logdepth`` prefills every Mamba layer through the log-depth
 MatMulScan family instead: the carry-free chunk kernel of
@@ -63,6 +65,8 @@ import torch
 
 from repro_torch import configs
 from repro_torch import device as devmod
+from repro_torch.core import dispatch
+from repro_torch.core import policy as kpolicy
 from repro_torch.models import build
 from repro_torch.models.common import init_params
 from repro_torch.obs import cli as obs_cli
@@ -70,7 +74,7 @@ from repro_torch.serving import Request, ServeConfig, ServingEngine
 
 
 def build_engine(arch: str = "mamba2-1.3b", config: str = "full", *,
-                 device=None, policy: str | None = None, slots: int = 4,
+                 device=None, policy=None, slots: int = 4,
                  max_new: int = 16, scheduler: str = "continuous",
                  prefill_chunk: int = 16, cache_kind: str = "ring",
                  pool_pages: int | None = None, page_rows: int | None = None,
@@ -142,9 +146,17 @@ def main(argv=None) -> ServingEngine:
                          "(0: all requests available immediately)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--policy", default=None,
-                    help="path policy: tile (the kernels, default), fused, "
-                         "baseline, or op=path overrides; ssd=tile_logdepth "
-                         "prefills the SSD through the log-depth family")
+                    help="KernelPolicy for every core op of the served "
+                         "model: a path label (tile: the kernels, fused, "
+                         "baseline, ...), an op=path,... list "
+                         "(ssd=tile_logdepth prefills the SSD through the "
+                         "log-depth family) or a JSON object of policy "
+                         "fields (default: the active policy, auto)")
+    ap.add_argument("--tune", default=None,
+                    help="per-op kernel tuning overrides layered on the "
+                         "policy: op.knob=value pairs, e.g. 'ssd.q=32'")
+    ap.add_argument("--kernel-path", default=None, choices=dispatch.PATHS,
+                    help="deprecated alias for --policy <path-label>")
     ap.add_argument("--seed", type=int, default=0,
                     help="weight, sampling and synthetic-request seed")
     obs_cli.add_obs_args(ap)
@@ -155,8 +167,12 @@ def main(argv=None) -> ServingEngine:
 
 
 def run(args) -> ServingEngine:
+    pol = kpolicy.policy_from_cli(
+        args.policy, getattr(args, "kernel_path", None),
+        "deprecated:launch.serve.kernel_path",
+        tune_arg=getattr(args, "tune", None))
     engine = build_engine(args.arch, args.config, device=args.device,
-                          policy=args.policy, slots=args.slots,
+                          policy=pol, slots=args.slots,
                           max_new=args.max_new, scheduler=args.scheduler,
                           prefill_chunk=args.prefill_chunk,
                           cache_kind=args.cache, pool_pages=args.pool_pages,

@@ -53,6 +53,8 @@ import torch
 from repro_torch import configs
 from repro_torch import device as devmod
 from repro_torch.checkpoint import ckpt
+from repro_torch.core import dispatch
+from repro_torch.core import policy as kpolicy
 from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
 from repro_torch.models import build
 from repro_torch.obs import cli as obs_cli
@@ -94,10 +96,15 @@ def main(argv=None) -> dict[int, float]:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--policy", default=None,
-                    help="path policy of the model's ops and the "
-                         "optimizer's global-norm reduce: tile (the "
-                         "kernels, default), fused, baseline, or op=path "
-                         "overrides")
+                    help="KernelPolicy for the model's core ops and the "
+                         "optimizer's global-norm reduce: a path label, an "
+                         "op=path,... list or a JSON object of policy "
+                         "fields (default: the active policy, auto)")
+    ap.add_argument("--tune", default=None,
+                    help="per-op kernel tuning overrides layered on the "
+                         "policy: op.knob=value pairs, e.g. 'ssd.q=32'")
+    ap.add_argument("--kernel-path", default=None, choices=dispatch.PATHS,
+                    help="deprecated alias for --policy <path-label>")
     obs_cli.add_obs_args(ap)
     args = ap.parse_args(argv)
 
@@ -108,8 +115,12 @@ def main(argv=None) -> dict[int, float]:
 def run(args, obs_sess=None) -> dict[int, float]:
     mod = configs.get(args.arch)
     cfg = mod.SMOKE if args.config == "smoke" else mod.FULL
-    if args.policy is not None:
-        cfg = dataclasses.replace(cfg, policy=args.policy)
+    pol = kpolicy.policy_from_cli(
+        args.policy, getattr(args, "kernel_path", None),
+        "deprecated:launch.train.kernel_path",
+        tune_arg=getattr(args, "tune", None))
+    if pol is not None:
+        cfg = dataclasses.replace(cfg, policy=pol)
     bundle = build(cfg)
     device = devmod.resolve(args.device)
     opt_cfg = OptConfig(
@@ -118,7 +129,7 @@ def run(args, obs_sess=None) -> dict[int, float]:
                       else args.warmup_steps),
         decay_steps=(args.steps if args.decay_steps is None
                      else args.decay_steps),
-        policy=args.policy)
+        policy=pol)
     train_cfg = TrainConfig(microbatches=args.microbatches)
     ckpt_writer = ckpt.AsyncCheckpointer(
         args.ckpt_dir, keep_last=args.keep_last or None)

@@ -189,7 +189,7 @@ def cast_tree(tree, dtype: torch.dtype):
 # building blocks
 
 
-def rmsnorm(x, w, eps: float = 1e-6, policy: str | None = None):
+def rmsnorm(x, w, eps: float = 1e-6, policy=None):
     return dispatch.rmsnorm(x, w, eps=eps, policy=policy)
 
 

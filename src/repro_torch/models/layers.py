@@ -10,7 +10,8 @@ value on the host (the step is captured in a CUDA graph);
 :func:`attn_decode_paged` does the same over the paged KV pool. Attention, the
 SSD and the norms go
 through ``repro_torch.core.dispatch`` under ``ModelConfig.policy`` (None:
-the Hopper kernels), and so do the MoE router's counts (a ragged reduce) and
+the active policy, whose ``auto`` runs the Hopper kernels on the card), and
+so do the MoE router's counts (a ragged reduce) and
 capacity offsets (an exclusive scan, ``tcu_scan.cu`` on the card). Parameter
 layouts are the reference's, e.g.
 ``in_proj`` is ``(d, e)`` and ``y = x @ W``.
@@ -24,6 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import dispatch
+from repro_torch.core import policy as kpolicy
+from repro_torch.core.policy import KernelPolicy
 from repro_torch.core.ssd import ssd_decode_step
 from repro_torch.models.common import PSpec, rmsnorm, rope, swiglu
 from repro_torch.models.xla_attention import decode_attention
@@ -74,8 +77,16 @@ class ModelConfig:
     # activation checkpointing of each layer in training: none (recompute
     # the layer in backward) | dots (keep the matmul outputs) | off
     remat_policy: str = "none"
-    # path policy for every core op of the model (None: the kernels)
-    policy: str | None = None
+    # explicit KernelPolicy for every core op of the model (attention, the
+    # SSD, the norms, the MoE counts and offsets); strings coerce; None: the
+    # active policy at call time
+    policy: KernelPolicy | None = None
+    # deprecated spelling of ``policy`` (a bare path label); warns once
+    kernel_path: dataclasses.InitVar[str | None] = None
+
+    def __post_init__(self, kernel_path):
+        object.__setattr__(self, "policy", kpolicy.coerce_config_policy(
+            self.policy, kernel_path, "ModelConfig"))
 
     @property
     def dh(self) -> int:

@@ -1,31 +1,142 @@
 """``repro_torch.ops`` — the public API for the paper's ops on PyTorch.
 
-Counterpart of ``repro.ops``. Every op takes ``policy=``: None (the Hopper
-kernel, ``tile``), a bare path label (``"tile"``, ``"fused"``,
-``"baseline"``, and for scan, weighted_scan and ssd ``"tile_logdepth"``),
-or a comma list of ``op=path`` overrides; see
-:mod:`repro_torch.core.policy`. On a CPU tensor the ``tile`` path runs each
-kernel's plain version::
+Counterpart of ``repro.ops``. Every op takes ``policy=``:
+
+* ``None`` (default) — the active policy (:func:`get_policy`; its process
+  default is built from ``REPRO_KERNEL_PATH``/``REPRO_AUTOTUNE*``: ``auto``,
+  which on a CUDA tensor of an H100 runs the Hopper kernels unless a
+  measured table says otherwise, and on a CPU tensor the reference's CPU
+  choice),
+* a :class:`KernelPolicy`,
+* a string shorthand — a bare path label (``"tile"``, ``"fused"``,
+  ``"baseline"``, ``"tile_logdepth"`` for the scan family, ...), an
+  ``op=path,...`` list, dotted tuning knobs (``"tile,ssd.q=32"``) or a JSON
+  object of policy fields.
+
+Scoped overrides compose through :func:`using_policy` /
+:func:`set_policy`::
 
     import repro_torch.ops as ops
+    from repro_torch.ops import KernelPolicy, using_policy
 
-    ops.reduce(x)                       # tcu_reduce.cu on a CUDA tensor
-    ops.scan(x, exclusive=True)         # tcu_scan.cu, then a shift
-    ops.ssd(x, dt, a, b, c, policy="fused")
-    ops.attention(q, k, v, window=128)  # flash_attention.cu
-    ops.scan(x, policy="tile_logdepth") # matmul_scan.cu + a log-depth tree
-    ops.ragged_reduce(x, seg_ids, 8)    # one-hot matmul (no kernel)
+    ops.reduce(x)                        # tcu_reduce.cu on a CUDA tensor
+    ops.scan(x, exclusive=True)          # tcu_scan.cu, then a shift
+    ops.ssd(x, dt, a, b, c, policy="tile,ssd.q=32")   # ssd_scan.cu, q 32
+    ops.scan(x, policy="tile_logdepth")  # matmul_scan.cu + a log-depth tree
+    with using_policy(KernelPolicy(op_paths={"attention": "fused"})):
+        ops.attention(q, k, v)           # per-op override beats global
+
+The reference's ``dist_weighted_scan`` (multi-device) is not ported yet.
+The ``path=`` kwarg is a deprecated alias for a bare-label policy and warns
+once per process.
 """
-from repro_torch.core.dispatch import (  # noqa: F401  (the public API)
-    attention,
-    ragged_reduce,
-    ragged_scan,
-    reduce,
-    rmsnorm,
-    scan,
-    ssd,
-    weighted_scan,
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import dispatch as _dispatch
+from repro_torch.core import policy as _policy
+from repro_torch.core.policy import (  # noqa: F401  (re-exported API)
+    KernelPolicy,
+    TuneSpec,
+    get_policy,
+    set_policy,
+    using_policy,
 )
 
-__all__ = ["attention", "ragged_reduce", "ragged_scan", "reduce", "rmsnorm",
-           "scan", "ssd", "weighted_scan"]
+__all__ = [
+    "KernelPolicy",
+    "TuneSpec",
+    "attention",
+    "get_policy",
+    "ragged_reduce",
+    "ragged_scan",
+    "reduce",
+    "rmsnorm",
+    "scan",
+    "set_policy",
+    "ssd",
+    "using_policy",
+    "weighted_scan",
+]
+
+
+def _policy_arg(policy, path):
+    """Fold the deprecated ``path=`` alias into ``policy`` (warns once)."""
+    if path is not None:
+        _policy.warn_once(
+            "deprecated:repro_torch.ops.path",
+            "the path= kwarg on repro_torch.ops is deprecated; pass policy= "
+            "(a KernelPolicy or a string shorthand like policy='fused')",
+            stacklevel=4)
+        if policy is None:
+            policy = path
+    return policy
+
+
+def reduce(x: torch.Tensor, *, policy=None,
+           path: str | None = None) -> torch.Tensor:
+    """Segmented sum over the last axis of ``x (..., n)`` -> f32
+    ``(...,)``."""
+    return _dispatch.reduce(x, policy=_policy_arg(policy, path))
+
+
+def scan(x: torch.Tensor, *, policy=None, exclusive: bool = False,
+         path: str | None = None) -> torch.Tensor:
+    """Prefix sum over the last axis -> f32, same shape
+    (``exclusive=True`` shifts in a leading zero)."""
+    return _dispatch.scan(x, policy=_policy_arg(policy, path),
+                          exclusive=exclusive)
+
+
+def weighted_scan(x: torch.Tensor, log_a: torch.Tensor, *, policy=None,
+                  path: str | None = None) -> torch.Tensor:
+    """Decayed scan ``y_i = exp(log_a_i) * y_{i-1} + x_i`` -> f32."""
+    return _dispatch.weighted_scan(x, log_a,
+                                   policy=_policy_arg(policy, path))
+
+
+def ragged_reduce(x: torch.Tensor, seg_ids: torch.Tensor, n_segments: int,
+                  *, policy=None, path: str | None = None) -> torch.Tensor:
+    """Bucketed segmented sum: ``x (..., n)`` + ``seg_ids`` -> f32
+    ``(..., n_segments)``."""
+    return _dispatch.ragged_reduce(x, seg_ids, n_segments,
+                                   policy=_policy_arg(policy, path))
+
+
+def ragged_scan(x: torch.Tensor, seg_ids: torch.Tensor, n_segments: int, *,
+                policy=None, debug: bool = False,
+                path: str | None = None) -> torch.Tensor:
+    """Within-segment inclusive prefix sum -> f32, same shape as ``x``
+    (``seg_ids`` must be non-decreasing; ``debug=True`` validates)."""
+    return _dispatch.ragged_scan(x, seg_ids, n_segments,
+                                 policy=_policy_arg(policy, path),
+                                 debug=debug)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
+            policy=None, path: str | None = None) -> torch.Tensor:
+    """RMSNorm over the last axis, in x's dtype (differentiable)."""
+    return _dispatch.rmsnorm(x, w, eps=eps, policy=_policy_arg(policy, path))
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int | None = None,
+              scale: float | None = None, policy=None,
+              path: str | None = None) -> torch.Tensor:
+    """Attention in the model layout: ``q (B, Sq, Hq, D)``, ``k``/``v``
+    ``(B, Sk, Hkv, D)`` -> ``(B, Sq, Hq, D)``."""
+    return _dispatch.attention(q, k, v, causal=causal, window=window,
+                               scale=scale,
+                               policy=_policy_arg(policy, path))
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+        b: torch.Tensor, c: torch.Tensor, *, policy=None,
+        chunk: int | None = None, matmul_dtype=None,
+        return_state: bool = False, path: str | None = None):
+    """Mamba-2 SSD scan -> ``y (B, L, H, P)``; with ``return_state=True``
+    also the final state ``(B, H, P, N)`` f32."""
+    return _dispatch.ssd(x, dt, a, b, c, policy=_policy_arg(policy, path),
+                         chunk=chunk, matmul_dtype=matmul_dtype,
+                         return_state=return_state)

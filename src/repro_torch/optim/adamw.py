@@ -4,7 +4,7 @@ Counterpart of ``repro.optim.adamw``. Master params are f32; the moments
 are kept in ``OptConfig.state_dtype`` (bf16 for the largest models). The
 global-norm clip reduces each leaf's Σx² through
 ``repro_torch.core.dispatch.reduce`` under ``OptConfig.policy``: on the
-default ``tile`` path that is ``csrc/tcu_reduce.cu``, one launch a leaf,
+card the default ``auto`` runs ``csrc/tcu_reduce.cu``, one launch a leaf,
 each leaf one ``(1, n)`` row (``torch.sum`` on ``baseline``).
 
 The update is functional, as the reference's: it returns new params and
@@ -21,6 +21,8 @@ import torch
 
 from repro_torch import tree
 from repro_torch.core import dispatch
+from repro_torch.core import policy as kpolicy
+from repro_torch.core.policy import KernelPolicy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,9 +37,15 @@ class OptConfig:
     weight_decay: float = 0.1
     clip_norm: float = 1.0
     state_dtype: torch.dtype = torch.float32   # m/v dtype (bf16 for ≥100B)
-    # path policy of the global-norm reduction (repro_torch.core.policy;
-    # None: the tcu_reduce kernel)
-    policy: str | None = None
+    # explicit KernelPolicy of the global-norm reduction (None: the active
+    # policy); strings coerce
+    policy: KernelPolicy | None = None
+    # deprecated spelling of ``policy`` (a bare path label); warns once
+    kernel_path: dataclasses.InitVar[str | None] = None
+
+    def __post_init__(self, kernel_path):
+        object.__setattr__(self, "policy", kpolicy.coerce_config_policy(
+            self.policy, kernel_path, "OptConfig"))
 
 
 def lr_at(cfg: OptConfig, step) -> torch.Tensor:
@@ -68,7 +76,7 @@ def init_opt_state(params, cfg: OptConfig):
     }
 
 
-def global_norm(grads, *, policy: str | None = None) -> torch.Tensor:
+def global_norm(grads, *, policy=None) -> torch.Tensor:
     """sqrt(Σ Σx²) with each leaf's Σx² through the dispatch switch (the
     ``tcu_reduce`` kernel on ``tile``, the matmul form on ``fused``,
     ``torch.sum`` on ``baseline``), summed over the leaves in the

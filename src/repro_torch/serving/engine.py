@@ -75,6 +75,8 @@ from collections import deque
 import numpy as np
 import torch
 
+from repro_torch.core import policy as kpolicy
+from repro_torch.core.policy import KernelPolicy
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import cast_tree, init_params
 from repro_torch.models import build
@@ -103,11 +105,15 @@ class ServeConfig:
     prefix_sharing: bool = True     # trie-share prompt prefixes (paged only)
     seed: int = 0                   # sampling generator seed
     trace_ring: int = 4096          # admit/finish events kept in memory
-    # path policy for every core op of the served model; None keeps the
-    # bundle's own (the kernels unless the bundle says otherwise)
-    policy: str | None = None
+    # explicit KernelPolicy for every core op of the served model; strings
+    # coerce. A value rebuilds the bundle with it; None keeps the bundle's
+    # own, and where that is None too the engine binds the policy active at
+    # its construction (see ServingEngine)
+    policy: KernelPolicy | None = None
+    # deprecated spelling of ``policy`` (a bare path label); warns once
+    kernel_path: dataclasses.InitVar[str | None] = None
 
-    def __post_init__(self):
+    def __post_init__(self, kernel_path):
         if self.scheduler not in ("continuous", "wave"):
             raise ValueError(f"scheduler must be 'continuous' or 'wave', "
                              f"got {self.scheduler!r}")
@@ -127,6 +133,8 @@ class ServeConfig:
             raise ValueError("prefill_chunk must be >= 1")
         if self.trace_ring < 1:
             raise ValueError("trace_ring must be >= 1")
+        object.__setattr__(self, "policy", kpolicy.coerce_config_policy(
+            self.policy, kernel_path, "ServeConfig"))
 
 
 @dataclasses.dataclass
@@ -242,6 +250,12 @@ class ServingEngine:
                                       cache_kind="ring")
         self.bundle = bundle
         self.cfg = cfg
+        # the policy every eager step, prefill and capture runs under: a
+        # CUDA graph bakes in the kernels of its capture, so a later
+        # set_policy must not make the eager steps disagree with the replays
+        # (the counterpart of the reference's jitted steps, which keep the
+        # policy of their trace)
+        self.policy = bundle.cfg.policy or kpolicy.get_policy()
         self.scheduler = cfg.scheduler
         self.params = cast_tree(params, bundle.cfg.dtype)
         self.device = self.params["embed"].device
@@ -426,8 +440,9 @@ class ServingEngine:
             step = self.bundle.decode_block_paged
             kw["page"] = {k: v for k, v in inputs.items()
                           if k not in ("tokens", "n_valid", "reset")}
-        logits, _ = step(self.params, self._cache,
-                         {"tokens": inputs["tokens"]}, **kw)
+        with kpolicy.using_policy(self.policy):
+            logits, _ = step(self.params, self._cache,
+                             {"tokens": inputs["tokens"]}, **kw)
         return logits
 
     def _capture(self, t_len: int) -> _BlockGraph:
@@ -705,9 +720,13 @@ class ServingEngine:
             out.extend(self.serve_wave(wave, t0))
         return out
 
-    @torch.inference_mode()
     def serve_wave(self, wave: list[Request],
                    t0: float | None = None) -> list[Result]:
+        with torch.inference_mode(), kpolicy.using_policy(self.policy):
+            return self._serve_wave(wave, t0)
+
+    def _serve_wave(self, wave: list[Request],
+                    t0: float | None) -> list[Result]:
         if t0 is None:
             t0 = time.perf_counter()
         nb, live = self.cfg.slots, len(wave)

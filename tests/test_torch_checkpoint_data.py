@@ -477,8 +477,12 @@ def test_cli_writes_the_reference_events_and_metrics(tmp_path, monkeypatch):
     jtrain.main()
     port = tmp_path / "port"
     port.mkdir()
+    # under tile (each kernel's plain version on the CPU): the port's CPU
+    # auto runs torch forms, no kernel wrapper, where the reference's
+    # registry still records its fused RMSNorm as an invocation
     losses = train_cli.main(flags + [
-        "--config", "smoke", "--device", "cpu", "--ckpt-dir",
+        "--config", "smoke", "--device", "cpu", "--policy", "tile",
+        "--ckpt-dir",
         str(port / "ck"), "--obs-events", str(port / "e.jsonl"),
         "--metrics-out", str(port / "m.prom")])
 

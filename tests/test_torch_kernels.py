@@ -719,3 +719,85 @@ def test_local_kernels_raise_on_what_they_do_not_take(cuda):
     ins = ssd_inputs(1, 64, 3, 16, 2, 8, torch.float32, cuda)
     with pytest.raises(ValueError, match="multiple"):
         kops.matmul_local_ssd(*ins, 64)           # H = 3, G = 2
+
+
+# ---------------------------------------------------------------------------
+# tuning knobs: the geometry the policy chooses is the geometry that runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("q", [16, 32, 48, 64])
+def test_ssd_chunk_knob_matches_plain(cuda, q, dtype):
+    """``ssd.q`` through the policy: the SSD at every chunk the tensor-core
+    instance takes, at a ragged served length, against its plain version
+    (assert_ssd_close's tolerances); bf16 on the tensor cores, f32 on the
+    FMA loops; the ``kernel_invoke`` event reports the chunk launched."""
+    from repro_torch import obs, ops
+    from repro_torch.core.policy import KernelPolicy
+
+    ins = ssd_inputs(2, 468, 8, 64, 1, 128, dtype, cuda)
+    pol = KernelPolicy(path="tile", op_tuning={"ssd": {"q": q}})
+    before = kops.instance_counts()
+    with obs.using_obs() as sess:
+        y, st = ops.ssd(*ins, policy=pol, return_state=True)
+    inst = "mma" if dtype == torch.bfloat16 else "fma"
+    assert kops.instance_counts()[("ssd_scan", inst)] == \
+        before.get(("ssd_scan", inst), 0) + 1
+    (inv,) = sess.events.events("kernel_invoke")
+    assert (inv["path"], inv["tuning"]) == ("tile_gpu", {"q": q})
+    assert kops.ssd_chunk(468, pol.resolve(
+        op="ssd_scan", n=468, dtype=dtype, level="kernel",
+        device=cuda).tuning) == q
+    yr, sr = ref.ssd_scan_ref(*ins, return_state=True)
+    tol = 2e-3 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(y, yr, rtol=tol, atol=tol)
+    torch.testing.assert_close(st, sr, rtol=2e-3, atol=2e-3)
+
+
+def _logdepth_cases():
+    for op, specs in layout.LOGDEPTH_CANDIDATE_TUNING["gpu"].items():
+        for i, spec in enumerate(specs):
+            yield pytest.param(op, spec, id=f"{op}-{i}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,spec", list(_logdepth_cases()))
+def test_logdepth_candidate_specs_match_plain(cuda, op, spec):
+    """Every log-depth candidate of the autotune sweep under
+    ``tile_logdepth``, through the public op, against the plain version of
+    the op (the tolerances of the log-depth tests above); the
+    ``kernel_invoke`` event's spec is the geometry the wrapper ran, and
+    the local kernel launched once."""
+    from repro_torch import obs, ops
+    from repro_torch.core.policy import KernelPolicy
+
+    pol = KernelPolicy(path="tile_logdepth", op_tuning={op: spec})
+    local = {"scan": "matmul_local_scan",
+             "weighted_scan": "matmul_local_weighted",
+             "ssd": "matmul_local_ssd"}[op]
+    before = kops.launch_counts()[local]
+    with obs.using_obs() as sess:
+        if op == "scan":
+            x = torch.randn(16, 70_000, device=cuda).to(torch.bfloat16)
+            torch.testing.assert_close(ops.scan(x, policy=pol),
+                                       ref.segmented_scan_ref(x),
+                                       rtol=1e-3, atol=1e-2)
+            n = x.shape[-1]
+        elif op == "weighted_scan":
+            x, la = weighted_inputs((16, 70_000), torch.float32, cuda)
+            torch.testing.assert_close(ops.weighted_scan(x, la, policy=pol),
+                                       ref.weighted_scan_ref(x, la),
+                                       rtol=2e-3, atol=2e-3)
+            n = x.shape[-1]
+        else:
+            ins = ssd_inputs(2, 468, 8, 64, 1, 128, torch.bfloat16, cuda)
+            y, st = ops.ssd(*ins, policy=pol, return_state=True)
+            yr, sr = ref.ssd_scan_ref(*ins, return_state=True)
+            torch.testing.assert_close(y, yr, rtol=1e-2, atol=1e-2)
+            torch.testing.assert_close(st, sr, rtol=2e-3, atol=2e-3)
+            n = 468
+    assert kops.launch_counts()[local] == before + 1
+    (inv,) = sess.events.events("kernel_invoke")
+    want = layout.clamp_spec("gpu", op, spec, n=n)
+    assert (inv["path"], inv["tuning"]) == ("tile_logdepth", want)

@@ -236,7 +236,7 @@ def test_ssd_logdepth_matches_jax(seqlen):
 def test_ssd_logdepth_single_chunk_and_one_step():
     """L within one chunk (no tree level) and L = 1, against the port's
     sequential oracle."""
-    for seqlen in (1, tlayout.HOPPER["ssd_logdepth"]["q"]):
+    for seqlen in (1, tlayout.DEFAULT_TUNING["gpu"]["ssd"]["q"]):
         ins = [torch.from_numpy(t) for t in ssd_arrays(seqlen, seed=seqlen)]
         y, s = tops.ssd(*ins, policy="tile_logdepth", return_state=True)
         yr, sr = tref.ssd_scan_ref(*ins, return_state=True)
@@ -289,13 +289,39 @@ def test_gradients_under_logdepth_equal_the_plain_ops():
                 assert a is None or not a.abs().any()
             else:
                 torch.testing.assert_close(a, b)
+    # the SSD differentiates the f32 chunked form (see the next test),
+    # held against the per-token oracle's gradient
     ins = [torch.from_numpy(t).requires_grad_() for t in ssd_arrays(100)]
     y, s = tops.ssd(*ins, policy="tile_logdepth", return_state=True)
     g = torch.autograd.grad(y.sum() + s.sum(), ins)
+    assert_oracle_grads(g, ins)
+
+
+def assert_oracle_grads(got, ins):
+    """``got`` against ``torch.autograd.grad`` of ``y.sum() + state.sum()``
+    through the per-token oracle ``tref.ssd_scan_ref``, at the SSD gradient
+    tolerance of ``tests/test_torch_training.py``: rtol 1e-4, atol 1e-6 x
+    the largest gradient."""
     yr, sr = tref.ssd_scan_ref(*ins, return_state=True)
-    gr = torch.autograd.grad(yr.sum() + sr.sum(), ins)
-    for a, b in zip(g, gr):
-        torch.testing.assert_close(a, b)
+    want = torch.autograd.grad(yr.sum() + sr.sum(), ins)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-6 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("seqlen", [100, 700])
+def test_logdepth_ssd_backward_is_the_chunked_form(seqlen, monkeypatch):
+    """``ssd_scan_logdepth`` differentiates ``_ssd_grad_form`` (the f32
+    ``ssd_chunked``), as ``ssd_scan`` does, never the per-token oracle: the
+    oracle is not called in the backward, and the gradients agree with the
+    oracle's own."""
+    ins = [torch.from_numpy(t).requires_grad_()
+           for t in ssd_arrays(seqlen)]
+    y, s = tkops.ssd_scan_logdepth(*ins, return_state=True)
+    monkeypatch.setattr(tref, "ssd_scan_ref", None)   # any call would raise
+    g = torch.autograd.grad(y.sum() + s.sum(), ins)
+    monkeypatch.undo()
+    assert_oracle_grads(g, ins)
 
 
 @pytest.mark.parametrize("op", ["reduce", "rmsnorm", "attention"])
@@ -310,13 +336,19 @@ def test_policy_raises_outside_the_scan_family(op):
         call(f"{op}=tile_logdepth")
 
 
+def resolve_on_cpu(spec, op, **kw):
+    return tpolicy.as_policy(spec).resolve(op=op, device=torch.device("cpu"),
+                                           **kw)
+
+
 def test_policy_routes_the_scan_family():
-    pol = "ssd=tile_logdepth"
-    assert tpolicy.resolve(pol, "ssd") == "tile_logdepth"
-    assert tpolicy.resolve(pol, "rmsnorm") == "tile"
+    pol = "tile,ssd=tile_logdepth"
+    assert resolve_on_cpu(pol, "ssd") == "tile_logdepth"
+    assert resolve_on_cpu(pol, "rmsnorm", level="kernel") == "interpret"
     for op in tpolicy.LOGDEPTH_OPS:
-        assert tpolicy.resolve("tile_logdepth", op) == "tile_logdepth"
-    assert tpolicy.resolve("tile_logdepth,reduce=tile", "reduce") == "tile"
+        assert resolve_on_cpu("tile_logdepth", op) == "tile_logdepth"
+    assert resolve_on_cpu("tile_logdepth,reduce=tile", "reduce") == \
+        "interpret"
 
 
 def test_registry_lists_the_three_local_kernels():

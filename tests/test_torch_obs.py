@@ -43,6 +43,7 @@ from repro.serving import engine as jengine
 from repro_torch import obs
 from repro_torch.configs import llama3_2_1b as tllama
 from repro_torch.configs import mamba2_1_3b as tmamba
+from repro_torch.core import autotune as tautotune
 from repro_torch.core import dispatch as tdispatch
 from repro_torch.core import policy as tpolicy
 from repro_torch.kernels import ops as tkops
@@ -57,13 +58,18 @@ from repro_torch.serving import Request, ServeConfig, ServingEngine
 ARCHS = {"llama": (jllama, tllama), "mamba": (jmamba, tmamba)}
 
 
+def resolve_on_cpu(op, **kw):
+    return tpolicy.get_policy().resolve(op=op, device=torch.device("cpu"),
+                                        **kw)
+
+
 # ---------------------------------------------------------------------------
 # off by default
 
 
 def test_disabled_by_default():
     assert obs.active() is None
-    tpolicy.resolve(None, "reduce", n=1024, dtype=torch.float32)  # no record
+    resolve_on_cpu("reduce", n=1024, dtype=torch.float32)  # no record
     with obs.using_obs() as sess:
         assert sess.events.emitted == 0          # nothing retroactive
     assert obs.active() is None                  # scope restored
@@ -71,9 +77,9 @@ def test_disabled_by_default():
 
 def test_resolve_emits_only_inside_scope():
     with obs.using_obs() as sess:
-        tpolicy.resolve(None, "reduce", n=1024, dtype=torch.float32)
+        resolve_on_cpu("reduce", n=1024, dtype=torch.float32)
         n_inside = sess.events.emitted
-    tpolicy.resolve(None, "reduce", n=1024, dtype=torch.float32)  # after
+    resolve_on_cpu("reduce", n=1024, dtype=torch.float32)  # after
     assert n_inside == 1
     assert sess.events.emitted == n_inside
 
@@ -264,30 +270,44 @@ OPS = (("reduce", "dispatch"), ("scan", "dispatch"),
 SHARED = ("op", "n", "shard_n", "dtype", "band", "level")
 
 
+def src_kind(src: str) -> str:
+    """The category of a ``table_src``: a table's path reads ``table``."""
+    return src if src in ("none", "static", "heuristic") else "table"
+
+
 @pytest.mark.parametrize("n", [16, 1 << 22])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_resolution_event_matches_the_reference(n, dtype):
-    """For each op, the port's event has the reference's keys in order and
-    the same op, sizes, dtype tag, band (clamped at the reference's
-    MAX_BAND) and level; the fields the port fixes are as documented."""
-    jpol = KernelPolicy(interpret_fallback="silent")
+    """With both packages on one table file (the port's checked-in one), for
+    each op the port's event on a CPU tensor has the reference's keys in
+    order, the same op, sizes, dtype tag, band (clamped at the reference's
+    MAX_BAND), level, chosen path and ``table_src`` category (the table's
+    bucket at n = 16, the heuristic past the table's bands). ``tuning`` is
+    not compared: the reference's is TPU geometry, and the plain versions
+    take no knob."""
+    table = str(tautotune.DEFAULT_TABLE_PATH)
+    jpol = KernelPolicy(autotune_table=table, interpret_fallback="silent")
+    tpol = tpolicy.KernelPolicy(autotune_table=table,
+                                interpret_fallback="silent")
     for op, level in OPS:
         with jobs.using_obs() as jsess:
             jpol.resolve(op=op, n=n, dtype=getattr(jnp, dtype), level=level)
         with obs.using_obs() as sess:
-            got = tpolicy.resolve(None, op, n=n, dtype=getattr(torch, dtype),
-                                  level=level, device="cpu")
+            got = tpol.resolve(op=op, n=n, dtype=getattr(torch, dtype),
+                               level=level, device=torch.device("cpu"))
         (want,), (ev,) = (jsess.events.events("resolution"),
                           sess.events.events("resolution"))
         assert list(ev) == list(want)
         assert list(ev)[2:] == list(RESOLUTION_FIELDS)
         assert {k: ev[k] for k in SHARED} == {k: want[k] for k in SHARED}
-        assert ev["chosen_path"] == got == "tile"
-        assert (ev["tuning"], ev["table_src"], ev["shard_divisor"],
-                ev["explicit"], ev["backend"]) == (None, "none", 1, None,
-                                                   "cpu")
+        assert ev["chosen_path"] == got == want["chosen_path"]
+        assert src_kind(ev["table_src"]) == src_kind(want["table_src"])
+        assert (ev["shard_divisor"], ev["explicit"], ev["backend"]) == \
+            (want["shard_divisor"], want["explicit"], want["backend"])
+        if src_kind(ev["table_src"]) == "table":
+            assert ev["table_src"] == want["table_src"] == table
         counter = sess.metrics.get("repro_resolutions_total")
-        assert counter.value(op=op, path="tile", level=level) == 1
+        assert counter.value(op=op, path=str(got), level=level) == 1
         assert counter.help == jsess.metrics.get(
             "repro_resolutions_total").help
 
@@ -296,14 +316,14 @@ def test_resolution_tags_match_the_reference():
     from repro.core import autotune
 
     for n in (0, 1, 15, 16, 17, 1 << 20, 1 << 21, 1 << 40):
-        assert tpolicy.band(n) == autotune.band(n)
+        assert tautotune.band(n) == autotune.band(n)
     for t, j in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16),
                  (torch.float16, jnp.float16), (torch.int32, jnp.int32),
                  (None, None)):
-        assert tpolicy.dtype_tag(t) == autotune.dtype_tag(j)
-    assert tpolicy.MAX_BAND == autotune.MAX_BAND
-    assert tpolicy.current_backend(torch.device("cpu")) == "cpu"
-    assert tpolicy.current_backend("cuda:0") == "gpu"
+        assert tautotune.dtype_tag(t) == autotune.dtype_tag(j)
+    assert tautotune.MAX_BAND == autotune.MAX_BAND
+    assert tautotune.current_backend(torch.device("cpu")) == "cpu"
+    assert tautotune.current_backend("cuda:0") == "gpu"
 
 
 def small_inputs(op: str, rng):
@@ -321,30 +341,33 @@ def small_inputs(op: str, rng):
 @pytest.mark.parametrize("op", ["reduce", "scan", "weighted_scan",
                                 "attention", "ssd"])
 def test_dispatch_resolutions_match_the_reference(op):
-    """Each op of ``core.dispatch`` records the dispatch-level resolution
-    the reference's ``dispatch._resolve`` records (same op, n, dtype,
-    band), and on a kernel path the reference registry's second, kernel
-    level one (the registry's name, the path as its per-call label) and
-    one ``kernel_invoke``."""
+    """Each op of ``core.dispatch`` under ``tile`` on a CPU tensor records
+    the resolutions the reference records under ``interpret`` (same op, n,
+    dtype, band, chosen path): the dispatch level's, then the registry's
+    second, kernel-level one (the registry's name, the path as its per-call
+    label), and one ``kernel_invoke`` on ``interpret`` with no knob (the
+    plain version takes none)."""
     ins = small_inputs(op, np.random.default_rng(0))
     with jobs.using_obs() as jsess:
         getattr(jdispatch, op)(*map(jnp.asarray, ins), policy="interpret")
     with obs.using_obs() as sess:
-        getattr(tdispatch, op)(*map(torch.from_numpy, ins))
+        getattr(tdispatch, op)(*map(torch.from_numpy, ins), policy="tile")
     want = jsess.events.events("resolution")
     got = sess.events.events("resolution")
     assert [tuple(e[k] for k in SHARED) for e in got] == \
         [tuple(e[k] for k in SHARED) for e in want]
-    assert [e["explicit"] for e in got] == [None, "tile"]
+    assert [e["explicit"] for e in got] == [None, "interpret"]
     assert [e["explicit"] for e in want] == [None, "interpret"]
-    keys = ("op", "n", "dtype")
+    assert [e["chosen_path"] for e in got] == \
+        [e["chosen_path"] for e in want] == ["interpret", "interpret"]
+    keys = ("op", "n", "dtype", "path")
     invokes = sess.events.events("kernel_invoke")
     assert [tuple(e[k] for k in keys) for e in invokes] == \
         [tuple(e[k] for k in keys)
          for e in jsess.events.events("kernel_invoke")]
-    assert [(e["path"], e["tuning"]) for e in invokes] == [("tile", None)]
+    assert [e["tuning"] for e in invokes] == [{}]
     assert sess.metrics.get("repro_kernel_invocations_total").value(
-        op=got[1]["op"], path="tile") == 1
+        op=got[1]["op"], path="interpret") == 1
 
 
 def test_logdepth_wrappers_name_their_path():
@@ -359,12 +382,28 @@ def test_logdepth_wrappers_name_their_path():
 
 
 def test_fused_and_baseline_paths_invoke_no_kernel():
+    """The dispatch level's fused and baseline forms invoke nothing; RMSNorm
+    lives in the reference's kernel registry, whose ``fused`` (the plain
+    version) still records one invocation on ``fused``, as the reference's
+    ``pallas_op`` does."""
     x = torch.randn(2, 32)
     with obs.using_obs() as sess:
         tdispatch.reduce(x, policy="fused")
         tdispatch.scan(x, policy="baseline")
         tdispatch.rmsnorm(x, torch.ones(32), policy="fused")
-    assert not sess.events.events("kernel_invoke")
+    from repro.kernels import ops as jkops
+
+    jx = jnp.asarray(x.numpy())
+    with jobs.using_obs() as jsess:
+        jdispatch.reduce(jx, policy="fused")
+        jdispatch.scan(jx, policy="baseline")
+        jkops.rmsnorm(jx, jnp.ones(32), policy="fused")
+    keys = ("op", "n", "dtype", "path")
+    assert [tuple(e[k] for k in keys)
+            for e in sess.events.events("kernel_invoke")] == \
+        [tuple(e[k] for k in keys)
+         for e in jsess.events.events("kernel_invoke")] == \
+        [("rmsnorm", 32, "f32", "fused")]
     assert [(e["op"], e["level"], e["chosen_path"])
             for e in sess.events.events("resolution")] == [
         ("reduce", "dispatch", "fused"), ("scan", "dispatch", "baseline"),

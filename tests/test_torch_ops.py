@@ -302,15 +302,27 @@ def test_rmsnorm_threads_switch_at_the_decode_and_prefill_rows():
 # policy, kernel wrappers, autograd, package boundary
 
 
+def resolve_on_cpu(spec, op, **kw):
+    return tpolicy.as_policy(spec).resolve(op=op, device=torch.device("cpu"),
+                                           **kw)
+
+
 def test_policy_labels_and_overrides():
-    assert tpolicy.resolve(None, "ssd") == "tile"
-    assert tpolicy.resolve("fused", "scan") == "fused"
-    assert tpolicy.resolve("fused,ssd=tile", "ssd") == "tile"
-    assert tpolicy.resolve("fused,ssd=tile", "reduce") == "fused"
-    assert tpolicy.resolve("reduce=baseline", "scan") == "tile"
-    for bad in ("tile_gpu", "reduce=interpret", "bogus=fused"):
+    """On a CPU tensor ``auto`` without a shape is the static choice
+    (``fused``), ``tile`` runs the plain version (``interpret``), and a
+    per-op override beats the global label; ``tile_gpu`` raises off the
+    card and a bad label or op raises ``ValueError``."""
+    assert resolve_on_cpu(None, "ssd") == "fused"
+    assert resolve_on_cpu("fused", "scan") == "fused"
+    assert resolve_on_cpu("fused,ssd=tile", "ssd") == "interpret"
+    assert resolve_on_cpu("fused,ssd=tile", "reduce") == "fused"
+    assert resolve_on_cpu("reduce=baseline", "scan") == "fused"
+    assert resolve_on_cpu("reduce=baseline", "reduce") == "baseline"
+    with pytest.raises(RuntimeError, match="tile_gpu"):
+        resolve_on_cpu("tile_gpu", "reduce")
+    for bad in ("bogus", "reduce=nope", "bogus=fused"):
         with pytest.raises(ValueError):
-            tpolicy.resolve(bad, "reduce")
+            resolve_on_cpu(bad, "reduce")
 
 
 def test_wrappers_run_the_plain_version_on_cpu_without_launching():

@@ -158,7 +158,8 @@ def test_remat_policies_give_the_same_gradients(ref_grads):
 def test_remat_relaunches_each_layer_in_backward():
     """Under ``none`` each layer's forward runs again in backward: the
     RMSNorm wrapper is called 2L + 1 times forward and 2L more in
-    backward."""
+    backward (under ``tile``, which runs the wrappers; on a CPU tensor
+    their plain versions)."""
     calls = []
     orig = tkops._rmsnorm_fwd
 
@@ -166,7 +167,7 @@ def test_remat_relaunches_each_layer_in_backward():
         calls.append(1)
         return orig(*a, **kw)
 
-    cfg = port_cfg("llama3.2-1b", remat_policy="none")
+    cfg = port_cfg("llama3.2-1b", remat_policy="none", policy="tile")
     bundle = build_lm(cfg)
     params = tcommon.init_params(tcommon.stack_pspec(bundle.params_pspec),
                                  torch.Generator().manual_seed(0),
