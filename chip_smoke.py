@@ -199,6 +199,29 @@ Phases:
    resolutions times one memoised resolve) within 5% of the step, and the
    step under the default policy beside the step under ``"tile"``, in
    turns (their ratio printed with its quartiles).
+   After training, the multi-device layer (``repro_torch.parallel``,
+   ``distributed_pass``): a world of 4 ranks on this one card, each rank a
+   process of this script (``--dist-worker``) joined by a gloo ``file://``
+   init (NCCL refuses two ranks on one device, so every collective is
+   staged through host memory and NCCL is not exercised). Each rank makes
+   the inputs from seed 0, takes its shard as a ``DTensor`` and calls
+   ``repro_torch.ops`` under ``make_context("data=4")``: the reduce of
+   llama3.2-1b's tied embedding (1 x 262,668,288 f32), the scan and the
+   weighted scan of 16 x 2^20 f32 (log-decays in (-1, 0]), and
+   mamba2-1.3b's SSD sequence-sharded (bf16 B=1 L=65,536 H=64 P=64 N=128,
+   and f32 at L=8192), each shard on its Hopper kernel, then GPipe over a
+   ``stage`` mesh (4 stages x 8 microbatches of 4 x 512 rows, the block
+   ``x + W2 silu(W1 rmsnorm(x))`` at d 2048, the RMSNorm on its kernel).
+   Gated: each sharded result's largest error against the f64 plain
+   result of the whole input at most twice the unsharded kernel's own
+   (rank 0 runs each op unsharded; floored at one f32 ulp of the result),
+   the f32 SSD's y and state within 2e-3 of the unsharded op, the pipeline
+   within 1e-5 of the sequential run, every rank's launches (the per-shard
+   kernel of each op, the SSD on the mma instance, one RMSNorm a tick) and
+   4 routed calls a rank. Printed: the backend, each op's wall ms a rank
+   split into local kernel, collectives and carry injection, the
+   unsharded op's ms, the errors; the ranks' launches join the
+   ``kernels`` line.
 3. Per kernel: the kernel against its plain version on the card at the main
    path's shapes (the reduce and scan at 2^24 elements from 2^20 rows of 16
    to one row, the reduce also on the global norm's largest rows, RMSNorm also at the served decode and prefill shapes,
@@ -3724,6 +3747,542 @@ def policy_pass(smoke: Smoke, serve, ops, kops, ref) -> dict:
     return stats
 
 
+# ---------------------------------------------------------------------------
+# the distributed phase: a gloo world of DIST_RANKS processes on the one card
+# (NCCL refuses two ranks on one device); the per-shard kernels are the
+# Hopper kernels, the collectives move shard totals and states through host
+# memory
+
+DIST_RANKS = 4
+DIST_TIMEOUT_S = 420                # the whole world, start to exit
+DIST_REPS = 5                       # timed repetitions of each call
+# llama3.2-1b's tied embedding (128256 x 2048): the train step's global
+# norm's largest leaf (row 1f)
+DIST_REDUCE_N = 128256 * 2048
+DIST_SCAN = (16, 1 << 20)           # rows 2d and 3b3
+# mamba2-1.3b's layer (B, L, H, P, G, N), sequence-sharded, as the
+# reference's examples/ssd_long_context.py shards it; f32 at a shorter L
+DIST_SSD = {"bf16": (1, 65536, 64, 64, 1, 128),
+            "f32": (1, 8192, 64, 64, 1, 128)}
+# GPipe: 4 stages x 8 microbatches of 4 x 512 rows at d 2048
+DIST_PIPE = dict(stages=4, microbatches=8, rows=(4, 512), d=2048)
+DIST_OPS = ("reduce", "scan", "weighted_scan", "ssd")
+DIST_KERNEL = {"reduce": "tcu_reduce", "scan": "tcu_scan",
+               "weighted_scan": "weighted_scan", "ssd": "ssd_scan"}
+
+
+def dist_inputs(torch, name: str):
+    """One op's whole inputs on the card from seed 0, the same on every
+    rank."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if name == "reduce":            # positive, as the global norm's squares
+        return (torch.rand(1, DIST_REDUCE_N, generator=gen, device="cuda"),)
+    if name == "scan":
+        return (torch.randn(*DIST_SCAN, generator=gen, device="cuda"),)
+    if name == "weighted_scan":     # log-decays in (-1, 0]
+        x = torch.randn(*DIST_SCAN, generator=gen, device="cuda")
+        return x, -torch.rand(*DIST_SCAN, generator=gen, device="cuda")
+    if name in ("ssd", "ssd_f32"):
+        tag = "bf16" if name == "ssd" else "f32"
+        dtype = torch.bfloat16 if tag == "bf16" else torch.float32
+        return ssd_inputs(torch, gen, *DIST_SSD[tag], dtype)
+    if name == "pipeline":
+        s, d = DIST_PIPE["stages"], DIST_PIPE["d"]
+        rows = DIST_PIPE["microbatches"] * DIST_PIPE["rows"][0]
+        x = torch.randn(rows, DIST_PIPE["rows"][1], d, generator=gen,
+                        device="cuda")
+        params = {
+            "g": 1.0 + 0.1 * torch.randn(s, d, generator=gen, device="cuda"),
+            "w1": torch.randn(s, d, d, generator=gen, device="cuda")
+            / d ** 0.5,
+            "w2": torch.randn(s, d, d, generator=gen, device="cuda")
+            / d ** 0.5}
+        return x, params
+    raise ValueError(name)
+
+
+def pipe_block(torch, ops, p, x):
+    """One stage: ``x + W2 silu(W1 rmsnorm(x))``, the RMSNorm on its
+    kernel."""
+    h = ops.rmsnorm(x, p["g"])
+    return x + torch.nn.functional.silu(h @ p["w1"]) @ p["w2"]
+
+
+def ssd_f64(torch, x, dt, a, b, c, seg: int = 256):
+    """The SSD recurrence in f64, independent of the port's forms: segments
+    of ``seg`` positions in the quadratic form, the state carried between
+    them in sequence. Returns (y, final state)."""
+    bsz, seqlen, heads, hdim = x.shape
+    rep = heads // b.shape[2]
+    f64 = torch.float64
+    xdt = x.to(f64) * dt.to(f64)[..., None]                   # (B,L,H,P)
+    lam = dt.to(f64) * a.to(f64)                              # (B,L,H)
+    bf = torch.repeat_interleave(b.to(f64), rep, dim=2)       # (B,L,H,N)
+    cf = torch.repeat_interleave(c.to(f64), rep, dim=2)
+    h = torch.zeros(bsz, heads, hdim, bf.shape[-1], dtype=f64,
+                    device=x.device)
+    ys = []
+    for s0 in range(0, seqlen, seg):
+        sl = slice(s0, min(seqlen, s0 + seg))
+        cum = torch.cumsum(lam[:, sl], dim=1)                 # (B,q,H)
+        q = cum.shape[1]
+        tri = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
+        diff = (cum[:, :, None] - cum[:, None]).masked_fill(
+            ~tri[None, :, :, None], float("-inf"))            # (B,q,q,H)
+        cb = torch.einsum("bihn,bjhn->bijh", cf[:, sl], bf[:, sl])
+        y = torch.einsum("bijh,bjhp->bihp", cb * torch.exp(diff), xdt[:, sl])
+        y = y + torch.einsum("bihn,bhpn->bihp",
+                             cf[:, sl] * torch.exp(cum)[..., None], h)
+        w = torch.exp(cum[:, -1:] - cum)                      # (B,q,H)
+        h = torch.exp(cum[:, -1])[..., None, None] * h + torch.einsum(
+            "bjhp,bjhn->bhpn", xdt[:, sl] * w[..., None], bf[:, sl])
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
+
+
+def weighted_f64(torch, x, la):
+    """The decayed scan in f64 by a log-step scan of (decay, state) pairs."""
+    a = torch.exp(la.to(torch.float64))
+    y = x.to(torch.float64)
+    d = 1
+    while d < y.shape[-1]:
+        y = torch.cat([y[..., :d], y[..., d:] + a[..., d:] * y[..., :-d]], -1)
+        a = torch.cat([a[..., :d], a[..., d:] * a[..., :-d]], -1)
+        d *= 2
+    return y
+
+
+def dist_f64(torch, name: str, ins):
+    """The f64 plain result of one op on its whole inputs."""
+    if name == "reduce":
+        return (ins[0].to(torch.float64).sum(-1),)
+    if name == "scan":
+        return (torch.cumsum(ins[0].to(torch.float64), -1),)
+    if name == "weighted_scan":
+        return (weighted_f64(torch, *ins),)
+    return ssd_f64(torch, *ins)
+
+
+def wall_ms(torch, dist, fn, reps: int = DIST_REPS) -> list:
+    """Host ms of ``fn`` to its last kernel's end, every rank starting
+    together (a barrier before each call), ``reps`` times after a warm
+    call."""
+    fn()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def dist_local(dispatch, name: str, locs):
+    """One op on this rank's local shards, the sharded call's first part."""
+    if name == "ssd":
+        return dispatch.ssd(*locs, return_state=True)
+    return getattr(dispatch, name)(*locs)
+
+
+def dist_parts(torch, name: str, part, locs, group):
+    """The sharded call's other two parts on this rank's local result
+    ``part``: the collective combine and the carry's injection (None for
+    the reduce, whose all-reduce is the whole combine)."""
+    from repro_torch.core.distributed import (
+        all_reduce_sum,
+        dist_exclusive_carry,
+        weighted_exclusive_carry,
+    )
+    from repro_torch.parallel.shard_ops import ssd_inject, weighted_inject
+
+    if name == "reduce":
+        return (lambda: all_reduce_sum(part, group)), None
+    if name == "scan":
+        carry = dist_exclusive_carry(part[..., -1], group)
+        return ((lambda: dist_exclusive_carry(part[..., -1], group)),
+                lambda: part + carry[..., None])
+    if name == "weighted_scan":
+        decay = locs[1].float().sum(-1)
+        carry = weighted_exclusive_carry(part[..., -1], decay, group)
+        return ((lambda: weighted_exclusive_carry(part[..., -1], decay,
+                                                  group)),
+                lambda: weighted_inject(part, locs[1], carry))
+    y_loc, h_loc = part
+    lam = locs[1].float() * locs[2].float()
+    decay = lam.sum(1)
+    h_in = weighted_exclusive_carry(h_loc, decay, group)
+    return ((lambda: weighted_exclusive_carry(h_loc, decay, group)),
+            lambda: ssd_inject(y_loc, locs[4], lam, h_in))
+
+
+def ulp32(v: float) -> float:
+    """One f32 ulp at magnitude ``v``."""
+    return float(np.spacing(np.float32(abs(v))))
+
+
+def dist_worker(rank: int, world: int, out_dir: str) -> int:
+    """One rank of the distributed phase (``chip_smoke.py --dist-worker
+    RANK WORLD DIR``): its shards through ``repro_torch.ops`` on DTensors
+    under ``make_context``, its errors against the f64 plain result of the
+    whole input, its times, launches and routed calls, into
+    ``DIR/rank<RANK>.json``. Rank 0 also runs each op unsharded."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch import ops
+    from repro_torch.core import dispatch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ops as kops
+    from repro_torch.obs import using_obs
+    from repro_torch.parallel import make_context, shard_local_scope
+    from repro_torch.parallel.pipeline import (
+        PipelineConfig,
+        pipeline_apply,
+        pipeline_stats,
+    )
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.load()                        # the parent built it: a cache hit
+    t_start = time.perf_counter()
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/init",
+                            rank=rank, world_size=world)
+    report: dict = {"rank": rank}
+    try:
+        ctx = make_context(f"data={world}", device="cuda",
+                           op_shard_axes={op: "data" for op in DIST_OPS})
+        group = ctx.mesh.get_group("data")
+        report["backend"] = dist.get_backend(group)
+        report["init_s"] = time.perf_counter() - t_start
+
+        def shard(t, dim):
+            n = t.shape[dim] // world
+            return DTensor.from_local(t.narrow(dim, rank * n, n).contiguous(),
+                                      ctx.mesh, [Shard(dim)],
+                                      run_check=False)
+
+        def piece(t, dim):
+            n = t.shape[dim] // world
+            return t.narrow(dim, rank * n, n)
+
+        shards, wholes = {}, {}
+        for name in ("reduce", "scan", "weighted_scan", "ssd", "ssd_f32"):
+            ins = dist_inputs(torch, name)
+            dim = 1 if name.startswith("ssd") else -1
+            if name.startswith("ssd"):
+                x, dt, a, b, c = ins
+                shards[name] = (shard(x, 1), shard(dt, 1), a, shard(b, 1),
+                                shard(c, 1))
+            else:
+                shards[name] = tuple(shard(t, dim) for t in ins)
+            wholes[name] = ins if rank == 0 or name == "ssd_f32" else None
+            del ins
+
+        # the main path: every count from 0, one call of each op
+        kops.reset_launches()
+        with torch.inference_mode(), using_obs() as sess, ctx:
+            out = {"reduce": (ops.reduce(*shards["reduce"]),),
+                   "scan": (ops.scan(*shards["scan"]),),
+                   "weighted_scan": (ops.weighted_scan(
+                       *shards["weighted_scan"]),),
+                   "ssd": ops.ssd(*shards["ssd"], return_state=True)}
+        torch.cuda.synchronize()
+        report["launches"] = kops.launch_counts()
+        report["instances"] = {f"{k}/{i}": n for (k, i), n in
+                               kops.instance_counts().items()}
+        report["routed"] = {k: v for k, v in
+                            prom_values(sess.prometheus_text()).items()
+                            if k.startswith("repro_sharded_dispatch_total")}
+        report["route_events"] = len(sess.events.events("sharded_dispatch"))
+        with torch.inference_mode(), ctx:
+            kops.reset_launches()
+            out["ssd_f32"] = ops.ssd(*shards["ssd_f32"], return_state=True)
+            torch.cuda.synchronize()
+            report["launches_ssd_f32"] = kops.launch_counts()
+            report["instances_ssd_f32"] = {
+                f"{k}/{i}": n for (k, i), n in
+                kops.instance_counts().items()}
+
+        # errors against the f64 plain result of the whole input: this
+        # rank's piece of the sharded results; the state and the reduce
+        # are replicated
+        errs = {}
+        with torch.inference_mode():
+            for name in ("reduce", "scan", "weighted_scan", "ssd"):
+                want = dist_f64(torch, name, dist_inputs(torch, name))
+                got = [t.to_local() for t in out[name]]
+                if name in ("scan", "weighted_scan"):
+                    want = (piece(want[0], -1),)
+                if name == "ssd":
+                    want = (piece(want[0], 1), want[1])
+                errs[name] = [float((g.double() - w).abs().max())
+                              for g, w in zip(got, want)]
+                errs[name + "_scale"] = [float(w.abs().max()) for w in want]
+                del want
+            # the f32 SSD against the unsharded op on this rank
+            y_u, h_u = ops.ssd(*wholes["ssd_f32"], return_state=True)
+            y_s, h_s = (t.to_local() for t in out["ssd_f32"])
+            errs["ssd_f32_vs_unsharded"] = [
+                float(((y_s - piece(y_u, 1)).abs()
+                       - 2e-3 * piece(y_u, 1).abs()).max()),
+                float(((h_s - h_u).abs() - 2e-3 * h_u.abs()).max())]
+            errs["ssd_f32_abs"] = [float((y_s - piece(y_u, 1)).abs().max()),
+                                   float((h_s - h_u).abs().max())]
+        report["errors"] = errs
+
+        # times: the sharded call whole, then its parts on the same shards
+        timing = {}
+        with torch.inference_mode():
+            for name in ("reduce", "scan", "weighted_scan", "ssd"):
+                sh = shards[name]
+                locs = [t.to_local() if isinstance(t, DTensor) else t
+                        for t in sh]
+                with ctx:
+                    whole = {"reduce": lambda: ops.reduce(*sh),
+                             "scan": lambda: ops.scan(*sh),
+                             "weighted_scan": lambda: ops.weighted_scan(*sh),
+                             "ssd": lambda: ops.ssd(*sh, return_state=True)
+                             }[name]
+                    t_whole = wall_ms(torch, dist, whole)
+                with shard_local_scope():
+                    t_local = wall_ms(torch, dist, lambda: dist_local(
+                        dispatch, name, locs))
+                    part = dist_local(dispatch, name, locs)
+                coll, inject = dist_parts(torch, name, part, locs,
+                                          (ctx.mesh, "data"))
+                timing[name] = {
+                    "whole": t_whole, "local": t_local,
+                    "collective": wall_ms(torch, dist, coll),
+                    "inject": wall_ms(torch, dist, inject) if inject
+                    else [0.0]}
+            # rank 0 alone on the card: each op unsharded, whole input
+            if rank == 0:
+                for name in ("reduce", "scan", "weighted_scan", "ssd"):
+                    ins = wholes[name]
+                    fn = {"reduce": lambda: ops.reduce(*ins),
+                          "scan": lambda: ops.scan(*ins),
+                          "weighted_scan": lambda: ops.weighted_scan(*ins),
+                          "ssd": lambda: ops.ssd(*ins, return_state=True)
+                          }[name]
+                    got = fn()
+                    got = got if isinstance(got, tuple) else (got,)
+                    want = dist_f64(torch, name, ins)
+                    errs[name + "_unsharded"] = [
+                        float((g.double() - w).abs().max())
+                        for g, w in zip(got, want)]
+                    del want, got
+                    t0 = []
+                    fn()
+                    for _ in range(DIST_REPS):
+                        torch.cuda.synchronize()
+                        t1 = time.perf_counter()
+                        fn()
+                        torch.cuda.synchronize()
+                        t0.append(1e3 * (time.perf_counter() - t1))
+                    timing[name]["unsharded"] = t0
+            dist.barrier()
+        report["timing"] = timing
+        del shards, wholes, out
+
+        # GPipe over a stage mesh: the rmsnorm kernel in every block
+        stage = init_device_mesh("cuda", (world,), mesh_dim_names=("stage",))
+        x, params = dist_inputs(torch, "pipeline")
+        cfg = PipelineConfig(n_stages=DIST_PIPE["stages"],
+                             n_microbatches=DIST_PIPE["microbatches"])
+
+        def block(p, h):
+            return pipe_block(torch, ops, p, h)
+
+        with torch.inference_mode():
+            kops.reset_launches()
+            y = pipeline_apply(block, params, x, cfg, stage)
+            torch.cuda.synchronize()
+            report["launches_pipeline"] = kops.launch_counts()
+            report["pipe_stats"] = pipeline_stats(cfg)
+            report["timing"]["pipeline"] = {"whole": wall_ms(
+                torch, dist, lambda: pipeline_apply(block, params, x, cfg,
+                                                    stage), reps=3)}
+            m = cfg.n_microbatches
+            xq = x.reshape(m, -1, *x.shape[1:])
+            per_mb = []
+            for i in range(m):          # the sequential run, microbatch by
+                h = xq[i]               # microbatch: the pipeline's shapes
+                for s in range(cfg.n_stages):
+                    h = block({k: v[s] for k, v in params.items()}, h)
+                per_mb.append(h)
+            seq = torch.stack(per_mb).reshape(x.shape)
+            full = x                    # and the whole batch at once
+            for s in range(cfg.n_stages):
+                full = block({k: v[s] for k, v in params.items()}, full)
+            report["pipe_err"] = float((y - seq).abs().max())
+            report["pipe_err_full_batch"] = float((y - full).abs().max())
+            report["pipe_scale"] = float(full.abs().max())
+        dist.barrier()
+        report["seconds"] = time.perf_counter() - t_start
+    finally:
+        dist.destroy_process_group()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(report))
+    return 0
+
+
+def dist_text(values: list) -> str:
+    return (f"{statistics.median(values):.3f} ms "
+            f"[{min(values):.3f}, {max(values):.3f}]")
+
+
+def distributed_pass(smoke: Smoke, kops) -> dict:
+    """The multi-device reduce, scan, weighted scan, SSD and GPipe schedule
+    of ``repro_torch.parallel`` in a gloo world of DIST_RANKS processes on
+    the one card (``--dist-worker``), gated here on what the ranks report:
+    each sharded result's largest error against the f64 plain result of
+    the whole input at most twice the unsharded kernel's own (floored at
+    one f32 ulp of the result, as a replicated scalar's error is one
+    sample), the f32 SSD's y and state within 2e-3 of the unsharded op,
+    the pipeline within 1e-5 of the sequential run, the per-shard kernel
+    launched on every rank (the SSD on the mma instance), four routed
+    calls a rank."""
+    torch = smoke.torch
+    out_dir = OBS_DIR.parent / "dist_smoke"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    logs = [out_dir / f"rank{r}.log" for r in range(DIST_RANKS)]
+    procs = []
+    try:
+        for r in range(DIST_RANKS):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     "--dist-worker", str(r), str(DIST_RANKS),
+                     str(out_dir)], stdout=log, stderr=subprocess.STDOUT))
+        for p in procs:
+            p.wait(timeout=max(1.0, DIST_TIMEOUT_S
+                               - (time.perf_counter() - t0)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        for r in bad:
+            print(f"distributed: rank {r} exit {procs[r].returncode}:\n"
+                  f"{logs[r].read_text()[-3000:]}", flush=True)
+        raise RuntimeError(f"distributed ranks {bad} failed")
+    reports = [json.loads((out_dir / f"rank{r}.json").read_text())
+               for r in range(DIST_RANKS)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    smi = smi_line()
+    backend = {r["backend"] for r in reports}
+    print(f"distributed: {DIST_RANKS} ranks on one card ({smi}), backend "
+          f"{'/'.join(sorted(backend))}, staged through host memory: one "
+          "card (NCCL not exercised: it refuses two ranks on one device); "
+          f"world up in {max(r['init_s'] for r in reports):.1f} s",
+          flush=True)
+    if backend != {"gloo"}:
+        smoke.fail(f"distributed: backend {backend}, want gloo")
+    launches = {k: 0 for k in kops.KERNELS}
+    r0 = reports[0]
+    errs0 = r0["errors"]
+    for rep in reports:
+        rank = rep["rank"]
+        counts = rep["launches"]
+        for op in DIST_OPS:
+            if counts[DIST_KERNEL[op]] < 1:
+                smoke.fail(f"distributed rank {rank}: {op} launched "
+                           f"{DIST_KERNEL[op]} no time ({counts})")
+        if rep["instances"].get("ssd_scan/mma", 0) < 1 or \
+                rep["instances"].get("ssd_scan/fma", 0):
+            smoke.fail(f"distributed rank {rank}: bf16 SSD instances "
+                       f"{rep['instances']}, want mma only")
+        routed = sum(rep["routed"].values())
+        if routed != 4 or rep["route_events"] != 4:
+            smoke.fail(f"distributed rank {rank}: {routed} routed calls "
+                       f"({rep['routed']}), {rep['route_events']} events, "
+                       "want 4")
+        if rep["launches_ssd_f32"]["ssd_scan"] < 1:
+            smoke.fail(f"distributed rank {rank}: the f32 SSD launched no "
+                       "ssd_scan")
+        if rep["launches_pipeline"]["rmsnorm"] != \
+                rep["pipe_stats"]["ticks"]:
+            smoke.fail(f"distributed rank {rank}: pipeline rmsnorm "
+                       f"{rep['launches_pipeline']['rmsnorm']}, want one a "
+                       f"tick ({rep['pipe_stats']['ticks']})")
+        for part in ("launches", "launches_ssd_f32", "launches_pipeline"):
+            for k, n in rep[part].items():
+                launches[k] += n
+        errs = rep["errors"]
+        for op in DIST_OPS:
+            for i, (e, e_u, scale) in enumerate(zip(
+                    errs[op], errs0[op + "_unsharded"], errs[op + "_scale"])):
+                limit = 2.0 * max(e_u, ulp32(scale))
+                if not e <= limit:
+                    smoke.fail(f"distributed rank {rank}: {op} output {i} "
+                               f"error {e:.3e} > {limit:.3e} (twice the "
+                               f"unsharded kernel's {e_u:.3e})")
+        worst = max(errs["ssd_f32_vs_unsharded"])
+        if not worst <= 2e-3:
+            smoke.fail(f"distributed rank {rank}: f32 SSD |sharded - "
+                       f"unsharded| - 2e-3 |unsharded| reaches {worst:.3e} "
+                       "over 2e-3")
+        if not rep["pipe_err"] <= 1e-5:
+            smoke.fail(f"distributed rank {rank}: pipeline differs from the "
+                       f"sequential run by {rep['pipe_err']:.3e} > 1e-5")
+    rows = {}
+    for op in DIST_OPS + ("pipeline",):
+        per_rank = [rep["timing"][op] for rep in reports]
+        line = [f"distributed {op}:"]
+        for rep, t in zip(reports, per_rank):
+            parts = ", ".join(f"{k} {statistics.median(t[k]):.3f}"
+                              for k in ("local", "collective", "inject")
+                              if k in t)
+            line.append(f"rank {rep['rank']} {dist_text(t['whole'])}"
+                        + (f" ({parts})" if parts else ""))
+        if "unsharded" in per_rank[0]:
+            line.append(f"unsharded, one process "
+                        f"{dist_text(per_rank[0]['unsharded'])}")
+        if op in DIST_OPS:
+            line.append("max err " + ", ".join(
+                f"{max(rep['errors'][op][i] for rep in reports):.3e}"
+                for i in range(len(errs0[op])))
+                + " vs unsharded " + ", ".join(
+                f"{e:.3e}" for e in errs0[op + "_unsharded"]))
+        print("; ".join(line), flush=True)
+        rows[op] = {
+            "ms_whole_per_rank": [statistics.median(t["whole"])
+                                  for t in per_rank],
+            **{f"ms_{k}_per_rank": [statistics.median(t[k])
+                                    for t in per_rank]
+               for k in ("local", "collective", "inject")
+               if k in per_rank[0]},
+            "ms_unsharded": (statistics.median(per_rank[0]["unsharded"])
+                             if "unsharded" in per_rank[0] else None),
+            "max_err": ([max(rep["errors"][op][i] for rep in reports)
+                         for i in range(len(errs0[op]))]
+                        if op in DIST_OPS else None),
+            "unsharded_err": errs0.get(op + "_unsharded")}
+    print("distributed f32 SSD: |sharded - unsharded| y "
+          f"{max(r['errors']['ssd_f32_abs'][0] for r in reports):.3e}, "
+          f"state {max(r['errors']['ssd_f32_abs'][1] for r in reports):.3e}"
+          "; pipeline: ticks "
+          f"{r0['pipe_stats']['ticks']}, bubble "
+          f"{r0['pipe_stats']['bubble_fraction']:.4f}, |pipe - sequential| "
+          f"{max(r['pipe_err'] for r in reports):.3e} (by microbatch), "
+          f"{max(r['pipe_err_full_batch'] for r in reports):.3e} (whole "
+          f"batch, outputs up to {r0['pipe_scale']:.3f})", flush=True)
+    print(f"distributed: ranks' launches {launches}; ranks' seconds "
+          f"{[round(r['seconds'], 1) for r in reports]}; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"launches": launches, "ops": rows, "backend": sorted(backend)}
+
+
 def main() -> int:
     import torch
 
@@ -3839,6 +4398,20 @@ def main() -> int:
         for k in launches:
             launches[k] += stats[run]["launches"][k]
 
+    # the multi-device ops and GPipe in a world of ranks on this card
+    run = "distributed"
+    t_run = time.perf_counter()
+    try:
+        stats[run] = distributed_pass(smoke, kops)
+    except Exception as exc:
+        smoke.fail(f"distributed pass: {exc!r}")
+        stats[run] = {"launches": {k: 0 for k in ops_counts}}
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase {run}: {time.perf_counter() - t_run:.1f} s", flush=True)
+    for k in launches:
+        launches[k] += stats[run]["launches"][k]
+
     with torch.inference_mode():
         t_run = time.perf_counter()
         rows = check_kernels(smoke, kops, ref)
@@ -3873,4 +4446,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:
+        sys.exit(dist_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

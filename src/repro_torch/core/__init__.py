@@ -1,8 +1,19 @@
 """repro_torch.core — the paper's contribution: matmul-form reduction and
 scan, and the kernel-selection layer (``policy``, ``autotune``,
-``dispatch``) that picks the formulation per call. The reference's
-multi-device ``dist_*`` ops are not ported yet."""
+``dispatch``) that picks the formulation per call.
+
+Tile level  (paper: warp/WMMA fragment)  -> tiles.py constructors + reduce/scan
+Block level (paper: thread block)        -> multi-tile composition in reduce/scan
+Device/grid level (paper: multi-kernel)  -> distributed.py collectives
+"""
 from repro_torch.core import autotune, dispatch, policy
+from repro_torch.core.distributed import (
+    dist_exclusive_carry,
+    dist_reduce,
+    dist_scan,
+    dist_weighted_scan,
+    weighted_exclusive_carry,
+)
 from repro_torch.core.policy import (
     KernelPolicy,
     TuneSpec,
@@ -36,6 +47,10 @@ __all__ = [
     "TuneSpec",
     "autotune",
     "dispatch",
+    "dist_exclusive_carry",
+    "dist_reduce",
+    "dist_scan",
+    "dist_weighted_scan",
     "get_policy",
     "policy",
     "set_policy",
@@ -53,4 +68,5 @@ __all__ = [
     "tcu_segmented_scan",
     "tcu_weighted_scan",
     "u_matrix",
+    "weighted_exclusive_carry",
 ]

@@ -77,6 +77,10 @@ import warnings
 from typing import Any, Iterator, Mapping
 
 from repro_torch.obs import runtime as _obs
+from repro_torch.parallel import mesh_context as _mesh
+# the active mesh context: its one ``get`` is all the shard hook costs a
+# resolution outside any context
+from repro_torch.parallel.mesh_context import _ACTIVE as _MESH_ACTIVE
 
 # The env vars (parsed ONLY here; other modules may re-export the names):
 ENV_PATH = "REPRO_KERNEL_PATH"         # default path label
@@ -473,10 +477,19 @@ class KernelPolicy:
         ``device`` is the call's tensor device (None: the process's
         default, the CUDA card where there is one).
 
+        Under an active ``repro_torch.parallel.MeshContext`` the bucket is
+        the shard's: ``n`` divided by the context's shard divisor for
+        ``op`` (``mesh_context.effective_call_n``), and the memo keys off
+        that n.
+
         Returns a :class:`ResolvedPath` whose ``.tuning`` is the
         :class:`TuneSpec` of :meth:`tuning_for`. Memoised (see the module
         docstring); the ``resolution`` event fires on every call.
         """
+        n_raw = n
+        if _MESH_ACTIVE.get() is not None and op is not None \
+                and n is not None:
+            n = _mesh.effective_call_n(op, n)
         key = (self, op, n, dtype, level, explicit, device)
         try:
             resolved = _MEMO.get(key)
@@ -493,16 +506,17 @@ class KernelPolicy:
                 _MEMO[key] = resolved
         if _obs.ACTIVE is not None:   # observability off by default: the
             # disabled path costs one module-global load and this branch
-            self._emit_resolution(op=op, n=n, dtype=dtype, level=level,
-                                  explicit=explicit, resolved=resolved,
-                                  device=device)
+            self._emit_resolution(op=op, n_raw=n_raw, n=n, dtype=dtype,
+                                  level=level, explicit=explicit,
+                                  resolved=resolved, device=device)
         return resolved
 
-    def _emit_resolution(self, *, op, n, dtype, level, explicit,
+    def _emit_resolution(self, *, op, n_raw, n, dtype, level, explicit,
                          resolved: "ResolvedPath", device) -> None:
         """One ``resolution`` event (``RESOLUTION_FIELDS``) and a
-        ``repro_resolutions_total`` count. Without a mesh the shard fields
-        are the call's own (``shard_n = n``, divisor 1)."""
+        ``repro_resolutions_total`` count: ``n`` is the caller's bucket
+        size, ``shard_n`` the one resolution keyed off (the shard's under a
+        mesh context) and ``shard_divisor`` their ratio."""
         sess = _obs.ACTIVE
         if sess is None:   # raced a disable(); nothing to record into
             return
@@ -511,7 +525,8 @@ class KernelPolicy:
         shaped = op is not None and n is not None
         sess.emit(
             "resolution",
-            op=op, n=n, shard_n=n, shard_divisor=1,
+            op=op, n=n_raw, shard_n=n,
+            shard_divisor=max(1, n_raw // n) if shaped and n else 1,
             dtype=autotune.dtype_tag(dtype) if shaped else None,
             backend=autotune.current_backend(device),
             band=autotune.band(n) if shaped else None,

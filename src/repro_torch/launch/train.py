@@ -36,8 +36,9 @@ cosine to ``--steps``) unless ``--warmup-steps`` or ``--decay-steps`` fix
 it, as a run resumed with another ``--steps`` needs to continue the
 interrupted one. ``--obs-events``, ``--metrics-out`` and ``--profile-dir``
 run under an observability session (``repro_torch.obs.cli``). The
-reference's ``--tp``, ``--mesh`` and ``--tune`` are not ported yet
-(ROADMAP queue 1).
+reference's ``--tp`` and ``--mesh`` (a sharded train state over
+``repro_torch.parallel``'s mesh) are not ported yet (ROADMAP queue 1,
+item 4b).
 """
 from __future__ import annotations
 

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch import device as devmod
 from repro_torch.core import dispatch
+from repro_torch.parallel.sharding import spec_for
 from repro_torch.tree import map_tree as _map_tree
 
 
@@ -31,6 +32,9 @@ class PSpec:
     init: str = "fan_in"     # fan_in | zeros | ones | normal | const:<v> |
     #                          dt_bias | a_log
     dtype: torch.dtype | None = None   # None = model default
+    # one logical axis name per dim (``repro_torch.parallel.sharding``'s
+    # rules map them to mesh dims), the reference's
+    logical: tuple = ()
 
 
 def _init_leaf(ps: PSpec, gen: torch.Generator, default_dtype, device):
@@ -94,16 +98,28 @@ def _stack_lens(cfg) -> dict:
 def stack_pspec(tree):
     """A parameter declaration with each per-layer list of ``STACKS``
     stacked into ``(layers, ...)`` leaves, the reference's layout (the
-    train state's). Each layer's leaf keeps its init rule; ``fan_in`` reads
-    ``shape[-2]``, so a stacked leaf draws from the same distribution."""
+    train state's), the new dim named ``"layers"``. Each layer's leaf keeps
+    its init rule; ``fan_in`` reads ``shape[-2]``, so a stacked leaf draws
+    from the same distribution."""
     out = dict(tree)
     for key in STACKS:
         if key in tree:
             layers = tree[key]
             out[key] = _map_tree(
                 lambda ps, n=len(layers): dataclasses.replace(
-                    ps, shape=(n, *ps.shape)), layers[0])
+                    ps, shape=(n, *ps.shape),
+                    logical=("layers", *ps.logical)), layers[0])
     return out
+
+
+def partition_specs(tree, *, rules=None, fsdp_ok: bool = True):
+    """PSpec tree -> the tree of each leaf's spec (a tuple with one entry
+    per dim) under the active (or given) rules, the reference's
+    ``partition_specs``; stack a per-layer declaration with
+    :func:`stack_pspec` first for the reference's layout."""
+    return _map_tree(
+        lambda ps: spec_for(ps.shape, ps.logical, rules=rules,
+                            fsdp_ok=fsdp_ok), tree)
 
 
 def _leaf_from_numpy(arr, device) -> torch.Tensor:

@@ -41,17 +41,22 @@ from repro_torch.models.xla_attention import decode_attention
 def encdec_pspec(cfg: L.ModelConfig):
     d, v = cfg.d_model, cfg.vocab
     return {
-        "embed": PSpec((v, d), "normal"),
-        "head": PSpec((v, d), "normal"),
-        "enc": [{"ln1": PSpec((d,), "ones"), "attn": L.attn_pspec(cfg),
-                 "ln2": PSpec((d,), "ones"), "mlp": L.mlp_pspec(cfg)}
+        "embed": PSpec((v, d), "normal", logical=("vocab", "embed")),
+        "head": PSpec((v, d), "normal", logical=("vocab", "embed")),
+        "enc": [{"ln1": PSpec((d,), "ones", logical=("embed",)),
+                 "attn": L.attn_pspec(cfg),
+                 "ln2": PSpec((d,), "ones", logical=("embed",)),
+                 "mlp": L.mlp_pspec(cfg)}
                 for _ in range(cfg.enc_layers)],
-        "enc_norm": PSpec((d,), "ones"),
-        "dec": [{"ln1": PSpec((d,), "ones"), "attn": L.attn_pspec(cfg),
-                 "lnx": PSpec((d,), "ones"), "xattn": L.attn_pspec(cfg),
-                 "ln2": PSpec((d,), "ones"), "mlp": L.mlp_pspec(cfg)}
+        "enc_norm": PSpec((d,), "ones", logical=("embed",)),
+        "dec": [{"ln1": PSpec((d,), "ones", logical=("embed",)),
+                 "attn": L.attn_pspec(cfg),
+                 "lnx": PSpec((d,), "ones", logical=("embed",)),
+                 "xattn": L.attn_pspec(cfg),
+                 "ln2": PSpec((d,), "ones", logical=("embed",)),
+                 "mlp": L.mlp_pspec(cfg)}
                 for _ in range(cfg.n_layers)],
-        "final_norm": PSpec((d,), "ones"),
+        "final_norm": PSpec((d,), "ones", logical=("embed",)),
     }
 
 
@@ -136,11 +141,12 @@ def encdec_cache_pspec(cfg: L.ModelConfig, batch: int, smax: int):
     (the cross K/V) and the decoder's self cache, as in the reference."""
     s_enc = s_dec = smax // 2
     nd, hkv, dh = cfg.n_layers, cfg.n_kv_heads, cfg.dh
+    log = ("layers", "batch", "kv_seq", "kv_heads", None)
     return {
-        "self_k": PSpec((nd, batch, s_dec, hkv, dh), "zeros"),
-        "self_v": PSpec((nd, batch, s_dec, hkv, dh), "zeros"),
-        "cross_k": PSpec((nd, batch, s_enc, hkv, dh), "zeros"),
-        "cross_v": PSpec((nd, batch, s_enc, hkv, dh), "zeros"),
+        "self_k": PSpec((nd, batch, s_dec, hkv, dh), "zeros", logical=log),
+        "self_v": PSpec((nd, batch, s_dec, hkv, dh), "zeros", logical=log),
+        "cross_k": PSpec((nd, batch, s_enc, hkv, dh), "zeros", logical=log),
+        "cross_v": PSpec((nd, batch, s_enc, hkv, dh), "zeros", logical=log),
         "pos": PSpec((), "zeros", torch.int32),
     }
 

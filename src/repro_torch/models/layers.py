@@ -111,12 +111,12 @@ def attn_pspec(cfg: ModelConfig, d_in: int | None = None):
     d = d_in or cfg.d_model
     dh, hq, hkv = cfg.dh, cfg.n_heads, cfg.n_kv_heads
     return {
-        "wq": PSpec((d, hq * dh)),
-        "wk": PSpec((d, hkv * dh)),
-        "wv": PSpec((d, hkv * dh)),
+        "wq": PSpec((d, hq * dh), logical=("embed", "heads")),
+        "wk": PSpec((d, hkv * dh), logical=("embed", "kv_heads")),
+        "wv": PSpec((d, hkv * dh), logical=("embed", "kv_heads")),
         # wo always projects back to the residual width (Zamba2's shared
         # block reads concat(h, embeddings) of width 2 d_model)
-        "wo": PSpec((hq * dh, cfg.d_model)),
+        "wo": PSpec((hq * dh, cfg.d_model), logical=("heads", "embed")),
     }
 
 
@@ -258,7 +258,9 @@ def attn_cache_pspec(cfg: ModelConfig, n_layers: int, batch: int, smax: int):
     rows a slot."""
     cap = min(smax, cfg.swa_window) if cfg.swa_window else smax
     shp = (n_layers, batch, cap, cfg.n_kv_heads, cfg.dh)
-    return {"k": PSpec(shp, "zeros"), "v": PSpec(shp, "zeros"),
+    log = ("layers", "batch", "kv_seq", "kv_heads", None)
+    return {"k": PSpec(shp, "zeros", logical=log),
+            "v": PSpec(shp, "zeros", logical=log),
             "pos": PSpec((), "zeros", torch.int32)}
 
 
@@ -268,7 +270,9 @@ def attn_page_cache_pspec(cfg: ModelConfig, n_layers: int, pages: int,
     ``page_rows`` rows shared by every slot (block tables map slots to
     pages)."""
     shp = (n_layers, pages, page_rows, cfg.n_kv_heads, cfg.dh)
-    return {"k": PSpec(shp, "zeros"), "v": PSpec(shp, "zeros")}
+    log = ("layers", None, None, "kv_heads", None)
+    return {"k": PSpec(shp, "zeros", logical=log),
+            "v": PSpec(shp, "zeros", logical=log)}
 
 
 # ---------------------------------------------------------------------------
@@ -277,8 +281,9 @@ def attn_page_cache_pspec(cfg: ModelConfig, n_layers: int, pages: int,
 
 def mlp_pspec(cfg: ModelConfig):
     d, f = cfg.d_model, cfg.d_ff
-    return {"w_in": PSpec((d, f)), "w_gate": PSpec((d, f)),
-            "w_out": PSpec((f, d))}
+    return {"w_in": PSpec((d, f), logical=("embed", "ff")),
+            "w_gate": PSpec((d, f), logical=("embed", "ff")),
+            "w_out": PSpec((f, d), logical=("ff", "embed"))}
 
 
 def mlp_apply(p, cfg: ModelConfig, x):
@@ -292,9 +297,12 @@ def mlp_apply(p, cfg: ModelConfig, x):
 def moe_pspec(cfg: ModelConfig):
     """One MoE layer's parameters: the router and each expert's SwiGLU."""
     d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
-    return {"router": PSpec((d, e), "normal"),
-            "w_in": PSpec((e, d, f)), "w_gate": PSpec((e, d, f)),
-            "w_out": PSpec((e, f, d))}
+    return {"router": PSpec((d, e), "normal", logical=("embed", None)),
+            "w_in": PSpec((e, d, f), logical=("experts", "embed", "e_ff")),
+            "w_gate": PSpec((e, d, f),
+                            logical=("experts", "embed", "e_ff")),
+            "w_out": PSpec((e, f, d),
+                           logical=("experts", "e_ff", "embed"))}
 
 
 def moe_apply(p, cfg: ModelConfig, x):
@@ -395,14 +403,19 @@ def mamba_pspec(cfg: ModelConfig):
     g, ns, hh = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     conv_dim = di + 2 * g * ns
     return {
-        "in_proj": PSpec((d, 2 * di + 2 * g * ns + hh)),
-        "conv_w": PSpec((cfg.conv_kernel, conv_dim), "fan_in"),
-        "conv_b": PSpec((conv_dim,), "zeros"),
-        "dt_bias": PSpec((hh,), "dt_bias", torch.float32),
-        "a_log": PSpec((hh,), "a_log", torch.float32),
-        "d_skip": PSpec((hh,), "ones", torch.float32),
-        "norm_w": PSpec((di,), "ones"),
-        "out_proj": PSpec((di, d)),
+        "in_proj": PSpec((d, 2 * di + 2 * g * ns + hh),
+                         logical=("embed", "inner_all")),
+        "conv_w": PSpec((cfg.conv_kernel, conv_dim), "fan_in",
+                        logical=(None, "inner_all")),
+        "conv_b": PSpec((conv_dim,), "zeros", logical=("inner_all",)),
+        "dt_bias": PSpec((hh,), "dt_bias", torch.float32,
+                         logical=("ssm_heads",)),
+        "a_log": PSpec((hh,), "a_log", torch.float32,
+                       logical=("ssm_heads",)),
+        "d_skip": PSpec((hh,), "ones", torch.float32,
+                        logical=("ssm_heads",)),
+        "norm_w": PSpec((di,), "ones", logical=("inner",)),
+        "out_proj": PSpec((di, d), logical=("inner", "embed")),
     }
 
 
@@ -454,16 +467,21 @@ def mamba_apply(p, cfg: ModelConfig, x, *, collect_cache: bool = False):
     return out, cache
 
 
-def mamba_cache_pspec(cfg: ModelConfig, n_layers: int, batch: int):
+def mamba_cache_pspec(cfg: ModelConfig, n_layers: int, batch: int,
+                      batch_axis: str | None = "batch"):
     """Conv history (the last K-1 raw mixer inputs) and SSD state of
-    ``n_layers`` layers."""
+    ``n_layers`` layers, ``batch`` of each, that dim named
+    ``batch_axis``."""
     di, g, ns = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
     conv_dim = di + 2 * g * ns
     return {
         "conv": PSpec((n_layers, batch, cfg.conv_kernel - 1, conv_dim),
-                      "zeros"),
+                      "zeros",
+                      logical=("layers", batch_axis, None, "inner_all")),
         "state": PSpec((n_layers, batch, cfg.ssm_heads, cfg.ssm_head_dim, ns),
-                       "zeros", torch.float32),
+                       "zeros", torch.float32,
+                       logical=("layers", batch_axis, "ssm_heads", None,
+                                None)),
     }
 
 
@@ -471,8 +489,9 @@ def mamba_snap_pspec(cfg: ModelConfig, n_layers: int, pages: int):
     """The paged cache's snapshot pool: ``pages`` (conv history, state)
     pairs, each captured at a prompt boundary so that a later request
     extending that exact prompt skips its prefill. The live per-slot state
-    stays in :func:`mamba_cache_pspec`; a page has its layout."""
-    return mamba_cache_pspec(cfg, n_layers, pages)
+    stays in :func:`mamba_cache_pspec`; a page has its layout, the page dim
+    unsharded (a pooled resource, not a batch dim)."""
+    return mamba_cache_pspec(cfg, n_layers, pages, batch_axis=None)
 
 
 def mamba_decode(p, cfg: ModelConfig, x, cache):

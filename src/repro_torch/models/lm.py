@@ -141,29 +141,31 @@ def lm_pspec(cfg: L.ModelConfig):
     _require_ported(cfg)
     d, v = cfg.d_model, cfg.vocab
     p: dict[str, Any] = {
-        "embed": PSpec((v, d), "normal"),
-        "final_norm": PSpec((d,), "ones"),
+        "embed": PSpec((v, d), "normal", logical=("vocab", "embed")),
+        "final_norm": PSpec((d,), "ones", logical=("embed",)),
     }
     if not cfg.tie_embeddings:
-        p["head"] = PSpec((v, d), "normal")
+        p["head"] = PSpec((v, d), "normal", logical=("vocab", "embed"))
     if cfg.stub_tokens:
-        p["stub_proj"] = PSpec((cfg.stub_dim, d))
+        p["stub_proj"] = PSpec((cfg.stub_dim, d), logical=(None, "embed"))
     if cfg.family in ATTN_FAMILIES:
         ffn = "moe" if cfg.family == "moe" else "mlp"
         ffn_pspec = L.moe_pspec if cfg.family == "moe" else L.mlp_pspec
-        p["blocks"] = [{"ln1": PSpec((d,), "ones"), "attn": L.attn_pspec(cfg),
-                        "ln2": PSpec((d,), "ones"), ffn: ffn_pspec(cfg)}
+        p["blocks"] = [{"ln1": PSpec((d,), "ones", logical=("embed",)),
+                        "attn": L.attn_pspec(cfg),
+                        "ln2": PSpec((d,), "ones", logical=("embed",)),
+                        ffn: ffn_pspec(cfg)}
                        for _ in range(cfg.n_layers)]
     if cfg.family in STATE_FAMILIES:
-        p["blocks"] = [{"ln": PSpec((d,), "ones"),
+        p["blocks"] = [{"ln": PSpec((d,), "ones", logical=("embed",)),
                         "mamba": L.mamba_pspec(cfg)}
                        for _ in range(cfg.n_layers)]
     if cfg.family == "hybrid":
         # Zamba2's shared transformer block over concat(h, embeddings): one
         # tree, not stacked, used after every group
-        p["shared"] = {"ln_in": PSpec((2 * d,), "ones"),
+        p["shared"] = {"ln_in": PSpec((2 * d,), "ones", logical=("embed",)),
                        "attn": L.attn_pspec(cfg, d_in=2 * d),
-                       "ln_mlp": PSpec((d,), "ones"),
+                       "ln_mlp": PSpec((d,), "ones", logical=("embed",)),
                        "mlp": L.mlp_pspec(cfg)}
     return p
 
@@ -429,7 +431,8 @@ def lm_cache_pspec(cfg: L.ModelConfig, batch: int, smax: int,
         raise ValueError(f"cache kind must be 'ring' or 'paged', got {kind!r}")
     _require_ported(cfg)
     cache: dict[str, Any] = {
-        "pos": PSpec((batch,) if per_slot_pos else (), "zeros", torch.int32)}
+        "pos": PSpec((batch,) if per_slot_pos else (), "zeros", torch.int32,
+                     logical=("batch",) if per_slot_pos else ())}
     if cfg.family in STATE_FAMILIES:
         cache["mamba"] = L.mamba_cache_pspec(cfg, cfg.n_layers, batch)
         if kind == "paged":

@@ -26,7 +26,21 @@ Scoped overrides compose through :func:`using_policy` /
     with using_policy(KernelPolicy(op_paths={"attention": "fused"})):
         ops.attention(q, k, v)           # per-op override beats global
 
-The reference's ``dist_weighted_scan`` (multi-device) is not ported yet.
+Under an active :class:`~repro_torch.parallel.MeshContext`,
+``reduce``, ``scan``, ``weighted_scan`` and ``ssd`` take a ``DTensor``
+whose bucket axis is sharded over the context's ``DeviceMesh``: each rank
+runs the kernel on its local shard and the ranks combine their partials
+with collectives (``repro_torch.parallel.shard_ops``); everything else
+falls back to plain dispatch::
+
+    ctx = make_context("data=4")         # repro_torch.parallel
+    with ctx:
+        ops.scan(DTensor.from_local(x_shard, ctx.mesh, [Shard(1)]))
+
+:func:`dist_weighted_scan` is the multi-device composition of
+``weighted_scan`` (the paper's grid-level scan-then-propagate) on a rank's
+local piece; it takes a process group instead of a policy.
+
 The ``path=`` kwarg is a deprecated alias for a bare-label policy and warns
 once per process.
 """
@@ -36,6 +50,8 @@ import torch
 
 from repro_torch.core import dispatch as _dispatch
 from repro_torch.core import policy as _policy
+from repro_torch.core.distributed import \
+    dist_weighted_scan  # noqa: F401  (re-exported API)
 from repro_torch.core.policy import (  # noqa: F401  (re-exported API)
     KernelPolicy,
     TuneSpec,
@@ -43,11 +59,13 @@ from repro_torch.core.policy import (  # noqa: F401  (re-exported API)
     set_policy,
     using_policy,
 )
+from repro_torch.parallel import shard_ops as _shard
 
 __all__ = [
     "KernelPolicy",
     "TuneSpec",
     "attention",
+    "dist_weighted_scan",
     "get_policy",
     "ragged_reduce",
     "ragged_scan",
@@ -78,22 +96,35 @@ def reduce(x: torch.Tensor, *, policy=None,
            path: str | None = None) -> torch.Tensor:
     """Segmented sum over the last axis of ``x (..., n)`` -> f32
     ``(...,)``."""
-    return _dispatch.reduce(x, policy=_policy_arg(policy, path))
+    policy = _policy_arg(policy, path)
+    out = _shard.sharded_reduce(x, policy=policy)
+    if out is not None:
+        return out
+    return _dispatch.reduce(x, policy=policy)
 
 
 def scan(x: torch.Tensor, *, policy=None, exclusive: bool = False,
          path: str | None = None) -> torch.Tensor:
     """Prefix sum over the last axis -> f32, same shape
     (``exclusive=True`` shifts in a leading zero)."""
-    return _dispatch.scan(x, policy=_policy_arg(policy, path),
+    policy = _policy_arg(policy, path)
+    out = _shard.sharded_scan(x, policy=policy, exclusive=exclusive)
+    if out is not None:
+        return out
+    return _dispatch.scan(_shard.gather_bucket(x, -1), policy=policy,
                           exclusive=exclusive)
 
 
 def weighted_scan(x: torch.Tensor, log_a: torch.Tensor, *, policy=None,
                   path: str | None = None) -> torch.Tensor:
     """Decayed scan ``y_i = exp(log_a_i) * y_{i-1} + x_i`` -> f32."""
-    return _dispatch.weighted_scan(x, log_a,
-                                   policy=_policy_arg(policy, path))
+    policy = _policy_arg(policy, path)
+    out = _shard.sharded_weighted_scan(x, log_a, policy=policy)
+    if out is not None:
+        return out
+    return _dispatch.weighted_scan(_shard.gather_bucket(x, -1),
+                                   _shard.gather_bucket(log_a, -1),
+                                   policy=policy)
 
 
 def ragged_reduce(x: torch.Tensor, seg_ids: torch.Tensor, n_segments: int,
@@ -137,6 +168,13 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         return_state: bool = False, path: str | None = None):
     """Mamba-2 SSD scan -> ``y (B, L, H, P)``; with ``return_state=True``
     also the final state ``(B, H, P, N)`` f32."""
-    return _dispatch.ssd(x, dt, a, b, c, policy=_policy_arg(policy, path),
-                         chunk=chunk, matmul_dtype=matmul_dtype,
+    policy = _policy_arg(policy, path)
+    out = _shard.sharded_ssd(x, dt, a, b, c, policy=policy, chunk=chunk,
+                             matmul_dtype=matmul_dtype,
+                             return_state=return_state)
+    if out is not None:
+        return out
+    x, dt, b, c = (_shard.gather_bucket(t, 1) for t in (x, dt, b, c))
+    return _dispatch.ssd(x, dt, a, b, c, policy=policy, chunk=chunk,
+                         matmul_dtype=matmul_dtype,
                          return_state=return_state)

@@ -29,7 +29,8 @@ from a ``torch.Generator`` seeded by the state's ``rng`` words, which the
 step advances.
 
 ``state_shape_structs`` and ``train_state_pspecs`` (the dry run and the
-sharded state) are not ported yet (ROADMAP queue 1).
+sharded state over ``repro_torch.parallel``'s rules and mesh) are not
+ported yet (ROADMAP queue 1, item 4b).
 """
 from __future__ import annotations
 

@@ -396,7 +396,7 @@ def test_policy_from_cli_matches_the_reference(args, monkeypatch):
 
 
 def test_ops_surface_is_the_reference_s_but_dist():
-    assert tops.__all__ == sorted(set(rops.__all__) - {"dist_weighted_scan"})
+    assert tops.__all__ == rops.__all__
     for name in tops.__all__:
         assert callable(getattr(tops, name)), name
 
