@@ -222,6 +222,28 @@ Phases:
    split into local kernel, collectives and carry injection, the
    unsharded op's ms, the errors; the ranks' launches join the
    ``kernels`` line.
+   Then sharded training and lockstep serving (``sharded_pass``; each rank
+   a process of this script, ``--sharded-worker train|serve RANK WORLD
+   DIR``, gloo through host memory): 4 ranks train llama3.2-1b FULL on
+   ``data=2,model=2`` (``init_sharded_train_state``: each rank's quarter
+   of the f32 masters and AdamW moments; bf16 compute; global batch 4 x
+   512 from ``SyntheticLMPipeline(seed=0, sharding=ctx)``, 2 x 512 rows a
+   rank), one warm step and 2 timed steps (step ms a rank split into
+   gather, forward+backward, reduce-scatter and update; the bytes a rank
+   needs reckoned first and printed), an async checkpoint of the state;
+   then the f32 step at 2 layers against the unsharded
+   ``make_train_step`` from the same state. 2 ranks restore the params on
+   ``model=2`` (elastic, 4 -> 2) and serve the continuous phase's 8
+   requests on the ring and the paged cache in lockstep (tok/s, host ms a
+   T = 16 and T = 1 tick, their device ms by kind, peak GB), then f32 at 2
+   layers against the unsharded engine. Gated: train launches a step
+   (RMSNorm 4L + 1, flash 2L, ``tcu_reduce`` one a leaf) on every rank,
+   equal losses, rows by data coordinate, the f32 loss within 1e-5 and the
+   params within 1e-5 plus AdamW's first-step conditioning (the rule of
+   tests/test_torch_training.py); the restored params' digests equal the
+   saved ones; both serving ranks' tokens equal, RMSNorm 2L + 1 a tick, no
+   graph, each rank half the KV heads; f32 logits within 1e-3 of the
+   unsharded engine's and its tokens equal. About 105 s.
 3. Per kernel: the kernel against its plain version on the card at the main
    path's shapes (the reduce and scan at 2^24 elements from 2^20 rows of 16
    to one row, the reduce also on the global norm's largest rows, RMSNorm also at the served decode and prefill shapes,
@@ -4283,6 +4305,565 @@ def distributed_pass(smoke: Smoke, kops) -> dict:
     return {"launches": launches, "ops": rows, "backend": sorted(backend)}
 
 
+# ---------------------------------------------------------------------------
+# sharded training and lockstep serving (``sharded_pass``)
+
+SHARD_ARCH = "llama3.2-1b"
+SHARD_TRAIN_MESH = "data=2,model=2"
+SHARD_SERVE_MESH = "model=2"
+SHARD_BATCH, SHARD_SEQ = 4, 512     # global batch, 2 x 512 rows a data rank
+SHARD_TIMED = 2                     # timed steps after one warm step
+SHARD_LR = 3e-4
+SHARD_TIMEOUT_S = 600               # each world, start to exit
+SHARD_CKPT = OBS_DIR.parent / "sharded_ckpt"
+DIGEST_P = (1 << 31) - 1
+
+
+def rank_state_gb(n_params: int, layers: int, d: int, vocab: int,
+                  ranks: int, rows: int, seq: int) -> dict:
+    """The bytes a training rank holds, reckoned before the run: its
+    quarter of the f32 state (masters, m, v), the gathered bf16 params, their
+    whole bf16 gradient before the reduce-scatter and the f32 slice it makes
+    (the largest leaf's half), and the activations of ``rows x seq`` tokens
+    (each layer's input kept, one layer recomputed, the logits in bf16 and
+    f32 and their gradient)."""
+    tokens = rows * seq
+    acts = (layers * tokens * d * 2 + 16 * tokens * d * 2
+            + tokens * vocab * (2 + 4 + 4))
+    out = {"state": 12 * n_params / ranks, "gathered_bf16": 2 * n_params,
+           "grad_bf16": 2 * n_params, "grad_f32_slice": 4 * vocab * d / 2,
+           "activations": acts}
+    out = {k: v / 1e9 for k, v in out.items()}
+    out["total"] = sum(out.values())
+    return out
+
+
+def leaf_digest(torch, leaf) -> int:
+    """An exact, order-free digest of the part of a ``DTensor`` leaf this
+    process writes to a checkpoint (0 where it writes nothing): the sum of
+    each element's bits times a hash of its global index, mod 2^31 - 1.
+    Summed over the processes, it is the digest of the whole leaf, whatever
+    the mesh that holds it."""
+    from repro_torch.checkpoint.ckpt import _writes
+    from repro_torch.parallel.sharded_state import local_index
+    from repro_torch.parallel.sharding import spec_of
+
+    if not _writes(leaf):
+        return 0
+    shard = leaf.to_local().contiguous()
+    idx = local_index(leaf.shape, spec_of(leaf), leaf.device_mesh)
+    strides = torch.empty(leaf.shape, device="meta").stride()
+    bits = {4: torch.int32, 2: torch.int16}[shard.element_size()]
+    dev = shard.device
+    step = max(1, (1 << 24) // max(1, shard[0].numel()))
+    total = 0
+    for i in range(0, shard.shape[0], step):    # 2^24 elements at a time
+        part = shard[i:i + step]
+        word = part.reshape(-1).view(bits).long() & 0xFFFFFFFF
+        flat = (torch.arange(part.shape[0], device=dev) + idx[0].start + i) \
+            * strides[0]
+        for d, sl in enumerate(idx[1:], start=1):
+            flat = flat.unsqueeze(-1) + torch.arange(
+                sl.start, sl.stop, device=dev) * strides[d]
+        w = (flat.reshape(-1) * 2654435761 + 12345) % DIGEST_P
+        total = (total + int(((word * w) % DIGEST_P).sum())) % DIGEST_P
+    return total
+
+
+def sharded_train_worker(rank: int, world: int, out_dir: str) -> dict:
+    """One rank of the sharded phase's training world: llama3.2-1b FULL
+    (bf16 compute, f32 masters, AdamW) on ``SHARD_TRAIN_MESH``, a warm step
+    and ``SHARD_TIMED`` timed steps of the pipeline's rows of this rank's
+    data coordinate, the digests of its params, an async checkpoint under
+    ``SHARD_CKPT``; then the f32 step at ``PARITY_LAYERS`` layers against
+    the unsharded ``make_train_step`` from the same state."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs, tree
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline, \
+        _philox_tokens
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import build as build_model
+    from repro_torch.optim import OptConfig
+    from repro_torch.parallel import make_context
+    from repro_torch.parallel.sharded_state import local, local_index
+    from repro_torch.parallel.sharding import spec_of
+    from repro_torch.training import (
+        init_sharded_train_state,
+        init_train_state,
+        make_train_step,
+    )
+
+    report: dict = {}
+    ctx = make_context(SHARD_TRAIN_MESH, device="cuda")
+    report["backend"] = dist.get_backend()
+    cfg = configs.get(SHARD_ARCH).FULL
+    bundle = build_model(cfg)
+    opt_cfg = OptConfig(peak_lr=SHARD_LR, warmup_steps=0, decay_steps=100)
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=SHARD_SEQ,
+                          global_batch=SHARD_BATCH, seed=0)
+    data = SyntheticLMPipeline(data_cfg, device="cuda", sharding=ctx)
+    report["rows"] = list(data.host_range())
+    report["coordinate"] = list(ctx.mesh.get_coordinate())
+    t0 = time.perf_counter()
+    state = init_sharded_train_state(
+        torch.Generator(device="cuda").manual_seed(0), bundle, opt_cfg, ctx)
+    torch.cuda.synchronize()
+    report["init_s"] = time.perf_counter() - t0
+    report["state_gb"] = sum(
+        local(t).numel() * local(t).element_size()
+        for t in tree.leaves({"p": state["params"], "o": state["opt"]})
+        if isinstance(t, torch.Tensor)) / 1e9
+    report["n_leaves"] = len(tree.leaves(state["params"]))
+    step = make_train_step(bundle, opt_cfg, mesh_ctx=ctx)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = step(state, data.device_batch(0))
+    report["warm_loss"] = float(m["loss"])
+    report["warm_s"] = time.perf_counter() - t0
+    # the main path: every count from 0, the timed steps
+    kops.reset_launches()
+    walls, splits, losses = [], [], []
+    for s in range(1, 1 + SHARD_TIMED):
+        batch = data.device_batch(s)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))       # waits for the step
+        walls.append(1e3 * (time.perf_counter() - t0))
+        splits.append({k: 1e3 * v for k, v in step.split.items()})
+    torch.cuda.synchronize()
+    report["launches"] = kops.launch_counts()
+    report["step_ms"], report["split_ms"] = walls, splits
+    report["losses"] = losses
+    report["grad_norm"] = float(m["grad_norm"])
+    report["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    report["digests"] = {k: leaf_digest(torch, v)
+                         for k, v in tree.items(state["params"])}
+    # an async checkpoint of the state: the snapshot blocks, the write not
+    writer = ckpt.AsyncCheckpointer(str(SHARD_CKPT))
+    t0 = time.perf_counter()
+    writer.save(1 + SHARD_TIMED, state)
+    report["ckpt_snapshot_s"] = time.perf_counter() - t0
+    del state, m, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    writer.wait()
+    report["ckpt_write_wait_s"] = time.perf_counter() - t0
+
+    # f32 at PARITY_LAYERS layers: the sharded step against the unsharded
+    # one from the same state, this rank's shard of each
+    pcfg = parity_cfg(cfg)
+    pb = build_model(pcfg)
+    sh = init_sharded_train_state(
+        torch.Generator(device="cuda").manual_seed(0), pb, opt_cfg, ctx)
+    un = init_train_state(torch.Generator(device="cuda").manual_seed(0), pb,
+                          opt_cfg)
+    tok = torch.from_numpy(_philox_tokens(data_cfg, 0, 0, SHARD_BATCH)
+                           .astype(np.int64)).cuda()
+    whole = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    lo, hi = report["rows"]
+    mine = {k: v[lo:hi] for k, v in whole.items()}
+    sh, ms = make_train_step(pb, opt_cfg, mesh_ctx=ctx)(sh, mine)
+    un, mu = make_train_step(pb, opt_cfg)(un, whole)
+    lr, eps, b1 = float(mu["lr"]), opt_cfg.eps, opt_cfg.b1
+    worst, raw, beyond, total = 0.0, 0.0, 0, 0
+    for p_sh, p_un, m_un in zip(tree.leaves(sh["params"]),
+                                tree.leaves(un["params"]),
+                                tree.leaves(un["opt"]["m"])):
+        idx = local_index(p_un.shape, spec_of(p_sh), p_sh.device_mesh)
+        want, got = p_un[idx].double(), p_sh.to_local().double()
+        err = (got - want).abs()
+        # tests/test_torch_training.py's bound of AdamW's first step: 1e-5,
+        # plus lr eps dg / (|g| - dg + eps)^2 (at most 2 lr) where the
+        # gradient g may move by dg = 1e-4 |g| + 1e-6
+        g = m_un[idx].double().abs() / (1 - b1)
+        dg = 1e-4 * g + 1e-6
+        slack = lr * (eps * dg / ((g - dg).clamp(min=0.0) + eps) ** 2
+                      ).clamp(max=2.0)
+        worst = max(worst, float((err - slack).max()))
+        raw = max(raw, float(err.max()))
+        beyond += int((err > 1e-5).sum())
+        total += err.numel()
+    report["parity"] = {
+        "loss": float(ms["loss"]), "loss_unsharded": float(mu["loss"]),
+        "grad_norm": float(ms["grad_norm"]),
+        "grad_norm_unsharded": float(mu["grad_norm"]),
+        "param_err_over_slack": worst, "param_err": raw,
+        "beyond_1e-5": beyond, "elements": total}
+    return report
+
+
+def sharded_serve_worker(rank: int, world: int, out_dir: str) -> dict:
+    """One rank of the sharded phase's serving world on ``SHARD_SERVE_MESH``:
+    the params of the training world's checkpoint restored into this mesh's
+    shards (their digests), the continuous phase's 8 requests on the ring
+    and on the paged cache in lockstep (tokens, launches, host ms a tick,
+    device ms of one T = 16 and one T = 1 tick), then f32 at
+    ``PARITY_LAYERS`` layers against the unsharded engine (logits by tick,
+    tokens)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs, tree
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve
+    from repro_torch.models import build as build_model
+    from repro_torch.models.common import init_params, stack_pspec
+    from repro_torch.parallel import make_context
+    from repro_torch.parallel.sharded_state import place_tree
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+
+    report: dict = {}
+    ctx = make_context(SHARD_SERVE_MESH, device="cuda")
+    cfg = configs.get(SHARD_ARCH).FULL
+    bundle = build_model(cfg)
+    latest = ckpt.latest_step(str(SHARD_CKPT))
+    report["step"] = latest
+    stacked = stack_pspec(bundle.params_pspec)
+    target = {"params": tree.map_tree(
+        lambda ps: torch.empty(0, device="cuda"), stacked)}
+    t0 = time.perf_counter()
+    params = ckpt.restore(str(SHARD_CKPT), latest, target, shardings={
+        "params": serve._param_shardings(stacked, ctx)})["params"]
+    torch.cuda.synchronize()
+    report["restore_s"] = time.perf_counter() - t0
+    report["digests"] = {k: leaf_digest(torch, v)
+                         for k, v in tree.items(params)}
+    reqs = serve.make_requests(8, 512, cfg.vocab, seed=0)
+    for r in reqs:
+        r.max_new = 16
+    # a short warm-up (T = 16 and T = 1 ticks): no graph to capture here
+    warm = [Request(uid=-1, prompt=reqs[0].prompt[:20], max_new=2)]
+    runs = {}
+    for kind in ("ring", "paged"):
+        engine = ServingEngine(bundle, params, ServeConfig(
+            slots=4, max_new=16, prefill_chunk=16, cache_kind=kind),
+            mesh_ctx=ctx)
+        engine.run(warm)
+        ticks = record_ticks(engine)
+        first = engine.ticks
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        kops.reset_launches()
+        t0 = time.perf_counter()
+        results = engine.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_tok = sum(len(r.tokens) for r in results)
+        run = {"tokens": {r.uid: r.tokens for r in results},
+               "launches": kops.launch_counts(), "wall_s": wall,
+               "n_tok": n_tok, "n_ticks": engine.ticks - first,
+               "kv_heads": int(engine._cache["attn"]["k"].shape[-2]),
+               "stats": engine.compile_stats(),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "host_ms": {t: [ms for tt, ms, *_ in ticks if tt == t]
+                           for t in (16, 1)},
+               "events": len(engine.trace)}
+        # device ms of one T = 16 and one T = 1 tick (the eager step on a
+        # clone of the cache, every rank together)
+        gen = np.random.default_rng(5)
+        cases = {16: (np.array([16, 5, 1, 0]),
+                      np.array([True, False, False, False])),
+                 1: (np.array([1, 1, 1, 0]), np.zeros(4, bool))}
+        run["device_ms"] = {}
+        for t_len, (n_valid, reset) in cases.items():
+            # the idle step's page plan (paged), these tokens and counts
+            ins = dict(engine._idle_inputs(t_len), n_valid=n_valid,
+                       reset=reset,
+                       tokens=gen.integers(3, cfg.vocab, (4, t_len)))
+            clone = clone_tree(engine._cache)
+            events = kernel_events(torch, lambda: eager_on(
+                torch, engine, clone, ins))
+            split = split_by_kind(events)
+            run["device_ms"][t_len] = (None if split is None else
+                                       {"total": sum(split.values()),
+                                        **split})
+            del clone
+        runs[kind] = run
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["runs"] = runs
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # f32 at PARITY_LAYERS layers: the sharded engine against the unsharded
+    # one (CUDA graphs) on the same params and requests
+    pb = build_model(parity_cfg(cfg))
+    whole = init_params(pb.params_pspec,
+                        torch.Generator(device="cuda").manual_seed(0),
+                        torch.float32)
+    placed = place_tree(whole, serve._param_shardings(pb.params_pspec, ctx))
+    out = {}
+    for name, p, mctx in (("sharded", placed, ctx), ("unsharded", whole,
+                                                      None)):
+        engine = ServingEngine(pb, p, ServeConfig(
+            slots=4, max_new=16, prefill_chunk=16), mesh_ctx=mctx)
+        ticks = record_ticks(engine, keep_logits=True)
+        res = engine.run(reqs)
+        out[name] = ({r.uid: r.tokens for r in res},
+                     [(ins["n_valid"], lg) for _, _, ins, lg in ticks])
+        del engine
+    errs = []
+    for (nv_a, a), (nv_b, b) in zip(out["sharded"][1], out["unsharded"][1]):
+        live = torch.from_numpy(np.asarray(nv_a) > 0).cuda()
+        errs.append(float((a[live] - b[live]).abs().max()))
+    report["parity"] = {
+        "ticks": [len(out["sharded"][1]), len(out["unsharded"][1])],
+        "tokens_equal": out["sharded"][0] == out["unsharded"][0],
+        "logit_err": max(errs) if errs else None,
+        "scale": max(float(lg.abs().max()) for _, lg in out["unsharded"][1])}
+    return report
+
+
+def sharded_worker(role: str, rank: int, world: int, out_dir: str) -> int:
+    """One rank of the sharded phase (``chip_smoke.py --sharded-worker ROLE
+    RANK WORLD DIR``), ``ROLE`` ``train`` or ``serve``: its report into
+    ``DIR/<role><RANK>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels import build
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.load()                        # the parent built it: a cache hit
+    t_start = time.perf_counter()
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/{role}",
+                            rank=rank, world_size=world)
+    try:
+        report = {"train": sharded_train_worker,
+                  "serve": sharded_serve_worker}[role](rank, world, out_dir)
+        report["rank"] = rank
+        dist.barrier()
+        report["seconds"] = time.perf_counter() - t_start
+    finally:
+        dist.destroy_process_group()
+    Path(out_dir, f"{role}{rank}.json").write_text(json.dumps(report))
+    return 0
+
+
+def run_world(role: str, ranks: int, out_dir: Path) -> list:
+    """Start ``ranks`` processes of this script as one world of ``role`` and
+    return their reports; raises if a rank fails."""
+    t0 = time.perf_counter()
+    logs = [out_dir / f"{role}{r}.log" for r in range(ranks)]
+    procs = []
+    try:
+        for r in range(ranks):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     "--sharded-worker", role, str(r), str(ranks),
+                     str(out_dir)], stdout=log, stderr=subprocess.STDOUT))
+        for p in procs:
+            p.wait(timeout=max(1.0, SHARD_TIMEOUT_S
+                               - (time.perf_counter() - t0)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        for r in bad:
+            print(f"sharded {role}: rank {r} exit {procs[r].returncode}:\n"
+                  f"{logs[r].read_text()[-3000:]}", flush=True)
+        raise RuntimeError(f"sharded {role} ranks {bad} failed")
+    return [json.loads((out_dir / f"{role}{r}.json").read_text())
+            for r in range(ranks)]
+
+
+def sharded_pass(smoke: Smoke, kops) -> dict:
+    """Sharded training and lockstep serving on this one card: a gloo world
+    of 4 ranks trains llama3.2-1b FULL on ``data=2,model=2`` and checkpoints
+    its state, then a world of 2 ranks restores the params on ``model=2``
+    (elastic, 4 -> 2 ranks) and serves the continuous phase's requests on
+    the ring and the paged cache. Gated here on the ranks' reports: the
+    ranks' losses equal, the train launches a step (``train_launches``:
+    RMSNorm 4L + 1, flash attention 2L, ``tcu_reduce`` one a leaf), the
+    restored params' digests equal the saved ones, both serving ranks'
+    tokens equal, RMSNorm 2L + 1 a tick, no graph under the mesh, the f32
+    train step within 1e-5 (plus AdamW's first-step conditioning) of the
+    unsharded step and its loss within 1e-5, the f32 serving logits within
+    1e-3 of the unsharded engine's and its tokens equal."""
+    from repro_torch import configs
+    from repro_torch.models import build as build_model
+
+    torch = smoke.torch
+    out_dir = OBS_DIR.parent / "sharded_smoke"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.rmtree(SHARD_CKPT, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    smi = smi_line()
+    cfg = configs.get(SHARD_ARCH).FULL
+    n_params = build_model(cfg).n_params
+    need = rank_state_gb(n_params, cfg.n_layers, cfg.d_model,
+                         cfg.vocab, 4, SHARD_BATCH // 2, SHARD_SEQ)
+    print(f"sharded: {SHARD_ARCH} FULL ({n_params} params), reckoned GB a "
+          f"training rank: " + ", ".join(f"{k} {v:.2f}"
+                                         for k, v in need.items())
+          + f"; 4 ranks {4 * need['total']:.1f} of 80", flush=True)
+    t0 = time.perf_counter()
+    try:
+        train = run_world("train", 4, out_dir)
+        t_train = time.perf_counter() - t0
+        serve_r = run_world("serve", 2, out_dir)
+    finally:
+        shutil.rmtree(SHARD_CKPT, ignore_errors=True)
+    t_all = time.perf_counter() - t0
+    shutil.rmtree(out_dir, ignore_errors=True)
+    launches = {k: 0 for k in kops.KERNELS}
+
+    # training
+    want = train_launches(cfg, train[0]["n_leaves"], kops.KERNELS)
+    for rep in train:
+        for k in launches:
+            launches[k] += rep["launches"][k]
+        got = {k: rep["launches"][k] for k in want}
+        per = scaled(want, SHARD_TIMED)
+        if got != per:
+            smoke.fail(f"sharded train rank {rep['rank']}: launches {got}, "
+                       f"want {per} ({SHARD_TIMED} steps)")
+        if rep["losses"] != train[0]["losses"] or \
+                not all(np.isfinite(rep["losses"])):
+            smoke.fail(f"sharded train rank {rep['rank']}: losses "
+                       f"{rep['losses']} vs rank 0 {train[0]['losses']}")
+        par = rep["parity"]
+        if not abs(par["loss"] - par["loss_unsharded"]) <= 1e-5:
+            smoke.fail(f"sharded train rank {rep['rank']}: f32 loss "
+                       f"{par['loss']} vs unsharded {par['loss_unsharded']}")
+        if not par["param_err_over_slack"] <= 1e-5:
+            smoke.fail(f"sharded train rank {rep['rank']}: f32 params differ "
+                       f"from the unsharded step's by "
+                       f"{par['param_err_over_slack']:.3e} over AdamW's "
+                       "first-step slack (want <= 1e-5)")
+    if {r["backend"] for r in train} != {"gloo"}:
+        smoke.fail(f"sharded train: backend {[r['backend'] for r in train]}")
+    rows = sorted(tuple(r["rows"]) for r in train)
+    if rows != [(0, 2), (0, 2), (2, 4), (2, 4)]:
+        smoke.fail(f"sharded train: rows by rank {rows}, want 2 x [0, 2) and "
+                   "2 x [2, 4)")
+    saved = {k: sum(r["digests"][k] for r in train) % DIGEST_P
+             for k in train[0]["digests"]}
+    step_ms = [statistics.median(r["step_ms"]) for r in train]
+    split = {k: [statistics.median(s[k] for s in r["split_ms"])
+                 for r in train] for k in train[0]["split_ms"][0]}
+    print(f"sharded train: {SHARD_ARCH} FULL on {SHARD_TRAIN_MESH}, 4 ranks "
+          f"on one card ({smi}), gloo through host memory; global batch "
+          f"{SHARD_BATCH} x {SHARD_SEQ}, a rank's rows "
+          f"{[r['rows'] for r in train]}; losses {train[0]['losses']} "
+          f"(warm {train[0]['warm_loss']:.4f}, grad norm "
+          f"{train[0]['grad_norm']:.4f}); step ms a rank (median of "
+          f"{SHARD_TIMED}) {[round(v, 1) for v in step_ms]}; split ms "
+          + ", ".join(f"{k} {[round(v, 1) for v in vs]}"
+                      for k, vs in split.items())
+          + f"; warm step s {[round(r['warm_s'], 1) for r in train]}; "
+          f"state GB a rank {[round(r['state_gb'], 2) for r in train]}; "
+          f"peak GB a rank {[round(r['peak_gb'], 2) for r in train]}; "
+          f"checkpoint snapshot s "
+          f"{[round(r['ckpt_snapshot_s'], 1) for r in train]}, write wait "
+          f"s {[round(r['ckpt_write_wait_s'], 1) for r in train]}; "
+          f"launches a rank {train[0]['launches']}; world "
+          f"{t_train:.1f} s", flush=True)
+    par = [r["parity"] for r in train]
+    print("sharded train f32 parity at 2 layers: loss "
+          f"{par[0]['loss']:.7f} vs unsharded {par[0]['loss_unsharded']:.7f}"
+          f", grad norm {par[0]['grad_norm']:.6f} vs "
+          f"{par[0]['grad_norm_unsharded']:.6f}; params |sharded - "
+          f"unsharded| max {max(p['param_err'] for p in par):.3e}, "
+          f"{sum(p['beyond_1e-5'] for p in par)} of "
+          f"{sum(p['elements'] for p in par)} elements past 1e-5, worst past "
+          "the first-step slack "
+          f"{max(p['param_err_over_slack'] for p in par):.3e}", flush=True)
+
+    # serving
+    restored = {k: sum(r["digests"][k] for r in serve_r) % DIGEST_P
+                for k in serve_r[0]["digests"]}
+    if restored != saved:
+        bad = [k for k in saved if restored.get(k) != saved[k]]
+        smoke.fail(f"sharded serve: restored params differ from the saved "
+                   f"ones in {bad}")
+    norms = forward_launches(cfg, prefill=False)["rmsnorm"]
+    texts = []
+    for kind in ("ring", "paged"):
+        r0, r1 = (r["runs"][kind] for r in serve_r)
+        if r0["tokens"] != r1["tokens"]:
+            smoke.fail(f"sharded serve {kind}: the ranks' tokens differ")
+        if len(r0["tokens"]) != 8 or any(not t for t in
+                                         r0["tokens"].values()):
+            smoke.fail(f"sharded serve {kind}: {len(r0['tokens'])} results, "
+                       "want 8 with tokens")
+        for rep in serve_r:
+            run = rep["runs"][kind]
+            for k in launches:
+                launches[k] += run["launches"][k]
+            if run["launches"]["rmsnorm"] != norms * run["n_ticks"]:
+                smoke.fail(f"sharded serve {kind} rank {rep['rank']}: "
+                           f"{run['launches']['rmsnorm']} RMSNorm launches, "
+                           f"want {norms} x {run['n_ticks']} ticks")
+            if run["stats"].get("graphs") != 0 or "eager" not in run["stats"]:
+                smoke.fail(f"sharded serve {kind}: compile stats "
+                           f"{run['stats']}, want no graph")
+            if run["kv_heads"] != cfg.n_kv_heads // 2:
+                smoke.fail(f"sharded serve {kind}: a rank holds "
+                           f"{run['kv_heads']} KV heads, want "
+                           f"{cfg.n_kv_heads // 2}")
+        dev = r0["device_ms"]
+        texts.append(
+            f"{kind}: {r0['n_tok']} tokens in {r0['wall_s']:.3f}s "
+            f"({r0['n_tok'] / r0['wall_s']:.2f} tok/s), {r0['n_ticks']} "
+            f"ticks; host ms a tick, median (min-max): T=16 "
+            f"{ms_text(r0['host_ms']['16'])}, T=1 "
+            f"{ms_text(r0['host_ms']['1'])}; device ms (kernels) T=16 "
+            + ("not measured" if dev["16"] is None
+               else f"{dev['16']['total']:.3f} {dev['16']}")
+            + ", T=1 " + ("not measured" if dev["1"] is None
+                          else f"{dev['1']['total']:.3f} {dev['1']}")
+            + f"; peak GB {r0['peak_gb']:.2f}; launches {r0['launches']}")
+    sp = [r["parity"] for r in serve_r]
+    for p in sp:
+        if not p["tokens_equal"]:
+            smoke.fail("sharded serve f32: tokens differ from the unsharded "
+                       "engine's")
+        if p["logit_err"] is None or not p["logit_err"] <= 1e-3:
+            smoke.fail(f"sharded serve f32: logits differ from the "
+                       f"unsharded engine's by {p['logit_err']} > 1e-3")
+    print(f"sharded serve: checkpoint step {serve_r[0]['step']} restored on "
+          f"{SHARD_SERVE_MESH} (4 -> 2 ranks) in "
+          f"{[round(r['restore_s'], 1) for r in serve_r]} s, digests of "
+          f"{len(saved)} leaves {'equal' if restored == saved else 'DIFFER'}"
+          f"; lockstep, {cfg.n_kv_heads // 2} KV heads a rank, no graph "
+          f"(eager: host-staged collectives); " + "; ".join(texts),
+          flush=True)
+    print(f"sharded serve f32 parity at 2 layers: max |logit - unsharded| "
+          f"{max(p['logit_err'] for p in sp):.3e} (logits up to "
+          f"{sp[0]['scale']:.2f}), tokens equal "
+          f"{all(p['tokens_equal'] for p in sp)}, ticks {sp[0]['ticks']}",
+          flush=True)
+    print(f"sharded: ranks' launches {launches}; train ranks' seconds "
+          f"{[round(r['seconds'], 1) for r in train]}, serve ranks' "
+          f"{[round(r['seconds'], 1) for r in serve_r]}; phase "
+          f"{t_all:.1f} s", flush=True)
+    return {"launches": launches, "train_step_ms": step_ms,
+            "train_split_ms": split, "reckoned_gb": need,
+            "peak_gb": [r["peak_gb"] for r in train],
+            "serve": {k: {"tok_s": serve_r[0]["runs"][k]["n_tok"]
+                          / serve_r[0]["runs"][k]["wall_s"],
+                          "device_ms": serve_r[0]["runs"][k]["device_ms"]}
+                      for k in ("ring", "paged")}}
+
+
 def main() -> int:
     import torch
 
@@ -4412,6 +4993,20 @@ def main() -> int:
     for k in launches:
         launches[k] += stats[run]["launches"][k]
 
+    # sharded training and lockstep serving in worlds of ranks on this card
+    run = "sharded"
+    t_run = time.perf_counter()
+    try:
+        stats[run] = sharded_pass(smoke, kops)
+    except Exception as exc:
+        smoke.fail(f"sharded pass: {exc!r}")
+        stats[run] = {"launches": {k: 0 for k in ops_counts}}
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase {run}: {time.perf_counter() - t_run:.1f} s", flush=True)
+    for k in launches:
+        launches[k] += stats[run]["launches"][k]
+
     with torch.inference_mode():
         t_run = time.perf_counter()
         rows = check_kernels(smoke, kops, ref)
@@ -4448,4 +5043,7 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-worker"]:
         sys.exit(dist_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--sharded-worker"]:
+        sys.exit(sharded_worker(sys.argv[2], int(sys.argv[3]),
+                                int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

@@ -8,10 +8,14 @@ other saved. Layout::
 
 * Leaves are named by their ``jax.tree_util.keystr`` path
   (``['opt']['m']['blocks']['attn']['wq']``, :mod:`repro_torch.tree`); a
-  shard entry is ``key||<shard>||<start,...>`` (``key||0||0,0`` for a whole
-  2-D leaf, ``key||0||`` for a scalar). A process writes its copy of every
-  leaf as shard 0. bf16 leaves are stored as their ``uint16`` bits with
-  ``"bf16": true`` in the manifest; dtypes are numpy's names.
+  shard entry is ``key||<shard>||<start,...>``, the start being the shard's
+  global index (``key||0||0,0`` for a whole 2-D leaf, ``key||0||`` for a
+  scalar). A process writes its copy of a plain leaf whole, and its local
+  shard of a ``DTensor`` leaf (a sharded train state) at the shard's global
+  start, where it is the replica at coordinate 0 of every mesh dim the leaf
+  is replicated over (so no shard is written twice). The manifest holds
+  each leaf's whole shape. bf16 leaves are stored as their ``uint16`` bits
+  with ``"bf16": true`` in the manifest; dtypes are numpy's names.
 * **Async save** (:class:`AsyncCheckpointer`): ``save()`` copies the tree
   to host memory (so later steps cannot change what is written) and
   returns; write + fsync + rename run on a background thread. The *next*
@@ -26,7 +30,12 @@ other saved. Layout::
   process 0 renames to the final name only once all of them exist, and the
   others block until the rename lands.
 * Restore rebuilds the target tree from the shards: tensors on the target
-  leaves' devices, numpy leaves (the state's ``rng`` words) as numpy.
+  leaves' devices, numpy leaves (the state's ``rng`` words) as numpy. It is
+  **elastic**: with ``shardings=`` (a tree of ``NamedSharding``s on the
+  target's structure), or for a ``DTensor`` target leaf under its own
+  placements, a process reads only the shards that overlap its slice of
+  the leaf and returns it as a ``DTensor``, whatever the world size and
+  mesh shape that wrote it.
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ import re
 import shutil
 import threading
 import time
+import zipfile
 
 import numpy as np
 import torch
@@ -44,6 +54,8 @@ from repro_torch import tree as tree_mod
 from repro_torch.device import process
 from repro_torch.obs import profiling as _prof
 from repro_torch.obs import runtime as _obs
+from repro_torch.parallel import sharded_state as shst
+from repro_torch.parallel.sharding import NamedSharding, is_dtensor, spec_of
 
 
 def _host_copy(leaf) -> tuple[np.ndarray, str, bool]:
@@ -60,15 +72,43 @@ def _host_copy(leaf) -> tuple[np.ndarray, str, bool]:
     return arr, str(arr.dtype), False
 
 
+def _writes(leaf) -> bool:
+    """Whether this process writes its shard of a ``DTensor``: it is the
+    replica at coordinate 0 of every mesh dim the leaf is replicated over."""
+    spec = spec_of(leaf)
+    used = {a for e in spec for a in ((e,) if isinstance(e, str)
+                                      else (e or ()))}
+    coord = leaf.device_mesh.get_coordinate()
+    return all(c == 0 for name, c in zip(leaf.device_mesh.mesh_dim_names,
+                                         coord) if name not in used)
+
+
 def _snapshot(tree):
-    """Copy every leaf of ``tree`` to host memory (the sync phase)."""
+    """Copy this process's shards of ``tree`` to host memory (the sync
+    phase): each plain leaf whole, each ``DTensor`` leaf's local shard at
+    its global start where this process writes it (:func:`_writes`)."""
     shards: dict[str, np.ndarray] = {}
     meta: dict[str, dict] = {}
     for key, leaf in tree_mod.items(tree):
-        arr, dtype, bf16 = _host_copy(leaf)
-        meta[key] = {"shape": list(arr.shape), "dtype": dtype, "bf16": bf16}
-        start = ",".join(["0"] * arr.ndim)
-        shards[f"{key}||0||{start}"] = arr
+        start = None
+        if is_dtensor(leaf):
+            shard = leaf.to_local()
+            idx = shst.local_index(leaf.shape, spec_of(leaf),
+                                   leaf.device_mesh)
+            if _writes(leaf):
+                start = [s.start for s in idx]
+            else:   # the dtype's names alone: an empty slice's copy
+                shard = shard.reshape(-1)[:0]
+            arr, dtype, bf16 = _host_copy(shard)
+            meta[key] = {"shape": list(leaf.shape), "dtype": dtype,
+                         "bf16": bf16}
+        else:
+            arr, dtype, bf16 = _host_copy(leaf)
+            meta[key] = {"shape": list(arr.shape), "dtype": dtype,
+                         "bf16": bf16}
+            start = [0] * arr.ndim
+        if start is not None:
+            shards[f"{key}||0||{','.join(map(str, start))}"] = arr
     return shards, meta
 
 
@@ -260,6 +300,52 @@ def latest_step(directory: str) -> int | None:
     return steps[-1] if steps else None
 
 
+def _shard_index(path: str) -> dict[str, list]:
+    """leaf key -> [(file, member key, start, shape)] of every shard in the
+    step's host files, read from the members' headers (no data)."""
+    out: dict[str, list] = {}
+    for fname in sorted(os.listdir(path)):
+        if not fname.endswith(".npz"):
+            continue
+        full = os.path.join(path, fname)
+        with zipfile.ZipFile(full) as zf:
+            for member in zf.namelist():
+                with zf.open(member) as f:
+                    version = np.lib.format.read_magic(f)
+                    read = (np.lib.format.read_array_header_1_0
+                            if version == (1, 0)
+                            else np.lib.format.read_array_header_2_0)
+                    shape = read(f)[0]
+                skey = member[:-4] if member.endswith(".npy") else member
+                key, _, start_s = skey.split("||")
+                start = [int(x) for x in start_s.split(",")] \
+                    if start_s else []
+                out.setdefault(key, []).append((full, skey, start, shape))
+    return out
+
+
+def _assemble(key: str, info: dict, shards: list, region: tuple,
+              files: dict) -> np.ndarray:
+    """The ``region`` (a slice a dim) of leaf ``key`` from the shards that
+    overlap it."""
+    dt = np.uint16 if info.get("bf16") else np.dtype(info["dtype"])
+    shape = tuple(r.stop - r.start for r in region)
+    out = np.zeros(shape, dt)
+    for fname, skey, start, sshape in shards:
+        lo = [max(r.start, st) for r, st in zip(region, start)]
+        hi = [min(r.stop, st + n) for r, st, n in zip(region, start, sshape)]
+        if any(a >= b for a, b in zip(lo, hi)):
+            continue
+        if fname not in files:
+            files[fname] = np.load(fname)
+        data = files[fname][skey]
+        src = tuple(slice(a - st, b - st) for a, b, st in zip(lo, hi, start))
+        dst = tuple(slice(a - r.start, b - r.start)
+                    for a, b, r in zip(lo, hi, region))
+        out[dst if dst else ...] = data[src if src else ...]
+    return out
+
+
 def _placed(arr: np.ndarray, bf16: bool, target):
     """A restored array in the kind of its ``target`` leaf: a tensor on the
     target's device (bf16 from its bits), or a numpy array."""
@@ -269,38 +355,46 @@ def _placed(arr: np.ndarray, bf16: bool, target):
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
-    return t.to(target.device)
+    return t.to(shst.local(target).device)
 
 
-def restore(directory: str, step: int, target_tree):
+def restore(directory: str, step: int, target_tree, shardings=None):
     """Rebuild a ``target_tree``-shaped tree from the checkpoint: each leaf
     with the saved dtype and values, placed as the target's leaf is (a
-    tensor on its device, or a numpy array)."""
+    tensor on its device, or a numpy array).
+
+    ``shardings`` (a tree of ``NamedSharding``s on the target's structure,
+    the reference's argument) places each leaf as a ``DTensor`` whose local
+    shard is this process's slice under its spec; without it a ``DTensor``
+    target leaf keeps its own placements and any other leaf is whole. Only
+    the shards overlapping a process's slice are read."""
     path = os.path.join(directory, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
-
-    # gather shards from every host file present
-    assembled: dict[str, np.ndarray] = {}
-    for fname in sorted(os.listdir(path)):
-        if not fname.endswith(".npz"):
-            continue
-        with np.load(os.path.join(path, fname)) as z:
-            for skey in z.files:
-                key, _, start_s = skey.split("||")
-                info = manifest["leaves"][key]
-                if key not in assembled:
-                    dt = np.uint16 if info.get("bf16") else np.dtype(
-                        info["dtype"])
-                    assembled[key] = np.zeros(info["shape"], dt)
-                data = z[skey]
-                start = ([int(x) for x in start_s.split(",")]
-                         if start_s else [])
-                idx = tuple(slice(st, st + sh)
-                            for st, sh in zip(start, data.shape))
-                assembled[key][idx if idx else ...] = data
-
-    out = [_placed(assembled[key], manifest["leaves"][key].get("bf16",
-                                                                False), leaf)
-           for key, leaf in tree_mod.items(target_tree)]
+    index = _shard_index(path)
+    placed = (tree_mod.map_tree(lambda _, s: s, target_tree, shardings)
+              if shardings is not None else None)
+    wanted = (tree_mod.leaves(placed) if placed is not None
+              else [None] * len(tree_mod.leaves(target_tree)))
+    files: dict = {}
+    out = []
+    try:
+        for (key, leaf), sharding in zip(tree_mod.items(target_tree),
+                                         wanted):
+            info = manifest["leaves"][key]
+            shape = tuple(info["shape"])
+            if not isinstance(leaf, torch.Tensor):
+                sharding = None             # numpy leaves stay whole
+            elif sharding is None and is_dtensor(leaf):
+                sharding = NamedSharding(leaf.device_mesh, spec_of(leaf))
+            region = (shst.local_index(shape, sharding.spec, sharding.mesh)
+                      if sharding is not None
+                      else tuple(slice(0, n) for n in shape))
+            arr = _placed(_assemble(key, info, index.get(key, []), region,
+                                    files), info.get("bf16", False), leaf)
+            out.append(shst.dtensor(arr, sharding, shape)
+                       if sharding is not None else arr)
+    finally:
+        for z in files.values():
+            z.close()
     return tree_mod.unflatten(target_tree, out)

@@ -44,12 +44,21 @@ def process_group(group):
     return group
 
 
+def _staging(t: torch.Tensor, shape=None) -> torch.Tensor:
+    """An uninitialised host buffer for ``t``'s data (``shape``, else
+    ``t``'s): page-locked for a CUDA tensor (torch's host allocator caches
+    its blocks), so the copies to and from the card run at the link's
+    rate."""
+    return torch.empty(t.shape if shape is None else shape, dtype=t.dtype,
+                       pin_memory=t.is_cuda)
+
+
 def host_staged(t: torch.Tensor, group) -> torch.Tensor:
     """The tensor a collective of ``group`` runs on: a host copy of a CUDA
-    tensor when the group's backend is gloo, else ``t`` itself. The caller
-    moves the result back to ``t.device``."""
+    tensor when the group's backend is gloo (page-locked), else ``t``
+    itself. The caller moves the result back to ``t.device``."""
     if t.is_cuda and dist.get_backend(group) == "gloo":
-        return t.cpu()
+        return _staging(t).copy_(t)
     return t
 
 
@@ -58,9 +67,11 @@ def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     on ``t.device``."""
     g = process_group(group)
     src = host_staged(t.contiguous(), g)
-    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(g))]
-    dist.all_gather(parts, src, group=g)
-    return torch.stack(parts).to(t.device)
+    n = dist.get_world_size(g)
+    out = (_staging(t, (n, *t.shape)) if src is not t
+           else torch.empty((n, *t.shape), dtype=t.dtype, device=t.device))
+    dist.all_gather(list(out.unbind(0)), src, group=g)
+    return out.to(t.device)
 
 
 def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
@@ -70,6 +81,24 @@ def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     buf = buf.clone() if buf is t else buf
     dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=g)
     return buf.to(t.device)
+
+
+def reduce_scatter(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """The sum of every rank's ``t`` split into the group's ranks' equal
+    pieces along ``dim``: this rank's piece (group-rank order), on
+    ``t.device``. ``t.shape[dim]`` must divide by the group's size."""
+    g = process_group(group)
+    size = dist.get_world_size(g)
+    if t.shape[dim] % size:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} "
+                         f"does not divide over {size} ranks")
+    moved = torch.movedim(t, dim, 0).contiguous()
+    src = host_staged(moved, g)
+    shape = (src.shape[0] // size, *src.shape[1:])
+    out = (_staging(moved, shape) if src is not moved
+           else torch.empty(shape, dtype=t.dtype, device=t.device))
+    dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=g)
+    return torch.movedim(out, 0, dim).to(t.device)
 
 
 def ring_shift(t: torch.Tensor, group=None) -> torch.Tensor:

@@ -5,10 +5,13 @@ contract: batch contents are a pure function of (seed, step, global example
 index), so a host that is replaced mid-run regenerates exactly its shard,
 with no data-order drift on restart and no shuffle buffer to checkpoint.
 The tokens come from numpy's Philox as in the reference, bit for bit. Each
-host materialises only its slice of the global batch (``torch.distributed``
-rank and world size, (0, 1) without it). A prefetch thread builds the next
-batches in pinned host memory; the consuming thread moves each to the
-device without blocking the host.
+host materialises only its slice of the global batch: by
+``torch.distributed`` rank and world size ((0, 1) without it), or, given a
+mesh (``sharding=``, a ``DeviceMesh`` or a ``MeshContext``), by the rank's
+coordinate on the mesh's ``data`` dim, so that the ranks of one data
+coordinate (a ``model`` group) get the same rows. A prefetch thread builds
+the next batches in pinned host memory; the consuming thread moves each to
+the device without blocking the host.
 """
 from __future__ import annotations
 
@@ -46,9 +49,11 @@ class SyntheticLMPipeline:
     """Iterator of ``(step, {"tokens", "labels"})`` device batches; int32
     tokens, as the reference's."""
 
-    def __init__(self, cfg: DataConfig, *, device=None):
+    def __init__(self, cfg: DataConfig, *, device=None, sharding=None):
         self.cfg = cfg
         self.device = devmod.resolve(device)
+        # a MeshContext carries its DeviceMesh (None: topology-only)
+        self.sharding = getattr(sharding, "mesh", sharding)
         self._q: queue.Queue = queue.Queue(maxsize=cfg.prefetch)
         self._step = 0
         self._stop = threading.Event()
@@ -64,13 +69,25 @@ class SyntheticLMPipeline:
         ``[0, global_batch)`` — disjoint, no example dropped or doubled.
         Pass explicit ``process_index``/``process_count`` to inspect
         another host's slice (tests simulate whole topologies this way).
+        Under a mesh the "hosts" are the ``data`` dim's coordinates (one
+        slice for a mesh without that dim).
         """
-        idx, n_proc = devmod.process()
+        idx, n_proc = self._data_coordinate()
         n_proc = n_proc if process_count is None else process_count
         idx = idx if process_index is None else process_index
         base, rem = divmod(self.cfg.global_batch, n_proc)
         lo = idx * base + min(idx, rem)
         return lo, lo + base + (1 if idx < rem else 0)
+
+    def _data_coordinate(self) -> tuple[int, int]:
+        mesh = self.sharding
+        if mesh is None:
+            return devmod.process()
+        names = tuple(mesh.mesh_dim_names)
+        if "data" not in names:
+            return 0, 1
+        i = names.index("data")
+        return mesh.get_coordinate()[i], mesh.size(i)
 
     def host_batch(self, step: int) -> dict[str, np.ndarray]:
         lo, hi = self.host_range()

@@ -11,6 +11,9 @@
     python -m repro_torch.launch.serve --cache paged \
         --obs-events events.jsonl --metrics-out metrics.prom \
         --profile-dir trace/
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m repro_torch.launch.serve --arch llama3.2-1b --config smoke \
+        --device cpu --mesh model=2 --ckpt-dir build/train_ckpt
 
 The continuous scheduler is the default, as in the reference: per-slot
 admission, a ring KV cache, chunked prefill (``--prefill-chunk`` prompt
@@ -54,6 +57,14 @@ flags, ``repro_torch.obs.cli``) run the serve under an observability
 session: a JSON-lines file of every event, the run's metrics as Prometheus
 text, and a ``torch.profiler`` Chrome trace. With none of them the run is
 uninstrumented.
+
+``--ckpt-dir`` serves the parameters of the latest committed step of a
+checkpoint that ``launch.train`` wrote (any mesh, any world size). Under
+``torchrun`` with ``--mesh model=2`` (the dense family) the engine serves
+sharded in lockstep (``serving/engine.py``): the parameters are placed
+under ``partition_specs(..., fsdp_ok=False)`` of the context's rules (a
+checkpoint is restored straight into those shards), each rank holds its
+KV heads' cache, and only rank 0 prints.
 """
 from __future__ import annotations
 
@@ -67,9 +78,14 @@ from repro_torch import configs
 from repro_torch import device as devmod
 from repro_torch.core import dispatch
 from repro_torch.core import policy as kpolicy
+from repro_torch import tree
+from repro_torch.checkpoint import ckpt
 from repro_torch.models import build
-from repro_torch.models.common import init_params
+from repro_torch.models.common import init_params, partition_specs, \
+    stack_pspec
 from repro_torch.obs import cli as obs_cli
+from repro_torch.parallel import sharded_state
+from repro_torch.parallel.mesh_context import init_from_env, make_context
 from repro_torch.serving import Request, ServeConfig, ServingEngine
 
 
@@ -79,9 +95,12 @@ def build_engine(arch: str = "mamba2-1.3b", config: str = "full", *,
                  prefill_chunk: int = 16, cache_kind: str = "ring",
                  pool_pages: int | None = None, page_rows: int | None = None,
                  greedy: bool = True, temperature: float = 1.0,
-                 seed: int = 0) -> ServingEngine:
+                 seed: int = 0, mesh_ctx=None,
+                 ckpt_dir: str | None = None) -> ServingEngine:
     """A serving engine over randomly initialised weights from ``seed``,
-    which also seeds its sampling."""
+    which also seeds its sampling, or the latest committed step of
+    ``ckpt_dir``. ``mesh_ctx`` places the parameters under its rules
+    (``fsdp_ok=False``) and serves sharded."""
     serve_cfg = ServeConfig(slots=slots, max_new=max_new, policy=policy,
                             scheduler=scheduler, prefill_chunk=prefill_chunk,
                             cache_kind=cache_kind, pool_pages=pool_pages,
@@ -90,9 +109,34 @@ def build_engine(arch: str = "mamba2-1.3b", config: str = "full", *,
     mod = configs.get(arch)
     cfg = mod.FULL if config == "full" else mod.SMOKE
     bundle = build(cfg)
-    gen = torch.Generator(device=devmod.resolve(device)).manual_seed(seed)
-    params = init_params(bundle.params_pspec, gen, cfg.dtype)
-    return ServingEngine(bundle, params, serve_cfg)
+    device = devmod.resolve(device)
+    latest = ckpt.latest_step(ckpt_dir) if ckpt_dir else None
+    if latest is None:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params = init_params(bundle.params_pspec, gen, cfg.dtype)
+        if mesh_ctx is not None:
+            params = sharded_state.place_tree(
+                params, _param_shardings(bundle.params_pspec, mesh_ctx))
+    else:
+        # the train state's stacked leaves, restored into this mesh's shards
+        stacked = stack_pspec(bundle.params_pspec)
+        target = {"params": tree.map_tree(
+            lambda ps: torch.empty(0, device=device), stacked)}
+        shardings = None if mesh_ctx is None else {
+            "params": _param_shardings(stacked, mesh_ctx)}
+        params = ckpt.restore(ckpt_dir, latest, target,
+                              shardings=shardings)["params"]
+        if devmod.process()[0] == 0:
+            print(f"loaded checkpoint step {latest}")
+    return ServingEngine(bundle, params, serve_cfg, mesh_ctx=mesh_ctx)
+
+
+def _param_shardings(pspec, mesh_ctx):
+    """Each parameter's ``NamedSharding`` under the context's rules, FSDP
+    off (the reference's serving placement)."""
+    specs = partition_specs(pspec, rules=mesh_ctx.rules, fsdp_ok=False)
+    return tree.map_tree(lambda _, spec: mesh_ctx.named_sharding(spec),
+                         pspec, specs)
 
 
 def make_requests(n: int, prompt_len: int, vocab: int, seed: int = 0,
@@ -159,6 +203,13 @@ def main(argv=None) -> ServingEngine:
                     help="deprecated alias for --policy <path-label>")
     ap.add_argument("--seed", type=int, default=0,
                     help="weight, sampling and synthetic-request seed")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the params of this checkpoint's latest "
+                         "committed step (launch.train's layout)")
+    ap.add_argument("--mesh", default=None,
+                    help="mesh axes as 'model=2' (multiplies to the world "
+                         "size, under torchrun): serve sharded, each rank "
+                         "holding its KV heads, admission in lockstep")
     obs_cli.add_obs_args(ap)
     args = ap.parse_args(argv)
 
@@ -171,18 +222,29 @@ def run(args) -> ServingEngine:
         args.policy, getattr(args, "kernel_path", None),
         "deprecated:launch.serve.kernel_path",
         tune_arg=getattr(args, "tune", None))
-    engine = build_engine(args.arch, args.config, device=args.device,
+    device = init_from_env(devmod.resolve(args.device))
+    mesh_ctx = None
+    if getattr(args, "mesh", None):
+        mesh_ctx = make_context(args.mesh, device=device.type)
+    rank0 = devmod.process()[0] == 0
+    if mesh_ctx is not None and rank0:
+        print(f"serving sharded over mesh {mesh_ctx.label()}")
+    engine = build_engine(args.arch, args.config, device=device,
                           policy=pol, slots=args.slots,
                           max_new=args.max_new, scheduler=args.scheduler,
                           prefill_chunk=args.prefill_chunk,
                           cache_kind=args.cache, pool_pages=args.pool_pages,
-                          page_rows=args.page_rows, seed=args.seed)
+                          page_rows=args.page_rows, seed=args.seed,
+                          mesh_ctx=mesh_ctx,
+                          ckpt_dir=getattr(args, "ckpt_dir", None))
     reqs = make_requests(args.requests, args.prompt_len,
                          engine.bundle.cfg.vocab, args.seed,
                          args.arrival_rate)
     t0 = time.perf_counter()
     results = engine.run(reqs)
     dt = time.perf_counter() - t0
+    if not rank0:
+        return engine
     n_tok = sum(len(r.tokens) for r in results)
     for r in results[:4]:
         print(f"req {r.uid}: prompt_len={r.prompt_len} -> "

@@ -166,6 +166,31 @@ def attn_decode(p, cfg: ModelConfig, x, cache, *, pos: int, window=None):
     return o.reshape(b, 1, hq * dh) @ p["wo"]
 
 
+def _local_heads(p, cfg: ModelConfig, cache) -> tuple[int, int]:
+    """(query heads, KV heads) of a block step: the cache's KV heads, which
+    under sharded serving are this rank's (``kv_heads`` -> ``model``), with
+    their group's query heads (``p["wq"]``'s columns are those heads')."""
+    return p["wq"].shape[-1] // cfg.dh, cache["k"].shape[-2]
+
+
+def _heads_out(o, cfg: ModelConfig, hq: int):
+    """The heads' outputs (B, T, hq * Dh) before ``wo``: this rank's heads
+    all-gathered over the mesh dim of ``kv_heads`` into every head's (in
+    head order) when the rank holds a part of them, else as they are."""
+    if hq == cfg.n_heads:
+        return o
+    from repro_torch.core.distributed import all_gather
+    from repro_torch.parallel.mesh_context import current_mesh_context
+
+    ctx = current_mesh_context()
+    if ctx is None or ctx.mesh is None:
+        raise ValueError(f"a block step over {hq} of {cfg.n_heads} query "
+                         "heads needs the active MeshContext that shards "
+                         "them")
+    parts = all_gather(o, (ctx.mesh, ctx.rules.axes_for("kv_heads")))
+    return torch.cat(parts.unbind(0), dim=-1)
+
+
 def attn_decode_block(p, cfg: ModelConfig, x, cache, *, n_valid):
     """Slot-masked T-token step against a ring KV cache.
 
@@ -176,9 +201,15 @@ def attn_decode_block(p, cfg: ModelConfig, x, cache, *, n_valid):
     written in place by index: the old rows are gathered, replaced where
     the token is real, and scattered back. With ``T <= S`` the T rows of a
     slot are distinct, so the write is exact and order-free. Returns out
-    (B,T,d); the caller advances ``pos``."""
+    (B,T,d); the caller advances ``pos``.
+
+    Head-sharded (sharded serving): the cache holds this rank's KV heads and
+    ``p``'s q, k and v projections their heads' columns; the rank attends
+    its heads, their outputs are all-gathered before ``wo`` and the cache is
+    never gathered."""
     b, t_len = x.shape[:2]
-    dh, hq, hkv = cfg.dh, cfg.n_heads, cfg.n_kv_heads
+    dh = cfg.dh
+    hq, hkv = _local_heads(p, cfg, cache)
     kc, vc = cache["k"], cache["v"]
     smax = kc.shape[1]
     if t_len > smax:
@@ -196,7 +227,7 @@ def attn_decode_block(p, cfg: ModelConfig, x, cache, *, n_valid):
         c.scatter_(1, idx, torch.where(valid, new.to(c.dtype),
                                        c.gather(1, idx)))
     o = decode_attention(q, kc, vc, torch.clamp(posmat + 1, max=smax))
-    return o.reshape(b, t_len, hq * dh) @ p["wo"]
+    return _heads_out(o.reshape(b, t_len, hq * dh), cfg, hq) @ p["wo"]
 
 
 def attn_decode_paged(p, cfg: ModelConfig, x, cache, *, n_valid, tables):
@@ -217,9 +248,11 @@ def attn_decode_paged(p, cfg: ModelConfig, x, cache, *, n_valid, tables):
     for position p the gathered row is ``((p // R) % MP) * R + p % R == p
     % (MP * R)``, the ring row of a capacity-``MP * R`` cache, so the
     result equals the ring path's, sliding window included. Returns out
-    (B,T,d); the caller advances ``pos``."""
+    (B,T,d); the caller advances ``pos``. Head-sharded as
+    :func:`attn_decode_block`: the pool holds this rank's KV heads."""
     b, t_len = x.shape[:2]
-    dh, hq, hkv = cfg.dh, cfg.n_heads, cfg.n_kv_heads
+    dh = cfg.dh
+    hq, hkv = _local_heads(p, cfg, cache)
     kc, vc = cache["k"], cache["v"]
     n_pages, r = kc.shape[:2]
     mp = tables.shape[1]
@@ -250,7 +283,7 @@ def attn_decode_paged(p, cfg: ModelConfig, x, cache, *, n_valid, tables):
     k_seq = kc.index_select(0, pages).view(b, cap, hkv, dh)
     v_seq = vc.index_select(0, pages).view(b, cap, hkv, dh)
     o = decode_attention(q, k_seq, v_seq, torch.clamp(posmat + 1, max=cap))
-    return o.reshape(b, t_len, hq * dh) @ p["wo"]
+    return _heads_out(o.reshape(b, t_len, hq * dh), cfg, hq) @ p["wo"]
 
 
 def attn_cache_pspec(cfg: ModelConfig, n_layers: int, batch: int, smax: int):

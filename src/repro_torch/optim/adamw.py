@@ -8,9 +8,13 @@ card the default ``auto`` runs ``csrc/tcu_reduce.cu``, one launch a leaf,
 each leaf one ``(1, n)`` row (``torch.sum`` on ``baseline``).
 
 The update is functional, as the reference's: it returns new params and
-moments and leaves its arguments as they were. Everything here runs under
-``torch.no_grad()`` and reads no device value on the host: ``step``, the
-learning rate and the norm stay tensors on the params' device.
+moments and leaves its arguments as they were. A sharded state (``DTensor``
+leaves, ``repro_torch.parallel.sharded_state``) updates each rank's local
+shards: each leaf's local Σg² goes through the same kernel, and is then
+summed over the mesh dims that leaf is sharded on, and only those.
+Everything here runs under ``torch.no_grad()`` and reads no device value on
+the host: ``step``, the learning rate and the norm stay tensors on the
+params' device.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from repro_torch import tree
 from repro_torch.core import dispatch
 from repro_torch.core import policy as kpolicy
 from repro_torch.core.policy import KernelPolicy
+from repro_torch.parallel.sharded_state import like, local, sharded_sums
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,11 +85,13 @@ def global_norm(grads, *, policy=None) -> torch.Tensor:
     """sqrt(Σ Σx²) with each leaf's Σx² through the dispatch switch (the
     ``tcu_reduce`` kernel on ``tile``, the matmul form on ``fused``,
     ``torch.sum`` on ``baseline``), summed over the leaves in the
-    reference's order."""
-    sq = [dispatch.reduce(torch.square(g.float()).reshape(1, -1),
+    reference's order. A ``DTensor`` leaf's reduce takes its local shard,
+    and its sum is completed over the mesh dims it is sharded on."""
+    leaves = tree.leaves(grads)
+    sq = [dispatch.reduce(torch.square(local(g).float()).reshape(1, -1),
                           policy=policy)[0]
-          for g in tree.leaves(grads)]
-    return torch.sqrt(torch.sum(torch.stack(sq)))
+          for g in leaves]
+    return torch.sqrt(torch.sum(torch.stack(sharded_sums(leaves, sq))))
 
 
 def clip_scale(gnorm: torch.Tensor, cfg: OptConfig) -> torch.Tensor:
@@ -110,14 +117,15 @@ def adamw_update(grads, opt_state, params, cfg: OptConfig):
     bc1 = 1 - b1 ** step.float()
     bc2 = 1 - b2 ** step.float()
 
-    def upd(p, g, m, v):
+    def upd(p_in, g, m, v):
+        p, g, m, v = local(p_in), local(g), local(m), local(v)
         g = g.float() * scale
         m_new = b1 * m.float() + (1 - b1) * g
         v_new = b2 * v.float() + (1 - b2) * g * g
         update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
         p_new = p - lr * (update + cfg.weight_decay * p)
-        return (p_new, m_new.to(cfg.state_dtype),
-                v_new.to(cfg.state_dtype))
+        return (like(p_new, p_in), like(m_new.to(cfg.state_dtype), p_in),
+                like(v_new.to(cfg.state_dtype), p_in))
 
     out = tree.map_tree(upd, params, grads, opt_state["m"], opt_state["v"])
     new_p, new_m, new_v = split_leaves(params, out, 3)

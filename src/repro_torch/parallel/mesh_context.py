@@ -34,12 +34,14 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import os
 from typing import Mapping, Sequence
 
+import torch
 import torch.distributed as dist
 
-from repro_torch.parallel.sharding import Rules, placements, spec_for, \
-    use_rules
+from repro_torch.parallel.sharding import NamedSharding, Rules, \
+    placements, spec_for, use_rules
 
 _ACTIVE: contextvars.ContextVar["MeshContext | None"] = \
     contextvars.ContextVar("repro_torch_mesh_context", default=None)
@@ -221,6 +223,14 @@ class MeshContext:
                              "(this context is topology-only)")
         return placements(spec, self.mesh)
 
+    def named_sharding(self, spec: Sequence) -> NamedSharding:
+        """A spec on this context's mesh, the reference's
+        ``named_sharding``."""
+        if self.mesh is None:
+            raise ValueError("named_sharding needs a real mesh "
+                             "(this context is topology-only)")
+        return NamedSharding(self.mesh, tuple(spec))
+
     # -- activation ---------------------------------------------------------
 
     def __enter__(self) -> "MeshContext":
@@ -236,6 +246,25 @@ class MeshContext:
         object.__setattr__(self, "_stack", None)
         if stack is not None:
             stack.close()
+
+
+def init_from_env(device):
+    """Join the process group that ``torchrun`` / ``python -m
+    torch.distributed.run`` describes in the environment (``WORLD_SIZE`` >
+    1): gloo, on the CPU and on the card alike (a CUDA tensor's collectives
+    go through host memory, ``core.distributed.host_staged``). Returns this
+    rank's device: ``device``, or for a bare ``cuda`` in a world of several
+    processes ``cuda:<LOCAL_RANK mod cards>``. Without that environment:
+    ``device`` as it is, and no process group."""
+    device = torch.device(device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and not dist.is_initialized():
+        dist.init_process_group("gloo")
+    if device.type == "cuda" and device.index is None and world > 1:
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        device = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    return device
 
 
 @contextlib.contextmanager

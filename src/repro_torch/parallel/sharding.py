@@ -141,6 +141,21 @@ def placements(spec: Sequence, mesh) -> tuple:
     return tuple(out)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class NamedSharding:
+    """A spec on a ``DeviceMesh``: the counterpart of
+    ``jax.sharding.NamedSharding`` (a leaf of a shardings tree, e.g. the
+    ``shardings=`` of ``checkpoint.ckpt.restore``). ``placements`` are the
+    spec's DTensor placements on ``mesh``."""
+
+    mesh: object
+    spec: tuple
+
+    @property
+    def placements(self) -> tuple:
+        return placements(self.spec, self.mesh)
+
+
 def spec_of(dtensor) -> tuple | None:
     """The spec of a ``DTensor``'s placements, one entry per tensor dim
     (None when a placement is neither ``Shard`` nor ``Replicate``: a

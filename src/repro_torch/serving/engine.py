@@ -63,7 +63,27 @@ tick phases and the tick's wall time, a ``serving/block_step`` span, and the
 paged pool's gauges. Every site guards on ``runtime.ACTIVE is not None``
 (the span on the profiler's own flag, as in the reference).
 
-Not ported yet (ROADMAP.md): multi-host lockstep.
+Sharded serving (``mesh_ctx=``, a :class:`~repro_torch.parallel.
+MeshContext`; the dense-attention family on a mesh whose only dim of more
+than one rank is ``model``): the caches are allocated sharded under the
+context's rules, ``kv_heads`` -> ``model``, so each rank holds only its KV
+heads (ring or paged). The parameters, given whole or as ``DTensor``s (e.g.
+restored from a sharded checkpoint), are gathered once into the compute
+dtype, and each rank keeps its heads' columns of the q, k and v
+projections: a block step attends the rank's KV heads with their query
+heads, all-gathers the heads' outputs before ``wo`` and never gathers the
+cache; the rest of the step runs whole on every rank. The logits are
+replicated (broadcast from rank 0) before sampling, so every rank draws the
+same token. Under a process group of more than one rank the engine admits
+in **lockstep**, as the reference's multi-host engine does: every rank is
+fed the same requests and admits them in queue order, arrival clocks
+ignored, so every rank enters every step with the same shapes; the wave
+scheduler raises. The collectives go through host memory (gloo), which a
+CUDA graph cannot capture: under a multi-rank mesh every tick runs the
+eager step, and ``compile_stats()`` counts no graph and says why. Sharded
+serving of the SSM state (mamba2, zamba2) and of MoE experts is not
+ported: those engines raise ``NotImplementedError`` (ROADMAP queue 1, item
+4b).
 """
 from __future__ import annotations
 
@@ -74,15 +94,20 @@ from collections import deque
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch import tree
 from repro_torch.core import policy as kpolicy
 from repro_torch.core.policy import KernelPolicy
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import cast_tree, init_params
+from repro_torch.models.common import init_params, unstack_blocks
 from repro_torch.models import build
 from repro_torch.models.lm import Bundle, pad_cache_seq
 from repro_torch.obs import profiling as _prof
 from repro_torch.obs import runtime as _obs
+from repro_torch.parallel.mesh_context import activate
+from repro_torch.parallel.sharded_state import gather_full
+from repro_torch.parallel.sharding import is_dtensor, spec_for, spec_of
 from repro_torch.serving import kvpool
 
 
@@ -169,6 +194,84 @@ class _Slot:
     result: Result | None = None
 
 
+def _sharded(mesh_ctx) -> bool:
+    """Whether ``mesh_ctx`` has a mesh with a dim of more than one rank."""
+    return (mesh_ctx is not None and mesh_ctx.mesh is not None
+            and max(mesh_ctx.axis_sizes.values()) > 1)
+
+
+def _check_shardable(cfg, mesh_ctx) -> None:
+    """Sharded serving covers the dense-attention family on a mesh whose
+    only split dim is the ``kv_heads`` one; anything else raises."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"sharded serving of {cfg.name} ({cfg.family}) is not ported: "
+            "the SSM state (ssm_heads/inner -> model, a gated RMSNorm over a "
+            "sharded inner) and MoE experts are ROADMAP queue 1, item 4b "
+            "leftovers; serve it unsharded")
+    axis = mesh_ctx.rules.axes_for("kv_heads")
+    other = {a: n for a, n in mesh_ctx.axis_sizes.items()
+             if a != axis and n > 1}
+    if not isinstance(axis, str) or other:
+        raise NotImplementedError(
+            f"sharded serving splits the KV heads over one mesh dim; mesh "
+            f"{mesh_ctx.label()} also splits {sorted(other)} (batch-sharded "
+            "serving is a ROADMAP queue 1, item 4b leftover)")
+
+
+def head_split(cfg, mesh_ctx) -> tuple[int, int] | None:
+    """This rank's KV heads ``[k0, k1)`` under the context's ``kv_heads``
+    rule, or None when the cache's KV heads are not split (the rule does
+    not divide them, or no mesh)."""
+    if not _sharded(mesh_ctx):
+        return None
+    axis = mesh_ctx.rules.axes_for("kv_heads")
+    names = tuple(mesh_ctx.mesh.mesh_dim_names)
+    if axis not in names:
+        return None
+    m = mesh_ctx.axis_sizes[axis]
+    if m <= 1 or cfg.n_kv_heads % m:
+        return None
+    c = mesh_ctx.mesh.get_coordinate()[names.index(axis)]
+    n = cfg.n_kv_heads // m
+    return c * n, (c + 1) * n
+
+
+def serving_params(params, bundle: Bundle, mesh_ctx=None):
+    """The engine's compute parameters: every floating leaf in the model's
+    compute dtype (a ``DTensor`` leaf cast on its shard, then gathered
+    whole), stacked ``(layers, ...)`` leaves split into the forward's
+    per-layer list, and under a head split (:func:`head_split`) each
+    layer's q, k and v projections cut to this rank's heads' columns."""
+    cfg = bundle.cfg
+
+    def whole(t):
+        if is_dtensor(t):
+            shard = t.to_local()
+            shard = shard.to(cfg.dtype) if shard.is_floating_point() \
+                else shard
+            return gather_full(shard, spec_of(t), t.device_mesh)
+        return t.to(cfg.dtype) if t.is_floating_point() else t
+
+    params = tree.map_tree(whole, params)
+    if isinstance(params.get("blocks"), dict):
+        params = unstack_blocks(params, cfg)
+    heads = head_split(cfg, mesh_ctx)
+    if heads is None:
+        return params
+    k0, k1 = heads
+    g, dh = cfg.n_heads // cfg.n_kv_heads, cfg.dh
+    cols = {"wq": slice(k0 * g * dh, k1 * g * dh),
+            "wk": slice(k0 * dh, k1 * dh), "wv": slice(k0 * dh, k1 * dh)}
+    blocks = []
+    for lp in params["blocks"]:
+        attn = dict(lp["attn"])
+        for name, sl in cols.items():
+            attn[name] = attn[name][:, sl].contiguous()
+        blocks.append(dict(lp, attn=attn))
+    return dict(params, blocks=blocks)
+
+
 def _bucket(n: int) -> int:
     """Next power of two >= n (floor 16): the ring-capacity buckets that
     bound the number of step shapes across mixed-length workloads."""
@@ -232,12 +335,26 @@ class ServingEngine:
     The parameters are cast to the model's compute dtype once, here (the
     reference casts inside its jitted serving step). ``prefills`` and
     ``decodes`` count the wave's forward passes, ``ticks`` the continuous
-    scheduler's block steps."""
+    scheduler's block steps. ``mesh_ctx`` serves sharded (see the module's
+    docstring)."""
 
-    def __init__(self, bundle: Bundle, params, cfg: ServeConfig):
+    def __init__(self, bundle: Bundle, params, cfg: ServeConfig,
+                 mesh_ctx=None):
         if cfg.policy is not None and bundle.cfg.policy != cfg.policy:
             bundle = build(dataclasses.replace(bundle.cfg,
                                                policy=cfg.policy))
+        self.mesh_ctx = mesh_ctx
+        if _sharded(mesh_ctx):
+            _check_shardable(bundle.cfg, mesh_ctx)
+        # every rank of a multi-process world runs the same ticks (each
+        # step's collectives need them all): admission in queue order,
+        # arrival clocks ignored, as the reference's multi-host lockstep
+        self._lockstep = mesh_ctx is not None and dist.is_initialized() \
+            and dist.get_world_size() > 1
+        if self._lockstep and cfg.scheduler == "wave":
+            raise ValueError(
+                "multi-host serving requires the continuous scheduler "
+                "(wave admission depends on per-host wall clocks)")
         if cfg.scheduler == "continuous" and bundle.decode_block is None:
             warnings.warn(
                 "bundle has no block-decode step (encoder-decoder); "
@@ -257,7 +374,7 @@ class ServingEngine:
         # policy of their trace)
         self.policy = bundle.cfg.policy or kpolicy.get_policy()
         self.scheduler = cfg.scheduler
-        self.params = cast_tree(params, bundle.cfg.dtype)
+        self.params = serving_params(params, bundle, mesh_ctx)
         self.device = self.params["embed"].device
         self.queue: deque[Request] = deque()
         self.results: list[Result] = []
@@ -310,7 +427,14 @@ class ServingEngine:
     def compile_stats(self) -> dict:
         """Step shapes of the continuous scheduler: on a CUDA device the
         graphs captured (and the seconds their warm-up and capture took),
-        on the CPU the distinct (T, capacity) shapes run."""
+        on the CPU the distinct (T, capacity) shapes run. Under a
+        multi-rank mesh no graph is captured (``eager`` says why) and
+        ``block`` counts the shapes run."""
+        if self._lockstep:
+            return {"block": len(self._step_shapes), "capture_s": 0.0,
+                    "graphs": 0,
+                    "eager": "multi-rank mesh: the host-staged gloo "
+                             "collectives of a step cannot be captured"}
         if self.device.type == "cuda":
             return {"block": self.captures, "capture_s": self.capture_s}
         return {"block": len(self._step_shapes), "capture_s": 0.0}
@@ -331,6 +455,11 @@ class ServingEngine:
         for the step."""
         if logits.ndim == 3:            # wave steps emit (B, T, V)
             logits = logits[:, -1]
+        if self._lockstep:
+            # one value on every rank: each draws the same token
+            buf = logits.contiguous().cpu()
+            dist.broadcast(buf, src=0)
+            logits = buf.to(logits.device)
         if self.cfg.greedy:
             return torch.argmax(logits, dim=-1).cpu().numpy()
         u = torch.rand(logits.shape, generator=self._gen,
@@ -390,9 +519,31 @@ class ServingEngine:
             self._pool = None
             pspec = self.bundle.cache_pspec(self.cfg.slots, cap,
                                             per_slot_pos=True, **kind)
+            if _sharded(self.mesh_ctx):
+                pspec = self._local_cache_pspec(pspec)
             gen = torch.Generator(device=self.device)    # zeros draw nothing
             self._cache = init_params(pspec, gen, self.bundle.cfg.dtype)
             self._capacity = cap
+
+    def _local_cache_pspec(self, pspec):
+        """The cache's declaration cut to this rank's shard under the
+        context's rules (``kv_heads`` -> ``model``): a sharded dim's size
+        divided by its mesh dims'."""
+        sizes = self.mesh_ctx.axis_sizes
+
+        def cut(ps):
+            spec = spec_for(ps.shape, ps.logical, rules=self.mesh_ctx.rules,
+                            fsdp_ok=False)
+            shape = []
+            for n, entry in zip(ps.shape, spec):
+                axes = () if entry is None else (
+                    (entry,) if isinstance(entry, str) else entry)
+                for a in axes:
+                    n //= sizes[a]
+                shape.append(n)
+            return dataclasses.replace(ps, shape=tuple(shape))
+
+        return tree.map_tree(cut, pspec)
 
     def _step_inputs(self, tokens: np.ndarray, n_valid: np.ndarray,
                      reset: np.ndarray, plan: dict | None) -> dict:
@@ -440,7 +591,7 @@ class ServingEngine:
             step = self.bundle.decode_block_paged
             kw["page"] = {k: v for k, v in inputs.items()
                           if k not in ("tokens", "n_valid", "reset")}
-        with kpolicy.using_policy(self.policy):
+        with kpolicy.using_policy(self.policy), activate(self.mesh_ctx):
             logits, _ = step(self.params, self._cache,
                              {"tokens": inputs["tokens"]}, **kw)
         return logits
@@ -488,15 +639,17 @@ class ServingEngine:
         if sess is not None:
             self._trace_step_shape(sess, t_len, shape)
         self._step_shapes.add(shape)
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self._lockstep:
             return self._eager_step({k: torch.from_numpy(
-                np.asarray(v, np.int64)) for k, v in inputs.items()})
+                np.asarray(v, np.int64)).to(self.device)
+                for k, v in inputs.items()})
         if t_len not in self._graphs:
             self._graphs[t_len] = self._capture(t_len)
         return self._graphs[t_len].replay(inputs)
 
     def _trace_step_shape(self, sess, t_len: int, shape: tuple) -> None:
-        new = (t_len not in self._graphs if self.device.type == "cuda"
+        new = (t_len not in self._graphs
+               if self.device.type == "cuda" and not self._lockstep
                else shape not in self._step_shapes)
         if new:
             sess.emit("serve_block_trace", slots=self.cfg.slots,
@@ -545,7 +698,7 @@ class ServingEngine:
             for i, s in enumerate(slots):
                 if blocked or not s.free or not self.queue:
                     continue
-                if self.queue[0].arrival_s > now:
+                if not self._lockstep and self.queue[0].arrival_s > now:
                     continue
                 req = self.queue[0]
                 budget = self._budget(req)
@@ -596,7 +749,7 @@ class ServingEngine:
                 if not self.queue:
                     break
                 wait = self.queue[0].arrival_s - now
-                if wait > 0:
+                if wait > 0 and not self._lockstep:
                     time.sleep(min(wait, 0.01))
                 continue
 

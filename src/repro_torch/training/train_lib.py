@@ -28,12 +28,28 @@ the state (``optim/compress.py``) before the optimizer; the noise comes
 from a ``torch.Generator`` seeded by the state's ``rng`` words, which the
 step advances.
 
-``state_shape_structs`` and ``train_state_pspecs`` (the dry run and the
-sharded state over ``repro_torch.parallel``'s rules and mesh) are not
-ported yet (ROADMAP queue 1, item 4b).
+Sharding (ZeRO over a ``DeviceMesh``): :func:`train_state_pspecs` is the
+reference's spec tree of the state (moments shard like their parameters,
+FSDP over the stacked leaves; Adafactor's factors drop the reduced dim's
+entry; ``step`` and ``rng`` replicated), :func:`state_shape_structs` its
+shapes and dtypes as ``meta`` tensors. :func:`init_sharded_train_state`
+places a state under those specs as ``DTensor`` leaves, each rank holding
+its shard of the f32 masters and moments. ``make_train_step(...,
+mesh_ctx=ctx)`` activates the context at every call (kernel resolution sees
+shard shapes), and on a sharded state takes the data-parallel step of
+``repro_torch.parallel.sharded_state``: each parameter's bf16 cast is
+all-gathered whole, each rank runs the forward and backward on its ``data``
+coordinate's rows (ranks that share it compute the same), and each whole
+gradient is reduce-scattered, averaged over ``data``, onto the rank's f32
+shard; the global norm and the update run on the shards. The step records
+the seconds of its parts (``step.split``: gather, forward and backward,
+reduce-scatter, update). Splitting the forward by heads over ``model``
+(tensor parallelism) is not done: every rank of a ``data`` coordinate
+computes its rows whole.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable
 
@@ -41,12 +57,22 @@ import numpy as np
 import torch
 
 from repro_torch import tree
-from repro_torch.models.common import cast_tree, init_params, stack_pspec
+from repro_torch.core.distributed import all_reduce_sum
+from repro_torch.models.common import (
+    _init_leaf,
+    cast_tree,
+    init_params,
+    partition_specs,
+    stack_pspec,
+)
 from repro_torch.models.lm import Bundle
 from repro_torch.obs import runtime as _obs
 from repro_torch.optim import OptConfig, adamw_update, init_opt_state
 from repro_torch.optim.adafactor import adafactor_update, init_adafactor_state
 from repro_torch.optim.compress import compress_grads as _compress
+from repro_torch.parallel import sharded_state as shst
+from repro_torch.parallel.mesh_context import activate
+from repro_torch.parallel.sharding import is_dtensor, spec_for, spec_of
 
 # the reference's initial key, jax.random.PRNGKey(17)
 RNG_WORDS = (0, 17)
@@ -78,6 +104,140 @@ def init_train_state(gen: torch.Generator, bundle: Bundle,
              "rng": np.array(RNG_WORDS, np.uint32)}
     if train_cfg.compress_grads:
         state["err"] = tree.map_tree(torch.zeros_like, params)
+    return state
+
+
+def state_shape_structs(bundle: Bundle, opt_cfg: OptConfig,
+                        train_cfg: TrainConfig = TrainConfig()):
+    """The train state's tree as ``meta`` tensors (shapes and dtypes, no
+    storage): the reference's ``ShapeDtypeStruct`` tree, for a dry run."""
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    params = tree.map_tree(
+        lambda ps: meta(ps.shape, ps.dtype or train_cfg.param_dtype),
+        stack_pspec(bundle.params_pspec))
+    if train_cfg.optimizer == "adafactor":
+        def factor(p):
+            if p.dim() >= 2:
+                return {"vr": meta(p.shape[:-1], torch.float32),
+                        "vc": meta(p.shape[:-2] + p.shape[-1:],
+                                   torch.float32)}
+            return {"v": meta(p.shape, torch.float32)}
+
+        v = tree.map_tree(factor, params)
+    else:
+        v = tree.map_tree(lambda p: meta(p.shape, opt_cfg.state_dtype),
+                          params)
+    opt = {"m": tree.map_tree(lambda p: meta(p.shape, opt_cfg.state_dtype),
+                              params),
+           "v": v, "step": meta((), torch.int32)}
+    state = {"params": params, "opt": opt,
+             "rng": meta((2,), torch.uint32)}
+    if train_cfg.compress_grads:
+        state["err"] = tree.map_tree(lambda p: meta(p.shape, p.dtype),
+                                     params)
+    return state
+
+
+def train_state_pspecs(bundle: Bundle, rules,
+                       train_cfg: TrainConfig = TrainConfig()):
+    """The spec tree of ``init_train_state``'s output under ``rules`` (a
+    tuple a leaf, one entry a dim, ``parallel.sharding``'s).
+
+    Moments shard exactly like their parameters (ZeRO, FSDP allowed over
+    the stacked leaves); Adafactor's factored second moments drop the spec
+    entry of the reduced dim; ``step`` and ``rng`` are replicated; ``err``
+    (``compress_grads``) shards like the parameters."""
+    pspec = stack_pspec(bundle.params_pspec)
+    p_specs = partition_specs(pspec, rules=rules, fsdp_ok=True)
+    if train_cfg.optimizer == "adafactor":
+        def factor_spec(ps):
+            full = spec_for(ps.shape, ps.logical, rules=rules, fsdp_ok=True)
+            if len(ps.shape) >= 2:
+                return {"vr": full[:-1], "vc": full[:-2] + full[-1:]}
+            return {"v": full}
+
+        v_specs = tree.map_tree(factor_spec, pspec)
+    else:
+        v_specs = p_specs
+    specs = {"params": p_specs,
+             "opt": {"m": p_specs, "v": v_specs, "step": ()},
+             "rng": ()}
+    if train_cfg.compress_grads:
+        specs["err"] = p_specs
+    return specs
+
+
+def state_shardings(state, specs, mesh_ctx):
+    """The tree of ``NamedSharding``s of ``state``'s ``DTensor`` leaves:
+    ``specs`` (:func:`train_state_pspecs`) on the context's mesh; None for
+    the replicated plain leaves (``step``, ``rng``), restored whole."""
+    return tree.map_tree(
+        lambda leaf, spec: mesh_ctx.named_sharding(spec)
+        if is_dtensor(leaf) else None, state, specs)
+
+
+def shard_train_state(state, bundle: Bundle, mesh_ctx,
+                      train_cfg: TrainConfig = TrainConfig()):
+    """A whole train state (the same on every rank) placed on the
+    context's mesh under :func:`train_state_pspecs`: the parameters,
+    moments and ``err`` as ``DTensor``s of this rank's shards, ``step`` and
+    ``rng`` as they are (replicated)."""
+    specs = train_state_pspecs(bundle, mesh_ctx.rules, train_cfg)
+
+    def put(sub, sub_specs):
+        return tree.map_tree(
+            lambda t, spec: shst.place(t, mesh_ctx.named_sharding(spec)),
+            sub, sub_specs)
+
+    out = dict(state)
+    out["params"] = put(state["params"], specs["params"])
+    out["opt"] = dict(state["opt"], m=put(state["opt"]["m"],
+                                          specs["opt"]["m"]),
+                      v=put(state["opt"]["v"], specs["opt"]["v"]))
+    if "err" in state:
+        out["err"] = put(state["err"], specs["err"])
+    return out
+
+
+def init_sharded_train_state(gen: torch.Generator, bundle: Bundle,
+                             opt_cfg: OptConfig, mesh_ctx,
+                             train_cfg: TrainConfig = TrainConfig()):
+    """``init_train_state``'s state, its tensors placed on the context's
+    mesh under :func:`train_state_pspecs`: each parameter is drawn whole
+    from ``gen`` in ``init_train_state``'s order (the same values on every
+    rank and as unsharded) and cut to the rank's shard at once, so a rank
+    holds one whole leaf at most; the moments are zeros of the shards."""
+    specs = train_state_pspecs(bundle, mesh_ctx.rules, train_cfg)
+    pspec = stack_pspec(bundle.params_pspec)
+    params = tree.map_tree(
+        lambda ps, spec: shst.place(
+            _init_leaf(ps, gen, train_cfg.param_dtype, gen.device),
+            mesh_ctx.named_sharding(spec)),
+        pspec, specs["params"])
+    if train_cfg.optimizer == "adafactor":
+        opt = init_adafactor_state(
+            tree.map_tree(shst.local, params), opt_cfg)
+    else:
+        opt = init_opt_state(tree.map_tree(shst.local, params), opt_cfg)
+
+    def wrap(t, spec, like):
+        return shst.dtensor(t, mesh_ctx.named_sharding(spec), like)
+
+    shapes = state_shape_structs(bundle, opt_cfg, train_cfg)
+    opt = {"m": tree.map_tree(
+               lambda t, spec, m: wrap(t, spec, m.shape), opt["m"],
+               specs["opt"]["m"], shapes["opt"]["m"]),
+           "v": tree.map_tree(
+               lambda t, spec, m: wrap(t, spec, m.shape), opt["v"],
+               specs["opt"]["v"], shapes["opt"]["v"]),
+           "step": opt["step"]}
+    state = {"params": params, "opt": opt,
+             "rng": np.array(RNG_WORDS, np.uint32)}
+    if train_cfg.compress_grads:
+        state["err"] = tree.map_tree(
+            lambda p: shst.like(torch.zeros_like(shst.local(p)), p), params)
     return state
 
 
@@ -115,30 +275,93 @@ def value_and_grad(bundle: Bundle, params, batch):
     return loss.detach(), tree.unflatten(params, grads)
 
 
+def sharded_value_and_grad(bundle: Bundle, params, batch, *,
+                           batch_axes: tuple, clock: shst.StepClock):
+    """:func:`value_and_grad` on a sharded ``params`` (``DTensor`` leaves)
+    and this rank's rows: -> (the loss averaged over ``batch_axes``, the
+    gradients of the rank's local shards, plain tensors).
+
+    Each leaf's compute-dtype cast is gathered whole
+    (``sharded_state.gathered``); its backward takes the whole gradient back
+    onto the rank's shard, averaged over the batch's mesh dims. ``clock``
+    records ``gather``, ``forward_backward`` (the reduce-scatters inside it
+    included) and ``reduce_scatter``."""
+    flat = tree.leaves(params)
+    mesh = flat[0].device_mesh
+    shards = [p.to_local().detach().requires_grad_(p.is_floating_point())
+              for p in flat]
+    with clock("gather"):
+        views = [shst.gathered(s, spec_of(p), mesh, bundle.cfg.dtype,
+                               batch_axes, clock) if s.requires_grad
+                 else shst.gather_full(s, spec_of(p), mesh)
+                 for s, p in zip(shards, flat)]
+    with clock("forward_backward"):
+        loss = bundle.loss(tree.unflatten(params, views), batch)
+        wrt = [s for s in shards if s.requires_grad]
+        got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
+        grads = []
+        for s in shards:
+            g = next(got) if s.requires_grad else None
+            grads.append(torch.zeros_like(s) if g is None else g)
+    loss = loss.detach().float()
+    n = 1
+    for a in batch_axes:
+        size = mesh.size(mesh.mesh_dim_names.index(a))
+        if size > 1:
+            loss = all_reduce_sum(loss, (mesh, a))
+            n *= size
+    return loss / n, tree.unflatten(params, grads)
+
+
+def batch_mesh_axes(mesh_ctx) -> tuple:
+    """The mesh dims the batch is split over (the rules' ``batch`` entry
+    that the mesh has): ranks that differ there compute different rows."""
+    if mesh_ctx is None or mesh_ctx.mesh is None:
+        return ()
+    entry = mesh_ctx.rules.axes_for("batch") or ()
+    entry = (entry,) if isinstance(entry, str) else tuple(entry)
+    return tuple(a for a in entry if a in mesh_ctx.mesh.mesh_dim_names)
+
+
 def make_train_step(bundle: Bundle, opt_cfg: OptConfig,
-                    train_cfg: TrainConfig = TrainConfig()) -> Callable:
+                    train_cfg: TrainConfig = TrainConfig(), *,
+                    mesh_ctx=None) -> Callable:
     """-> step(state, batch) -> (state, metrics), metrics ``loss``,
     ``grad_norm`` and ``lr`` as device scalars. Functional: the state passed
     in is left as it was.
+
+    ``mesh_ctx`` (a :class:`~repro_torch.parallel.MeshContext`) activates
+    at every call, so kernel resolution sees the shard shapes. A state whose
+    parameters are ``DTensor``s (:func:`init_sharded_train_state`) takes the
+    sharded step: ``batch`` holds this rank's rows (the pipeline's
+    ``sharding=``), and the new state is sharded alike. ``step.split`` holds
+    the seconds of the last call's parts on a sharded state.
 
     A batch shape the step has not seen is the counterpart of a jit
     retrace: with an observability session active it emits
     ``train_step_trace`` and counts ``repro_train_step_traces_total``."""
     nmb = train_cfg.microbatches
     seen: set = set()
+    axes = batch_mesh_axes(mesh_ctx)
 
-    def grads_of(params, batch):
+    def grads_of(params, batch, clock=None):
+        if clock is not None:
+            def vg(p, b):
+                return sharded_value_and_grad(bundle, p, b, batch_axes=axes,
+                                              clock=clock)
+        else:
+            def vg(p, b):
+                return value_and_grad(bundle, p, b)
         if nmb == 1:
-            return value_and_grad(bundle, params, batch)
+            return vg(params, batch)
         mbs = {k: v.reshape(nmb, v.shape[0] // nmb, *v.shape[1:])
                for k, v in batch.items()}
-        flat = tree.leaves(params)
+        flat = [shst.local(p) for p in tree.leaves(params)]
         loss = torch.zeros((), dtype=torch.float32, device=flat[0].device)
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                for p in flat]
         for i in range(nmb):
-            mb_loss, g = value_and_grad(bundle, params,
-                                        {k: v[i] for k, v in mbs.items()})
+            mb_loss, g = vg(params, {k: v[i] for k, v in mbs.items()})
             loss = loss + mb_loss
             acc = [a + b for a, b in zip(acc, tree.leaves(g))]
         inv = 1.0 / nmb
@@ -162,24 +385,44 @@ def make_train_step(bundle: Bundle, opt_cfg: OptConfig,
 
     def step(state, batch):
         trace(batch)
-        loss, grads = grads_of(state["params"], batch)
+        with activate(mesh_ctx):
+            return _step(state, batch)
+
+    def _step(state, batch):
+        params = state["params"]
+        sharded = is_dtensor(tree.leaves(params)[0])
+        clock = (shst.StepClock(shst.local(tree.leaves(params)[0]).device)
+                 if sharded else None)
+        loss, grads = grads_of(params, batch, clock)
         new_state = dict(state)
         with torch.no_grad():
             if train_cfg.compress_grads:
                 words, gen = _split_rng(state["rng"], loss.device)
-                grads, err = _compress(grads, state.get("err"), gen)
+                err = tree.map_tree(shst.local, state.get("err"))
+                grads, err = _compress(grads, err, gen)
                 grads = tree.map_tree(lambda g: g.float(), grads)
-                new_state["err"] = err
+                new_state["err"] = tree.map_tree(shst.like, err,
+                                                 state["err"])
                 new_state["rng"] = words
-            if train_cfg.optimizer == "adafactor":
-                p, opt, metrics = adafactor_update(
-                    grads, state["opt"], state["params"], opt_cfg)
-            else:
-                p, opt, metrics = adamw_update(
-                    grads, state["opt"], state["params"], opt_cfg)
+            if sharded:
+                grads = tree.map_tree(shst.like, grads, params)
+            with (clock("update") if sharded
+                  else contextlib.nullcontext()):
+                if train_cfg.optimizer == "adafactor":
+                    p, opt, metrics = adafactor_update(
+                        grads, state["opt"], params, opt_cfg)
+                else:
+                    p, opt, metrics = adamw_update(
+                        grads, state["opt"], params, opt_cfg)
+        if sharded:
+            split = dict(clock.seconds)
+            split["forward_backward"] = split.get("forward_backward", 0.0) \
+                - split.get("reduce_scatter", 0.0)
+            step.split = split
         new_state["params"] = p
         new_state["opt"] = opt
         metrics["loss"] = loss
         return new_state, metrics
 
+    step.split = {}
     return step
