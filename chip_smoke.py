@@ -244,6 +244,19 @@ Phases:
    saved ones; both serving ranks' tokens equal, RMSNorm 2L + 1 a tick, no
    graph, each rank half the KV heads; f32 logits within 1e-3 of the
    unsharded engine's and its tokens equal. About 105 s.
+   Then the dry run and the roofline (``dryrun and roofline``): a CPU
+   subprocess runs ``repro_torch.launch.dryrun`` on DRYRUN_CELLS of the
+   single mesh (rank 0 of a fake 256-rank world, FULL configs as fake
+   tensors) and each record's status, peak GiB a rank, fit in 80 GB and
+   roofline terms are printed (any ``fail`` fails the phase); meanwhile
+   the four ``examples/torch_*.py`` run on the card at small sizes (each
+   exits 0 and prints its check; train_lm resumes from its checkpoint).
+   Then the op analyser counts train_pass's llama3.2-1b FULL step and one
+   mamba2-1.3b wave decode step on the kernel path and under ``baseline``
+   (FLOPs and bytes equal within 1e-9), beside the step's measured ms:
+   the bound on the H100's constants, the model FLOPs, MFU (model FLOPs
+   over measured s x 989e12) and bound / measured, gated at 1.05. The
+   phase's launches are not added to the main path's counts.
 3. Per kernel: the kernel against its plain version on the card at the main
    path's shapes (the reduce and scan at 2^24 elements from 2^20 rows of 16
    to one row, the reduce also on the global norm's largest rows, RMSNorm also at the served decode and prefill shapes,
@@ -283,6 +296,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -292,9 +306,23 @@ from pathlib import Path
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory
-PEAK_OPS = {"float16": 989e12, "bfloat16": 989e12,   # dense tensor cores
-            "float32": 67e12}                          # CUDA cores
+# the card's constants and the cost formulas live in the package (the op
+# analyser charges the dispatch ops by the same formulas); a directory with
+# this script alone has no package, and main() says so
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+try:
+    from repro_torch.core.costs import (
+        attention_flops,
+        local_ssd_flops,
+        nbytes,
+        rmsnorm_flops,
+        ssd_flops,
+    )
+    from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S
+    from repro_torch.launch.roofline import bound
+except ImportError:
+    pass
+
 N_ELEMS = 1 << 24
 # the largest parameter leaves the train step's global norm reduces:
 # llama3.2-1b's tied embedding (128256 x 2048) and mamba2-1.3b's stacked
@@ -417,16 +445,6 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(nbytes: float, ops: float, dtype) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[str(dtype).split(".")[-1]] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
 # ---------------------------------------------------------------------------
 # per-kernel cases: (label, inputs, kernel call, plain call, library call,
 # tolerance, bytes, ops, input dtype)
@@ -517,12 +535,6 @@ def ssd_inputs(torch, gen, bsz, seqlen, nheads, hdim, ngroups, nstate,
     return x, dt, a, b, c
 
 
-def ssd_flops(bsz, seqlen, nheads, hdim, nstate, q=64):
-    tri = q * (q + 1) // 2
-    per_chunk = 2 * (tri * nstate + tri * hdim + 2 * q * nstate * hdim)
-    return bsz * nheads * (-(-seqlen // q)) * per_chunk
-
-
 def ssd_cases(torch, kops, ref, gen):
     out = []
     # mamba2-1.3b FULL prefill: B=4 prompts of 512, 64 heads of 64, N=128;
@@ -582,14 +594,6 @@ def weighted_cases(torch, kops, ref, gen):
             # one multiply-add per element (and one exp)
             ops=2 * x.numel(), dtype=dt))
     return out
-
-
-def local_ssd_flops(bsz, seqlen, nheads, hdim, nstate, q=64):
-    """The chunk products without the carried state: C B^T and G X on the
-    kept triangle, and the chunk state (B w)^T X."""
-    tri = q * (q + 1) // 2
-    per_chunk = 2 * (tri * nstate + tri * hdim + q * nstate * hdim)
-    return bsz * nheads * (-(-seqlen // q)) * per_chunk
 
 
 def logdepth_cases(torch, kops, ref, gen):
@@ -685,20 +689,8 @@ def rmsnorm_cases(torch, kops, ref, gen):
             run=lambda x=x, w=w: kops.rmsnorm(x, w, eps=1e-5),
             plain=lambda x=x, w=w: ref.rmsnorm_ref(x, w, eps=1e-5),
             library=lib, rtol=1e-2, nbytes=2 * nbytes(x) + nbytes(w),
-            ops=4 * x.numel(), dtype=torch.bfloat16))
+            ops=rmsnorm_flops(x.numel()), dtype=torch.bfloat16))
     return out
-
-
-def attention_pairs(lq, lk, causal, window):
-    """(query, key) pairs the mask leaves visible, ends aligned by lk - lq:
-    the work this input needs, not the full lq x lk."""
-    total = 0
-    for i in range(lq):
-        qpos = i + lk - lq
-        hi = min(lk, qpos + 1) if causal else lk
-        lo = max(0, qpos - window + 1) if window is not None else 0
-        total += max(0, hi - lo)
-    return total
 
 
 def row_rel_err(got, want) -> float:
@@ -800,7 +792,6 @@ def attention_cases(torch, kops, gen):
                 qt, kt, vt, attn_mask=mask,
                 is_causal=causal and mask is None, **kw)
 
-        pairs = attention_pairs(lq, lk, causal, window)
         tag = (f"{str(dtype).split('.')[-1]} B={bsz} Lq={lq} Lk={lk} "
                f"Hq={hq} Hkv={hkv} D={dh} causal={causal} window={window}")
         out.append(dict(
@@ -811,7 +802,8 @@ def attention_cases(torch, kops, gen):
                 kops.attention_plain(q, k, v, causal=c, window=w),
             library=lib, gate=attention_gate(kops, q, k, v, causal, window),
             nbytes=nbytes(q, k, v) + nbytes(q),
-            ops=4 * dh * pairs * bsz * hq, dtype=dtype))
+            ops=attention_flops(bsz, lq, lk, hq, dh, causal, window),
+            dtype=dtype))
     return out
 
 
@@ -4864,6 +4856,258 @@ def sharded_pass(smoke: Smoke, kops) -> dict:
                       for k in ("ring", "paged")}}
 
 
+# ---------------------------------------------------------------------------
+# the dry run and the roofline
+
+DRYRUN_CELLS = (("llama3.2-1b", "train_4k"), ("llama3.2-1b", "prefill_32k"),
+                ("llama3.2-1b", "decode_32k"), ("mamba2-1.3b", "train_4k"),
+                ("mamba2-1.3b", "long_500k"), ("grok-1-314b", "train_4k"))
+DRYRUN_OUT = OBS_DIR.parent / "dryrun_smoke"
+DRYRUN_TIMEOUT_S = 400
+DRYRUN_SCRIPT = """
+import sys
+from repro_torch.launch import dryrun
+for cell in sys.argv[2:]:
+    arch, shape = cell.split(":")
+    rec = dryrun.run_cell(arch, shape, "single", sys.argv[1], force=True)
+    print(dryrun.status_line(rec), flush=True)
+"""
+ANALYSE_REPS = 5                    # timed calls of each analysed step
+ROOFLINE_SHARE_MAX = 1.05           # bound / measured: no card beats it
+EXAMPLE_CKPT = OBS_DIR.parent / "train_lm_smoke"
+EXAMPLES = (("torch_quickstart.py", (), "quickstart check: OK"),
+            ("torch_serve_batch.py", ("--requests", "8", "--max-new", "8"),
+             "serve_batch check: OK"),
+            ("torch_ssd_long_context.py", (), "ssd_long_context check: OK"),
+            ("torch_train_lm.py", ("--config", "smoke", "--steps", "4",
+                                   "--ckpt-every", "2", "--ckpt-dir",
+                                   str(EXAMPLE_CKPT)), "train_lm check: OK"),
+            ("torch_train_lm.py", ("--config", "smoke", "--steps", "6",
+                                   "--ckpt-every", "2", "--ckpt-dir",
+                                   str(EXAMPLE_CKPT)), "resumed from step 4"))
+
+
+def example_runs(smoke: Smoke) -> dict:
+    """The four examples on the card (their default device), each a
+    subprocess at a small size; train_lm twice, the second run resuming
+    from the first's checkpoint. Each must exit 0 and print its check."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    shutil.rmtree(EXAMPLE_CKPT, ignore_errors=True)
+    out = {}
+    for script, args, check in EXAMPLES:
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, str(root / "examples" / script),
+                              *args], env=env, cwd=root, capture_output=True,
+                             text=True, timeout=300)
+        secs = time.perf_counter() - t0
+        tail = run.stdout.strip().splitlines()[-1:] or [""]
+        ok = run.returncode == 0 and check in run.stdout
+        print(f"example {script} {' '.join(args[:2])}: exit "
+              f"{run.returncode} in {secs:.1f} s: {tail[0]}", flush=True)
+        if not ok:
+            smoke.fail(f"example {script} {args}: exit {run.returncode}, "
+                       f"{check!r} not printed: "
+                       f"{(run.stdout + run.stderr)[-1500:]}")
+        out[f"{script} {' '.join(args[:2])}".strip()] = dict(
+            exit=run.returncode, seconds=secs, ok=ok)
+    shutil.rmtree(EXAMPLE_CKPT, ignore_errors=True)
+    return out
+
+
+def dryrun_records(smoke: Smoke, proc, log: str) -> dict:
+    """The dry-run subprocess's records, each printed: status, peak GiB a
+    rank, whether it fits, and the three roofline terms."""
+    if proc.returncode != 0:
+        smoke.fail(f"dry run exited {proc.returncode}: {log[-3000:]}")
+    out = {}
+    for arch, shape in DRYRUN_CELLS:
+        path = DRYRUN_OUT / "single" / f"{arch}__{shape}.json"
+        if not path.exists():
+            smoke.fail(f"dry run: no record of {arch} {shape}")
+            continue
+        rec = json.loads(path.read_text())
+        if rec["status"] not in ("ok", "unsupported", "skip"):
+            smoke.fail(f"dry run {arch} {shape}: {rec['status']}")
+        if rec["status"] == "ok":
+            r = rec["roofline"]
+            line = (f"peak {rec['memory']['peak_bytes'] / 2**30:.2f} GiB a "
+                    f"rank, fits {rec['fits']}, compute {r['compute_s']:.4e} "
+                    f"s, memory {r['memory_s']:.4e} s, collective "
+                    f"{r['collective_s']:.4e} s ({r['dominant']}), trace "
+                    f"{rec['trace_s']} s")
+            out[f"{arch} {shape}"] = dict(
+                status="ok", peak_bytes=rec["memory"]["peak_bytes"],
+                fits=rec["fits"], roofline=r, trace_s=rec["trace_s"])
+        else:
+            line = rec["reason"]
+            out[f"{arch} {shape}"] = dict(status=rec["status"],
+                                          reason=rec["reason"])
+        print(f"dry run {arch} {shape} (single mesh, 256 ranks): "
+              f"{rec['status']}: {line}", flush=True)
+    return out
+
+
+def analysed(smoke: Smoke, kops, label: str, fn, args, model_flops: float,
+             measured_ms: float) -> dict:
+    """``fn(*args)`` under the op analyser on the kernel path (the default
+    policy; its kernels must launch) and under ``baseline``: their FLOPs
+    and bytes must agree (rel 1e-9). Then the roofline of the kernel
+    path's count on the H100's constants against the measured time: the
+    share bound / measured must stay at most ROOFLINE_SHARE_MAX."""
+    from repro_torch.core import policy as kpolicy
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.op_analysis import analyse, roofline_terms
+
+    torch = smoke.torch
+    kops.reset_launches()
+    kernel = analyse(fn, *args)
+    launched = {k: n for k, n in kops.launch_counts().items() if n}
+    with kpolicy.using_policy("baseline"):
+        base = analyse(fn, *args)
+    torch.cuda.synchronize()
+    if not launched:
+        smoke.fail(f"analyser {label}: the kernel path launched no kernel")
+    for key in ("flops", "memory_bytes"):
+        if abs(kernel[key] - base[key]) > 1e-9 * max(abs(base[key]), 1.0):
+            smoke.fail(f"analyser {label}: {key} {kernel[key]!r} on the "
+                       f"kernels, {base[key]!r} under baseline")
+            diff = {op: (kernel["aten_ops"].get(op), base["aten_ops"].get(op))
+                    for op in set(kernel["aten_ops"]) | set(base["aten_ops"])
+                    if kernel["aten_ops"].get(op) != base["aten_ops"].get(op)}
+            print(f"analyser {label}: aten ops counted apart (kernels, "
+                  f"baseline): {diff}", flush=True)
+    terms = roofline_terms(kernel, peak_flops=mesh_lib.PEAK_FLOPS_BF16,
+                           hbm_bw=mesh_lib.HBM_BW, link_bw=mesh_lib.LINK_BW)
+    secs = measured_ms / 1e3
+    share = terms["bound_s"] / secs
+    mfu = model_flops / (secs * mesh_lib.PEAK_FLOPS_BF16)
+    if not share <= ROOFLINE_SHARE_MAX:
+        smoke.fail(f"analyser {label}: bound {terms['bound_s']:.6f} s over "
+                   f"the measured {secs:.6f} s ({share:.3f} > "
+                   f"{ROOFLINE_SHARE_MAX}): a wrong count or constant")
+    print(f"analyser {label}: measured {measured_ms:.3f} ms; op flops "
+          f"{kernel['flops']:.6e}, bytes {kernel['memory_bytes']:.6e} "
+          f"(baseline {base['flops']:.6e}, {base['memory_bytes']:.6e}); "
+          f"bound {terms['bound_s'] * 1e3:.3f} ms ({terms['dominant']}: "
+          f"compute {terms['compute_s'] * 1e3:.3f}, memory "
+          f"{terms['memory_s'] * 1e3:.3f}); model flops {model_flops:.6e}; "
+          f"MFU {mfu:.4f}; bound / measured {share:.4f}; peak tracked "
+          f"{kernel['memory']['peak_bytes'] / 1e9:.2f} GB; kernels launched "
+          f"{launched}; dispatch ops {kernel['dispatch_ops']}", flush=True)
+    return dict(measured_ms=measured_ms, flops=kernel["flops"],
+                memory_bytes=kernel["memory_bytes"],
+                baseline_flops=base["flops"],
+                baseline_memory_bytes=base["memory_bytes"], roofline=terms,
+                model_flops=model_flops, mfu=mfu, bound_share=share,
+                memory=kernel["memory"], launched=launched)
+
+
+def step_ms(torch, fn) -> float:
+    """Median host ms of ANALYSE_REPS calls of ``fn``, each waited for."""
+    times = []
+    for _ in range(ANALYSE_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def analysed_train(smoke: Smoke, kops) -> dict:
+    """train_pass's llama3.2-1b FULL step (bf16, AdamW, B x S = 4 x 512)
+    timed, then counted by the analyser."""
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLMPipeline
+    from repro_torch.models import build
+    from repro_torch.optim import OptConfig
+    from repro_torch.training import init_train_state, make_train_step
+
+    torch = smoke.torch
+    cfg = configs.get("llama3.2-1b").FULL
+    bundle = build(cfg)
+    opt_cfg = OptConfig()
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                             bundle, opt_cfg)
+    step = make_train_step(bundle, opt_cfg)
+    batch = SyntheticLMPipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=0), device="cuda").device_batch(0)
+    step(state, batch)
+    ms = step_ms(torch, lambda: step(state, batch))
+    mf = 6.0 * bundle.n_active_params * TRAIN_BATCH * TRAIN_SEQ
+    out = analysed(smoke, kops, f"llama3.2-1b train step B={TRAIN_BATCH} "
+                   f"S={TRAIN_SEQ}", step, (state, batch), mf, ms)
+    del state, batch
+    return out
+
+
+def analysed_decode(smoke: Smoke, kops) -> dict:
+    """One mamba2-1.3b FULL wave decode step (bf16, 4 slots after a 4 x 512
+    prefill) timed, then counted by the analyser."""
+    from repro_torch import configs
+    from repro_torch.models import build
+    from repro_torch.models.common import init_params
+    from repro_torch.training import make_serve_step
+
+    torch = smoke.torch
+    cfg = configs.get("mamba2-1.3b").FULL
+    bundle = build(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.inference_mode():
+        params = init_params(bundle.params_pspec, gen, cfg.dtype)
+        prefill_step, decode_step = make_serve_step(bundle)
+        tokens = torch.randint(3, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                               generator=gen, device="cuda")
+        _, cache = prefill_step(params, {"tokens": tokens})
+        batch = {"tokens": tokens[:, -1:]}
+        decode_step(params, cache, batch)
+        ms = step_ms(torch, lambda: decode_step(params, cache, batch))
+        mf = 2.0 * bundle.n_active_params * TRAIN_BATCH
+        out = analysed(smoke, kops, f"mamba2-1.3b decode step B="
+                       f"{TRAIN_BATCH}", decode_step, (params, cache, batch),
+                       mf, ms)
+    del params, cache
+    return out
+
+
+def dryrun_pass(smoke: Smoke, kops) -> dict:
+    """The dry run of DRYRUN_CELLS on the single mesh (a CPU subprocess, a
+    fake world of 256 ranks), the examples on the card meanwhile, then the
+    op analyser on the llama train step and the mamba decode step. The
+    phase's launches are not counted into the main path's."""
+    src = Path(__file__).resolve().parent / "src"
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(src), CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-W", "ignore", "-c", DRYRUN_SCRIPT,
+         str(DRYRUN_OUT), *(f"{a}:{s}" for a, s in DRYRUN_CELLS)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        examples = example_runs(smoke)
+    finally:
+        try:
+            log, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log = proc.communicate()[0]
+            smoke.fail(f"dry run: over {DRYRUN_TIMEOUT_S} s")
+    print(f"dry run of {len(DRYRUN_CELLS)} cells: "
+          f"{time.perf_counter() - t0:.1f} s beside the examples",
+          flush=True)
+    records = dryrun_records(smoke, proc, log)
+    out = {"dryrun": records, "examples": examples,
+           "train": analysed_train(smoke, kops)}
+    gc.collect()
+    smoke.torch.cuda.empty_cache()
+    out["decode"] = analysed_decode(smoke, kops)
+    out["launches"] = {k: 0 for k in kops.KERNELS}
+    return out
+
+
+
 def main() -> int:
     import torch
 
@@ -5006,6 +5250,18 @@ def main() -> int:
     print(f"phase {run}: {time.perf_counter() - t_run:.1f} s", flush=True)
     for k in launches:
         launches[k] += stats[run]["launches"][k]
+
+    # the dry run on a fake world, the op analyser, the examples
+    run = "dryrun and roofline"
+    t_run = time.perf_counter()
+    try:
+        stats[run] = dryrun_pass(smoke, kops)
+    except Exception as exc:
+        smoke.fail(f"dryrun and roofline pass: {exc!r}")
+        stats[run] = {"launches": {k: 0 for k in ops_counts}}
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase {run}: {time.perf_counter() - t_run:.1f} s", flush=True)
 
     with torch.inference_mode():
         t_run = time.perf_counter()

@@ -22,3 +22,7 @@ SMOKE = ModelConfig(
     n_heads=4, n_kv_heads=2, d_ff=128, head_dim=16,
     dtype=torch.float32, remat_policy="off",
 )
+
+SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+SKIPS = {"long_500k": "pure full attention (GQA); skipped per the brief"}
+OPT_STATE_DTYPE = "bfloat16"

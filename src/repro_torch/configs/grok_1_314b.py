@@ -24,3 +24,10 @@ SMOKE = ModelConfig(
     n_experts=4, experts_per_tok=2, moe_d_ff=128,
     dtype=torch.float32, remat_policy="off",
 )
+
+SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+SKIPS = {"long_500k": "pure full attention (GQA); skipped per the brief"}
+OPT_STATE_DTYPE = "bfloat16"
+# the reference trains it with Adafactor: a factored second moment
+# and bf16 momentum in place of AdamW's two full moments
+OPTIMIZER = "adafactor"

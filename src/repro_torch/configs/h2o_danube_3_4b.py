@@ -23,3 +23,7 @@ SMOKE = ModelConfig(
     n_heads=4, n_kv_heads=2, d_ff=128, head_dim=16,
     swa_window=32, dtype=torch.float32, remat_policy="off",
 )
+
+SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+SKIPS: dict = {}
+OPT_STATE_DTYPE = "float32"

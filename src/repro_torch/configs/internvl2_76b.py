@@ -25,3 +25,7 @@ SMOKE = ModelConfig(
     stub_tokens=8, stub_dim=32,
     dtype=torch.float32, remat_policy="off",
 )
+
+SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+SKIPS = {"long_500k": "pure full attention (GQA); skipped per the brief"}
+OPT_STATE_DTYPE = "bfloat16"

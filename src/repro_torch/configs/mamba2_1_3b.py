@@ -21,3 +21,7 @@ SMOKE = ModelConfig(
     ssm_state=16, ssm_head_dim=16, ssm_groups=1, expand=2, conv_kernel=4,
     dtype=torch.float32, remat_policy="off",
 )
+
+SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+SKIPS: dict = {}
+OPT_STATE_DTYPE = "float32"

@@ -25,3 +25,8 @@ SMOKE = ModelConfig(
     n_experts=8, experts_per_tok=2, moe_d_ff=96,
     dtype=torch.float32, remat_policy="off",
 )
+
+SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+SKIPS = {"long_500k": "pure full attention (GQA); 500k decode requires "
+                      "sub-quadratic attention per the brief — skipped"}
+OPT_STATE_DTYPE = "bfloat16"

@@ -23,3 +23,8 @@ SMOKE = ModelConfig(
     n_heads=4, n_kv_heads=4, d_ff=128, head_dim=16,
     dtype=torch.float32, remat_policy="off",
 )
+
+SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+SKIPS = {"long_500k": "full-attention enc-dec; 500k audio decode requires "
+                      "sub-quadratic attention — skipped per the brief"}
+OPT_STATE_DTYPE = "float32"

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import costs
 from repro_torch.core import policy as kpolicy
 from repro_torch.core.ragged import (
     guard_contiguous,
@@ -72,6 +73,9 @@ def _no_logdepth(op: str) -> RuntimeError:
 def reduce(x: torch.Tensor, *, policy=None,
            path: str | None = None) -> torch.Tensor:
     """Segmented sum over the last axis -> f32 ``(...,)``."""
+    if costs.ACTIVE is not None:     # an op analyser charges the call
+        return costs.ACTIVE.charge("reduce", reduce, (x,),
+                                   dict(policy=policy, path=path))
     pol = kpolicy.as_policy(policy)
     p = _resolve(pol, "reduce", x, x.shape[-1], path)
     if p == "fused":
@@ -89,6 +93,10 @@ def reduce(x: torch.Tensor, *, policy=None,
 def scan(x: torch.Tensor, *, policy=None, path: str | None = None,
          exclusive: bool = False) -> torch.Tensor:
     """Prefix sum over the last axis -> f32, same shape."""
+    if costs.ACTIVE is not None:     # an op analyser charges the call
+        return costs.ACTIVE.charge(
+            "scan", scan, (x,),
+            dict(policy=policy, path=path, exclusive=exclusive))
     pol = kpolicy.as_policy(policy)
     p = _resolve(pol, "scan", x, x.shape[-1], path)
     if p in ("fused", "xla_tile"):     # core's scan is the tile algebra
@@ -112,6 +120,9 @@ def scan(x: torch.Tensor, *, policy=None, path: str | None = None,
 def weighted_scan(x: torch.Tensor, log_a: torch.Tensor, *, policy=None,
                   path: str | None = None) -> torch.Tensor:
     """Decayed scan ``y_i = exp(log_a_i) * y_{i-1} + x_i`` -> f32."""
+    if costs.ACTIVE is not None:     # an op analyser charges the call
+        return costs.ACTIVE.charge("weighted_scan", weighted_scan,
+                                   (x, log_a), dict(policy=policy, path=path))
     pol = kpolicy.as_policy(policy)
     p = _resolve(pol, "weighted_scan", x, x.shape[-1], path)
     if p in ("fused", "xla_tile"):
@@ -135,6 +146,10 @@ def ragged_reduce(x: torch.Tensor, seg_ids: torch.Tensor, n_segments: int,
     (``scatter_add``); every other path: the one-hot matmul form.
     ``seg_ids`` may carry leading batch dims; any id order is valid, and ids
     outside ``[0, n_segments)`` contribute nowhere."""
+    if costs.ACTIVE is not None:     # an op analyser charges the call
+        return costs.ACTIVE.charge(
+            "ragged_reduce", ragged_reduce, (x, seg_ids, n_segments),
+            dict(policy=policy, path=path))
     pol = kpolicy.as_policy(policy)
     p = _resolve(pol, "ragged_reduce", x, x.shape[-1], path)
     if p == "baseline":
@@ -152,6 +167,10 @@ def ragged_scan(x: torch.Tensor, seg_ids: torch.Tensor, n_segments: int, *,
     validates, :func:`~repro_torch.core.ragged.guard_contiguous`).
     ``baseline``: ``cumsum``, the segment sum and a gather; every other
     path: the matmul form."""
+    if costs.ACTIVE is not None:     # an op analyser charges the call
+        return costs.ACTIVE.charge(
+            "ragged_scan", ragged_scan, (x, seg_ids, n_segments),
+            dict(policy=policy, path=path, debug=debug))
     pol = kpolicy.as_policy(policy)
     p = _resolve(pol, "ragged_scan", x, x.shape[-1], path)
     if p == "baseline":
@@ -198,6 +217,9 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
     resolves once, at level ``"kernel"``, where ``fused`` is the plain
     version; its registry records that run as a ``kernel_invoke`` on
     ``fused`` too, and so does the port."""
+    if costs.ACTIVE is not None:     # an op analyser charges the call
+        return costs.ACTIVE.charge("rmsnorm", rmsnorm, (x, w),
+                                   dict(eps=eps, policy=policy, path=path))
     pol = kpolicy.as_policy(policy)
     kp = _resolve(pol, "rmsnorm", x, x.shape[-1], path, level="kernel")
     if kp == "fused":
@@ -216,6 +238,11 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     ``(B, Sk, Hkv, D)`` -> ``(B, Sq, Hq, D)``. The kernel reads the model
     layout through strides, so no transposed copy is made; ``fused`` takes
     only the lengths the reference's ``chunked_attention`` takes."""
+    if costs.ACTIVE is not None:     # an op analyser charges the call
+        return costs.ACTIVE.charge(
+            "attention", attention, (q, k, v),
+            dict(causal=causal, window=window, scale=scale, policy=policy,
+                 path=path))
     pol = kpolicy.as_policy(policy)
     p = _resolve(pol, "attention", q, q.shape[1], path)
     if p in ("fused", "xla_tile"):
@@ -245,6 +272,11 @@ def ssd(x, dt, a, b, c, *, policy=None, path: str | None = None,
     ssd.q=32"``, ``--tune "ssd.q=32"``; default
     ``layout.DEFAULT_TUNING["gpu"]["ssd"]``).
     """
+    if costs.ACTIVE is not None:     # an op analyser charges the call
+        return costs.ACTIVE.charge(
+            "ssd", ssd, (x, dt, a, b, c),
+            dict(policy=policy, path=path, chunk=chunk,
+                 matmul_dtype=matmul_dtype, return_state=return_state))
     pol = kpolicy.as_policy(policy)
     p = _resolve(pol, "ssd", x, x.shape[1], path)
     if p in ("fused", "xla_tile"):

@@ -38,6 +38,7 @@ version).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 from typing import Callable
@@ -45,6 +46,7 @@ from typing import Callable
 import torch
 
 from repro_torch import device as devmod
+from repro_torch.core import costs
 from repro_torch.core.autotune import dtype_tag
 from repro_torch.core.ssd import ssd_chunked
 from repro_torch.kernels import build, layout, ref
@@ -195,16 +197,19 @@ class _ViaPlain(torch.autograd.Function):
     def backward(ctx, *grads):
         inputs = [t.detach().requires_grad_(t.is_floating_point())
                   for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = ctx.plain(*inputs, **ctx.kwargs)
-        outs = out if isinstance(out, tuple) else (out,)
-        # the form may compute in f32 where the kernel returned x's dtype
-        pairs = [(o, g.to(o.dtype)) for o, g in zip(outs, grads)
-                 if g is not None and o.requires_grad]
-        wrt = [t for t in inputs if t.requires_grad]
-        got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
-                                       [g for _, g in pairs],
-                                       allow_unused=True))
+        # an op analyser charges this backward by formula (core/costs.py)
+        with (costs.ACTIVE.uncounted() if costs.ACTIVE is not None
+              else contextlib.nullcontext()):
+            with torch.enable_grad():
+                out = ctx.plain(*inputs, **ctx.kwargs)
+            outs = out if isinstance(out, tuple) else (out,)
+            # the form may compute in f32 where the kernel returned x's dtype
+            pairs = [(o, g.to(o.dtype)) for o, g in zip(outs, grads)
+                     if g is not None and o.requires_grad]
+            wrt = [t for t in inputs if t.requires_grad]
+            got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                           [g for _, g in pairs],
+                                           allow_unused=True))
         return (None, None, None,
                 *[next(got) if t.requires_grad else None for t in inputs])
 
@@ -500,12 +505,14 @@ def attention_plain(q, k, v, *, causal: bool = True,
                     window: int | None = None, scale: float | None = None):
     """The kernel's plain version in the model layout: the oracle on the
     ``(B, H, S, D)`` views of ``q (B, Sq, Hq, D)`` and ``k``/``v``
-    ``(B, Sk, Hkv, D)``."""
+    ``(B, Sk, Hkv, D)``, its output contiguous as the kernel's is (so the
+    model's glue after it runs the same ops on either)."""
     def t(a):
         return a.transpose(1, 2)
 
     return t(ref.flash_attention_ref(t(q), t(k), t(v), causal=causal,
-                                     window=window, scale=scale))
+                                     window=window, scale=scale)
+             ).contiguous()
 
 
 def _tma_ready(t: torch.Tensor) -> bool:

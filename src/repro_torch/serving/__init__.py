@@ -4,6 +4,8 @@ from repro_torch.serving.engine import (
     Result,
     ServeConfig,
     ServingEngine,
+    demo_engine,
 )
 
-__all__ = ["Request", "Result", "ServeConfig", "ServingEngine"]
+__all__ = ["Request", "Result", "ServeConfig", "ServingEngine",
+           "demo_engine"]

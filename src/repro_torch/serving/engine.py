@@ -936,3 +936,18 @@ class ServingEngine:
                 arrival_s=r.arrival_s, first_token_s=times[i][0],
                 finish_s=times[i][-1], token_s=ts))
         return results
+
+
+def demo_engine(bundle: Bundle, *, slots: int = 4, max_new: int = 16,
+                seed: int = 0, scheduler: str = "continuous",
+                prefill_chunk: int = 16, policy=None, device="cuda",
+                gen: torch.Generator | None = None) -> ServingEngine:
+    """The reference's demo engine: random parameters in the model's dtype
+    drawn from ``gen`` (a generator on ``device`` seeded ``seed`` when
+    None) and an engine over them; ``seed`` also seeds the sampler."""
+    if gen is None:
+        gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(bundle.params_pspec, gen, bundle.cfg.dtype)
+    return ServingEngine(bundle, params, ServeConfig(
+        slots=slots, max_new=max_new, seed=seed, scheduler=scheduler,
+        prefill_chunk=prefill_chunk, policy=policy))

@@ -2,6 +2,7 @@ from repro_torch.training.train_lib import (
     TrainConfig,
     init_sharded_train_state,
     init_train_state,
+    make_serve_step,
     make_train_step,
     shard_train_state,
     state_shape_structs,
@@ -11,5 +12,6 @@ from repro_torch.training.train_lib import (
 )
 
 __all__ = ["TrainConfig", "init_sharded_train_state", "init_train_state",
-           "make_train_step", "shard_train_state", "state_shape_structs",
-           "state_shardings", "train_state_pspecs", "value_and_grad"]
+           "make_serve_step", "make_train_step", "shard_train_state",
+           "state_shape_structs", "state_shardings", "train_state_pspecs",
+           "value_and_grad"]

@@ -426,3 +426,20 @@ def make_train_step(bundle: Bundle, opt_cfg: OptConfig,
 
     step.split = {}
     return step
+
+
+def make_serve_step(bundle: Bundle) -> tuple[Callable, Callable]:
+    """-> (prefill_step, decode_step), the reference's: the parameters (the
+    forward's layout, ``init_params(bundle.params_pspec)``'s) cast to the
+    compute dtype inside (serving params are stored in it, so the cast
+    makes no copy). The prefill is ``bundle.prefill_last``: serving takes
+    only the last position's logits, so no (B, S, vocab) buffer is made."""
+    dtype = bundle.cfg.dtype
+
+    def prefill_step(params, batch):
+        return bundle.prefill_last(cast_tree(params, dtype), batch)
+
+    def decode_step(params, cache, batch):
+        return bundle.decode(cast_tree(params, dtype), cache, batch)
+
+    return prefill_step, decode_step
