@@ -224,26 +224,42 @@ Phases:
    ``kernels`` line.
    Then sharded training and lockstep serving (``sharded_pass``; each rank
    a process of this script, ``--sharded-worker train|serve RANK WORLD
-   DIR``, gloo through host memory): 4 ranks train llama3.2-1b FULL on
-   ``data=2,model=2`` (``init_sharded_train_state``: each rank's quarter
-   of the f32 masters and AdamW moments; bf16 compute; global batch 4 x
-   512 from ``SyntheticLMPipeline(seed=0, sharding=ctx)``, 2 x 512 rows a
-   rank), one warm step and 2 timed steps (step ms a rank split into
-   gather, forward+backward, reduce-scatter and update; the bytes a rank
-   needs reckoned first and printed), an async checkpoint of the state;
-   then the f32 step at 2 layers against the unsharded
-   ``make_train_step`` from the same state. 2 ranks restore the params on
-   ``model=2`` (elastic, 4 -> 2) and serve the continuous phase's 8
-   requests on the ring and the paged cache in lockstep (tok/s, host ms a
-   T = 16 and T = 1 tick, their device ms by kind, peak GB), then f32 at 2
-   layers against the unsharded engine. Gated: train launches a step
-   (RMSNorm 4L + 1, flash 2L, ``tcu_reduce`` one a leaf) on every rank,
-   equal losses, rows by data coordinate, the f32 loss within 1e-5 and the
-   params within 1e-5 plus AdamW's first-step conditioning (the rule of
-   tests/test_torch_training.py); the restored params' digests equal the
+   DIR``, gloo through host memory): 4 ranks train llama3.2-1b FULL and
+   then mamba2-1.3b FULL at 8 of 48 layers (``SHARD_TRAIN_LAYERS``) on
+   ``data=2,model=2`` through the tensor-parallel step
+   (``init_sharded_train_state``: each rank's quarter of the f32 masters
+   and AdamW moments; bf16 compute; a rank's half of the heads, ``ff``
+   columns, SSM heads and vocab, each layer's weights gathered over
+   ``data`` inside the layer; global batch 4 x 512 from
+   ``SyntheticLMPipeline(seed=0, sharding=ctx)``, 2 x 512 rows a rank),
+   one warm step and 2 timed steps each (step ms a rank split into
+   gather, forward+backward, reduce-scatter, the activations' all-reduces
+   over ``model`` and update; peak GB a rank; the bytes a gather-whole
+   rank would need reckoned first and printed), an async checkpoint of
+   llama's state; then each model's f32 step at 2 layers against the
+   unsharded ``make_train_step`` from the same state. The same 4 ranks then
+   train llama3.2-1b FULL at 2 of 16 layers (``SHARD_GATHER_LAYERS``)
+   again on ``data=4`` through the gather-whole step
+   (each leaf's bf16 cast gathered whole before the forward: the step of
+   every family on a data-only mesh and of the MoE and the encoder-decoder
+   on any mesh), 1 x 512 rows a rank, with the same timing, f32 parity and
+   gates (launches ``train_launches``, its own parts). 2 ranks restore the
+   params on ``model=2`` (elastic, 4 -> 2) and serve the continuous phase's
+   8 requests on the ring and the paged cache in lockstep (tok/s, host ms
+   a T = 16 and T = 1 tick, their device ms by kind, peak GB), then f32 at
+   2 layers against the unsharded engine. Gated: train launches a step at
+   the local shapes (llama RMSNorm 4L + 1, flash 2L at Hq=16 Hkv=4,
+   ``tcu_reduce`` one a leaf; mamba RMSNorm 2L + 1, the SSD 2L at H=32,
+   ``tcu_reduce`` one a leaf and 2L for the split gated norm) on every
+   rank, equal losses, each route's parts, rows by data coordinate,
+   llama's tensor-parallel peak GB a rank below the gather-whole step's
+   10.04 (its measurement on ``data=2,model=2``),
+   the f32 loss within 1e-5 and the params within 1e-5 plus AdamW's
+   first-step conditioning (the rule of tests/test_torch_training.py);
+   the restored params' digests equal the
    saved ones; both serving ranks' tokens equal, RMSNorm 2L + 1 a tick, no
    graph, each rank half the KV heads; f32 logits within 1e-3 of the
-   unsharded engine's and its tokens equal. About 105 s.
+   unsharded engine's and its tokens equal. About 170 s.
    Then the dry run and the roofline (``dryrun and roofline``): a CPU
    subprocess runs ``repro_torch.launch.dryrun`` on DRYRUN_CELLS of the
    single mesh (rank 0 of a fake 256-rank world, FULL configs as fake
@@ -328,6 +344,7 @@ N_ELEMS = 1 << 24
 # llama3.2-1b's tied embedding (128256 x 2048) and mamba2-1.3b's stacked
 # in_proj (48 x 2048 x 8512)
 GLOBAL_NORM_ROWS = (128256 * 2048, 48 * 2048 * 8512)
+TP_NORM_ROWS = (2 * 512, 4096 // 2)   # mamba2's split gated norm, model=2
 SPIN_CAP_MS = 20.0                  # longest spin before a timed launch
 OBS_DIR = Path(__file__).resolve().parent / "build" / "obs"   # traces
 
@@ -483,6 +500,17 @@ def reduce_scan_cases(torch, kops, ref, gen):
                                                  dtype=torch.float32),
                 rtol=1e-3, nbytes=nbytes(x) + 4 * x.numel(), ops=x.numel(),
                 dtype=dtype))
+    # the split gated norm of mamba2's train step over model=2: the Σx² of
+    # a rank's 2048 of d_inner's columns, 2 x 512 rows
+    x = torch.randn(TP_NORM_ROWS, generator=gen, device="cuda") ** 2
+    out.append(dict(
+        kernel="tcu_reduce", label=f"float32 rows={TP_NORM_ROWS[0]} "
+        f"n={TP_NORM_ROWS[1]} (split gated norm, model=2)", primary=False,
+        run=lambda x=x: kops.segmented_reduce(x),
+        plain=lambda x=x: ref.segmented_reduce_ref(x),
+        library=lambda x=x: torch.sum(x, dim=-1, dtype=torch.float32),
+        rtol=2e-4, nbytes=nbytes(x) + 4 * TP_NORM_ROWS[0],
+        ops=x.numel(), dtype=torch.float32))
     # the train step's global norm reduces each parameter leaf's squares as
     # one row: the largest leaves of both models, positive as squares are
     for n in GLOBAL_NORM_ROWS:
@@ -554,6 +582,10 @@ def ssd_cases(torch, kops, ref, gen):
                                   ((4, 468, 80, 64, 1, 64), torch.bfloat16,
                                    False),
                                   ((4, 512, 80, 64, 1, 64), torch.bfloat16,
+                                   False),
+                                  # mamba2's train step split over model=2:
+                                  # a rank's 32 heads of its 2 rows
+                                  ((2, 512, 32, 64, 1, 128), torch.bfloat16,
                                    False)):
         ins = ssd_inputs(torch, gen, *shape, dtype)
         bsz, seqlen, nheads, hdim, ngroups, nstate = shape
@@ -764,7 +796,10 @@ def attention_cases(torch, kops, gen):
             (4, 468, 468, 32, 8, 120, True, None, torch.bfloat16, False),
             (1, 6144, 6144, 32, 8, 120, True, 4096, torch.bfloat16, False),
             (4, 468, 468, 32, 8, 120, True, None, torch.float32, False),
-            (1, 6144, 6144, 32, 8, 120, True, 4096, torch.float32, False)):
+            (1, 6144, 6144, 32, 8, 120, True, 4096, torch.float32, False),
+            # llama3.2-1b's train step split over model=2: a rank's 16 / 4
+            # heads of its data coordinate's 2 rows
+            (2, 512, 512, 16, 4, 64, True, None, torch.bfloat16, False)):
         def rn(*shape):
             return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
@@ -4301,7 +4336,22 @@ def distributed_pass(smoke: Smoke, kops) -> dict:
 # sharded training and lockstep serving (``sharded_pass``)
 
 SHARD_ARCH = "llama3.2-1b"
+# trained on the mesh, each through the tensor-parallel step; the first's
+# state is checkpointed for the serving world
+SHARD_TRAIN_ARCHS = (SHARD_ARCH, "mamba2-1.3b")
 SHARD_TRAIN_MESH = "data=2,model=2"
+# depths cut to keep the script inside its time limit (llama whole: its
+# peak is gated against the gather-whole step's at the same depth)
+SHARD_TRAIN_LAYERS = {"mamba2-1.3b": 8}
+# llama trained again through the gather-whole step (every family's step on
+# a mesh without a split model dim, the MoE's and the encoder-decoder's on
+# any mesh) on a data-only mesh of the same world, at this depth
+SHARD_GATHER_MESH = "data=4"
+SHARD_GATHER_LAYERS = 2
+# llama's peak GB a training rank under the gather-whole step, which
+# gathers every bf16 weight and gradient whole (this phase's earlier
+# measurement on the H100); the tensor-parallel step must stay below it
+SHARD_GATHER_WHOLE_PEAK_GB = 10.04
 SHARD_SERVE_MESH = "model=2"
 SHARD_BATCH, SHARD_SEQ = 4, 512     # global batch, 2 x 512 rows a data rank
 SHARD_TIMED = 2                     # timed steps after one warm step
@@ -4363,23 +4413,59 @@ def leaf_digest(torch, leaf) -> int:
 
 
 def sharded_train_worker(rank: int, world: int, out_dir: str) -> dict:
-    """One rank of the sharded phase's training world: llama3.2-1b FULL
-    (bf16 compute, f32 masters, AdamW) on ``SHARD_TRAIN_MESH``, a warm step
-    and ``SHARD_TIMED`` timed steps of the pipeline's rows of this rank's
-    data coordinate, the digests of its params, an async checkpoint under
-    ``SHARD_CKPT``; then the f32 step at ``PARITY_LAYERS`` layers against
-    the unsharded ``make_train_step`` from the same state."""
+    """One rank of the sharded phase's training world: on
+    ``SHARD_TRAIN_MESH`` each of ``SHARD_TRAIN_ARCHS`` trained FULL by
+    :func:`sharded_train_run` (the tensor-parallel step: their families
+    split over ``model``), the first one's state checkpointed under
+    ``SHARD_CKPT`` for the serving world; then ``SHARD_ARCH`` at
+    ``SHARD_GATHER_LAYERS`` layers on ``SHARD_GATHER_MESH`` (the
+    gather-whole step), under ``gather_whole``."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import make_context
+
+    ctx = make_context(SHARD_TRAIN_MESH, device="cuda")
+    report: dict = {"backend": dist.get_backend(),
+                    "coordinate": list(ctx.mesh.get_coordinate())}
+    for arch in SHARD_TRAIN_ARCHS:
+        report[arch] = sharded_train_run(ctx, arch,
+                                         checkpoint=arch == SHARD_ARCH,
+                                         layers=SHARD_TRAIN_LAYERS.get(arch))
+    report["rows"] = report[SHARD_ARCH]["rows"]
+    report["gather_whole"] = sharded_train_run(
+        make_context(SHARD_GATHER_MESH, device="cuda"), SHARD_ARCH,
+        checkpoint=False, layers=SHARD_GATHER_LAYERS)
+    return report
+
+
+def shard_cfg(arch: str, layers: int | None):
+    """``arch``'s FULL config at ``layers`` layers (None: all of them)."""
+    from repro_torch import configs
+
+    full = configs.get(arch).FULL
+    return dataclasses.replace(full, n_layers=layers or full.n_layers)
+
+
+def sharded_train_run(ctx, arch: str, checkpoint: bool,
+                      layers: int | None = None) -> dict:
+    """``arch`` FULL (bf16 compute, f32 masters, AdamW) at ``layers`` layers
+    (None: all) on ``ctx``'s mesh:
+    a warm step and ``SHARD_TIMED`` timed steps of the pipeline's rows of
+    this rank's data coordinate, with every launch count set to 0 before
+    the timed steps; the digests of its params and, with ``checkpoint``, an
+    async checkpoint under ``SHARD_CKPT``; then the f32 step at
+    ``PARITY_LAYERS`` layers against the unsharded ``make_train_step`` from
+    the same state."""
     import torch
     import torch.distributed as dist
 
-    from repro_torch import configs, tree
+    from repro_torch import tree
     from repro_torch.checkpoint import ckpt
     from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline, \
         _philox_tokens
     from repro_torch.kernels import ops as kops
     from repro_torch.models import build as build_model
     from repro_torch.optim import OptConfig
-    from repro_torch.parallel import make_context
     from repro_torch.parallel.sharded_state import local, local_index
     from repro_torch.parallel.sharding import spec_of
     from repro_torch.training import (
@@ -4389,16 +4475,17 @@ def sharded_train_worker(rank: int, world: int, out_dir: str) -> dict:
     )
 
     report: dict = {}
-    ctx = make_context(SHARD_TRAIN_MESH, device="cuda")
-    report["backend"] = dist.get_backend()
-    cfg = configs.get(SHARD_ARCH).FULL
+    cfg = shard_cfg(arch, layers)
+    report["n_layers"] = cfg.n_layers
     bundle = build_model(cfg)
     opt_cfg = OptConfig(peak_lr=SHARD_LR, warmup_steps=0, decay_steps=100)
     data_cfg = DataConfig(vocab=cfg.vocab, seq_len=SHARD_SEQ,
                           global_batch=SHARD_BATCH, seed=0)
     data = SyntheticLMPipeline(data_cfg, device="cuda", sharding=ctx)
     report["rows"] = list(data.host_range())
-    report["coordinate"] = list(ctx.mesh.get_coordinate())
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = init_sharded_train_state(
         torch.Generator(device="cuda").manual_seed(0), bundle, opt_cfg, ctx)
@@ -4435,17 +4522,20 @@ def sharded_train_worker(rank: int, world: int, out_dir: str) -> dict:
     report["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     report["digests"] = {k: leaf_digest(torch, v)
                          for k, v in tree.items(state["params"])}
-    # an async checkpoint of the state: the snapshot blocks, the write not
-    writer = ckpt.AsyncCheckpointer(str(SHARD_CKPT))
-    t0 = time.perf_counter()
-    writer.save(1 + SHARD_TIMED, state)
-    report["ckpt_snapshot_s"] = time.perf_counter() - t0
+    if checkpoint:
+        # an async checkpoint of the state: the snapshot blocks, the write
+        # not
+        writer = ckpt.AsyncCheckpointer(str(SHARD_CKPT))
+        t0 = time.perf_counter()
+        writer.save(1 + SHARD_TIMED, state)
+        report["ckpt_snapshot_s"] = time.perf_counter() - t0
     del state, m, batch
     gc.collect()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    writer.wait()
-    report["ckpt_write_wait_s"] = time.perf_counter() - t0
+    if checkpoint:
+        t0 = time.perf_counter()
+        writer.wait()
+        report["ckpt_write_wait_s"] = time.perf_counter() - t0
 
     # f32 at PARITY_LAYERS layers: the sharded step against the unsharded
     # one from the same state, this rank's shard of each
@@ -4460,7 +4550,9 @@ def sharded_train_worker(rank: int, world: int, out_dir: str) -> dict:
     whole = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
     lo, hi = report["rows"]
     mine = {k: v[lo:hi] for k, v in whole.items()}
-    sh, ms = make_train_step(pb, opt_cfg, mesh_ctx=ctx)(sh, mine)
+    pstep = make_train_step(pb, opt_cfg, mesh_ctx=ctx)
+    sh, ms = pstep(sh, mine)
+    report["parity_split"] = sorted(pstep.split)
     un, mu = make_train_step(pb, opt_cfg)(un, whole)
     lr, eps, b1 = float(mu["lr"]), opt_cfg.eps, opt_cfg.b1
     worst, raw, beyond, total = 0.0, 0.0, 0, 0
@@ -4487,6 +4579,9 @@ def sharded_train_worker(rank: int, world: int, out_dir: str) -> dict:
         "grad_norm_unsharded": float(mu["grad_norm"]),
         "param_err_over_slack": worst, "param_err": raw,
         "beyond_1e-5": beyond, "elements": total}
+    del sh, un
+    gc.collect()
+    torch.cuda.empty_cache()
     return report
 
 
@@ -4676,19 +4771,117 @@ def run_world(role: str, ranks: int, out_dir: Path) -> list:
             for r in range(ranks)]
 
 
+def tp_train_launches(cfg, n_leaves: int, kernels) -> dict:
+    """Kernel launches of one tensor-parallel train step: a rank's share of
+    ``train_launches``, where a Mamba layer's gated norm (its ``d_inner``
+    split over ``model``) is ``split_rmsnorm``'s row-segmented reduce on
+    ``tcu_reduce`` in place of ``rmsnorm`` (2L: forward and recompute)."""
+    from repro_torch.models.lm import STATE_FAMILIES
+
+    want = train_launches(cfg, n_leaves, kernels)
+    if cfg.family in STATE_FAMILIES:
+        want["rmsnorm"] -= 2 * cfg.n_layers
+        want["tcu_reduce"] += 2 * cfg.n_layers
+    return want
+
+
+def sharded_train_gates(smoke: Smoke, kops, arch: str, reps: list,
+                        smi: str, mesh: str = SHARD_TRAIN_MESH,
+                        split: bool = True) -> dict:
+    """The training world's gates on ``arch``'s reports on ``mesh``, one a
+    rank, through the tensor-parallel step (``split``) or the gather-whole
+    one: the launches a step (``tp_train_launches`` or
+    ``train_launches``), the ranks' losses equal (each is the mean over
+    ``data``), the step's parts those of the route, the f32 step within
+    1e-5 (plus AdamW's first-step conditioning) of the unsharded step and
+    its loss within 1e-5, and, split, llama's peak GB a rank below the
+    gather-whole step's (``SHARD_GATHER_WHOLE_PEAK_GB``). Prints and
+    returns its numbers."""
+    cfg = shard_cfg(arch, reps[0]["n_layers"])
+    launches = {k: 0 for k in kops.KERNELS}
+    want = (tp_train_launches if split else train_launches)(
+        cfg, reps[0]["n_leaves"], kops.KERNELS)
+    parts = ["forward_backward", "gather", "reduce_scatter"] \
+        + ["tp_all_reduce"] * split + ["update"]
+    route = "tensor-parallel" if split else "gather-whole"
+    tag = f"sharded train {arch} on {mesh}"
+    for rep in reps:
+        for k in launches:
+            launches[k] += rep["launches"][k]
+        got = {k: rep["launches"][k] for k in want}
+        per = scaled(want, SHARD_TIMED)
+        if got != per:
+            smoke.fail(f"{tag} rank {rep['rank']}: launches "
+                       f"{got}, want {per} ({SHARD_TIMED} steps)")
+        if rep["losses"] != reps[0]["losses"] or \
+                not all(np.isfinite(rep["losses"])):
+            smoke.fail(f"{tag} rank {rep['rank']}: losses "
+                       f"{rep['losses']} vs rank 0 {reps[0]['losses']}")
+        if sorted(rep["split_ms"][0]) != parts or \
+                rep["parity_split"] != parts:
+            smoke.fail(f"{tag} rank {rep['rank']}: "
+                       f"step parts {sorted(rep['split_ms'][0])}, want the "
+                       f"{route} step's {parts}")
+        par = rep["parity"]
+        if not abs(par["loss"] - par["loss_unsharded"]) <= 1e-5:
+            smoke.fail(f"{tag} rank {rep['rank']}: f32 loss "
+                       f"{par['loss']} vs unsharded {par['loss_unsharded']}")
+        if not par["param_err_over_slack"] <= 1e-5:
+            smoke.fail(f"{tag} rank {rep['rank']}: f32 params "
+                       f"differ from the unsharded step's by "
+                       f"{par['param_err_over_slack']:.3e} over AdamW's "
+                       "first-step slack (want <= 1e-5)")
+        if split and arch == SHARD_ARCH and \
+                not rep["peak_gb"] < SHARD_GATHER_WHOLE_PEAK_GB:
+            smoke.fail(f"{tag} rank {rep['rank']}: peak "
+                       f"{rep['peak_gb']:.2f} GB, want below the gather-"
+                       f"whole step's {SHARD_GATHER_WHOLE_PEAK_GB}")
+    step_ms = [statistics.median(r["step_ms"]) for r in reps]
+    parts_ms = {k: [statistics.median(s[k] for s in r["split_ms"])
+                    for r in reps] for k in reps[0]["split_ms"][0]}
+    print(f"sharded train: {arch} FULL at {cfg.n_layers} of "
+          f"{shard_cfg(arch, None).n_layers} layers on {mesh} ({route} "
+          f"step), 4 ranks on one card ({smi}), gloo through host "
+          f"memory; global batch {SHARD_BATCH} x {SHARD_SEQ}, a rank's rows "
+          f"{[r['rows'] for r in reps]}; losses {reps[0]['losses']} "
+          f"(warm {reps[0]['warm_loss']:.4f}, grad norm "
+          f"{reps[0]['grad_norm']:.4f}); step ms a rank (median of "
+          f"{SHARD_TIMED}) {[round(v, 1) for v in step_ms]}; split ms "
+          + ", ".join(f"{k} {[round(v, 1) for v in vs]}"
+                      for k, vs in parts_ms.items())
+          + f"; warm step s {[round(r['warm_s'], 1) for r in reps]}; "
+          f"state GB a rank {[round(r['state_gb'], 2) for r in reps]}; "
+          f"peak GB a rank {[round(r['peak_gb'], 2) for r in reps]}; "
+          f"launches a rank {reps[0]['launches']}", flush=True)
+    par = [r["parity"] for r in reps]
+    print(f"{tag} f32 parity at {parity_depth(cfg)} layers: "
+          f"loss {par[0]['loss']:.7f} vs unsharded "
+          f"{par[0]['loss_unsharded']:.7f}, grad norm "
+          f"{par[0]['grad_norm']:.6f} vs {par[0]['grad_norm_unsharded']:.6f}"
+          f"; params |sharded - unsharded| max "
+          f"{max(p['param_err'] for p in par):.3e}, "
+          f"{sum(p['beyond_1e-5'] for p in par)} of "
+          f"{sum(p['elements'] for p in par)} elements past 1e-5, worst past "
+          "the first-step slack "
+          f"{max(p['param_err_over_slack'] for p in par):.3e}", flush=True)
+    return {"launches": launches, "step_ms": step_ms, "split_ms": parts_ms,
+            "peak_gb": [r["peak_gb"] for r in reps]}
+
+
 def sharded_pass(smoke: Smoke, kops) -> dict:
     """Sharded training and lockstep serving on this one card: a gloo world
-    of 4 ranks trains llama3.2-1b FULL on ``data=2,model=2`` and checkpoints
-    its state, then a world of 2 ranks restores the params on ``model=2``
-    (elastic, 4 -> 2 ranks) and serves the continuous phase's requests on
-    the ring and the paged cache. Gated here on the ranks' reports: the
-    ranks' losses equal, the train launches a step (``train_launches``:
-    RMSNorm 4L + 1, flash attention 2L, ``tcu_reduce`` one a leaf), the
-    restored params' digests equal the saved ones, both serving ranks'
-    tokens equal, RMSNorm 2L + 1 a tick, no graph under the mesh, the f32
-    train step within 1e-5 (plus AdamW's first-step conditioning) of the
-    unsharded step and its loss within 1e-5, the f32 serving logits within
-    1e-3 of the unsharded engine's and its tokens equal."""
+    of 4 ranks trains llama3.2-1b and mamba2-1.3b FULL (mamba2 at
+    ``SHARD_TRAIN_LAYERS``) on ``data=2,model=2`` through the
+    tensor-parallel step and checkpoints llama's state, and trains llama
+    again at ``SHARD_GATHER_LAYERS`` on ``data=4`` through the gather-whole
+    step; then a world of 2 ranks restores the params on
+    ``model=2`` (elastic, 4 -> 2 ranks) and serves the continuous phase's
+    requests on the ring and the paged cache. Gated here on the ranks'
+    reports: the training gates of :func:`sharded_train_gates` for each
+    run, the restored params' digests equal the saved ones, both serving
+    ranks' tokens equal, RMSNorm 2L + 1 a tick, no graph under the mesh, the
+    f32 serving logits within 1e-3 of the unsharded engine's and its tokens
+    equal."""
     from repro_torch import configs
     from repro_torch.models import build as build_model
 
@@ -4718,66 +4911,36 @@ def sharded_pass(smoke: Smoke, kops) -> dict:
     launches = {k: 0 for k in kops.KERNELS}
 
     # training
-    want = train_launches(cfg, train[0]["n_leaves"], kops.KERNELS)
-    for rep in train:
-        for k in launches:
-            launches[k] += rep["launches"][k]
-        got = {k: rep["launches"][k] for k in want}
-        per = scaled(want, SHARD_TIMED)
-        if got != per:
-            smoke.fail(f"sharded train rank {rep['rank']}: launches {got}, "
-                       f"want {per} ({SHARD_TIMED} steps)")
-        if rep["losses"] != train[0]["losses"] or \
-                not all(np.isfinite(rep["losses"])):
-            smoke.fail(f"sharded train rank {rep['rank']}: losses "
-                       f"{rep['losses']} vs rank 0 {train[0]['losses']}")
-        par = rep["parity"]
-        if not abs(par["loss"] - par["loss_unsharded"]) <= 1e-5:
-            smoke.fail(f"sharded train rank {rep['rank']}: f32 loss "
-                       f"{par['loss']} vs unsharded {par['loss_unsharded']}")
-        if not par["param_err_over_slack"] <= 1e-5:
-            smoke.fail(f"sharded train rank {rep['rank']}: f32 params differ "
-                       f"from the unsharded step's by "
-                       f"{par['param_err_over_slack']:.3e} over AdamW's "
-                       "first-step slack (want <= 1e-5)")
     if {r["backend"] for r in train} != {"gloo"}:
         smoke.fail(f"sharded train: backend {[r['backend'] for r in train]}")
     rows = sorted(tuple(r["rows"]) for r in train)
     if rows != [(0, 2), (0, 2), (2, 4), (2, 4)]:
         smoke.fail(f"sharded train: rows by rank {rows}, want 2 x [0, 2) and "
                    "2 x [2, 4)")
-    saved = {k: sum(r["digests"][k] for r in train) % DIGEST_P
-             for k in train[0]["digests"]}
-    step_ms = [statistics.median(r["step_ms"]) for r in train]
-    split = {k: [statistics.median(s[k] for s in r["split_ms"])
-                 for r in train] for k in train[0]["split_ms"][0]}
-    print(f"sharded train: {SHARD_ARCH} FULL on {SHARD_TRAIN_MESH}, 4 ranks "
-          f"on one card ({smi}), gloo through host memory; global batch "
-          f"{SHARD_BATCH} x {SHARD_SEQ}, a rank's rows "
-          f"{[r['rows'] for r in train]}; losses {train[0]['losses']} "
-          f"(warm {train[0]['warm_loss']:.4f}, grad norm "
-          f"{train[0]['grad_norm']:.4f}); step ms a rank (median of "
-          f"{SHARD_TIMED}) {[round(v, 1) for v in step_ms]}; split ms "
-          + ", ".join(f"{k} {[round(v, 1) for v in vs]}"
-                      for k, vs in split.items())
-          + f"; warm step s {[round(r['warm_s'], 1) for r in train]}; "
-          f"state GB a rank {[round(r['state_gb'], 2) for r in train]}; "
-          f"peak GB a rank {[round(r['peak_gb'], 2) for r in train]}; "
-          f"checkpoint snapshot s "
-          f"{[round(r['ckpt_snapshot_s'], 1) for r in train]}, write wait "
-          f"s {[round(r['ckpt_write_wait_s'], 1) for r in train]}; "
-          f"launches a rank {train[0]['launches']}; world "
-          f"{t_train:.1f} s", flush=True)
-    par = [r["parity"] for r in train]
-    print("sharded train f32 parity at 2 layers: loss "
-          f"{par[0]['loss']:.7f} vs unsharded {par[0]['loss_unsharded']:.7f}"
-          f", grad norm {par[0]['grad_norm']:.6f} vs "
-          f"{par[0]['grad_norm_unsharded']:.6f}; params |sharded - "
-          f"unsharded| max {max(p['param_err'] for p in par):.3e}, "
-          f"{sum(p['beyond_1e-5'] for p in par)} of "
-          f"{sum(p['elements'] for p in par)} elements past 1e-5, worst past "
-          "the first-step slack "
-          f"{max(p['param_err_over_slack'] for p in par):.3e}", flush=True)
+    trained = {}
+    for arch in SHARD_TRAIN_ARCHS:
+        reps = [dict(r[arch], rank=r["rank"]) for r in train]
+        trained[arch] = sharded_train_gates(smoke, kops, arch, reps, smi)
+        for k in launches:
+            launches[k] += trained[arch]["launches"][k]
+    rows = sorted(tuple(r["gather_whole"]["rows"]) for r in train)
+    if rows != [(0, 1), (1, 2), (2, 3), (3, 4)]:
+        smoke.fail(f"sharded train on {SHARD_GATHER_MESH}: rows by rank "
+                   f"{rows}, want [0, 1) to [3, 4)")
+    whole = sharded_train_gates(
+        smoke, kops, SHARD_ARCH, [dict(r["gather_whole"], rank=r["rank"])
+                                  for r in train],
+        smi, mesh=SHARD_GATHER_MESH, split=False)
+    trained["gather_whole"] = whole
+    for k in launches:
+        launches[k] += whole["launches"][k]
+    saved = {k: sum(r[SHARD_ARCH]["digests"][k] for r in train) % DIGEST_P
+             for k in train[0][SHARD_ARCH]["digests"]}
+    print(f"sharded train: checkpoint snapshot s "
+          f"{[round(r[SHARD_ARCH]['ckpt_snapshot_s'], 1) for r in train]}, "
+          f"write wait s "
+          f"{[round(r[SHARD_ARCH]['ckpt_write_wait_s'], 1) for r in train]};"
+          f" world {t_train:.1f} s", flush=True)
 
     # serving
     restored = {k: sum(r["digests"][k] for r in serve_r) % DIGEST_P
@@ -4847,9 +5010,7 @@ def sharded_pass(smoke: Smoke, kops) -> dict:
           f"{[round(r['seconds'], 1) for r in train]}, serve ranks' "
           f"{[round(r['seconds'], 1) for r in serve_r]}; phase "
           f"{t_all:.1f} s", flush=True)
-    return {"launches": launches, "train_step_ms": step_ms,
-            "train_split_ms": split, "reckoned_gb": need,
-            "peak_gb": [r["peak_gb"] for r in train],
+    return {"launches": launches, "train": trained, "reckoned_gb": need,
             "serve": {k: {"tok_s": serve_r[0]["runs"][k]["n_tok"]
                           / serve_r[0]["runs"][k]["wall_s"],
                           "device_ms": serve_r[0]["runs"][k]["device_ms"]}

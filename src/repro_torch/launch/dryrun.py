@@ -20,7 +20,12 @@ production rules, and runs the port's own step on rank 0's shards under
 
 Train cells take ``make_rules(..., fsdp=True)``, rank 0's shards of
 ``state_shape_structs`` under ``train_state_pspecs``, and one
-``make_train_step(..., mesh_ctx=)`` step. Prefill and decode cells add
+``make_train_step(..., mesh_ctx=)`` step: the tensor-parallel step for the
+dense, vlm, ssm and hybrid families (a rank's share of the heads, ``ff``
+columns, SSM heads and vocab, each layer's weights gathered over ``data``
+inside the layer, the activations' all-reduces over ``model`` charged as
+collective bytes), the gather-whole step for the MoE and the
+encoder-decoder. Prefill and decode cells add
 ``seq_shard`` (the reference's: prefill writes the cache decode reads) and
 run ``make_serve_step`` on rank 0's rows, the parameters prepared as the
 sharded engine prepares them (``serving_params``).

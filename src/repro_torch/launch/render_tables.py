@@ -19,8 +19,8 @@ from collections import defaultdict
 from repro_torch import configs
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.roofline import (
-    LEVERS,
     default_artifacts,
+    lever,
     roofline_frac,
     status,
 )
@@ -110,7 +110,7 @@ def roofline_table(art: str) -> str:
             f"{t['compute_s']:.3g} | {t['memory_s']:.3g} | "
             f"{t['collective_s']:.3g} | {t['dominant'].replace('_s', '')} | "
             f"{r['useful_flops_ratio']:.3f} | {frac:.4f} | "
-            f"{LEVERS[t['dominant']]} |")
+            f"{lever(r)} |")
     worst.sort()
     lines += ["", "Dominant-term histogram: " + ", ".join(
         f"{k.replace('_s', '')}: {v}" for k, v in sorted(doms.items()))

@@ -22,14 +22,35 @@ import os
 
 from repro_torch.launch import mesh as mesh_lib
 
+# the next lever on each dominant term: (a step that gathers its weights
+# whole, a train step split over model by tensor parallelism)
 LEVERS = {
-    "compute_s": "split the forward over model (tensor parallelism); "
-                 "fewer recomputed matmuls",
-    "memory_s": "fold the f32 casts and elementwise glue into the Hopper "
-                "kernels",
-    "collective_s": "gather layer by layer behind the compute; reduce-"
-                    "scatter in bf16",
+    "compute_s": ("split the forward over model (expert parallelism for "
+                  "the MoE; the encoder-decoder's heads); fewer recomputed "
+                  "matmuls",
+                  "fewer recomputed matmuls (remat 'dots'); the model dim "
+                  "inside an NVLink node"),
+    "memory_s": ("fold the f32 casts and elementwise glue into the Hopper "
+                 "kernels",) * 2,
+    "collective_s": ("gather layer by layer behind the compute; reduce-"
+                     "scatter in bf16",
+                     "sequence-parallel activations (a reduce-scatter and "
+                     "an all-gather for each all-reduce); the model dim "
+                     "inside an NVLink node"),
 }
+
+
+def lever(rec: dict) -> str:
+    """The next lever on a record's dominant term: a train cell of a family
+    whose step splits over model (``models.lm.TP_FAMILIES``) has the split
+    done."""
+    from repro_torch import configs
+    from repro_torch.configs.common import SHAPE_TABLE
+    from repro_torch.models.lm import TP_FAMILIES
+
+    split = SHAPE_TABLE[rec["shape"]][2] == "train" and \
+        configs.get(rec["arch"]).FULL.family in TP_FAMILIES
+    return LEVERS[rec["roofline"]["dominant"]][split]
 
 
 def bound(nbytes: float, ops: float, dtype) -> tuple[float, str]:
@@ -104,7 +125,7 @@ def main() -> None:
             r = rec["roofline"]
             print(f"  {rec['arch']:24s} {rec['shape']:12s} "
                   f"frac={roofline_frac(rec):.4f} dom={r['dominant']} "
-                  f"lever: {LEVERS[r['dominant']]}")
+                  f"lever: {lever(rec)}")
 
 
 if __name__ == "__main__":

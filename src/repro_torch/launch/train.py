@@ -50,8 +50,12 @@ the world into ``data = world // N`` by ``model = N``
 and moments under ``train_state_pspecs``, trains on its ``data``
 coordinate's rows, and writes its shards into the checkpoint; ``--resume
 auto`` restores under the *current* mesh's specs, whatever mesh wrote the
-checkpoint. Only rank 0 prints. On the card every rank takes
-``cuda:<LOCAL_RANK mod cards>``.
+checkpoint. Where ``model`` has more than one rank, the dense, vlm, ssm and
+hybrid models train tensor-parallel: a rank computes its share of the
+heads, ``ff`` columns, SSM heads and vocab, and gathers each layer's
+weights over ``data`` inside the layer (``training.train_lib``); the MoE
+and the encoder-decoder gather every weight whole. Only rank 0 prints. On
+the card every rank takes ``cuda:<LOCAL_RANK mod cards>``.
 """
 from __future__ import annotations
 
@@ -115,7 +119,11 @@ def main(argv=None) -> dict[int, float]:
     ap.add_argument("--seq", type=int, default=SMOKE_SEQ)
     ap.add_argument("--tp", type=int, default=1,
                     help="model-axis size of the training mesh: the world "
-                         "splits into data = world // tp by model = tp")
+                         "splits into data = world // tp by model = tp; "
+                         "the dense, vlm, ssm and hybrid models then split "
+                         "their heads, ff columns, SSM heads and vocab over "
+                         "model (tensor parallelism), the MoE and the "
+                         "encoder-decoder gather their weights whole")
     ap.add_argument("--mesh", default=None,
                     help="mesh axes as 'data=2,model=2' (multiplies to the "
                          "world size); overrides --tp")

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch import device as devmod
 from repro_torch.core import dispatch
+from repro_torch.parallel import tensor_parallel as tpar
 from repro_torch.parallel.sharding import spec_for
 from repro_torch.tree import map_tree as _map_tree
 
@@ -209,9 +210,20 @@ def rmsnorm(x, w, eps: float = 1e-6, policy=None):
     return dispatch.rmsnorm(x, w, eps=eps, policy=policy)
 
 
+def _vocab_split():
+    """The active tensor-parallel context where it splits the vocab (the
+    table, head and logits are this rank's part of it), else None."""
+    tp = tpar.current()
+    return tp if tp is not None and tp.vocab_split else None
+
+
 def cross_entropy(logits: torch.Tensor,
                   labels: torch.Tensor) -> torch.Tensor:
-    """Mean token cross-entropy; logsumexp in f32."""
+    """Mean token cross-entropy; logsumexp in f32. Logits split over the
+    vocab (tensor parallelism) complete it across ranks."""
+    tp = _vocab_split()
+    if tp is not None:
+        return tpar.vocab_parallel_cross_entropy(logits, labels, tp)
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
@@ -219,11 +231,20 @@ def cross_entropy(logits: torch.Tensor,
 
 
 def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of ``emb`` at ``tokens``; from this rank's rows of a table
+    split over the vocab (tensor parallelism), completed across ranks."""
+    tp = _vocab_split()
+    if tp is not None:
+        return tpar.vocab_parallel_embed(emb, tokens, tp)
     return F.embedding(tokens, emb)
 
 
 def unembed(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
-    """``x (..., d)`` against ``head (vocab, d)`` -> ``(..., vocab)``."""
+    """``x (..., d)`` against ``head (vocab, d)`` -> ``(..., vocab)``; a head
+    split over the vocab (tensor parallelism) gives this rank's columns."""
+    tp = _vocab_split()
+    if tp is not None:
+        x = tp.copy_in(x)
     return x @ head.T
 
 
@@ -244,7 +265,13 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 def swiglu(x, w_in, w_gate, w_out):
     """SwiGLU MLP: (..., d) -> (..., d). ``silu`` runs in the native
-    compute dtype, as in the reference (f32 only where the operands are)."""
+    compute dtype, as in the reference (f32 only where the operands are).
+    Under tensor parallelism the weights are this rank's ``ff`` columns
+    (rows of ``w_out``) and the partial outputs are summed across ranks."""
+    tp = tpar.current()
+    if tp is not None:
+        x = tp.copy_in(x)
     h = x @ w_in
     g = x @ w_gate
-    return (F.silu(g) * h) @ w_out
+    out = (F.silu(g) * h) @ w_out
+    return out if tp is None else tp.reduce_out(out)

@@ -30,6 +30,8 @@ from repro_torch.core.policy import KernelPolicy
 from repro_torch.core.ssd import ssd_decode_step
 from repro_torch.models.common import PSpec, rmsnorm, rope, swiglu
 from repro_torch.models.xla_attention import decode_attention
+from repro_torch.parallel import tensor_parallel as tpar
+from repro_torch.parallel.tensor_parallel import Take, merged
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,14 +122,42 @@ def attn_pspec(cfg: ModelConfig, d_in: int | None = None):
     }
 
 
+def attn_takes(cfg: ModelConfig, tp) -> dict:
+    """The columns of one attention layer a tensor-parallel rank takes: its
+    ``n_heads / model`` query heads (rows of ``wo``) and the KV heads they
+    read, ``n_kv_heads / model`` of them where that divides, else the one
+    KV head of their GQA group (the model ranks sharing it each take it)."""
+    dh, hq, hkv, m = cfg.dh, cfg.n_heads, cfg.n_kv_heads, tp.size
+    q0, q1 = tp.span(hq, "query heads")
+    q = Take(1, ((q0 * dh, q1 * dh),))
+    if hkv % m == 0:
+        k0, k1 = tp.span(hkv, "KV heads")
+    elif m % hkv == 0:
+        k0 = tp.index // (m // hkv)
+        k1 = k0 + 1
+    else:
+        raise ValueError(f"tensor parallelism over {m} ranks needs the KV "
+                         f"heads ({hkv}) to divide it or divide by it")
+    kv = Take(1, ((k0 * dh, k1 * dh),))
+    return {"wq": q, "wk": kv, "wv": kv, "wo": Take(0, q.ranges)}
+
+
 def attn_apply(p, cfg: ModelConfig, x, *, positions=None, causal=True,
                window=None, kv=None):
     """Attention over x (B,S,d) -> (out (B,S,d), (k, v)), k, v (B,Sk,Hkv,Dh)
     for the cache. Self-attention by default: rope at ``positions`` (B,S)
     on q and k. ``kv`` (B,Sk,d) makes it cross-attention: k and v project
-    from ``kv``, no rope and no causal mask, as in the reference."""
+    from ``kv``, no rope and no causal mask, as in the reference.
+
+    Under tensor parallelism (``tensor_parallel.current()``) ``p`` holds
+    this rank's heads (:func:`attn_takes`): the rank attends them, and its
+    part of ``wo``'s product is summed across ranks."""
     b, s, _ = x.shape
-    dh, hq, hkv = cfg.dh, cfg.n_heads, cfg.n_kv_heads
+    tp = tpar.current()
+    if tp is not None:
+        x = tp.copy_in(x)
+    dh = cfg.dh
+    hq, hkv = p["wq"].shape[-1] // dh, p["wk"].shape[-1] // dh
     src = x if kv is None else kv
     sk = src.shape[1]
     q = (x @ p["wq"]).reshape(b, s, hq, dh)
@@ -138,7 +168,8 @@ def attn_apply(p, cfg: ModelConfig, x, *, positions=None, causal=True,
         k = rope(k, positions, cfg.rope_theta)
     o = dispatch.attention(q, k, v, causal=causal and kv is None,
                            window=window, policy=cfg.policy)
-    return o.reshape(b, s, hq * dh) @ p["wo"], (k, v)
+    out = o.reshape(b, s, hq * dh) @ p["wo"]
+    return (out if tp is None else tp.reduce_out(out)), (k, v)
 
 
 def attn_decode(p, cfg: ModelConfig, x, cache, *, pos: int, window=None):
@@ -319,6 +350,14 @@ def mlp_pspec(cfg: ModelConfig):
             "w_out": PSpec((f, d), logical=("ff", "embed"))}
 
 
+def mlp_takes(cfg: ModelConfig, tp) -> dict:
+    """The ``ff`` columns (rows of ``w_out``) a tensor-parallel rank
+    takes."""
+    cols = (tp.span(cfg.d_ff, "ff"),)
+    return {"w_in": Take(1, cols), "w_gate": Take(1, cols),
+            "w_out": Take(0, cols)}
+
+
 def mlp_apply(p, cfg: ModelConfig, x):
     return swiglu(x, p["w_in"], p["w_gate"], p["w_out"])
 
@@ -452,14 +491,20 @@ def mamba_pspec(cfg: ModelConfig):
     }
 
 
-def _split_inproj(cfg: ModelConfig, zxbcdt):
-    di, g, ns, hh = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+def _split_inproj(cfg: ModelConfig, zxbcdt, hh: int | None = None):
+    """``in_proj``'s output -> (z, x|B|C, dt) of ``hh`` SSM heads (None:
+    every head; a tensor-parallel rank's own, whose B and C groups are
+    what the width leaves)."""
+    hh = cfg.ssm_heads if hh is None else hh
+    di = hh * cfg.ssm_head_dim
+    gns = (zxbcdt.shape[-1] - 2 * di - hh) // 2
     z = zxbcdt[..., :di]
-    xbc = zxbcdt[..., di:di + di + 2 * g * ns]
-    dt = zxbcdt[..., di + di + 2 * g * ns:]
-    if dt.shape[-1] != hh:
-        raise ValueError(f"in_proj width leaves {dt.shape[-1]} dt columns, "
-                         f"expected {hh}")
+    xbc = zxbcdt[..., di:di + di + 2 * gns]
+    dt = zxbcdt[..., di + di + 2 * gns:]
+    if dt.shape[-1] != hh or gns % cfg.ssm_state:
+        raise ValueError(f"in_proj width {zxbcdt.shape[-1]} does not hold "
+                         f"{hh} heads of {cfg.ssm_head_dim} and whole groups "
+                         f"of B and C")
     return z, xbc, dt
 
 
@@ -471,13 +516,52 @@ def _causal_conv(xbc, w, bias):
     return F.silu(out.transpose(1, 2) + bias.float()).to(xbc.dtype)
 
 
+def mamba_takes(cfg: ModelConfig, tp) -> dict:
+    """What a tensor-parallel rank of one Mamba layer takes: its
+    ``ssm_heads / model`` heads' z, x and dt columns of ``in_proj`` and
+    their conv channels, the B and C groups those heads read (whole at
+    ``ssm_groups = 1``), its heads' ``dt_bias``, ``a_log``, ``d_skip``, its
+    ``d_inner`` columns of ``norm_w`` and rows of ``out_proj``."""
+    di, g, ns, hp = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, \
+        cfg.ssm_head_dim
+    h0, h1 = tp.span(cfg.ssm_heads, "SSM heads")
+    per = cfg.ssm_heads // g                       # heads a group
+    g0, g1 = h0 // per, (h1 - 1) // per + 1
+    if (h1 - h0) % (g1 - g0) or (h1 - h0) // (g1 - g0) not in (per, h1 - h0):
+        raise ValueError(f"tensor parallelism over {tp.size} ranks splits "
+                         f"the SSM heads ({cfg.ssm_heads}) across their "
+                         f"{g} B/C groups unevenly")
+    x = (h0 * hp, h1 * hp)
+    bc = ((di + g0 * ns, di + g1 * ns),
+          (di + (g + g0) * ns, di + (g + g1) * ns))
+    conv = merged((x,) + bc)                       # of [x | B | C]
+    dt0 = 2 * di + 2 * g * ns                      # of [z | x | B | C | dt]
+    ins = merged((x,) + tuple((a + di, b + di) for a, b in conv)
+                 + ((dt0 + h0, dt0 + h1),))
+    heads = Take(0, ((h0, h1),))
+    return {"in_proj": Take(1, ins), "conv_w": Take(1, conv),
+            "conv_b": Take(0, conv), "dt_bias": heads, "a_log": heads,
+            "d_skip": heads, "norm_w": Take(0, (x,)),
+            "out_proj": Take(0, (x,))}
+
+
 def mamba_apply(p, cfg: ModelConfig, x, *, collect_cache: bool = False):
-    """x (B,S,d) -> (out (B,S,d), cache-or-None). Full-sequence path."""
+    """x (B,S,d) -> (out (B,S,d), cache-or-None). Full-sequence path.
+
+    Under tensor parallelism (``tensor_parallel.current()``) ``p`` holds
+    this rank's SSM heads (:func:`mamba_takes`): the SSD runs on them, the
+    gated norm over ``d_inner`` completes its sums across ranks
+    (``split_rmsnorm``) and ``out_proj``'s partial product is summed."""
     b, s, _ = x.shape
-    di, g, ns = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
-    hh, hp = cfg.ssm_heads, cfg.ssm_head_dim
+    tp = tpar.current()
+    if tp is not None:
+        x = tp.copy_in(x)
+    ns, hp = cfg.ssm_state, cfg.ssm_head_dim
+    hh = p["dt_bias"].shape[-1]
+    di = hh * hp
     zxbcdt = x @ p["in_proj"]
-    z, xbc_raw, dt_raw = _split_inproj(cfg, zxbcdt)
+    z, xbc_raw, dt_raw = _split_inproj(cfg, zxbcdt, hh)
+    g = (xbc_raw.shape[-1] - di) // (2 * ns)
     xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
     xs = xbc[..., :di].reshape(b, s, hh, hp)
     bmat = xbc[..., di:di + g * ns].reshape(b, s, g, ns)
@@ -490,8 +574,14 @@ def mamba_apply(p, cfg: ModelConfig, x, *, collect_cache: bool = False):
     y = y + p["d_skip"][:, None].float() * xs.float()
     y = y.reshape(b, s, di).to(x.dtype)
     y = y * F.silu(z.float()).to(x.dtype)
-    y = rmsnorm(y, p["norm_w"], cfg.norm_eps, cfg.policy)
+    if tp is None:
+        y = rmsnorm(y, p["norm_w"], cfg.norm_eps, cfg.policy)
+    else:
+        y = tpar.split_rmsnorm(y, p["norm_w"], cfg.norm_eps, cfg.d_inner, tp,
+                               cfg.policy)
     out = y @ p["out_proj"]
+    if tp is not None:
+        out = tp.reduce_out(out)
     cache = None
     if collect_cache:
         # conv cache = last K-1 *raw* mixer inputs; state (B,H,P,N) from SSD

@@ -66,12 +66,17 @@ from repro_torch.models.common import (
     unembed,
     unstack_blocks,
 )
+from repro_torch.parallel import tensor_parallel as tpar
+from repro_torch.parallel.tensor_parallel import Take
 
 
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 ATTN_FAMILIES = ("dense", "vlm", "moe")   # an attention layer in every block
 STATE_FAMILIES = ("ssm", "hybrid")        # Mamba layers: conv and state
 KV_FAMILIES = ATTN_FAMILIES + ("hybrid",)   # a KV cache
+# the families whose train step splits over the mesh's model dim
+# (:func:`lm_tp_loss`); the MoE family gathers its parameters whole
+TP_FAMILIES = ("dense", "vlm", "ssm", "hybrid")
 MOE_AUX_WEIGHT = 0.01
 # the reference's dots_with_no_batch_dims_saveable: a matmul without batch
 # dims is an mm (``x @ W`` folds its leading dims into rows) or an addmm
@@ -135,6 +140,10 @@ class Bundle:
     decode_block: Callable = None
     # its paged twin: the same and page= (the manager's plan of the tick)
     decode_block_paged: Callable = None
+    # the tensor-parallel loss: (stacked tree of tensor_parallel.Shard,
+    # batch) -> the loss under an active TensorParallel; None where the
+    # family's train step gathers its parameters whole
+    tp_loss: Callable = None
 
 
 def lm_pspec(cfg: L.ModelConfig):
@@ -214,6 +223,45 @@ def _shared_block(sp, cfg: L.ModelConfig, h, emb0, attend):
     return h + L.mlp_apply(sp["mlp"], cfg, m_in), kept
 
 
+def _block_takes(cfg: L.ModelConfig, tp) -> dict:
+    """What a tensor-parallel rank takes of one layer (the norms whole)."""
+    if cfg.family in STATE_FAMILIES:
+        return {"mamba": L.mamba_takes(cfg, tp)}
+    return {"attn": L.attn_takes(cfg, tp), "mlp": L.mlp_takes(cfg, tp)}
+
+
+def _tp_params(shards, cfg: L.ModelConfig, tp):
+    """The stacked tree of :class:`~repro_torch.parallel.tensor_parallel.
+    Shard` -> the forward's: the blocks a list of per-layer trees of shards,
+    which each layer gathers itself (:func:`lm_apply`), the rest gathered
+    here: the embedding and head as this rank's vocab rows where the vocab
+    divides the model dim (else whole, the logits replicated, as the
+    reference's spec leaves them), the hybrid's shared block as its heads
+    and ``ff`` columns."""
+    vocab = Take(0, (tp.span(cfg.vocab),)) if tp.vocab_split else None
+    takes = {"embed": vocab, "head": vocab,
+             "shared": {"attn": L.attn_takes(cfg, tp),
+                        "mlp": L.mlp_takes(cfg, tp)}
+             if cfg.family == "hybrid" else None}
+    out = {k: tp.views(v, takes.get(k)) for k, v in shards.items()
+           if k != "blocks"}
+    out["blocks"] = tp.layers(shards["blocks"], _block_takes(cfg, tp),
+                              cfg.n_layers)
+    return out
+
+
+def _split_layer(layer, tp, takes):
+    """``layer`` under tensor parallelism ``tp``: it gathers its weights
+    (each a :class:`~repro_torch.parallel.tensor_parallel.Shard`, ``takes``
+    its part) and runs with ``tp`` active, in the forward and again where
+    the remat policy recomputes it (in the backward, on autograd's device
+    thread, which the step's context does not reach)."""
+    def split(h, lp):
+        with tpar.active(tp):
+            return layer(h, tp.views(lp, takes))
+    return split
+
+
 def _embed_input(params, cfg: L.ModelConfig, batch):
     """tokens, after the projected stub prefix where the model takes one
     (vlm): (B, P + S, d)."""
@@ -242,6 +290,7 @@ def lm_apply(params, cfg: L.ModelConfig, batch, *, collect_cache=False,
     h = _embed_input(params, cfg, batch)
     b, s, _ = h.shape
     emb0 = h
+    tp = tpar.current()
     # positions from 0 in every row, left padding included, as in the
     # reference
     positions = torch.arange(s, device=h.device).expand(b, s)
@@ -267,6 +316,8 @@ def lm_apply(params, cfg: L.ModelConfig, batch, *, collect_cache=False,
             out, cache = L.mamba_apply(lp["mamba"], cfg, m_in,
                                        collect_cache=collect_cache)
             return h + out, None, cache
+    if tp is not None:
+        layer = _split_layer(layer, tp, _block_takes(cfg, tp))
     if torch.is_grad_enabled():
         # the layers only: the hybrid's shared block is not recomputed, as
         # in the reference
@@ -320,6 +371,22 @@ def lm_loss(params, cfg: L.ModelConfig, batch) -> torch.Tensor:
     if cfg.stub_tokens:
         logits = logits[:, -labels.shape[1]:]
     return cross_entropy(logits, labels) + MOE_AUX_WEIGHT * aux
+
+
+def lm_tp_loss(shards, cfg: L.ModelConfig, batch) -> torch.Tensor:
+    """:func:`lm_loss` split over the model dim of the active
+    :class:`~repro_torch.parallel.tensor_parallel.TensorParallel`:
+    ``shards`` is the train state's stacked parameter tree as this rank's
+    :class:`~repro_torch.parallel.tensor_parallel.Shard` leaves; each
+    layer gathers its own weights over the mesh's other dims inside the
+    layer (so ``cfg.remat_policy`` gathers them again in backward rather
+    than keep every layer's), and computes its share of the heads, ``ff``
+    columns, SSM heads and vocab."""
+    tp = tpar.current()
+    if tp is None:
+        raise ValueError("lm_tp_loss runs under an active TensorParallel "
+                         "(tensor_parallel.active)")
+    return lm_loss(_tp_params(shards, cfg, tp), cfg, batch)
 
 
 def pad_cache_seq(cache, extra: int):
@@ -642,8 +709,13 @@ def build_lm(cfg: L.ModelConfig) -> Bundle:
         n_active = (n - moe_total + moe_total // cfg.n_experts
                     * cfg.experts_per_tok
                     + count_params([m["router"] for m in moe]))
+
+    def tp_loss(shards, batch):
+        return lm_tp_loss(shards, cfg, batch)
+
     return Bundle(cfg=cfg, params_pspec=pspec, loss=loss,
                   prefill_last=prefill_last,
                   decode=decode, n_params=n, n_active_params=n_active,
                   cache_pspec=cache_pspec, decode_block=decode_block,
-                  decode_block_paged=decode_block_paged)
+                  decode_block_paged=decode_block_paged,
+                  tp_loss=tp_loss if cfg.family in TP_FAMILIES else None)

@@ -4,8 +4,9 @@ Counterpart of ``repro.parallel``: :class:`MeshContext` over a
 ``torch.distributed`` ``DeviceMesh`` (``mesh_context``), the logical-axis
 rules and their DTensor placements (``sharding``), the sharded reduce, scan,
 weighted scan and SSD that ``repro_torch.ops`` routes ``DTensor``s to
-(``shard_ops``), the GPipe schedule (``pipeline``), and the sharded train
-state with the gathered views its step computes on (``sharded_state``).
+(``shard_ops``), the GPipe schedule (``pipeline``), the sharded train
+state (``sharded_state``), and the views its step computes on, gathered
+whole or split over ``model`` (``tensor_parallel``).
 The reference's ``compat`` shims jax versions and has no counterpart here.
 """
 from repro_torch.parallel.mesh_context import (

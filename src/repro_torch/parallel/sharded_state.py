@@ -9,12 +9,13 @@ contiguous local tensor.
 
 * :func:`place` / :func:`place_tree` cut a full tensor (the same on every
   rank) into the rank's shard, with no collective.
-* :func:`gathered` is the compute's view of a parameter: an autograd
-  function whose forward casts the rank's shard to the compute dtype and
-  all-gathers it into the whole leaf, and whose backward takes the whole
-  leaf's gradient back onto the rank's shard: sliced where the ranks
-  computed the same thing (every mesh dim but the batch's), reduce-scattered
-  and averaged where they computed different rows (the batch's, ``data``).
+* :func:`gather_full` and :func:`scatter_grad` are the two halves of the
+  compute's view of a parameter (the autograd function
+  ``tensor_parallel.TensorParallel.view``): the forward casts the rank's
+  shard to the compute dtype and all-gathers it, and the backward takes the
+  gradient back onto the rank's shard: sliced where the ranks computed the
+  same thing (every mesh dim but the batch's), reduce-scattered and
+  averaged where they computed different rows (the batch's, ``data``).
   The reference's "bf16 cast copy all-gathered per layer, the gradient
   reduce-scattered" (``repro.training.train_lib``), done eagerly here.
 * :func:`sharded_sums` completes per-leaf partial sums over the mesh dims
@@ -138,22 +139,26 @@ def full_tensor(t) -> torch.Tensor:
 
 
 def scatter_grad(g: torch.Tensor, spec, mesh, batch_axes: tuple,
-                 dtype=torch.float32) -> torch.Tensor:
+                 dtype=torch.float32, *, sum_axes: tuple = ()) -> torch.Tensor:
     """The whole leaf's gradient ``g`` of this rank's rows -> the gradient
     of the rank's shard of the mean over the batch's mesh dims.
 
-    A mesh dim outside ``batch_axes`` holds ranks that computed the same
-    rows, hence the same gradient: its split is a slice, taken first (no
-    collective, and the f32 copy is made of the slice alone). A batch dim's
-    ranks computed different rows: a reduce-scatter where the spec shards
-    over it, an all-reduce where it does not. Then the mean's division."""
+    A mesh dim outside ``batch_axes`` and ``sum_axes`` holds ranks that
+    computed the same rows, hence the same gradient: its split is a slice,
+    taken first (no collective, and the f32 copy is made of the slice
+    alone). A batch dim's ranks computed different rows, and a dim of
+    ``sum_axes`` different parts of the leaf's use (tensor parallelism):
+    a reduce-scatter where the spec shards over it, an all-reduce where it
+    does not. Then the mean's division, over the batch dims only."""
     coord, sizes = _topology(mesh)
     batch_axes = tuple(a for a in batch_axes if sizes.get(a, 1) > 1)
+    summed = batch_axes + tuple(a for a in sum_axes
+                                if sizes.get(a, 1) > 1 and a not in batch_axes)
     rest = []
     for d, entry in enumerate(spec):
         axes = _axes(entry)
         k = 0
-        while k < len(axes) and axes[k] not in batch_axes:
+        while k < len(axes) and axes[k] not in summed:
             g = _narrow(g, d, sizes[axes[k]], coord[axes[k]])
             k += 1
         rest.append((d, axes[k:]))
@@ -161,12 +166,12 @@ def scatter_grad(g: torch.Tensor, spec, mesh, batch_axes: tuple,
     done = set()
     for d, axes in rest:
         for a in axes:
-            if a in batch_axes:
+            if a in summed:
                 g = reduce_scatter(g, d, (mesh, a))
                 done.add(a)
             else:
                 g = _narrow(g, d, sizes[a], coord[a])
-    for a in batch_axes:
+    for a in summed:
         if a not in done:
             g = all_reduce_sum(g, (mesh, a))
     n = math.prod(sizes[a] for a in batch_axes)
@@ -195,31 +200,6 @@ class StepClock:
         finally:
             self._sync()
             self.seconds[part] += time.perf_counter() - t0
-
-
-class _Gathered(torch.autograd.Function):
-    """The shard's cast copy gathered whole (forward); the whole gradient
-    back onto the shard (backward)."""
-
-    @staticmethod
-    def forward(ctx, shard, spec, mesh, dtype, batch_axes, clock):
-        ctx.spec, ctx.mesh, ctx.batch_axes = spec, mesh, batch_axes
-        ctx.clock, ctx.dtype = clock, shard.dtype
-        return gather_full(shard.to(dtype), spec, mesh)
-
-    @staticmethod
-    def backward(ctx, g):
-        with ctx.clock("reduce_scatter"):
-            out = scatter_grad(g, ctx.spec, ctx.mesh, ctx.batch_axes,
-                               ctx.dtype)
-        return out, None, None, None, None, None
-
-
-def gathered(shard: torch.Tensor, spec, mesh, dtype, batch_axes: tuple,
-             clock: StepClock) -> torch.Tensor:
-    """The compute's whole view of a sharded parameter, in ``dtype``
-    (differentiable with respect to ``shard``; see :class:`_Gathered`)."""
-    return _Gathered.apply(shard, spec, mesh, dtype, batch_axes, clock)
 
 
 def sharded_sums(leaves: list, values: list) -> list:

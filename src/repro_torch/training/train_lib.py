@@ -36,16 +36,32 @@ shapes and dtypes as ``meta`` tensors. :func:`init_sharded_train_state`
 places a state under those specs as ``DTensor`` leaves, each rank holding
 its shard of the f32 masters and moments. ``make_train_step(...,
 mesh_ctx=ctx)`` activates the context at every call (kernel resolution sees
-shard shapes), and on a sharded state takes the data-parallel step of
-``repro_torch.parallel.sharded_state``: each parameter's bf16 cast is
-all-gathered whole, each rank runs the forward and backward on its ``data``
-coordinate's rows (ranks that share it compute the same), and each whole
+shard shapes), and on a sharded state takes one of two routes, chosen by
+the family and the mesh:
+
+* **tensor parallelism** (the dense, vlm, ssm and hybrid families,
+  ``Bundle.tp_loss``, where the mesh's ``model`` dim has more than one
+  rank; :func:`tp_value_and_grad`): each rank computes its share of the
+  query and KV heads, the SwiGLU ``ff`` columns, the SSM heads and the
+  vocab (where it divides), one all-reduce over ``model`` completing each
+  row-parallel product, as GSPMD splits the reference's step from its
+  ``logical_constraint`` annotations (``parallel.tensor_parallel``). Each
+  layer gathers its own weights over ``data`` (FSDP) inside the layer, so
+  the remat policy gathers them again in backward rather than keep every
+  layer's, and a leaf's ``model`` shard stays on its rank where it is the
+  rank's part of the compute;
+* **gather whole** (the MoE and the encoder-decoder, or a mesh without a
+  split ``model`` dim; :func:`sharded_value_and_grad`): each parameter's
+  bf16 cast is all-gathered whole before the forward, and every rank of a
+  ``data`` coordinate computes its rows whole.
+
+On both, each rank runs on its ``data`` coordinate's rows, and each
 gradient is reduce-scattered, averaged over ``data``, onto the rank's f32
-shard; the global norm and the update run on the shards. The step records
-the seconds of its parts (``step.split``: gather, forward and backward,
-reduce-scatter, update). Splitting the forward by heads over ``model``
-(tensor parallelism) is not done: every rank of a ``data`` coordinate
-computes its rows whole.
+shard (``repro_torch.parallel.sharded_state``); the global norm and the
+update run on the shards. The step records the seconds of its parts
+(``step.split``: gather, forward and backward, reduce-scatter, the
+activations' all-reduces over ``model`` (``tp_all_reduce``, tensor
+parallelism only), update).
 """
 from __future__ import annotations
 
@@ -71,11 +87,14 @@ from repro_torch.optim import OptConfig, adamw_update, init_opt_state
 from repro_torch.optim.adafactor import adafactor_update, init_adafactor_state
 from repro_torch.optim.compress import compress_grads as _compress
 from repro_torch.parallel import sharded_state as shst
+from repro_torch.parallel import tensor_parallel as tpar
 from repro_torch.parallel.mesh_context import activate
 from repro_torch.parallel.sharding import is_dtensor, spec_for, spec_of
 
 # the reference's initial key, jax.random.PRNGKey(17)
 RNG_WORDS = (0, 17)
+# the parts of a sharded step's clock timed inside its forward_backward
+NESTED_PARTS = ("gather", "reduce_scatter", "tp_all_reduce")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -281,28 +300,67 @@ def sharded_value_and_grad(bundle: Bundle, params, batch, *,
     and this rank's rows: -> (the loss averaged over ``batch_axes``, the
     gradients of the rank's local shards, plain tensors).
 
-    Each leaf's compute-dtype cast is gathered whole
-    (``sharded_state.gathered``); its backward takes the whole gradient back
-    onto the rank's shard, averaged over the batch's mesh dims. ``clock``
-    records ``gather``, ``forward_backward`` (the reduce-scatters inside it
-    included) and ``reduce_scatter``."""
+    Each leaf's compute-dtype cast is gathered whole (the whole view of
+    ``tensor_parallel.TensorParallel.view``, no context active); its
+    backward takes the whole gradient back onto the rank's shard, averaged
+    over the batch's mesh dims. ``clock`` records ``forward_backward`` and,
+    inside it, ``gather`` and ``reduce_scatter``."""
     flat = tree.leaves(params)
     mesh = flat[0].device_mesh
     shards = [p.to_local().detach().requires_grad_(p.is_floating_point())
               for p in flat]
-    with clock("gather"):
-        views = [shst.gathered(s, spec_of(p), mesh, bundle.cfg.dtype,
-                               batch_axes, clock) if s.requires_grad
-                 else shst.gather_full(s, spec_of(p), mesh)
-                 for s, p in zip(shards, flat)]
+    whole = tpar.TensorParallel(mesh=mesh, dtype=bundle.cfg.dtype,
+                                batch_axes=batch_axes, clock=clock)
     with clock("forward_backward"):
+        views = []
+        for s, p in zip(shards, flat):
+            if s.requires_grad:
+                views.append(whole.view(tpar.Shard(s, spec_of(p))))
+            else:
+                with clock("gather"):
+                    views.append(shst.gather_full(s, spec_of(p), mesh))
         loss = bundle.loss(tree.unflatten(params, views), batch)
-        wrt = [s for s in shards if s.requires_grad]
-        got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
-        grads = []
-        for s in shards:
-            g = next(got) if s.requires_grad else None
-            grads.append(torch.zeros_like(s) if g is None else g)
+        grads = _grads(loss, shards)
+    return _batch_mean(loss, mesh, batch_axes), tree.unflatten(params, grads)
+
+
+def tp_value_and_grad(bundle: Bundle, params, batch, *, batch_axes: tuple,
+                      clock: shst.StepClock):
+    """:func:`sharded_value_and_grad` split over the mesh's ``model`` dim
+    (tensor parallelism, ``bundle.tp_loss``): no leaf is gathered whole up
+    front; each layer gathers its weights over the other mesh dims and
+    keeps a leaf's ``model`` shard where it is the rank's part of the
+    compute (``parallel.tensor_parallel``). ``clock`` records ``gather``
+    (summed over the layers), ``forward_backward``, ``reduce_scatter`` and
+    ``tp_all_reduce`` (the activations' sums over ``model``)."""
+    flat = tree.leaves(params)
+    mesh = flat[0].device_mesh
+    shards = [p.to_local().detach().requires_grad_(p.is_floating_point())
+              for p in flat]
+    tp = tpar.TensorParallel(
+        mesh=mesh, dtype=bundle.cfg.dtype,
+        vocab_split=bundle.cfg.vocab % tpar.model_size(mesh) == 0,
+        batch_axes=batch_axes, clock=clock)
+    with clock("forward_backward"), tpar.active(tp):
+        loss = bundle.tp_loss(tree.unflatten(params, [
+            tpar.Shard(s, spec_of(p)) for s, p in zip(shards, flat)]), batch)
+        grads = _grads(loss, shards)
+    return _batch_mean(loss, mesh, batch_axes), tree.unflatten(params, grads)
+
+
+def _grads(loss, shards: list) -> list:
+    """The gradient of ``loss`` for each shard (zeros where unused)."""
+    wrt = [s for s in shards if s.requires_grad]
+    got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
+    grads = []
+    for s in shards:
+        g = next(got) if s.requires_grad else None
+        grads.append(torch.zeros_like(s) if g is None else g)
+    return grads
+
+
+def _batch_mean(loss, mesh, batch_axes: tuple):
+    """A rank's loss averaged over the batch's mesh dims."""
     loss = loss.detach().float()
     n = 1
     for a in batch_axes:
@@ -310,7 +368,7 @@ def sharded_value_and_grad(bundle: Bundle, params, batch, *,
         if size > 1:
             loss = all_reduce_sum(loss, (mesh, a))
             n *= size
-    return loss / n, tree.unflatten(params, grads)
+    return loss / n
 
 
 def batch_mesh_axes(mesh_ctx) -> tuple:
@@ -343,12 +401,14 @@ def make_train_step(bundle: Bundle, opt_cfg: OptConfig,
     nmb = train_cfg.microbatches
     seen: set = set()
     axes = batch_mesh_axes(mesh_ctx)
+    split = bundle.tp_loss is not None and tpar.model_size(
+        None if mesh_ctx is None else mesh_ctx.mesh) > 1
+    sharded_vg = tp_value_and_grad if split else sharded_value_and_grad
 
     def grads_of(params, batch, clock=None):
         if clock is not None:
             def vg(p, b):
-                return sharded_value_and_grad(bundle, p, b, batch_axes=axes,
-                                              clock=clock)
+                return sharded_vg(bundle, p, b, batch_axes=axes, clock=clock)
         else:
             def vg(p, b):
                 return value_and_grad(bundle, p, b)
@@ -415,10 +475,11 @@ def make_train_step(bundle: Bundle, opt_cfg: OptConfig,
                     p, opt, metrics = adamw_update(
                         grads, state["opt"], params, opt_cfg)
         if sharded:
-            split = dict(clock.seconds)
-            split["forward_backward"] = split.get("forward_backward", 0.0) \
-                - split.get("reduce_scatter", 0.0)
-            step.split = split
+            parts = dict(clock.seconds)
+            # the parts that run inside the forward and backward
+            parts["forward_backward"] = parts.get("forward_backward", 0.0) \
+                - sum(parts.get(k, 0.0) for k in NESTED_PARTS)
+            step.split = parts
         new_state["params"] = p
         new_state["opt"] = opt
         metrics["loss"] = loss

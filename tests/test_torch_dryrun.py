@@ -317,6 +317,22 @@ def test_dryrun_smoke_cells_on_a_2x2_world(arch, shape):
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-1.3b"])
+def test_dryrun_charges_the_tensor_parallel_all_reduces(arch):
+    """The 2x2 train cell takes the tensor-parallel step (the model dim
+    splits heads, ff and SSM heads): each layer's activations are summed
+    over model, forward and backward (SMOKE trains without remat: 4
+    all-reduces a layer for llama, 2 for mamba2), each of a rank's rows x
+    seq x d in f32, charged twice as collective bytes."""
+    cfg = tconfigs.get(arch).SMOKE
+    cell = tcommon.make_cell(cfg, "train_4k")
+    rec = _smoke_record(arch, "train_4k")
+    per_layer = 4 if arch == "llama3.2-1b" else 2
+    act = (cell.batch // 2) * cell.seq * cfg.d_model * 4
+    got = rec["op_analysis"]["collective_bytes"]["all-reduce"]
+    assert got >= 2 * per_layer * cfg.n_layers * act
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-1.3b"])
 def test_dryrun_argument_bytes_are_rank0_shards(arch):
     """Rank 0's arguments: its shard of every leaf of the reference's train
     state under the reference's 2x2 rules (the rng words stay on the host

@@ -341,7 +341,9 @@ def world(tmp_path_factory):
 
 def test_sharded_losses_fall_and_match_reference_and_unsharded(world):
     """3 steps on the 2x2 mesh: the same loss on every rank, falling, within
-    1e-5 of the reference's unsharded step and of the port's."""
+    1e-5 of the reference's unsharded step and of the port's; the step's
+    parts those of the tensor-parallel route that llama takes on a split
+    model dim (its activations' all-reduces over model among them)."""
     infos = [info for _, info in world[4]]
     losses = infos[0]["losses"]
     for info in infos[1:]:
@@ -352,7 +354,7 @@ def test_sharded_losses_fall_and_match_reference_and_unsharded(world):
     np.testing.assert_allclose(losses, infos[0]["u_losses"], rtol=0,
                                atol=1e-5)
     assert infos[0]["split"] == ["forward_backward", "gather",
-                                 "reduce_scatter", "update"]
+                                 "reduce_scatter", "tp_all_reduce", "update"]
 
 
 def test_sharded_params_match_unsharded(world):
