@@ -21,22 +21,23 @@ Phases:
    2^20 held against ``policy="baseline"`` and a mixed-dtype SSD (bf16 x,
    f32 b, c) returning y in bf16 on both families; then the engine of
    ``repro_torch.launch.serve`` serving mamba2-1.3b FULL (48 layers),
-   llama3.2-1b FULL (16 layers), and mamba2-1.3b FULL again under
-   ``policy="ssd=tile_logdepth"``, random weights from seed 0, to four
+   llama3.2-1b FULL (16 layers), and mamba2-1.3b at 8 of its 48 layers
+   (``MAMBA_CUT_LAYERS``) under ``policy="ssd=tile_logdepth"``, random
+   weights from seed 0, to four
    requests of up to 512 prompt tokens, 16 new
    tokens each; then the MoE family at its published widths with its
    depth cut to fit the card (``CUTS``): qwen3-moe-235b-a22b at 4 of
    94 layers (11.20 B parameters) and grok-1-314b at 2 of 64 (11.45 B);
-   then the hybrid zamba2-2.7b whole (54 Mamba-2 layers, the shared
-   attention block after every 6th, 2.44 B); then the last dense configs:
-   internlm2-20b whole (48 layers, 19.86 B, 39.7 GB in bf16), deepseek-67b
+   then the hybrid zamba2-2.7b cut to 12 of 54 Mamba-2 layers (``CUTS``;
+   the shared attention block after every 6th); then the last dense
+   configs: internlm2-20b cut to 24 of 48 layers (``CUTS``), deepseek-67b
    at its published widths cut to 4 of 95 layers (``CUTS``, 4.45 B) and
    h2o-danube-3-4b whole (24 layers, head dim 120, a sliding window of
    4096 that the served prompts stay inside). Each serve run must show the
    launches ``forward_launches`` gives its family: its layer kernel once
-   per layer per prefill (48 SSD, 16 flash-attention, 48 local SSD
-   launches, and no linear SSD launch in the log-depth run; zamba2 54 SSD
-   and 9 flash attention, one a use of the shared block), every SSD launch
+   per layer per prefill (48 SSD, 16 flash-attention, 8 local SSD
+   launches, and no linear SSD launch in the log-depth run; zamba2 12 SSD
+   and 2 flash attention, one a use of the shared block), every SSD launch
    on the tensor-core instance of the chunk body (the served type is
    bf16), 2 x layers + 2 x shared-block uses + 1 RMSNorm launches per
    forward (97, 33, 127; internlm2 97, deepseek 9, danube 49), and for MoE
@@ -97,7 +98,8 @@ Phases:
    pool gathered) and the port's (the copied pages only). llama3.2-1b
    serves 8 requests that share a 392-token prefix under the ring and the
    paged cache (the paged run must share prompt tokens and copy pages on
-   write). mamba2-1.3b serves four first turns and their second turns (each
+   write). mamba2-1.3b at 8 of its 48 layers (``MAMBA_CUT_LAYERS``)
+   serves four first turns and their second turns (each
    the first and 32 tokens more) under both caches: the paged run must
    share exactly the first turns whose snapshot landed before their second
    turn's admission. Both runs are served again in f32, where the paged
@@ -243,30 +245,47 @@ Phases:
    (each leaf's bf16 cast gathered whole before the forward: the step of
    every family on a data-only mesh and of the MoE and the encoder-decoder
    on any mesh), 1 x 512 rows a rank, with the same timing, f32 parity and
-   gates (launches ``train_launches``, its own parts). 2 ranks restore the
-   params on ``model=2`` (elastic, 4 -> 2) and serve the continuous phase's
-   8 requests on the ring and the paged cache in lockstep (tok/s, host ms
-   a T = 16 and T = 1 tick, their device ms by kind, peak GB), then f32 at
-   2 layers against the unsharded engine. Gated: train launches a step at
-   the local shapes (llama RMSNorm 4L + 1, flash 2L at Hq=16 Hkv=4,
-   ``tcu_reduce`` one a leaf; mamba RMSNorm 2L + 1, the SSD 2L at H=32,
-   ``tcu_reduce`` one a leaf and 2L for the split gated norm) on every
-   rank, equal losses, each route's parts, rows by data coordinate,
-   llama's tensor-parallel peak GB a rank below the gather-whole step's
-   10.04 (its measurement on ``data=2,model=2``),
-   the f32 loss within 1e-5 and the params within 1e-5 plus AdamW's
-   first-step conditioning (the rule of tests/test_torch_training.py);
-   the restored params' digests equal the
-   saved ones; both serving ranks' tokens equal, RMSNorm 2L + 1 a tick, no
-   graph, each rank half the KV heads; f32 logits within 1e-3 of the
-   unsharded engine's and its tokens equal. About 170 s.
+   gates (launches ``train_launches``, its own parts). A world of 4 ranks
+   then serves on ``data=2,model=2`` in lockstep (``sharded_serve_worker``:
+   4 slots, 2 a data rank; a rank's half of the heads, ``ff`` columns, SSM
+   heads and vocab, ``wo``/``w_out``/``out_proj`` row-parallel): llama
+   FULL from the training world's checkpoint, mamba2 at 8 of 48 layers and
+   zamba2 at 12 of 54 (two uses of the shared block) from seed 0, the
+   continuous phase's 8 requests on the ring and the paged cache (tok/s,
+   host ms a T = 16 and T = 1 tick, their device ms by kind, peak GB, the
+   cache a rank holds); then ``make_serve_step(bundle, mesh_ctx=)`` under
+   the production rules' ``seq_shard=True``: llama's prefill of 4 x 2032
+   tokens into 2048 cache rows (1024 a rank) and of one row of 8176 into
+   8192 (2048 a rank, over ``data`` x ``model``), mamba2's of 4 x 2032 at
+   8 layers, each with 16 decode steps (ms a rank split into collectives
+   and the rest, peak GB). Then f32 at 2 layers (zamba2 6): the ``model=2``
+   path of PRs 27-29 (two replicas of ``model=2`` in the world) on the
+   served runs' 8 x 512-token requests with 16 new tokens, each served run
+   (8 prompts of up to 64 tokens, 4 new) and each wave against the
+   unsharded engine or steps. Gated:
+   train launches a step at the local shapes (llama RMSNorm 4L + 1, flash
+   2L at Hq=16 Hkv=4, ``tcu_reduce`` one a leaf; mamba RMSNorm 2L + 1, the
+   SSD 2L at H=32, ``tcu_reduce`` one a leaf and 2L for the split gated
+   norm) on every rank, equal losses, each route's parts, rows by data
+   coordinate, llama's tensor-parallel peak GB a rank below the
+   gather-whole step's 10.04 (its measurement on ``data=2,model=2``), the
+   f32 loss within 1e-5 and the params within 1e-5 plus AdamW's
+   first-step conditioning (the rule of tests/test_torch_training.py); the
+   restored params' digests equal the saved ones; every serving rank's
+   tokens equal, a tick's launches a rank's share (RMSNorm 2L + 1, a Mamba
+   layer's gated norm on ``tcu_reduce``), the waves' likewise plus flash
+   and the SSD a layer, no graph, the cache a rank holds (half the KV or
+   SSM heads of its 2 slots; under ``seq_shard`` its range of the rows
+   with every KV head); every f32 run's logits within 1e-4 of the
+   unsharded one's and its tokens equal.
    Then the dry run and the roofline (``dryrun and roofline``): a CPU
-   subprocess runs ``repro_torch.launch.dryrun`` on DRYRUN_CELLS of the
-   single mesh (rank 0 of a fake 256-rank world, FULL configs as fake
-   tensors) and each record's status, peak GiB a rank, fit in 80 GB and
-   roofline terms are printed (any ``fail`` fails the phase); meanwhile
-   the four ``examples/torch_*.py`` run on the card at small sizes (each
-   exits 0 and prints its check; train_lm resumes from its checkpoint).
+   subprocess, started before the training phases and run beside them,
+   runs ``repro_torch.launch.dryrun`` on DRYRUN_CELLS of the single mesh
+   (rank 0 of a fake 256-rank world, FULL configs as fake tensors); here
+   each record's status, peak GiB a rank, fit in 80 GB and roofline terms
+   are printed (any ``fail`` fails the phase), after the four
+   ``examples/torch_*.py`` run on the card at small sizes (each exits 0
+   and prints its check; train_lm resumes from its checkpoint).
    Then the op analyser counts train_pass's llama3.2-1b FULL step and one
    mamba2-1.3b wave decode step on the kernel path and under ``baseline``
    (FLOPs and bytes equal within 1e-9), beside the step's measured ms:
@@ -307,12 +326,15 @@ Exits non-zero and prints no result when there is no CUDA device or no
 """
 from __future__ import annotations
 
+import atexit
 import bisect
 import contextlib
 import dataclasses
+import faulthandler
 import gc
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -345,6 +367,13 @@ N_ELEMS = 1 << 24
 # in_proj (48 x 2048 x 8512)
 GLOBAL_NORM_ROWS = (128256 * 2048, 48 * 2048 * 8512)
 TP_NORM_ROWS = (2 * 512, 4096 // 2)   # mamba2's split gated norm, model=2
+# the split gated norm's Σx² on a serving rank of data=2,model=2: (rows,
+# columns, where): mamba2's d_inner 4096 and zamba2's 5120 halved
+TP_SERVE_NORMS = ((32, 2048, "mamba2 T = 16 tick, 2 slots x 16"),
+                  (2, 2048, "mamba2 T = 1 tick"),
+                  (4064, 2048, "mamba2 wave prefill, 2 x 2032"),
+                  (32, 2560, "zamba2 T = 16 tick"),
+                  (2, 2560, "zamba2 T = 1 tick"))
 SPIN_CAP_MS = 20.0                  # longest spin before a timed launch
 OBS_DIR = Path(__file__).resolve().parent / "build" / "obs"   # traces
 
@@ -511,6 +540,16 @@ def reduce_scan_cases(torch, kops, ref, gen):
         library=lambda x=x: torch.sum(x, dim=-1, dtype=torch.float32),
         rtol=2e-4, nbytes=nbytes(x) + 4 * TP_NORM_ROWS[0],
         ops=x.numel(), dtype=torch.float32))
+    for rows, n, where in TP_SERVE_NORMS:
+        x = torch.randn(rows, n, generator=gen, device="cuda") ** 2
+        out.append(dict(
+            kernel="tcu_reduce", label=f"float32 rows={rows} n={n} (split "
+            f"gated norm, {where}, data=2,model=2)", primary=False,
+            run=lambda x=x: kops.segmented_reduce(x),
+            plain=lambda x=x: ref.segmented_reduce_ref(x),
+            library=lambda x=x: torch.sum(x, dim=-1, dtype=torch.float32),
+            rtol=2e-4, nbytes=nbytes(x) + 4 * rows, ops=x.numel(),
+            dtype=torch.float32))
     # the train step's global norm reduces each parameter leaf's squares as
     # one row: the largest leaves of both models, positive as squares are
     for n in GLOBAL_NORM_ROWS:
@@ -586,6 +625,10 @@ def ssd_cases(torch, kops, ref, gen):
                                   # mamba2's train step split over model=2:
                                   # a rank's 32 heads of its 2 rows
                                   ((2, 512, 32, 64, 1, 128), torch.bfloat16,
+                                   False),
+                                  # its sharded wave prefill on
+                                  # data=2,model=2: 2 of 4 rows x 2032
+                                  ((2, 2032, 32, 64, 1, 128), torch.bfloat16,
                                    False)):
         ins = ssd_inputs(torch, gen, *shape, dtype)
         bsz, seqlen, nheads, hdim, ngroups, nstate = shape
@@ -708,7 +751,12 @@ def rmsnorm_cases(torch, kops, ref, gen):
                     (64, 2560), (2048, 2560), (1872, 5120), (4, 5120),
                     (64, 5120), (2048, 5120), (4, 8192), (2896, 8192),
                     (1872, 8192), (2048, 1024), (1872, 1024), (4, 1024),
-                    (1872, 3840), (6144, 3840), (4, 3840), (64, 3840)):
+                    (1872, 3840), (6144, 3840), (4, 3840), (64, 3840),
+                    # a serving rank of data=2,model=2: 2 slots' T = 16 and
+                    # T = 1 ticks (llama, mamba2, zamba2), the wave
+                    # prefills' 2 x 2032 and 8176 rows
+                    (32, 2048), (2, 2048), (32, 2560), (2, 2560),
+                    (32, 5120), (2, 5120), (4064, 2048), (8176, 2048)):
         x = torch.randn(rows, d, generator=gen, device="cuda").to(
             torch.bfloat16)
         w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(
@@ -799,7 +847,11 @@ def attention_cases(torch, kops, gen):
             (1, 6144, 6144, 32, 8, 120, True, 4096, torch.float32, False),
             # llama3.2-1b's train step split over model=2: a rank's 16 / 4
             # heads of its data coordinate's 2 rows
-            (2, 512, 512, 16, 4, 64, True, None, torch.bfloat16, False)):
+            (2, 512, 512, 16, 4, 64, True, None, torch.bfloat16, False),
+            # its sharded wave prefills on data=2,model=2: 2 of 4 rows x
+            # 2032, and the one row of 8176 (the long_500k layout)
+            (2, 2032, 2032, 16, 4, 64, True, None, torch.bfloat16, False),
+            (1, 8176, 8176, 16, 4, 64, True, None, torch.bfloat16, False)):
         def rn(*shape):
             return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
@@ -1338,30 +1390,42 @@ SERVED = (("mamba2-1.3b", None, "ssd_scan", "matmul_local_ssd"),
            "ssd_scan"),
           ("qwen3-moe-235b-a22b", None, "flash_attention", None),
           ("grok-1-314b", None, "flash_attention", None),
-          # the whole model: flash attention in each use of the shared block
-          # is gated beside the SSD by forward_launches
+          # cut (CUTS): flash attention in each use of the shared block is
+          # gated beside the SSD by forward_launches
           ("zamba2-2.7b", None, "ssd_scan", "matmul_local_ssd"),
-          # the last dense configs: internlm2-20b whole (39.7 GB in bf16),
-          # deepseek-67b cut (CUTS), h2o-danube-3-4b whole (head dim 120 and
-          # its window of 4096, which the served prompts stay inside)
+          # the last dense configs: internlm2-20b and deepseek-67b cut
+          # (CUTS), h2o-danube-3-4b whole (head dim 120 and its window of
+          # 4096, which the served prompts stay inside)
           ("internlm2-20b", None, "flash_attention", None),
           ("deepseek-67b", None, "flash_attention", None),
           ("h2o-danube-3-4b", None, "flash_attention", None))
 # the models served at their published widths with their depth cut to fit
 # the card's 80 GB: qwen3-moe's 94 layers of 2.488 B parameters are 468 GB
-# in bf16, grok-1's 64 of 4.92 B 630 GB, deepseek-67b's 95 of 0.69 B 134.9 GB
-CUTS = {"qwen3-moe-235b-a22b": 4, "grok-1-314b": 2, "deepseek-67b": 4}
+# in bf16, grok-1's 64 of 4.92 B 630 GB, deepseek-67b's 95 of 0.69 B 134.9
+# GB; and, to keep the script inside its time limit as the sharded phase
+# grew (PR 30), zamba2 at 12 of 54 layers (two uses of the shared block)
+# and internlm2 at 24 of 48
+CUTS = {"qwen3-moe-235b-a22b": 4, "grok-1-314b": 2, "deepseek-67b": 4,
+        "zamba2-2.7b": 12, "internlm2-20b": 24}
+# mamba2's depth in its runs beside the default wave and continuous ones,
+# which serve it whole (cut to keep the script inside its time limit as the
+# sharded phase grew, PR 30): the wave under ssd=tile_logdepth (a launch a
+# layer is what it holds) and the multi-turn runs (prefix sharing is per
+# slot)
+MAMBA_CUT_LAYERS = 8
 # the logit gates take the served model whole where its f32 copy is at most
 # this, else its first PARITY_LAYERS layers (internlm2-20b is 79 GB in f32,
 # qwen3-moe's 4 layers 45 GB)
 F32_GATE_BYTES = 40e9
 
 
-def full_engine(serve, arch: str, **kw):
+def full_engine(serve, arch: str, layers: int | None = None, **kw):
     """A serving engine of ``arch`` at its published widths, random weights
-    from seed 0: ``serve.build_engine``'s FULL, or for a model in ``CUTS``
-    its recipe on the FULL config cut to ``CUTS[arch]`` layers."""
-    if arch not in CUTS:
+    from seed 0: ``serve.build_engine``'s FULL, or at ``layers`` layers (by
+    default ``CUTS[arch]`` for a model there) its recipe on the FULL config
+    cut to that depth."""
+    layers = layers or CUTS.get(arch)
+    if layers is None:
         return serve.build_engine(arch, "full", device="cuda", seed=0, **kw)
     import torch
 
@@ -1371,8 +1435,8 @@ def full_engine(serve, arch: str, **kw):
     from repro_torch.serving import ServeConfig, ServingEngine
 
     full = configs.get(arch).FULL
-    bundle = build(dataclasses.replace(full, n_layers=CUTS[arch]))
-    print(f"serve: {arch} cut to {CUTS[arch]} of {full.n_layers} "
+    bundle = build(dataclasses.replace(full, n_layers=layers))
+    print(f"serve: {arch} cut to {layers} of {full.n_layers} "
           f"layers at its published widths: {bundle.n_params / 1e9:.2f}B of "
           f"{build(full).n_params / 1e9:.2f}B parameters "
           f"({2 * bundle.n_params / 1e9:.1f} GB in bf16)", flush=True)
@@ -1677,8 +1741,9 @@ def serve_pass(smoke: Smoke, serve, kops, arch: str, policy: str | None,
     """``arch`` FULL (MoE: its depth cut) through the serving engine under
     ``policy``; returns its numbers."""
     torch = smoke.torch
-    engine = full_engine(serve, arch, policy=policy, slots=4, max_new=16,
-                         scheduler="wave")
+    engine = full_engine(
+        serve, arch, policy=policy, slots=4, max_new=16, scheduler="wave",
+        layers=MAMBA_CUT_LAYERS if policy == "ssd=tile_logdepth" else None)
     cfg = engine.bundle.cfg
     print(f"serve: {cfg.name} {cfg.n_layers} layers d_model={cfg.d_model} "
           f"{engine.bundle.n_params / 1e9:.3f}B params {cfg.dtype}, "
@@ -1775,6 +1840,12 @@ CONTINUOUS = ("mamba2-1.3b", "llama3.2-1b", "qwen3-moe-235b-a22b",
 def clone_tree(tree):
     return {k: clone_tree(v) if isinstance(v, dict) else v.clone()
             for k, v in tree.items()}
+
+
+def named_shapes(tree_items) -> dict:
+    """``tree.items`` pairs -> {"attn/k": [shape], ...} of the tensors."""
+    return {"/".join(re.findall(r"[\w.-]+", k)): list(v.shape)
+            for k, v in tree_items if hasattr(v, "shape")}
 
 
 def tree_max_diff(a, b) -> float:
@@ -2291,7 +2362,7 @@ def kind_text(kind: str, m: dict, kv, dev: dict) -> str:
 
 
 def both_kinds(smoke: Smoke, serve, kops, arch: str, make_reqs, warm_len,
-               label: str, on_engine=None) -> dict:
+               label: str, on_engine=None, layers: int | None = None) -> dict:
     """The same requests under the ring and under the paged cache, each
     engine warmed up first: {kind: (measured run, kv stats, device ms a
     tick by T, what ``on_engine`` returned)}. Then both again in f32
@@ -2299,7 +2370,8 @@ def both_kinds(smoke: Smoke, serve, kops, arch: str, make_reqs, warm_len,
     tokens depend on the tick schedule (a decode token in a T = 16 tick
     goes through other matrix-product shapes than in a T = 1 tick), and the
     paged cache changes the schedule by skipping prefill ticks, so the two
-    caches are held token for token in f32."""
+    caches are held token for token in f32. ``layers`` cuts the model's
+    depth (None: ``full_engine``'s)."""
     from repro_torch.models import build_lm
     from repro_torch.models.common import cast_tree
     from repro_torch.serving import ServeConfig, ServingEngine
@@ -2307,9 +2379,8 @@ def both_kinds(smoke: Smoke, serve, kops, arch: str, make_reqs, warm_len,
     torch = smoke.torch
     out, f32 = {}, {}
     for kind in ("ring", "paged"):
-        engine = serve.build_engine(arch, "full", device="cuda", slots=4,
-                                    max_new=16, prefill_chunk=16,
-                                    cache_kind=kind, seed=0)
+        engine = full_engine(serve, arch, layers=layers, slots=4,
+                             max_new=16, prefill_chunk=16, cache_kind=kind)
         extra = on_engine(engine) if on_engine else None
         m = measured_run(smoke, kops, engine, make_reqs(),
                          [warm_request(engine.bundle.cfg.vocab, warm_len)],
@@ -2593,7 +2664,8 @@ def obs_pass(smoke: Smoke, serve, kops):
 
 
 def multi_turn_pass(smoke: Smoke, serve, kops):
-    """mamba2-1.3b FULL: four first turns (the continuous pass's first four
+    """mamba2-1.3b at ``MAMBA_CUT_LAYERS`` of its 48 layers, its published
+    widths: four first turns (the continuous pass's first four
     prompts), then each one's second turn, the first turn and 32 tokens
     more, queued behind them all, under the ring and the paged cache. The
     tokens must be the same, and the paged run must share the whole first
@@ -2629,7 +2701,8 @@ def multi_turn_pass(smoke: Smoke, serve, kops):
 
     label = "mamba2-1.3b multi-turn"
     out = both_kinds(smoke, serve, kops, "mamba2-1.3b", make_reqs, 500,
-                     label, on_engine=watch_saves)
+                     label, on_engine=watch_saves,
+                     layers=MAMBA_CUT_LAYERS)
     paged = out["paged"][0]
     kv = out["paged"][1]
     agree = tokens_agree(smoke, out, label)
@@ -4352,7 +4425,28 @@ SHARD_GATHER_LAYERS = 2
 # gathers every bf16 weight and gradient whole (this phase's earlier
 # measurement on the H100); the tensor-parallel step must stay below it
 SHARD_GATHER_WHOLE_PEAK_GB = 10.04
-SHARD_SERVE_MESH = "model=2"
+SHARD_SERVE_MESH = "data=2,model=2"
+# served on SHARD_SERVE_MESH in lockstep at these depths (None: whole):
+# llama's params from the training world's checkpoint, the others' drawn
+# from seed 0; 4 slots, 2 a data rank
+SHARD_SERVE = ((SHARD_ARCH, None), ("mamba2-1.3b", 8), ("zamba2-2.7b", 12))
+# the model=2 path of PRs 27-29 (heads over model, the slots whole), held
+# in f32 at PARITY_LAYERS: two replicas of a model=2 mesh in the same world
+# (the batch rule names no ``replica`` dim)
+SHARD_REPLICAS = (("replica", 2), ("model", 2))
+# the wave steps under the production rules' seq_shard=True on
+# SHARD_SERVE_MESH: (arch, depth, rows, prompt tokens, cache rows), then
+# SHARD_DECODES decode steps; the rows over data where they divide it, the
+# cache's rows over model (and data for the one row)
+SHARD_WAVES = ((SHARD_ARCH, None, 4, 2032, 2048),
+               (SHARD_ARCH, None, 1, 8176, 8192),
+               ("mamba2-1.3b", 8, 4, 2032, None))
+SHARD_DECODES = 16
+# the f32 gates' requests of the data=2,model=2 engines: 8 prompts of up
+# to this many tokens (the served runs' 512 cut, to keep the phase inside
+# the script's time limit), 4 new tokens each; the model=2 path is held on
+# the served runs' 8 x 512 with 16 new tokens, as before
+SHARD_PARITY_PROMPT, SHARD_PARITY_NEW = 64, 4
 SHARD_BATCH, SHARD_SEQ = 4, 512     # global batch, 2 x 512 rows a data rank
 SHARD_TIMED = 2                     # timed steps after one warm step
 SHARD_LR = 3e-4
@@ -4585,30 +4679,219 @@ def sharded_train_run(ctx, arch: str, checkpoint: bool,
     return report
 
 
-def sharded_serve_worker(rank: int, world: int, out_dir: str) -> dict:
-    """One rank of the sharded phase's serving world on ``SHARD_SERVE_MESH``:
-    the params of the training world's checkpoint restored into this mesh's
-    shards (their digests), the continuous phase's 8 requests on the ring
-    and on the paged cache in lockstep (tokens, launches, host ms a tick,
-    device ms of one T = 16 and one T = 1 tick), then f32 at
-    ``PARITY_LAYERS`` layers against the unsharded engine (logits by tick,
-    tokens)."""
-    import torch
+def shard_serve_run(torch, kops, bundle, params, ctx, reqs, kind: str,
+                    warm) -> dict:
+    """One lockstep engine run on ``ctx`` (4 slots, chunks of 16): a warm
+    run, then ``reqs`` with every launch count from 0 (tokens, launches,
+    ticks, host ms a tick by T, peak GB, the cache a rank holds), then the
+    device ms of one T = 16 and one T = 1 tick (the eager step on a clone
+    of the cache, every rank together, rank 0 under the profiler)."""
     import torch.distributed as dist
 
-    from repro_torch import configs, tree
+    from repro_torch import tree
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    engine = ServingEngine(bundle, params, ServeConfig(
+        slots=4, max_new=16, prefill_chunk=16, cache_kind=kind),
+        mesh_ctx=ctx)
+    engine.run(warm)
+    ticks = record_ticks(engine)
+    first = engine.ticks
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    kops.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run = {"tokens": {r.uid: r.tokens for r in results},
+           "launches": kops.launch_counts(), "wall_s": wall,
+           "n_tok": sum(len(r.tokens) for r in results),
+           "n_ticks": engine.ticks - first,
+           "cache": named_shapes(tree.items(engine._cache)),
+           "stats": engine.compile_stats(),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "host_ms": {t: [ms for tt, ms, *_ in ticks if tt == t]
+                       for t in (16, 1)}}
+    gen = np.random.default_rng(5)
+    cases = {16: (np.array([16, 5, 1, 0]),
+                  np.array([True, False, False, False])),
+             1: (np.array([1, 1, 1, 0]), np.zeros(4, bool))}
+    run["device_ms"] = {}
+    for t_len, (n_valid, reset) in cases.items():
+        ins = dict(engine._idle_inputs(t_len), n_valid=n_valid, reset=reset,
+                   tokens=gen.integers(3, bundle.cfg.vocab, (4, t_len)))
+        clone = clone_tree(engine._cache)
+        ran, events = [], None
+        if dist.get_rank() == 0:    # one profiler on the card at a time
+            try:
+                events = kernel_events(torch, lambda: ran.append(eager_on(
+                    torch, engine, clone, ins)))
+            except Exception as exc:    # the profiler's: it reads none
+                print(f"profiler: {exc!r}", flush=True)
+        if not ran:     # the other ranks, or the profiler failed first
+            eager_on(torch, engine, clone, ins)
+        split = split_by_kind(events)
+        run["device_ms"][t_len] = (None if split is None else
+                                   {"total": sum(split.values()), **split})
+        del clone
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def shard_wave_tokens(vocab: int, rows: int, seq: int) -> np.ndarray:
+    """The wave's prompt tokens and, after them, the decode steps' inputs
+    (teacher-forced: every rank feeds the same), from seed ``rows``."""
+    rng = np.random.default_rng(rows)
+    return rng.integers(3, vocab, (rows, seq + SHARD_DECODES),
+                        dtype=np.int64)
+
+
+def shard_wave_run(torch, kops, bundle, params, seq, rows: int, prompt: int,
+                   cap) -> dict:
+    """``make_serve_step(bundle, mesh_ctx=seq)``: a prefill of ``rows`` x
+    ``prompt`` tokens into a cache of ``cap`` rows (None: the prompt's),
+    then ``SHARD_DECODES`` decode steps, each timed on every rank together
+    and split by the step's ``split`` (collectives and the rest); this
+    rank's logits (its rows, f32) after each, and the cache it holds."""
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.serving.engine import serving_params
+    from repro_torch.training import make_serve_step
+
+    mine = serving_params(params, bundle, seq)
+    prefill, decode = make_serve_step(bundle, mesh_ctx=seq)
+    tok = torch.from_numpy(shard_wave_tokens(bundle.cfg.vocab, rows,
+                                             prompt)).cuda()
+    out = {"steps": [], "logits": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    kops.reset_launches()
+    cache = None
+    for i in range(1 + SHARD_DECODES):
+        dist.barrier()
+        t0 = time.perf_counter()
+        if i == 0:
+            lg, cache = prefill(mine, {"tokens": tok[:, :prompt]}, cap)
+            split = prefill.split
+        else:
+            lg, cache = decode(mine, cache, {
+                "tokens": tok[:, prompt + i - 1:prompt + i]})
+            split = decode.split
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        coll = 1e3 * sum(v for k, v in split.items() if k != "step")
+        out["steps"].append({"ms": ms, "collective_ms": coll,
+                             "local_ms": ms - coll})
+        out["logits"].append(lg[:, -1].float())
+    torch.cuda.synchronize()
+    out["launches"] = kops.launch_counts()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["cache"] = named_shapes(tree.items(cache))
+    out["rows"] = cache.get("rows")
+    del cache, mine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def unsharded_wave_logits(torch, bundle, params, rows: int, prompt: int,
+                          cap) -> list:
+    """The unsharded ``make_serve_step``'s logits after its prefill and
+    each decode step, on the same tokens as :func:`shard_wave_run`."""
+    from repro_torch.serving.engine import serving_params
+    from repro_torch.training import make_serve_step
+
+    prefill, decode = make_serve_step(bundle)
+    whole = serving_params(params, bundle)
+    tok = torch.from_numpy(shard_wave_tokens(bundle.cfg.vocab, rows,
+                                             prompt)).cuda()
+    lg, cache = prefill(whole, {"tokens": tok[:, :prompt]}, cap)
+    out = [lg[:, -1].float()]
+    for i in range(SHARD_DECODES):
+        lg, cache = decode(whole, cache,
+                           {"tokens": tok[:, prompt + i:prompt + i + 1]})
+        out.append(lg[:, -1].float())
+    return out
+
+
+def shard_engine_parity(torch, bundle, params, ctx, reqs, kind: str) -> dict:
+    """f32: the sharded engine on ``ctx`` (``params`` placed under its
+    rules) against the unsharded engine on the same params and requests:
+    tokens, and the largest logit difference over every tick's live
+    slots."""
+    from repro_torch.launch import serve
+    from repro_torch.parallel.sharded_state import place_tree
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    placed = place_tree(params, serve._param_shardings(bundle.params_pspec,
+                                                       ctx))
+    out = {}
+    for name, p, mctx in (("sharded", placed, ctx),
+                          ("unsharded", params, None)):
+        engine = ServingEngine(bundle, p, ServeConfig(
+            slots=4, prefill_chunk=16, cache_kind=kind), mesh_ctx=mctx)
+        ticks = record_ticks(engine, keep_logits=True)
+        res = engine.run(reqs)
+        out[name] = ({r.uid: r.tokens for r in res},
+                     [(ins["n_valid"], lg) for _, _, ins, lg in ticks])
+        del engine
+    errs = []
+    for (nv, a), (_, b) in zip(out["sharded"][1], out["unsharded"][1]):
+        live = torch.from_numpy(np.asarray(nv) > 0).cuda()
+        errs.append(float((a[live] - b[live]).abs().max()))
+    return {"ticks": [len(out["sharded"][1]), len(out["unsharded"][1])],
+            "tokens_equal": out["sharded"][0] == out["unsharded"][0],
+            "logit_err": max(errs) if errs else None,
+            "scale": max(float(lg.abs().max())
+                         for _, lg in out["unsharded"][1])}
+
+
+def sharded_serve_worker(rank: int, world: int, out_dir: str) -> dict:
+    """One rank of the sharded phase's serving world on
+    ``SHARD_SERVE_MESH``: llama's params of the training world's checkpoint
+    restored into this mesh's shards (their digests); each of
+    ``SHARD_SERVE`` serves the continuous phase's 8 requests on the ring
+    and the paged cache in lockstep (:func:`shard_serve_run`); the wave
+    steps of ``SHARD_WAVES`` under the production rules' ``seq_shard``
+    (:func:`shard_wave_run`); then f32 at ``PARITY_LAYERS`` layers: the
+    ``model=2`` path on ``SHARD_REPLICAS``, every served run and every
+    wave against the unsharded engine or steps on the same params and
+    inputs."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import tree
     from repro_torch.checkpoint import ckpt
     from repro_torch.kernels import ops as kops
+    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import serve
     from repro_torch.models import build as build_model
     from repro_torch.models.common import init_params, stack_pspec
     from repro_torch.parallel import make_context
-    from repro_torch.parallel.sharded_state import place_tree
-    from repro_torch.serving import Request, ServeConfig, ServingEngine
+    from repro_torch.parallel.mesh_context import DEFAULT_RULE_TABLE, \
+        MeshContext
+    from repro_torch.parallel.sharding import Rules
+    from repro_torch.serving import Request
 
     report: dict = {}
+    t_start = time.perf_counter()
+
+    def progress(what: str) -> None:
+        print(f"serve rank {rank}: {what} at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
     ctx = make_context(SHARD_SERVE_MESH, device="cuda")
-    cfg = configs.get(SHARD_ARCH).FULL
+    seq = MeshContext(mesh=ctx.mesh, rules=mesh_lib.make_rules(
+        ctx.mesh, fsdp=False, seq_shard=True))
+    report["coordinate"] = list(ctx.mesh.get_coordinate())
+    cfg = shard_cfg(SHARD_ARCH, None)
     bundle = build_model(cfg)
     latest = ckpt.latest_step(str(SHARD_CKPT))
     report["step"] = latest
@@ -4616,98 +4899,92 @@ def sharded_serve_worker(rank: int, world: int, out_dir: str) -> dict:
     target = {"params": tree.map_tree(
         lambda ps: torch.empty(0, device="cuda"), stacked)}
     t0 = time.perf_counter()
-    params = ckpt.restore(str(SHARD_CKPT), latest, target, shardings={
+    restored = ckpt.restore(str(SHARD_CKPT), latest, target, shardings={
         "params": serve._param_shardings(stacked, ctx)})["params"]
     torch.cuda.synchronize()
     report["restore_s"] = time.perf_counter() - t0
     report["digests"] = {k: leaf_digest(torch, v)
-                         for k, v in tree.items(params)}
-    reqs = serve.make_requests(8, 512, cfg.vocab, seed=0)
-    for r in reqs:
-        r.max_new = 16
-    # a short warm-up (T = 16 and T = 1 ticks): no graph to capture here
-    warm = [Request(uid=-1, prompt=reqs[0].prompt[:20], max_new=2)]
+                         for k, v in tree.items(restored)}
+    progress("restored")
+
+    def requests(vocab: int, prompt: int = 512, new: int = 16) -> list:
+        """The continuous phase's 8 requests in ``vocab``."""
+        reqs = serve.make_requests(8, prompt, vocab, seed=0)
+        for r in reqs:
+            r.max_new = new
+        return reqs
+
+    def params_of(arch, depth, dtype=None):
+        c = shard_cfg(arch, depth)
+        if dtype is not None:
+            c = parity_cfg(c)
+        b = build_model(c)
+        if arch == SHARD_ARCH and dtype is None:
+            return b, restored
+        return b, init_params(b.params_pspec, torch.Generator(
+            device="cuda").manual_seed(0), c.dtype)
+
     runs = {}
-    for kind in ("ring", "paged"):
-        engine = ServingEngine(bundle, params, ServeConfig(
-            slots=4, max_new=16, prefill_chunk=16, cache_kind=kind),
-            mesh_ctx=ctx)
-        engine.run(warm)
-        ticks = record_ticks(engine)
-        first = engine.ticks
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        dist.barrier()
-        kops.reset_launches()
-        t0 = time.perf_counter()
-        results = engine.run(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        n_tok = sum(len(r.tokens) for r in results)
-        run = {"tokens": {r.uid: r.tokens for r in results},
-               "launches": kops.launch_counts(), "wall_s": wall,
-               "n_tok": n_tok, "n_ticks": engine.ticks - first,
-               "kv_heads": int(engine._cache["attn"]["k"].shape[-2]),
-               "stats": engine.compile_stats(),
-               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-               "host_ms": {t: [ms for tt, ms, *_ in ticks if tt == t]
-                           for t in (16, 1)},
-               "events": len(engine.trace)}
-        # device ms of one T = 16 and one T = 1 tick (the eager step on a
-        # clone of the cache, every rank together)
-        gen = np.random.default_rng(5)
-        cases = {16: (np.array([16, 5, 1, 0]),
-                      np.array([True, False, False, False])),
-                 1: (np.array([1, 1, 1, 0]), np.zeros(4, bool))}
-        run["device_ms"] = {}
-        for t_len, (n_valid, reset) in cases.items():
-            # the idle step's page plan (paged), these tokens and counts
-            ins = dict(engine._idle_inputs(t_len), n_valid=n_valid,
-                       reset=reset,
-                       tokens=gen.integers(3, cfg.vocab, (4, t_len)))
-            clone = clone_tree(engine._cache)
-            events = kernel_events(torch, lambda: eager_on(
-                torch, engine, clone, ins))
-            split = split_by_kind(events)
-            run["device_ms"][t_len] = (None if split is None else
-                                       {"total": sum(split.values()),
-                                        **split})
-            del clone
-        runs[kind] = run
-        del engine
-        gc.collect()
-        torch.cuda.empty_cache()
+    for arch, depth in SHARD_SERVE:
+        b, params = params_of(arch, depth)
+        reqs = requests(b.cfg.vocab)
+        # a short warm-up (T = 16 and T = 1 ticks): no graph to capture
+        warm = [Request(uid=-1, prompt=reqs[0].prompt[:20], max_new=2)]
+        runs[arch] = {"n_layers": b.cfg.n_layers}
+        for kind in ("ring", "paged"):
+            runs[arch][kind] = shard_serve_run(torch, kops, b, params, ctx,
+                                               reqs, kind, warm)
+            progress(f"{arch} {kind} served")
+        del params
     report["runs"] = runs
-    del params
+    waves = []
+    for arch, depth, rows, prompt, cap in SHARD_WAVES:
+        b, params = params_of(arch, depth)
+        w = shard_wave_run(torch, kops, b, params, seq, rows, prompt, cap)
+        del w["logits"], params
+        waves.append(w)
+        progress(f"wave {arch} {rows}x{prompt}")
+    report["waves"] = waves
+    del restored
     gc.collect()
     torch.cuda.empty_cache()
 
-    # f32 at PARITY_LAYERS layers: the sharded engine against the unsharded
-    # one (CUDA graphs) on the same params and requests
-    pb = build_model(parity_cfg(cfg))
-    whole = init_params(pb.params_pspec,
-                        torch.Generator(device="cuda").manual_seed(0),
-                        torch.float32)
-    placed = place_tree(whole, serve._param_shardings(pb.params_pspec, ctx))
-    out = {}
-    for name, p, mctx in (("sharded", placed, ctx), ("unsharded", whole,
-                                                      None)):
-        engine = ServingEngine(pb, p, ServeConfig(
-            slots=4, max_new=16, prefill_chunk=16), mesh_ctx=mctx)
-        ticks = record_ticks(engine, keep_logits=True)
-        res = engine.run(reqs)
-        out[name] = ({r.uid: r.tokens for r in res},
-                     [(ins["n_valid"], lg) for _, _, ins, lg in ticks])
-        del engine
-    errs = []
-    for (nv_a, a), (nv_b, b) in zip(out["sharded"][1], out["unsharded"][1]):
-        live = torch.from_numpy(np.asarray(nv_a) > 0).cuda()
-        errs.append(float((a[live] - b[live]).abs().max()))
-    report["parity"] = {
-        "ticks": [len(out["sharded"][1]), len(out["unsharded"][1])],
-        "tokens_equal": out["sharded"][0] == out["unsharded"][0],
-        "logit_err": max(errs) if errs else None,
-        "scale": max(float(lg.abs().max()) for _, lg in out["unsharded"][1])}
+    # f32 at PARITY_LAYERS layers: each sharded run against the unsharded
+    # engine or steps on the same params and inputs
+    replicas = init_device_mesh("cuda", tuple(n for _, n in SHARD_REPLICAS),
+                                mesh_dim_names=tuple(a for a, _ in
+                                                     SHARD_REPLICAS))
+    model2 = MeshContext(mesh=replicas, rules=Rules(
+        table=dict(DEFAULT_RULE_TABLE), axis_sizes=dict(SHARD_REPLICAS)))
+    parity = {}
+    b, params = params_of(SHARD_ARCH, None, torch.float32)
+    # the model=2 path on the requests it was held on before (PRs 27-29)
+    parity["model=2"] = shard_engine_parity(torch, b, params, model2,
+                                            requests(b.cfg.vocab), "ring")
+    progress("f32 model=2")
+    for arch, depth in SHARD_SERVE:
+        b, params = params_of(arch, depth, torch.float32)
+        reqs = requests(b.cfg.vocab, SHARD_PARITY_PROMPT, SHARD_PARITY_NEW)
+        for kind in ("ring", "paged"):
+            parity[f"{arch} {kind}"] = shard_engine_parity(
+                torch, b, params, ctx, reqs, kind)
+            progress(f"f32 {arch} {kind}")
+    for arch, depth, rows, prompt, cap in SHARD_WAVES:
+        b, params = params_of(arch, depth, torch.float32)
+        got = shard_wave_run(torch, kops, b, params, seq, rows, prompt,
+                             cap)["logits"]
+        want = unsharded_wave_logits(torch, b, params, rows, prompt, cap)
+        r0 = report["coordinate"][0] * got[0].shape[0] \
+            if got[0].shape[0] < rows else 0
+        parity[f"wave {arch} {rows}x{prompt}"] = {
+            "logit_err": max(float((g - w[r0:r0 + g.shape[0]]).abs().max())
+                             for g, w in zip(got, want)),
+            "scale": max(float(w.abs().max()) for w in want),
+            "tokens_equal": all(
+                torch.equal(g.argmax(-1), w[r0:r0 + g.shape[0]].argmax(-1))
+                for g, w in zip(got, want))}
+        progress(f"f32 wave {arch} {rows}x{prompt}")
+    report["parity"] = parity
     return report
 
 
@@ -4724,6 +5001,8 @@ def sharded_worker(role: str, rank: int, world: int, out_dir: str) -> int:
     torch.cuda.set_device(0)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # a rank that waits past the world's time on a peer shows where it was
+    faulthandler.dump_traceback_later(SHARD_TIMEOUT_S - 30, exit=False)
     build.load()                        # the parent built it: a cache hit
     t_start = time.perf_counter()
     dist.init_process_group("gloo", init_method=f"file://{out_dir}/{role}",
@@ -4742,7 +5021,8 @@ def sharded_worker(role: str, rank: int, world: int, out_dir: str) -> int:
 
 def run_world(role: str, ranks: int, out_dir: Path) -> list:
     """Start ``ranks`` processes of this script as one world of ``role`` and
-    return their reports; raises if a rank fails."""
+    return their reports; raises if a rank fails or the world outlasts
+    ``SHARD_TIMEOUT_S`` (each failed or killed rank's log tail printed)."""
     t0 = time.perf_counter()
     logs = [out_dir / f"{role}{r}.log" for r in range(ranks)]
     procs = []
@@ -4756,6 +5036,9 @@ def run_world(role: str, ranks: int, out_dir: Path) -> list:
         for p in procs:
             p.wait(timeout=max(1.0, SHARD_TIMEOUT_S
                                - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        print(f"sharded {role}: the world outlasts {SHARD_TIMEOUT_S} s",
+              flush=True)
     finally:
         for p in procs:
             if p.poll() is None:
@@ -4874,14 +5157,13 @@ def sharded_pass(smoke: Smoke, kops) -> dict:
     ``SHARD_TRAIN_LAYERS``) on ``data=2,model=2`` through the
     tensor-parallel step and checkpoints llama's state, and trains llama
     again at ``SHARD_GATHER_LAYERS`` on ``data=4`` through the gather-whole
-    step; then a world of 2 ranks restores the params on
-    ``model=2`` (elastic, 4 -> 2 ranks) and serves the continuous phase's
-    requests on the ring and the paged cache. Gated here on the ranks'
-    reports: the training gates of :func:`sharded_train_gates` for each
-    run, the restored params' digests equal the saved ones, both serving
-    ranks' tokens equal, RMSNorm 2L + 1 a tick, no graph under the mesh, the
-    f32 serving logits within 1e-3 of the unsharded engine's and its tokens
-    equal."""
+    step; then a world of 4 ranks restores llama's params on
+    ``data=2,model=2`` and serves (:func:`sharded_serve_worker`). Gated
+    here on the ranks' reports: the training gates of
+    :func:`sharded_train_gates` for each run, the restored params' digests
+    equal the saved ones, the serving gates of :func:`sharded_serve_gates`
+    and :func:`sharded_wave_gates`, and every f32 run within 1e-4 of the
+    unsharded engine's or steps' logits with its tokens equal."""
     from repro_torch import configs
     from repro_torch.models import build as build_model
 
@@ -4903,7 +5185,7 @@ def sharded_pass(smoke: Smoke, kops) -> dict:
     try:
         train = run_world("train", 4, out_dir)
         t_train = time.perf_counter() - t0
-        serve_r = run_world("serve", 2, out_dir)
+        serve_r = run_world("serve", 4, out_dir)
     finally:
         shutil.rmtree(SHARD_CKPT, ignore_errors=True)
     t_all = time.perf_counter() - t0
@@ -4949,31 +5231,126 @@ def sharded_pass(smoke: Smoke, kops) -> dict:
         bad = [k for k in saved if restored.get(k) != saved[k]]
         smoke.fail(f"sharded serve: restored params differ from the saved "
                    f"ones in {bad}")
-    norms = forward_launches(cfg, prefill=False)["rmsnorm"]
-    texts = []
+    served = {}
+    for arch, _ in SHARD_SERVE:
+        served[arch] = sharded_serve_gates(
+            smoke, kops, arch, [dict(r["runs"][arch], rank=r["rank"],
+                                     coordinate=r["coordinate"])
+                                for r in serve_r], smi)
+        for k in launches:
+            launches[k] += served[arch]["launches"][k]
+    waves = sharded_wave_gates(smoke, kops, serve_r, smi)
+    for k in launches:
+        launches[k] += waves["launches"][k]
+    worst = {}
+    for name in serve_r[0]["parity"]:
+        ps = [r["parity"][name] for r in serve_r]
+        worst[name] = max(p["logit_err"] for p in ps)
+        for rep, p in zip(serve_r, ps):
+            if not p["tokens_equal"]:
+                smoke.fail(f"sharded serve f32 {name} rank {rep['rank']}: "
+                           "tokens differ from the unsharded run's")
+            if p["logit_err"] is None or not p["logit_err"] <= 1e-4:
+                smoke.fail(f"sharded serve f32 {name} rank {rep['rank']}: "
+                           f"logits differ from the unsharded run's by "
+                           f"{p['logit_err']} > 1e-4")
+    print(f"sharded serve: checkpoint step {serve_r[0]['step']} restored on "
+          f"{SHARD_SERVE_MESH} in "
+          f"{[round(r['restore_s'], 1) for r in serve_r]} s, digests of "
+          f"{len(saved)} leaves {'equal' if restored == saved else 'DIFFER'}"
+          f"; f32 parity at {PARITY_LAYERS} layers (zamba2 "
+          f"{parity_depth(shard_cfg('zamba2-2.7b', 12))}), max |logit - "
+          f"unsharded| and the largest logit: " + "; ".join(
+              f"{name} {worst[name]:.3e} ({serve_r[0]['parity'][name]['scale']:.2f}"
+              f", ticks {serve_r[0]['parity'][name].get('ticks', '-')})"
+              for name in worst), flush=True)
+    print(f"sharded: ranks' launches {launches}; train ranks' seconds "
+          f"{[round(r['seconds'], 1) for r in train]}, serve ranks' "
+          f"{[round(r['seconds'], 1) for r in serve_r]}; phase "
+          f"{t_all:.1f} s", flush=True)
+    return {"launches": launches, "train": trained, "reckoned_gb": need,
+            "serve": {arch: served[arch]["stats"] for arch in served},
+            "waves": waves["stats"], "parity": worst}
+
+
+def tp_serve_launches(cfg, prefill: bool = False) -> dict:
+    """Kernel launches of one forward of a serving rank under tensor
+    parallelism: ``forward_launches``, where each Mamba layer's gated norm
+    (its ``d_inner`` split over ``model``) is ``split_rmsnorm``'s
+    row-segmented reduce on ``tcu_reduce`` in place of ``rmsnorm``."""
+    from repro_torch.models.lm import STATE_FAMILIES
+
+    want = forward_launches(cfg, prefill=prefill)
+    want["tcu_reduce"] = 0
+    if cfg.family in STATE_FAMILIES:
+        want["rmsnorm"] -= cfg.n_layers
+        want["tcu_reduce"] = cfg.n_layers
+    return want
+
+
+def cache_text(cache: dict) -> str:
+    """What a rank's cache holds: the KV rows and heads, the SSM heads and
+    conv channels, the pools' pages."""
+    parts = []
+    if "attn/k" in cache:
+        k = cache["attn/k"]
+        parts.append(f"KV {k[1]} x {k[2]} rows x {k[3]} heads" if len(k) == 5
+                     else f"KV {k}")
+    if "mamba/state" in cache:
+        st, cv = cache["mamba/state"], cache["mamba/conv"]
+        parts.append(f"state {st[1]} slots x {st[2]} heads, conv {cv[-1]} "
+                     "channels")
+    if "snap/state" in cache:
+        parts.append(f"{cache['snap/state'][1]} snapshot pages")
+    return ", ".join(parts) or "none"
+
+
+def sharded_serve_gates(smoke: Smoke, kops, arch: str, reps: list,
+                        smi: str) -> dict:
+    """The serving world's gates on ``arch``'s ring and paged runs, one
+    report a rank: every rank the same tokens and 8 results with tokens,
+    the launches a tick of a rank's share (``tp_serve_launches``), no
+    graph, the cache a rank holds (its 2 of the 4 slots; half the KV heads
+    or SSM heads, the conv channels of its heads). Prints and returns its
+    numbers."""
+    cfg = shard_cfg(arch, reps[0]["n_layers"])
+    launches = {k: 0 for k in kops.KERNELS}
+    per_tick = tp_serve_launches(cfg)
+    texts, stats = [], {}
     for kind in ("ring", "paged"):
-        r0, r1 = (r["runs"][kind] for r in serve_r)
-        if r0["tokens"] != r1["tokens"]:
-            smoke.fail(f"sharded serve {kind}: the ranks' tokens differ")
-        if len(r0["tokens"]) != 8 or any(not t for t in
-                                         r0["tokens"].values()):
-            smoke.fail(f"sharded serve {kind}: {len(r0['tokens'])} results, "
-                       "want 8 with tokens")
-        for rep in serve_r:
-            run = rep["runs"][kind]
+        r0 = reps[0][kind]
+        for rep in reps:
+            run = rep[kind]
+            if run["tokens"] != r0["tokens"]:
+                smoke.fail(f"sharded serve {arch} {kind} rank "
+                           f"{rep['rank']}: tokens differ from rank 0's")
             for k in launches:
                 launches[k] += run["launches"][k]
-            if run["launches"]["rmsnorm"] != norms * run["n_ticks"]:
-                smoke.fail(f"sharded serve {kind} rank {rep['rank']}: "
-                           f"{run['launches']['rmsnorm']} RMSNorm launches, "
-                           f"want {norms} x {run['n_ticks']} ticks")
+            got = {k: run["launches"][k] for k in per_tick}
+            want = {k: v * run["n_ticks"] for k, v in per_tick.items()}
+            if got != want:
+                smoke.fail(f"sharded serve {arch} {kind} rank "
+                           f"{rep['rank']}: launches {got}, want {want} "
+                           f"({run['n_ticks']} ticks)")
             if run["stats"].get("graphs") != 0 or "eager" not in run["stats"]:
-                smoke.fail(f"sharded serve {kind}: compile stats "
+                smoke.fail(f"sharded serve {arch} {kind}: compile stats "
                            f"{run['stats']}, want no graph")
-            if run["kv_heads"] != cfg.n_kv_heads // 2:
-                smoke.fail(f"sharded serve {kind}: a rank holds "
-                           f"{run['kv_heads']} KV heads, want "
-                           f"{cfg.n_kv_heads // 2}")
+            c = run["cache"]
+            heads = ({"attn/k": (3, cfg.n_kv_heads // 2)}
+                     if "attn/k" in c else {})
+            if "mamba/state" in c:
+                heads["mamba/state"] = (2, cfg.ssm_heads // 2)
+            for name, (dim, n) in heads.items():
+                slots = c[name][1] if name != "attn/k" or kind == "ring" \
+                    else 2
+                if c[name][dim] != n or slots != 2:
+                    smoke.fail(f"sharded serve {arch} {kind}: a rank's "
+                               f"{name} {c[name]}, want 2 slots and {n} "
+                               "heads")
+        if len(r0["tokens"]) != 8 or any(not t for t in
+                                         r0["tokens"].values()):
+            smoke.fail(f"sharded serve {arch} {kind}: {len(r0['tokens'])} "
+                       "results, want 8 with tokens")
         dev = r0["device_ms"]
         texts.append(
             f"{kind}: {r0['n_tok']} tokens in {r0['wall_s']:.3f}s "
@@ -4985,46 +5362,90 @@ def sharded_pass(smoke: Smoke, kops) -> dict:
                else f"{dev['16']['total']:.3f} {dev['16']}")
             + ", T=1 " + ("not measured" if dev["1"] is None
                           else f"{dev['1']['total']:.3f} {dev['1']}")
-            + f"; peak GB {r0['peak_gb']:.2f}; launches {r0['launches']}")
-    sp = [r["parity"] for r in serve_r]
-    for p in sp:
-        if not p["tokens_equal"]:
-            smoke.fail("sharded serve f32: tokens differ from the unsharded "
-                       "engine's")
-        if p["logit_err"] is None or not p["logit_err"] <= 1e-3:
-            smoke.fail(f"sharded serve f32: logits differ from the "
-                       f"unsharded engine's by {p['logit_err']} > 1e-3")
-    print(f"sharded serve: checkpoint step {serve_r[0]['step']} restored on "
-          f"{SHARD_SERVE_MESH} (4 -> 2 ranks) in "
-          f"{[round(r['restore_s'], 1) for r in serve_r]} s, digests of "
-          f"{len(saved)} leaves {'equal' if restored == saved else 'DIFFER'}"
-          f"; lockstep, {cfg.n_kv_heads // 2} KV heads a rank, no graph "
-          f"(eager: host-staged collectives); " + "; ".join(texts),
-          flush=True)
-    print(f"sharded serve f32 parity at 2 layers: max |logit - unsharded| "
-          f"{max(p['logit_err'] for p in sp):.3e} (logits up to "
-          f"{sp[0]['scale']:.2f}), tokens equal "
-          f"{all(p['tokens_equal'] for p in sp)}, ticks {sp[0]['ticks']}",
-          flush=True)
-    print(f"sharded: ranks' launches {launches}; train ranks' seconds "
-          f"{[round(r['seconds'], 1) for r in train]}, serve ranks' "
-          f"{[round(r['seconds'], 1) for r in serve_r]}; phase "
-          f"{t_all:.1f} s", flush=True)
-    return {"launches": launches, "train": trained, "reckoned_gb": need,
-            "serve": {k: {"tok_s": serve_r[0]["runs"][k]["n_tok"]
-                          / serve_r[0]["runs"][k]["wall_s"],
-                          "device_ms": serve_r[0]["runs"][k]["device_ms"]}
-                      for k in ("ring", "paged")}}
+            + f"; peak GB a rank {[round(r[kind]['peak_gb'], 2) for r in reps]}"
+            f"; a rank holds {cache_text(r0['cache'])}; launches "
+            f"{r0['launches']}")
+        stats[kind] = {"tok_s": r0["n_tok"] / r0["wall_s"],
+                       "device_ms": dev,
+                       "peak_gb": max(r[kind]["peak_gb"] for r in reps)}
+    print(f"sharded serve: {arch} FULL at {cfg.n_layers} layers on "
+          f"{SHARD_SERVE_MESH}, 4 ranks on one card ({smi}), lockstep, 4 "
+          f"slots (2 a data rank), no graph (eager: host-staged "
+          f"collectives); " + "; ".join(texts), flush=True)
+    return {"launches": launches, "stats": stats}
+
+
+def sharded_wave_gates(smoke: Smoke, kops, serve_r: list, smi: str) -> dict:
+    """The wave steps' gates, one report a rank: the launches of a prefill
+    and ``SHARD_DECODES`` decode steps of a rank's share, the cache a rank
+    holds (its rows of the batch; the KV rows split over ``model``, over
+    ``data`` x ``model`` for one row, every KV head). Prints each step's
+    ms a rank split into local compute and collectives, and the peak
+    GB."""
+    launches = {k: 0 for k in kops.KERNELS}
+    stats = []
+    for i, (arch, depth, rows, prompt, cap) in enumerate(SHARD_WAVES):
+        cfg = shard_cfg(arch, depth)
+        reps = [r["waves"][i] for r in serve_r]
+        want = tp_serve_launches(cfg, prefill=True)
+        dec = tp_serve_launches(cfg)
+        want = {k: want.get(k, 0) + SHARD_DECODES * dec.get(k, 0)
+                for k in set(want) | set(dec)}
+        for rep in reps:
+            for k in launches:
+                launches[k] += rep["launches"][k]
+            got = {k: rep["launches"].get(k, 0) for k in want}
+            if got != want:
+                smoke.fail(f"sharded wave {arch} {rows}x{prompt}: launches "
+                           f"{got}, want {want}")
+            if cap is not None:
+                k = rep["cache"]["attn/k"]
+                local = cap // (2 if rows > 1 else 4)
+                if rep["rows"] != cap or k[1:4] != [max(rows // 2, 1),
+                                                   local, cfg.n_kv_heads]:
+                    smoke.fail(f"sharded wave {arch} {rows}x{prompt}: a "
+                               f"rank's KV cache {k} of {rep['rows']} rows, "
+                               f"want {max(rows // 2, 1)} x {local} rows x "
+                               f"{cfg.n_kv_heads} heads")
+        steps = [[s["ms"] for s in r["steps"][1:]] for r in reps]
+        coll = [[s["collective_ms"] for s in r["steps"][1:]] for r in reps]
+        pre = [r["steps"][0] for r in reps]
+        stat = {"arch": arch, "rows": rows, "prompt": prompt, "cap": cap,
+                "prefill_ms": [p["ms"] for p in pre],
+                "prefill_collective_ms": [p["collective_ms"] for p in pre],
+                "decode_ms": [statistics.median(v) for v in steps],
+                "decode_collective_ms": [statistics.median(v) for v in coll],
+                "peak_gb": [r["peak_gb"] for r in reps]}
+        stats.append(stat)
+        print(f"sharded wave: {arch} FULL at {cfg.n_layers} layers, "
+              f"{rows} x {prompt} tokens"
+              + (f" into {cap} cache rows" if cap else "")
+              + f" on {SHARD_SERVE_MESH} under seq_shard ({smi}); a rank "
+              f"holds {cache_text(reps[0]['cache'])}; prefill ms a rank "
+              f"{[round(v, 1) for v in stat['prefill_ms']]} (collectives "
+              f"{[round(v, 1) for v in stat['prefill_collective_ms']]}); "
+              f"decode ms a rank, median of {SHARD_DECODES} "
+              f"{[round(v, 2) for v in stat['decode_ms']]} (collectives "
+              f"{[round(v, 2) for v in stat['decode_collective_ms']]}); "
+              f"peak GB a rank {[round(v, 2) for v in stat['peak_gb']]}; "
+              f"launches a rank {reps[0]['launches']}", flush=True)
+    return {"launches": launches, "stats": stats}
 
 
 # ---------------------------------------------------------------------------
 # the dry run and the roofline
 
+# the train cells of the three step routes (llama and mamba2 split over
+# model, grok-1's MoE gathered whole), both serve kinds of the dense family,
+# the hybrid's decode, the SSM's 500k-position decode and a cell the port
+# refuses (the MoE's serving)
 DRYRUN_CELLS = (("llama3.2-1b", "train_4k"), ("llama3.2-1b", "prefill_32k"),
                 ("llama3.2-1b", "decode_32k"), ("mamba2-1.3b", "train_4k"),
-                ("mamba2-1.3b", "long_500k"), ("grok-1-314b", "train_4k"))
+                ("mamba2-1.3b", "long_500k"), ("zamba2-2.7b", "decode_32k"),
+                ("grok-1-314b", "train_4k"), ("grok-1-314b", "decode_32k"))
 DRYRUN_OUT = OBS_DIR.parent / "dryrun_smoke"
-DRYRUN_TIMEOUT_S = 400
+DRYRUN_LOG = OBS_DIR.parent / "dryrun_smoke.log"
+DRYRUN_TIMEOUT_S = 600              # from its start to its records
 DRYRUN_SCRIPT = """
 import sys
 from repro_torch.launch import dryrun
@@ -5233,31 +5654,50 @@ def analysed_decode(smoke: Smoke, kops) -> dict:
     return out
 
 
-def dryrun_pass(smoke: Smoke, kops) -> dict:
-    """The dry run of DRYRUN_CELLS on the single mesh (a CPU subprocess, a
-    fake world of 256 ranks), the examples on the card meanwhile, then the
-    op analyser on the llama train step and the mamba decode step. The
-    phase's launches are not counted into the main path's."""
+def start_dryrun():
+    """Start the dry run of DRYRUN_CELLS on the single mesh: a CPU
+    subprocess (a fake world of 256 ranks, one thread), its output into
+    DRYRUN_LOG; killed at the script's exit if it still runs. -> (the
+    process, its start time)."""
     src = Path(__file__).resolve().parent / "src"
     shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
-    env = dict(os.environ, PYTHONPATH=str(src), CUDA_VISIBLE_DEVICES="")
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, "-W", "ignore", "-c", DRYRUN_SCRIPT,
-         str(DRYRUN_OUT), *(f"{a}:{s}" for a, s in DRYRUN_CELLS)],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    DRYRUN_LOG.parent.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(src), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    with open(DRYRUN_LOG, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-W", "ignore", "-c", DRYRUN_SCRIPT,
+             str(DRYRUN_OUT), *(f"{a}:{s}" for a, s in DRYRUN_CELLS)],
+            env=env, stdout=log, stderr=subprocess.STDOUT)
+    atexit.register(stop_process, proc)
+    return proc, time.perf_counter()
+
+
+def stop_process(proc) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def dryrun_pass(smoke: Smoke, kops, dry) -> dict:
+    """The examples on the card, then the records of the dry run
+    :func:`start_dryrun` started (``dry``), then the op analyser on the
+    llama train step and the mamba decode step. The phase's launches are
+    not counted into the main path's."""
+    proc, t0 = dry
     try:
         examples = example_runs(smoke)
     finally:
         try:
-            log, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+            proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S
+                                  - (time.perf_counter() - t0)))
         except subprocess.TimeoutExpired:
-            proc.kill()
-            log = proc.communicate()[0]
+            stop_process(proc)
             smoke.fail(f"dry run: over {DRYRUN_TIMEOUT_S} s")
-    print(f"dry run of {len(DRYRUN_CELLS)} cells: "
-          f"{time.perf_counter() - t0:.1f} s beside the examples",
-          flush=True)
+    log = DRYRUN_LOG.read_text()
+    print(f"dry run of {len(DRYRUN_CELLS)} cells, beside the phases before "
+          f"this one: records read {time.perf_counter() - t0:.1f} s after "
+          "its start", flush=True)
     records = dryrun_records(smoke, proc, log)
     out = {"dryrun": records, "examples": examples,
            "train": analysed_train(smoke, kops)}
@@ -5266,7 +5706,6 @@ def dryrun_pass(smoke: Smoke, kops) -> dict:
     out["decode"] = analysed_decode(smoke, kops)
     out["launches"] = {k: 0 for k in kops.KERNELS}
     return out
-
 
 
 def main() -> int:
@@ -5368,6 +5807,9 @@ def main() -> int:
             for k in launches:
                 launches[k] += stats[run]["launches"][k]
 
+    # the dry run on the CPU beside the phases from here to its own
+    dry = start_dryrun()
+
     # training, outside inference mode
     for arch in TRAIN_ARCHS:
         run = f"{arch} train"
@@ -5416,7 +5858,7 @@ def main() -> int:
     run = "dryrun and roofline"
     t_run = time.perf_counter()
     try:
-        stats[run] = dryrun_pass(smoke, kops)
+        stats[run] = dryrun_pass(smoke, kops, dry)
     except Exception as exc:
         smoke.fail(f"dryrun and roofline pass: {exc!r}")
         stats[run] = {"launches": {k: 0 for k in ops_counts}}

@@ -101,6 +101,21 @@ def reduce_scatter(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     return torch.movedim(out, 0, dim).to(t.device)
 
 
+def all_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` ``(ranks, ...)``: piece i goes to rank i of ``group``, and the
+    result's piece j is what rank j sent this rank (group-rank order), on
+    ``t.device``: one ``all_to_all_single``."""
+    g = process_group(group)
+    if t.shape[0] != dist.get_world_size(g):
+        raise ValueError(f"all_to_all: {t.shape[0]} pieces for a group of "
+                         f"{dist.get_world_size(g)} ranks")
+    t = t.contiguous()
+    src = host_staged(t, g)
+    out = _staging(t) if src is not t else torch.empty_like(t)
+    dist.all_to_all_single(out, src, group=g)
+    return out.to(t.device)
+
+
 def ring_shift(t: torch.Tensor, group=None) -> torch.Tensor:
     """Send ``t`` to the next rank of ``group`` and receive the previous
     rank's (rank i -> i + 1 mod ranks), by one ``batch_isend_irecv``: the

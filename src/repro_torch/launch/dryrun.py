@@ -14,8 +14,8 @@ production rules, and runs the port's own step on rank 0's shards under
     and whether the peak fits the card;
   * ``skip``: the config's ``SKIPS`` reason;
   * ``unsupported``: the port raised ``NotImplementedError`` (the message
-    is kept): sharded serving of a family or a mesh it does not cover,
-    or a sequence-sharded KV cache;
+    is kept): sharded serving of the MoE or the encoder-decoder (slice 21
+    of ROADMAP item 4c);
   * anything else fails the cell, and the CLI exits 1.
 
 Train cells take ``make_rules(..., fsdp=True)``, rank 0's shards of
@@ -27,8 +27,15 @@ inside the layer, the activations' all-reduces over ``model`` charged as
 collective bytes), the gather-whole step for the MoE and the
 encoder-decoder. Prefill and decode cells add
 ``seq_shard`` (the reference's: prefill writes the cache decode reads) and
-run ``make_serve_step`` on rank 0's rows, the parameters prepared as the
-sharded engine prepares them (``serving_params``).
+run ``make_serve_step(bundle, mesh_ctx=)`` on rank 0's part: the
+parameters as the sharded engine prepares them (``serving_params``: the
+rank's heads, ``ff`` columns, SSM heads and vocab rows, gathered over
+``data``), the whole batch (the step takes its rows), and for decode the
+cache as the rules lay it (``models.lm.local_cache_pspec``: the KV rows
+split over ``kv_seq``'s mesh dims, ``model`` for decode_32k, ``data`` x
+``model`` for long_500k's one row). The prefill writes that layout itself
+(an all-to-all over ``model``); the decode attends the rank's rows and
+merges the partial outputs across ranks, never gathering the cache.
 
 Records go to ``artifacts/dryrun_torch/<mesh>/<arch>__<shape>.json``.
 
@@ -56,16 +63,13 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.op_analysis import OpAnalyser, roofline_terms
 from repro_torch.models import build
 from repro_torch.models.common import partition_specs, stack_pspec
+from repro_torch.models.lm import local_cache_pspec
 from repro_torch.optim import OptConfig
 from repro_torch.parallel import sharded_state as shst
+from repro_torch.parallel import tensor_parallel as tpar
 from repro_torch.parallel.mesh_context import MeshContext
 from repro_torch.parallel.sharding import spec_for
-from repro_torch.serving.engine import (
-    _check_shardable,
-    _sharded,
-    head_split,
-    serving_params,
-)
+from repro_torch.serving.engine import serving_params
 from repro_torch.training import TrainConfig, make_serve_step, make_train_step
 from repro_torch.training.train_lib import (
     RNG_WORDS,
@@ -152,31 +156,13 @@ def _train_args(bundle, mod, ctx: MeshContext, cell):
     return step, (state, _rows(cell, ctx.rules, ctx.axis_sizes))
 
 
-def _sequence_sharded(pspec, rules) -> bool:
-    return any(
-        entry is not None and name == "kv_seq"
-        for ps in tree.leaves(pspec)
-        for name, entry in zip(ps.logical or (),
-                               spec_for(ps.shape, ps.logical, rules=rules)))
-
-
 def _serve_args(bundle, ctx: MeshContext, cell):
     """(step, args) of a prefill or decode cell on rank 0, or
-    ``NotImplementedError`` where the port's sharded serving does not go."""
+    ``NotImplementedError`` where the port's sharded serving does not go
+    (the MoE, the encoder-decoder)."""
     cfg = bundle.cfg
-    if _sharded(ctx):
-        _check_shardable(cfg, ctx)
-    cache_pspec = bundle.cache_pspec(cell.cache_batch or cell.batch,
-                                     cell.cache_len or cell.seq)
-    if _sharded(ctx) and _sequence_sharded(cache_pspec, ctx.rules):
-        raise NotImplementedError(
-            f"the KV cache of {cfg.name} is sequence-sharded under "
-            f"{ctx.label()} (kv_seq -> {ctx.rules.axes_for('kv_seq')}); the "
-            "port's cache keeps every row of a slot on its rank")
-    if head_split(cfg, ctx) is not None:
-        raise NotImplementedError(
-            "the prefill and decode steps take whole heads; a head split "
-            "runs only in the continuous block step")
+    sharded = tpar.splits(ctx)
+    prefill_step, decode_step = make_serve_step(bundle, mesh_ctx=ctx)
     pspec = stack_pspec(bundle.params_pspec)
     p_specs = partition_specs(pspec, rules=ctx.rules, fsdp_ok=True)
     params = tree.map_tree(
@@ -184,19 +170,22 @@ def _serve_args(bundle, ctx: MeshContext, cell):
         pspec, p_specs)
     # the engine's once-per-run preparation, outside the step
     params = serving_params(params, bundle, ctx)
-    batch = _rows(cell, ctx.rules, ctx.axis_sizes)
-    prefill_step, decode_step = make_serve_step(bundle)
+    # the whole batch: a sharded step takes its rows
+    batch = {k: _fake(m.shape, m.dtype) for k, m in cell.batch_specs.items()}
     if cell.kind == "prefill":
         return prefill_step, (params, batch)
-    c_specs = partition_specs(cache_pspec, rules=ctx.rules)
-    cache = tree.map_tree(
-        lambda ps, s: _fake(local_shape(ps.shape, s, ctx.axis_sizes),
-                            ps.dtype or cfg.dtype), cache_pspec, c_specs)
-    if "pos" in cache:
-        # the new token's position, the cache's last row: a constant the
-        # step reads on the host (a fake tensor holds no value)
-        cache["pos"] = torch.tensor(cell.cache_len - 1,
-                                    dtype=cache["pos"].dtype)
+    cache_pspec = bundle.cache_pspec(cell.cache_batch, cell.cache_len)
+    kv = cache_pspec.get("attn", {}).get("k")
+    if sharded:
+        tp = tpar.for_serving(ctx, cfg.dtype, vocab=cfg.vocab,
+                              batch=cell.cache_batch, kv=kv)
+        cache_pspec = local_cache_pspec(cfg, cache_pspec, tp)
+    cache = tree.map_tree(lambda ps: _fake(ps.shape, ps.dtype or cfg.dtype),
+                          cache_pspec)
+    # the new token's position, the cache's last row
+    cache["pos"] = cell.cache_len - 1
+    if sharded and kv is not None:
+        cache["rows"] = kv.shape[2]
     return decode_step, (params, cache, batch)
 
 

@@ -23,7 +23,7 @@ import os
 from repro_torch.launch import mesh as mesh_lib
 
 # the next lever on each dominant term: (a step that gathers its weights
-# whole, a train step split over model by tensor parallelism)
+# whole, a train or serve step split over model by tensor parallelism)
 LEVERS = {
     "compute_s": ("split the forward over model (expert parallelism for "
                   "the MoE; the encoder-decoder's heads); fewer recomputed "
@@ -41,15 +41,13 @@ LEVERS = {
 
 
 def lever(rec: dict) -> str:
-    """The next lever on a record's dominant term: a train cell of a family
-    whose step splits over model (``models.lm.TP_FAMILIES``) has the split
-    done."""
+    """The next lever on a record's dominant term: a cell of a family whose
+    train and serve steps split over model (``models.lm.TP_FAMILIES``) has
+    the split done."""
     from repro_torch import configs
-    from repro_torch.configs.common import SHAPE_TABLE
     from repro_torch.models.lm import TP_FAMILIES
 
-    split = SHAPE_TABLE[rec["shape"]][2] == "train" and \
-        configs.get(rec["arch"]).FULL.family in TP_FAMILIES
+    split = configs.get(rec["arch"]).FULL.family in TP_FAMILIES
     return LEVERS[rec["roofline"]["dominant"]][split]
 
 

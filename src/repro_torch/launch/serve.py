@@ -11,9 +11,9 @@
     python -m repro_torch.launch.serve --cache paged \
         --obs-events events.jsonl --metrics-out metrics.prom \
         --profile-dir trace/
-    python -m torch.distributed.run --nproc-per-node 2 \
+    python -m torch.distributed.run --nproc-per-node 4 \
         -m repro_torch.launch.serve --arch llama3.2-1b --config smoke \
-        --device cpu --mesh model=2 --ckpt-dir build/train_ckpt
+        --device cpu --mesh data=2,model=2 --ckpt-dir build/train_ckpt
 
 The continuous scheduler is the default, as in the reference: per-slot
 admission, a ring KV cache, chunked prefill (``--prefill-chunk`` prompt
@@ -60,11 +60,17 @@ uninstrumented.
 
 ``--ckpt-dir`` serves the parameters of the latest committed step of a
 checkpoint that ``launch.train`` wrote (any mesh, any world size). Under
-``torchrun`` with ``--mesh model=2`` (the dense family) the engine serves
-sharded in lockstep (``serving/engine.py``): the parameters are placed
-under ``partition_specs(..., fsdp_ok=False)`` of the context's rules (a
-checkpoint is restored straight into those shards), each rank holds its
-KV heads' cache, and only rank 0 prints.
+``torchrun`` with ``--mesh data=a,model=b`` (the dense, vlm, ssm and
+hybrid families) the engine serves sharded in lockstep
+(``serving/engine.py``): the parameters are placed under
+``partition_specs(..., fsdp_ok=False)`` of the context's rules (a
+checkpoint is restored straight into those shards, as the reference's
+``launch/serve.py`` places them) and each rank keeps its ``model`` share
+of them; each rank steps its ``data`` rows of the slots (``--slots`` must
+divide by ``a``) on its heads, ``ff`` columns, SSM heads and vocab, and
+holds that part of the cache; only rank 0 prints. The MoE and the
+encoder-decoder raise under a mesh that splits a dim (slice 21 of ROADMAP
+item 4c).
 """
 from __future__ import annotations
 
@@ -207,9 +213,10 @@ def main(argv=None) -> ServingEngine:
                     help="serve the params of this checkpoint's latest "
                          "committed step (launch.train's layout)")
     ap.add_argument("--mesh", default=None,
-                    help="mesh axes as 'model=2' (multiplies to the world "
-                         "size, under torchrun): serve sharded, each rank "
-                         "holding its KV heads, admission in lockstep")
+                    help="mesh axes as 'data=2,model=2' or 'model=2' "
+                         "(multiplies to the world size, under torchrun): "
+                         "serve sharded in lockstep, the slots over data, "
+                         "heads, ff, SSM heads and vocab over model")
     obs_cli.add_obs_args(ap)
     args = ap.parse_args(argv)
 

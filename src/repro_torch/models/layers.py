@@ -29,7 +29,8 @@ from repro_torch.core import policy as kpolicy
 from repro_torch.core.policy import KernelPolicy
 from repro_torch.core.ssd import ssd_decode_step
 from repro_torch.models.common import PSpec, rmsnorm, rope, swiglu
-from repro_torch.models.xla_attention import decode_attention
+from repro_torch.models.xla_attention import decode_attention, \
+    decode_attention_part
 from repro_torch.parallel import tensor_parallel as tpar
 from repro_torch.parallel.tensor_parallel import Take, merged
 
@@ -172,6 +173,69 @@ def attn_apply(p, cfg: ModelConfig, x, *, positions=None, causal=True,
     return (out if tp is None else tp.reduce_out(out)), (k, v)
 
 
+def _project(p, cfg: ModelConfig, x, positions):
+    """q ``(B, T, hq, Dh)``, k and v ``(B, T, hkv, Dh)`` of the heads whose
+    columns ``p`` holds (every head, or a tensor-parallel rank's), rope on
+    q and k at ``positions`` (B, T)."""
+    b, t = x.shape[:2]
+    dh = cfg.dh
+    hq, hkv = p["wq"].shape[-1] // dh, p["wk"].shape[-1] // dh
+    q = rope((x @ p["wq"]).reshape(b, t, hq, dh), positions, cfg.rope_theta)
+    k = rope((x @ p["wk"]).reshape(b, t, hkv, dh), positions, cfg.rope_theta)
+    v = (x @ p["wv"]).reshape(b, t, hkv, dh)
+    return q, k, v
+
+
+def _cache_rows(tp, local: int) -> tuple[int, int]:
+    """(the KV cache's global rows, the first of this rank's ``local``):
+    all of them but where a serving step splits them over mesh dims
+    (``seq_axes``)."""
+    if tp is None or not tp.seq_axes:
+        return local, 0
+    return tp.kv_rows, tp.seq_start()
+
+
+def _cache_heads(cfg: ModelConfig, q, k, v, held: int, tp):
+    """q, k and v of the heads a cache of ``held`` KV heads holds, and this
+    rank's query heads among them (None: all of them). Where the cache
+    holds every KV head but the rank computes a part (a serving step whose
+    cache rows are split over ``model``), the new tokens' q, k and v are
+    gathered over ``model`` in one all-gather; ranks that share a KV head
+    (the KV heads do not divide ``model``) each give a copy, one is kept."""
+    hq, hkv = q.shape[2], k.shape[2]
+    if hkv == held:
+        return q, k, v, None
+    b, t, _, dh = q.shape
+    parts = tp.all_model(torch.cat([q, k, v], dim=2)[None], 0)
+    q = parts[..., :hq, :].permute(1, 2, 0, 3, 4).reshape(b, t, -1, dh)
+    k, v = (parts[..., hq + i * hkv:hq + (i + 1) * hkv, :]
+            .permute(1, 2, 0, 3, 4).reshape(b, t, -1, dh) for i in range(2))
+    if k.shape[2] != held:
+        k, v = k[:, :, ::tp.size // held], v[:, :, ::tp.size // held]
+    return q, k, v, (tp.index * hq, (tp.index + 1) * hq)
+
+
+def _attend(q, kc, vc, lens, start: int, tp):
+    """Attention of q over the cache rows ``kc``/``vc`` at global positions
+    ``[start, start + rows)``, in q's dtype: the whole cache, or where a
+    serving step splits its rows (``seq_axes``) this rank's range, merged
+    across the ranks that hold the others."""
+    if tp is None or not tp.seq_axes:
+        return decode_attention(q, kc, vc, lens)
+    o, m, l = decode_attention_part(q, kc, vc, lens, start=start)
+    return tp.merge_attention(o, m, l).to(q.dtype)
+
+
+def _attn_out(o, p, tp, heads):
+    """``wo`` over the heads' outputs ``(B, T, H, Dh)`` (this rank's
+    ``heads`` of them where given): row-parallel under tensor parallelism,
+    the partial products summed over ``model``."""
+    if heads is not None:
+        o = o[:, :, heads[0]:heads[1]]
+    out = o.reshape(*o.shape[:2], -1) @ p["wo"]
+    return out if tp is None else tp.reduce_out(out)
+
+
 def attn_decode(p, cfg: ModelConfig, x, cache, *, pos: int, window=None):
     """x (B,1,d); cache {k, v: (B,Smax,Hkv,Dh)} -> out (B,1,d).
 
@@ -181,45 +245,28 @@ def attn_decode(p, cfg: ModelConfig, x, cache, *, pos: int, window=None):
     past the cache, which the reference clamps onto its last row). With a
     sliding window the cache is a ring: the token goes to row ``pos %
     Smax`` and attends ``min(pos + 1, Smax)`` rows; rope takes the absolute
-    position, so the storage order does not change the softmax."""
+    position, so the storage order does not change the softmax.
+
+    Under a serving ``TensorParallel`` ``p`` holds this rank's heads
+    (:func:`attn_takes`) and ``wo`` is row-parallel. Where the cache's rows
+    are split across ranks (``seq_axes``; ``Smax`` then is the rank's
+    range, every KV head), the token is written by the rank that holds its
+    row, and each rank attends its range, the parts merged by log-sum-exp;
+    the cache is never gathered."""
     b = x.shape[0]
-    dh, hq, hkv = cfg.dh, cfg.n_heads, cfg.n_kv_heads
+    tp = tpar.current()
     kc, vc = cache["k"], cache["v"]
-    smax = kc.shape[1]
+    local = kc.shape[1]
+    cap, s0 = _cache_rows(tp, local)
     posv = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
-    q = rope((x @ p["wq"]).reshape(b, 1, hq, dh), posv, cfg.rope_theta)
-    k = rope((x @ p["wk"]).reshape(b, 1, hkv, dh), posv, cfg.rope_theta)
-    v = (x @ p["wv"]).reshape(b, 1, hkv, dh)
-    row = pos % smax if window is not None else pos
-    kc[:, row] = k[:, 0].to(kc.dtype)
-    vc[:, row] = v[:, 0].to(vc.dtype)
-    o = decode_attention(q, kc, vc, min(pos + 1, smax))
-    return o.reshape(b, 1, hq * dh) @ p["wo"]
-
-
-def _local_heads(p, cfg: ModelConfig, cache) -> tuple[int, int]:
-    """(query heads, KV heads) of a block step: the cache's KV heads, which
-    under sharded serving are this rank's (``kv_heads`` -> ``model``), with
-    their group's query heads (``p["wq"]``'s columns are those heads')."""
-    return p["wq"].shape[-1] // cfg.dh, cache["k"].shape[-2]
-
-
-def _heads_out(o, cfg: ModelConfig, hq: int):
-    """The heads' outputs (B, T, hq * Dh) before ``wo``: this rank's heads
-    all-gathered over the mesh dim of ``kv_heads`` into every head's (in
-    head order) when the rank holds a part of them, else as they are."""
-    if hq == cfg.n_heads:
-        return o
-    from repro_torch.core.distributed import all_gather
-    from repro_torch.parallel.mesh_context import current_mesh_context
-
-    ctx = current_mesh_context()
-    if ctx is None or ctx.mesh is None:
-        raise ValueError(f"a block step over {hq} of {cfg.n_heads} query "
-                         "heads needs the active MeshContext that shards "
-                         "them")
-    parts = all_gather(o, (ctx.mesh, ctx.rules.axes_for("kv_heads")))
-    return torch.cat(parts.unbind(0), dim=-1)
+    q, k, v = _project(p, cfg, x, posv)
+    q, k, v, heads = _cache_heads(cfg, q, k, v, kc.shape[2], tp)
+    row = (pos % cap if window is not None else pos) - s0
+    if 0 <= row < local:
+        kc[:, row] = k[:, 0].to(kc.dtype)
+        vc[:, row] = v[:, 0].to(vc.dtype)
+    o = _attend(q, kc, vc, min(pos + 1, cap), s0, tp)
+    return _attn_out(o, p, tp, heads)
 
 
 def attn_decode_block(p, cfg: ModelConfig, x, cache, *, n_valid):
@@ -234,31 +281,41 @@ def attn_decode_block(p, cfg: ModelConfig, x, cache, *, n_valid):
     slot are distinct, so the write is exact and order-free. Returns out
     (B,T,d); the caller advances ``pos``.
 
-    Head-sharded (sharded serving): the cache holds this rank's KV heads and
-    ``p``'s q, k and v projections their heads' columns; the rank attends
-    its heads, their outputs are all-gathered before ``wo`` and the cache is
-    never gathered."""
+    Sharded serving (a serving ``TensorParallel``): the slots are this
+    rank's, ``p`` holds its heads (:func:`attn_takes`) and ``wo`` is
+    row-parallel; the cache holds the KV heads the rank computes, or, where
+    its rows are split across ranks (``seq_axes``), the rank's range of the
+    ring (``S`` its rows; T must not pass them) with every KV head: a token
+    is written by the rank that holds its row, each rank attends its range
+    and the parts are merged by log-sum-exp. The cache is never
+    gathered."""
     b, t_len = x.shape[:2]
-    dh = cfg.dh
-    hq, hkv = _local_heads(p, cfg, cache)
+    tp = tpar.current()
     kc, vc = cache["k"], cache["v"]
-    smax = kc.shape[1]
-    if t_len > smax:
+    local = kc.shape[1]
+    cap, s0 = _cache_rows(tp, local)
+    if t_len > local:
         raise ValueError(f"a block step of {t_len} tokens needs a ring of at "
-                         f"least {t_len} rows, the cache has {smax}")
+                         f"least {t_len} rows, the cache has {local}")
     steps = torch.arange(t_len, device=x.device)
     posmat = cache["pos"].long()[:, None] + steps[None, :]      # (B, T)
-    q = rope((x @ p["wq"]).reshape(b, t_len, hq, dh), posmat, cfg.rope_theta)
-    k = rope((x @ p["wk"]).reshape(b, t_len, hkv, dh), posmat,
-             cfg.rope_theta)
-    v = (x @ p["wv"]).reshape(b, t_len, hkv, dh)
-    valid = (steps[None, :] < n_valid[:, None])[..., None, None]
-    idx = (posmat % smax)[..., None, None].expand(b, t_len, hkv, dh)
+    q, k, v = _project(p, cfg, x, posmat)
+    q, k, v, heads = _cache_heads(cfg, q, k, v, kc.shape[2], tp)
+    hkv, dh = k.shape[2], k.shape[3]
+    row = posmat % cap
+    valid = steps[None, :] < n_valid[:, None]
+    if cap != local:            # this rank's range of the ring's rows
+        row = row - s0
+        valid = valid & (row >= 0) & (row < local)
+        # T consecutive positions have distinct rows mod the rank's rows
+        row = row % local
+    valid = valid[..., None, None]
+    idx = row[..., None, None].expand(b, t_len, hkv, dh)
     for c, new in ((kc, k), (vc, v)):
         c.scatter_(1, idx, torch.where(valid, new.to(c.dtype),
                                        c.gather(1, idx)))
-    o = decode_attention(q, kc, vc, torch.clamp(posmat + 1, max=smax))
-    return _heads_out(o.reshape(b, t_len, hq * dh), cfg, hq) @ p["wo"]
+    o = _attend(q, kc, vc, torch.clamp(posmat + 1, max=cap), s0, tp)
+    return _attn_out(o, p, tp, heads)
 
 
 def attn_decode_paged(p, cfg: ModelConfig, x, cache, *, n_valid, tables):
@@ -279,11 +336,15 @@ def attn_decode_paged(p, cfg: ModelConfig, x, cache, *, n_valid, tables):
     for position p the gathered row is ``((p // R) % MP) * R + p % R == p
     % (MP * R)``, the ring row of a capacity-``MP * R`` cache, so the
     result equals the ring path's, sliding window included. Returns out
-    (B,T,d); the caller advances ``pos``. Head-sharded as
-    :func:`attn_decode_block`: the pool holds this rank's KV heads."""
+    (B,T,d); the caller advances ``pos``.
+
+    Sharded serving: x, ``n_valid`` and ``pos`` are this rank's slots and
+    ``tables`` every slot's; the pool holds the KV heads the rank computes
+    and is replicated over the batch's mesh dims, so the new rows (and
+    their pool rows) of every rank's slots are gathered over them before
+    the write, which every rank then makes alike."""
     b, t_len = x.shape[:2]
-    dh = cfg.dh
-    hq, hkv = _local_heads(p, cfg, cache)
+    tp = tpar.current()
     kc, vc = cache["k"], cache["v"]
     n_pages, r = kc.shape[:2]
     mp = tables.shape[1]
@@ -291,30 +352,34 @@ def attn_decode_paged(p, cfg: ModelConfig, x, cache, *, n_valid, tables):
     if t_len > cap:
         raise ValueError(f"a block step of {t_len} tokens needs at least "
                          f"{t_len} rows a slot, the block table maps {cap}")
+    mine = tables if tp is None else tables.narrow(0, tp.row_start(b), b)
     steps = torch.arange(t_len, device=x.device)
     posmat = cache["pos"].long()[:, None] + steps[None, :]      # (B, T)
-    q = rope((x @ p["wq"]).reshape(b, t_len, hq, dh), posmat, cfg.rope_theta)
-    k = rope((x @ p["wk"]).reshape(b, t_len, hkv, dh), posmat,
-             cfg.rope_theta)
-    v = (x @ p["wv"]).reshape(b, t_len, hkv, dh)
-    phys = tables.gather(1, (posmat // r) % mp)                 # (B, T)
+    q, k, v = _project(p, cfg, x, posmat)
+    hkv, dh = k.shape[2], k.shape[3]
+    phys = mine.gather(1, (posmat // r) % mp)                   # (B, T)
     rows = (phys * r + posmat % r).reshape(-1)                  # (B*T,)
     valid = (steps[None, :] < n_valid[:, None]).reshape(-1)
+    k, v = k.reshape(b * t_len, hkv, dh), v.reshape(b * t_len, hkv, dh)
+    if tp is not None and tp.rows_split():     # every rank's slots' rows
+        rows, valid = tp.gather_rows(torch.stack([rows, valid.long()]), 1)
+        valid = valid.bool()
+        k, v = tp.gather_rows(torch.stack([k, v], dim=1)).unbind(1)
     # writer[i, j]: real token j writes token i's row (at most one j a row)
     writer = (rows[:, None] == rows[None, :]) & valid[None, :]
     written = writer.any(dim=1)[:, None, None]
     src = writer.to(torch.uint8).argmax(dim=1)
     for c, new in ((kc, k), (vc, v)):
         flat = c.view(n_pages * r, hkv, dh)
-        new = new.reshape(b * t_len, hkv, dh).to(c.dtype)
+        new = new.to(c.dtype)
         flat.index_copy_(0, rows, torch.where(
             written, new.index_select(0, src), flat.index_select(0, rows)))
     # each slot's pages back in ring order: (B, MP*R, Hkv, Dh)
-    pages = tables.reshape(-1)
+    pages = mine.reshape(-1)
     k_seq = kc.index_select(0, pages).view(b, cap, hkv, dh)
     v_seq = vc.index_select(0, pages).view(b, cap, hkv, dh)
-    o = decode_attention(q, k_seq, v_seq, torch.clamp(posmat + 1, max=cap))
-    return _heads_out(o.reshape(b, t_len, hq * dh), cfg, hq) @ p["wo"]
+    o = _attend(q, k_seq, v_seq, torch.clamp(posmat + 1, max=cap), 0, None)
+    return _attn_out(o, p, tp, None)
 
 
 def attn_cache_pspec(cfg: ModelConfig, n_layers: int, batch: int, smax: int):
@@ -545,6 +610,31 @@ def mamba_takes(cfg: ModelConfig, tp) -> dict:
             "out_proj": Take(0, (x,))}
 
 
+def _gated_out(y, z, p, cfg: ModelConfig, tp):
+    """``out_proj`` of the gated norm of the SSD output ``y`` (B, T, di) in
+    x's dtype, gate ``z``: under tensor parallelism over this rank's
+    ``d_inner`` columns, the norm's sums completed across ranks
+    (``split_rmsnorm``) and ``out_proj``'s partial product summed."""
+    y = y * F.silu(z.float()).to(y.dtype)
+    if tp is None:
+        y = rmsnorm(y, p["norm_w"], cfg.norm_eps, cfg.policy)
+    else:
+        y = tpar.split_rmsnorm(y, p["norm_w"], cfg.norm_eps, cfg.d_inner, tp,
+                               cfg.policy)
+    out = y @ p["out_proj"]
+    return out if tp is None else tp.reduce_out(out)
+
+
+def _mixer_in(p, cfg: ModelConfig, x):
+    """(z, raw x|B|C, raw dt, heads, groups) of ``in_proj`` over x, for
+    the SSM heads whose columns ``p`` holds (every head, or a
+    tensor-parallel rank's)."""
+    hh = p["dt_bias"].shape[-1]
+    z, xbc, dt_raw = _split_inproj(cfg, x @ p["in_proj"], hh)
+    g = (xbc.shape[-1] - hh * cfg.ssm_head_dim) // (2 * cfg.ssm_state)
+    return z, xbc, dt_raw, hh, g
+
+
 def mamba_apply(p, cfg: ModelConfig, x, *, collect_cache: bool = False):
     """x (B,S,d) -> (out (B,S,d), cache-or-None). Full-sequence path.
 
@@ -557,11 +647,8 @@ def mamba_apply(p, cfg: ModelConfig, x, *, collect_cache: bool = False):
     if tp is not None:
         x = tp.copy_in(x)
     ns, hp = cfg.ssm_state, cfg.ssm_head_dim
-    hh = p["dt_bias"].shape[-1]
+    z, xbc_raw, dt_raw, hh, g = _mixer_in(p, cfg, x)
     di = hh * hp
-    zxbcdt = x @ p["in_proj"]
-    z, xbc_raw, dt_raw = _split_inproj(cfg, zxbcdt, hh)
-    g = (xbc_raw.shape[-1] - di) // (2 * ns)
     xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
     xs = xbc[..., :di].reshape(b, s, hh, hp)
     bmat = xbc[..., di:di + g * ns].reshape(b, s, g, ns)
@@ -572,16 +659,7 @@ def mamba_apply(p, cfg: ModelConfig, x, *, collect_cache: bool = False):
                             matmul_dtype=cfg.dtype, return_state=True,
                             policy=cfg.policy)
     y = y + p["d_skip"][:, None].float() * xs.float()
-    y = y.reshape(b, s, di).to(x.dtype)
-    y = y * F.silu(z.float()).to(x.dtype)
-    if tp is None:
-        y = rmsnorm(y, p["norm_w"], cfg.norm_eps, cfg.policy)
-    else:
-        y = tpar.split_rmsnorm(y, p["norm_w"], cfg.norm_eps, cfg.d_inner, tp,
-                               cfg.policy)
-    out = y @ p["out_proj"]
-    if tp is not None:
-        out = tp.reduce_out(out)
+    out = _gated_out(y.reshape(b, s, di).to(x.dtype), z, p, cfg, tp)
     cache = None
     if collect_cache:
         # conv cache = last K-1 *raw* mixer inputs; state (B,H,P,N) from SSD
@@ -618,12 +696,15 @@ def mamba_snap_pspec(cfg: ModelConfig, n_layers: int, pages: int):
 
 
 def mamba_decode(p, cfg: ModelConfig, x, cache):
-    """x (B,1,d); cache {conv (B,K-1,C), state (B,H,P,N)} -> (out, cache)."""
+    """x (B,1,d); cache {conv (B,K-1,C), state (B,H,P,N)} -> (out, cache).
+    Under a serving ``TensorParallel`` ``p``, the conv history and the state
+    are this rank's SSM heads' (:func:`mamba_takes`, ``C`` their conv
+    channels)."""
     b = x.shape[0]
-    di, g, ns = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
-    hh, hp = cfg.ssm_heads, cfg.ssm_head_dim
-    zxbcdt = x @ p["in_proj"]
-    z, xbc, dt_raw = _split_inproj(cfg, zxbcdt)
+    tp = tpar.current()
+    ns, hp = cfg.ssm_state, cfg.ssm_head_dim
+    z, xbc, dt_raw, hh, g = _mixer_in(p, cfg, x)
+    di = hh * hp
     hist = torch.cat([cache["conv"], xbc.to(cache["conv"].dtype)], dim=1)
     conv_out = torch.einsum("bkc,kc->bc", hist.float(), p["conv_w"].float())
     xbc_t = F.silu(conv_out + p["conv_b"].float()).to(x.dtype)
@@ -634,10 +715,7 @@ def mamba_decode(p, cfg: ModelConfig, x, cache):
     a = -torch.exp(p["a_log"])
     y, state = ssd_decode_step(cache["state"], xs, dt, a, bmat, cmat)
     y = y + p["d_skip"][None, :, None] * xs.float()
-    y = y.reshape(b, 1, di).to(x.dtype)
-    y = y * F.silu(z.float()).to(x.dtype)
-    y = rmsnorm(y, p["norm_w"], cfg.norm_eps, cfg.policy)
-    out = y @ p["out_proj"]
+    out = _gated_out(y.reshape(b, 1, di).to(x.dtype), z, p, cfg, tp)
     return out, {"conv": hist[:, 1:], "state": state}
 
 
@@ -651,12 +729,13 @@ def mamba_decode_block(p, cfg: ModelConfig, x, cache, *, n_valid):
     real, so a slot's state stops at its own ``n_valid``. The new conv
     history is the K-1 raw inputs before each slot's next token. Returns
     (out (B,T,d), {conv, state}); the outputs of tokens past ``n_valid``
-    are junk the caller discards."""
+    are junk the caller discards. Sharded as :func:`mamba_decode`: this
+    rank's slots and SSM heads."""
     b, t_len = x.shape[:2]
-    di, g, ns = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
-    hh, hp, kk = cfg.ssm_heads, cfg.ssm_head_dim, cfg.conv_kernel
-    zxbcdt = x @ p["in_proj"]
-    z, xbc_raw, dt_raw = _split_inproj(cfg, zxbcdt)
+    tp = tpar.current()
+    ns, hp, kk = cfg.ssm_state, cfg.ssm_head_dim, cfg.conv_kernel
+    z, xbc_raw, dt_raw, hh, g = _mixer_in(p, cfg, x)
+    di = hh * hp
     conv = cache["conv"]
     hist = torch.cat([conv, xbc_raw.to(conv.dtype)], dim=1)  # (B,K-1+T,C)
     ch = hist.shape[-1]
@@ -678,10 +757,7 @@ def mamba_decode_block(p, cfg: ModelConfig, x, cache, *, n_valid):
         ys.append(y_t)
     y = torch.stack(ys, dim=1).float()                       # (B,T,H,P)
     y = y + p["d_skip"][None, None, :, None] * xs.float()
-    y = y.reshape(b, t_len, di).to(x.dtype)
-    y = y * F.silu(z.float()).to(x.dtype)
-    y = rmsnorm(y, p["norm_w"], cfg.norm_eps, cfg.policy)
-    out = y @ p["out_proj"]
+    out = _gated_out(y.reshape(b, t_len, di).to(x.dtype), z, p, cfg, tp)
     rows = n_valid[:, None] + torch.arange(kk - 1, device=x.device)
     new_conv = hist.gather(1, rows[..., None].expand(b, kk - 1, ch))
     return out, {"conv": new_conv, "state": state}

@@ -56,6 +56,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
+from repro_torch import tree
 from repro_torch.models import layers as L
 from repro_torch.models.common import (
     PSpec,
@@ -103,6 +104,22 @@ def _remat(fn, policy: str):
             context_fn=functools.partial(
                 ckpt.create_selective_checkpoint_contexts, _dots_policy))
     raise ValueError(policy)
+
+
+def serves_split(cfg: L.ModelConfig, mesh_ctx) -> bool:
+    """Whether serving ``cfg`` on ``mesh_ctx`` takes the split steps: a mesh
+    that splits a dim (``tensor_parallel.splits``), where the families
+    whose steps split over ``model`` (``TP_FAMILIES``) are served and the
+    MoE and the encoder-decoder raise ``NotImplementedError``."""
+    if not tpar.splits(mesh_ctx):
+        return False
+    if cfg.family not in TP_FAMILIES:
+        raise NotImplementedError(
+            f"sharded serving of {cfg.name} ({cfg.family}) is not ported "
+            f"to mesh {mesh_ctx.label()}: the MoE's experts (experts, e_ff "
+            "-> model) and the encoder-decoder under a mesh are slice 21 of "
+            "ROADMAP item 4c; serve it unsharded")
+    return True
 
 
 def _require_ported(cfg: L.ModelConfig) -> None:
@@ -230,23 +247,29 @@ def _block_takes(cfg: L.ModelConfig, tp) -> dict:
     return {"attn": L.attn_takes(cfg, tp), "mlp": L.mlp_takes(cfg, tp)}
 
 
+def param_takes(cfg: L.ModelConfig, tp) -> tuple[dict, dict]:
+    """(what a tensor-parallel rank takes of the parameters outside the
+    blocks, of one block): the embedding and head as this rank's vocab rows
+    where ``tp`` splits the vocab (else whole, the logits replicated, as the
+    reference's spec leaves them), the hybrid's shared block as its heads
+    and ``ff`` columns, each block by :func:`_block_takes`."""
+    vocab = Take(0, (tp.span(cfg.vocab),)) if tp.vocab_split else None
+    top = {"embed": vocab, "head": vocab}
+    if cfg.family == "hybrid":
+        top["shared"] = {"attn": L.attn_takes(cfg, tp),
+                         "mlp": L.mlp_takes(cfg, tp)}
+    return top, _block_takes(cfg, tp)
+
+
 def _tp_params(shards, cfg: L.ModelConfig, tp):
     """The stacked tree of :class:`~repro_torch.parallel.tensor_parallel.
     Shard` -> the forward's: the blocks a list of per-layer trees of shards,
     which each layer gathers itself (:func:`lm_apply`), the rest gathered
-    here: the embedding and head as this rank's vocab rows where the vocab
-    divides the model dim (else whole, the logits replicated, as the
-    reference's spec leaves them), the hybrid's shared block as its heads
-    and ``ff`` columns."""
-    vocab = Take(0, (tp.span(cfg.vocab),)) if tp.vocab_split else None
-    takes = {"embed": vocab, "head": vocab,
-             "shared": {"attn": L.attn_takes(cfg, tp),
-                        "mlp": L.mlp_takes(cfg, tp)}
-             if cfg.family == "hybrid" else None}
-    out = {k: tp.views(v, takes.get(k)) for k, v in shards.items()
+    here (:func:`param_takes`)."""
+    top, block = param_takes(cfg, tp)
+    out = {k: tp.views(v, top.get(k)) for k, v in shards.items()
            if k != "blocks"}
-    out["blocks"] = tp.layers(shards["blocks"], _block_takes(cfg, tp),
-                              cfg.n_layers)
+    out["blocks"] = tp.layers(shards["blocks"], block, cfg.n_layers)
     return out
 
 
@@ -335,7 +358,7 @@ def lm_apply(params, cfg: L.ModelConfig, batch, *, collect_cache=False,
     if last_only:
         h = h[:, -1:]
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps, cfg.policy)
-    logits = unembed(h, _head(params, cfg))
+    logits = _logits(params, cfg, h)
     cache = None
     if collect_cache:
         cache = {"pos": s}
@@ -346,8 +369,11 @@ def lm_apply(params, cfg: L.ModelConfig, batch, *, collect_cache=False,
                 "conv": torch.stack([c["conv"] for c in caches]),
                 "state": torch.stack([c["state"] for c in caches])}
         if cfg.family in KV_FAMILIES:
-            cache["attn"] = {n: _ring_order(cfg, torch.stack(
-                [kv[j] for kv in kvs]), s) for j, n in enumerate("kv")}
+            k, v = (_ring_order(cfg, torch.stack([kv[j] for kv in kvs]), s)
+                    for j in range(2))
+            if tp is not None and tp.inference:
+                k, v = _kv_layout(torch.stack([k, v]), cfg, tp)
+            cache["attn"] = {"k": k, "v": v}
     return logits, aux_total, cache
 
 
@@ -360,6 +386,49 @@ def _ring_order(cfg: L.ModelConfig, t: torch.Tensor, s: int) -> torch.Tensor:
     if not w or w >= s:
         return t
     return torch.roll(t[:, :, -w:], s % w, dims=2)
+
+
+def _kv_layout(t: torch.Tensor, cfg: L.ModelConfig, tp) -> torch.Tensor:
+    """A sharded prefill's K and V ``(2, layers, B, S, H, Dh)``, H the KV
+    heads this rank computed, over every row -> this rank's part of the
+    cache in the serving layout (:func:`local_cache_pspec`): the rows
+    padded with zeros to the cache's ``tp.kv_rows``; where the serving
+    context splits them (``seq_axes``), the rank's range of them, and where
+    that split takes ``model``, the range's rows of every KV head, by one
+    all-to-all over ``model`` (each rank sends each other one its heads of
+    that one's rows). A token's row never moves after this: the prefill
+    writes the capacity the decode steps fill."""
+    rows = tp.kv_rows
+    if t.shape[3] > rows:
+        raise ValueError(f"a prefill of {t.shape[3]} cache rows into a "
+                         f"cache of {rows}")
+    t = F.pad(t, (0, 0, 0, 0, 0, rows - t.shape[3]))
+    if not tp.seq_axes:
+        return t
+    idx, parts = tp.index_in(tp.seq_axes)
+    local = rows // parts
+    if tpar.MODEL_AXIS not in tp.seq_axes or tp.size == 1:
+        return t.narrow(3, idx * local, local).contiguous()
+    m = tp.size
+    # the rows of the rank's block over the other mesh dims, one range a
+    # model rank; the ranks of those dims computed the same rows
+    t = t.narrow(3, idx // m * m * local, m * local)
+    got = tp.exchange(t.unflatten(3, (m, local)).movedim(3, 0))
+    got = got.movedim(0, 4).flatten(4, 5)          # (2, L, B, local, m*H, Dh)
+    if got.shape[4] != cfg.n_kv_heads:             # ranks shared a KV head
+        got = got[:, :, :, :, ::m // cfg.n_kv_heads]
+    return got.contiguous()
+
+
+def _logits(params, cfg: L.ModelConfig, h) -> torch.Tensor:
+    """The head over ``h``; under a serving ``TensorParallel`` that splits
+    the vocab, every rank's columns gathered over ``model`` (the whole
+    vocab, for sampling)."""
+    logits = unembed(h, _head(params, cfg))
+    tp = tpar.current()
+    if tp is not None and tp.inference and tp.vocab_split:
+        logits = tp.all_model(logits, -1)
+    return logits
 
 
 def lm_loss(params, cfg: L.ModelConfig, batch) -> torch.Tensor:
@@ -448,8 +517,11 @@ def lm_decode(params, cfg: L.ModelConfig, cache, batch):
     # the attention layers' window makes their cache a ring; the hybrid's
     # shared block takes none, as in the reference
     window = cfg.swa_window if cfg.family in ATTN_FAMILIES else None
+    tp = tpar.current()
     if kv is not None:
-        rows = kv["k"].shape[2]
+        # the cache's global rows (a serving step may hold a range of them)
+        rows = tp.kv_rows if tp is not None and tp.seq_axes \
+            else kv["k"].shape[2]
         if window is not None and rows > window:
             raise ValueError(
                 f"a KV cache of {rows} rows under a sliding window of "
@@ -473,7 +545,7 @@ def lm_decode(params, cfg: L.ModelConfig, cache, batch):
     h = _step_layers(params, cfg, cache, h, attend, mix, mamba_in)
     cache["pos"] = pos + 1
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps, cfg.policy)
-    return unembed(h, _head(params, cfg)), cache
+    return _logits(params, cfg, h), cache
 
 
 def lm_cache_pspec(cfg: L.ModelConfig, batch: int, smax: int,
@@ -515,6 +587,41 @@ def lm_cache_pspec(cfg: L.ModelConfig, batch: int, smax: int,
     return cache
 
 
+def local_cache_pspec(cfg: L.ModelConfig, pspec, tp):
+    """The cache declaration ``pspec`` (global shapes) cut to this rank's
+    part under the serving context ``tp``: the slots split over the batch's
+    mesh dims (``tp.batch_axes``) and the ring's rows over ``tp.seq_axes``,
+    as the rules' specs split them; the KV heads those the rank computes
+    (:func:`~repro_torch.models.layers.attn_takes`: ``n_kv_heads / model``,
+    or the one of its GQA group where they do not divide ``model``, a
+    layout the specs do not express), but every KV head where the rows are
+    split over ``model``; the SSM heads and conv channels those of
+    :func:`~repro_torch.models.layers.mamba_takes` (its heads' x channels
+    and the B and C groups they read, another layout the specs do not
+    express). The paged pools' pages are whole on every rank."""
+    cut = {"batch": lambda n: n // tp.row_parts(),
+           "kv_seq": lambda n: n // tp.seq_parts()}
+    if cfg.family in KV_FAMILIES:
+        heads = (cfg.n_kv_heads if tpar.MODEL_AXIS in tp.seq_axes else
+                 _width(L.attn_takes(cfg, tp)["wk"]) // cfg.dh)
+        cut["kv_heads"] = lambda n: heads
+    if cfg.family in STATE_FAMILIES:
+        took = L.mamba_takes(cfg, tp)
+        cut["ssm_heads"] = lambda n: _width(took["dt_bias"])
+        cut["inner_all"] = lambda n: _width(took["conv_b"])
+
+    def local(ps):
+        shape = tuple(cut[name](n) if name in cut else n
+                      for n, name in zip(ps.shape, ps.logical))
+        return dataclasses.replace(ps, shape=shape)
+
+    return tree.map_tree(local, pspec)
+
+
+def _width(take: Take) -> int:
+    return sum(b - a for a, b in take.ranges)
+
+
 def _last_logits(params, cfg: L.ModelConfig, h, n_valid):
     """Logits (B, vocab) after each slot's last valid token (an idle slot's
     row is junk the caller ignores)."""
@@ -522,7 +629,7 @@ def _last_logits(params, cfg: L.ModelConfig, h, n_valid):
     h_last = h.gather(1, last[:, None, None].expand(h.shape[0], 1,
                                                     h.shape[-1]))
     h_last = rmsnorm(h_last, params["final_norm"], cfg.norm_eps, cfg.policy)
-    return unembed(h_last, _head(params, cfg))[:, 0]
+    return _logits(params, cfg, h_last)[:, 0]
 
 
 def lm_decode_block(params, cfg: L.ModelConfig, cache, batch, *,
@@ -570,19 +677,29 @@ def lm_decode_block(params, cfg: L.ModelConfig, cache, batch, *,
 
 
 def _snap_plan(reset: torch.Tensor, load: torch.Tensor,
-               save: torch.Tensor) -> dict:
+               save: torch.Tensor, tp=None) -> dict:
     """The tick's snapshot plan as fixed-shape indices, made once for every
     layer. Loads: ``use`` marks the reset slots that start from snapshot
     ``page`` instead of zeros. Saves: each slot's pre-tick state goes to a
     page as a (``src`` slot, ``dst`` page) pair: a slot with ``save >= 0``
     its own state into page ``save``; every other slot repeats the first
     saver's pair, or, when no slot saves, page 0 takes its own content back
-    (``keep``). Writes to one page then carry one value."""
+    (``keep``). Writes to one page then carry one value.
+
+    Sharded serving (``tp``): ``reset`` and ``load`` are this rank's slots,
+    ``save`` every slot's (the snapshot pool is replicated over the
+    batch's mesh dims, so every rank writes every save): the saved states
+    are gathered over those dims (``gather``), and on a tick that saves
+    nothing the pool is left alone (``skip``, read on the host: the sharded
+    step runs eagerly)."""
     b = save.shape[0]
     saves = save >= 0
     first = saves.to(torch.uint8).argmax().view(1)
     keep = ~saves.any()
+    gather = tp is not None and tp.rows_split()
     return {
+        "gather": tp if gather else None,
+        "skip": gather and bool(keep),
         "reset": reset, "use": reset & (load >= 0),
         "page": load.clamp(min=0), "keep": keep,
         "src": torch.where(saves, torch.arange(b, device=save.device),
@@ -605,10 +722,14 @@ def _snap_io(live, snap, plan, dim=0):
     loaded = snap.index_select(dim, plan["page"]).to(live.dtype)
     init = torch.where(plan["reset"].view(shape),
                        torch.where(plan["use"].view(shape), loaded, 0), live)
+    if plan["skip"]:
+        return init
+    every = init if plan["gather"] is None \
+        else plan["gather"].gather_rows(init, dim)
     dst = plan["dst"]
     snap.index_copy_(dim, dst, torch.where(
         plan["keep"], snap.index_select(dim, dst),
-        init.index_select(dim, plan["src"]).to(snap.dtype)))
+        every.index_select(dim, plan["src"]).to(snap.dtype)))
     return init
 
 
@@ -629,7 +750,12 @@ def lm_decode_block_paged(params, cfg: L.ModelConfig, cache, batch, *,
     (B,): snapshot pages to save the slot's pre-tick state into, and to
     load a reset slot's state from (-1: none), planned once for every
     layer before the layers. The cache is updated in place; returns (logits
-    (B, vocab) after each slot's last valid token, cache)."""
+    (B, vocab) after each slot's last valid token, cache).
+
+    Sharded serving (a serving ``TensorParallel``): ``tokens``, ``n_valid``,
+    ``reset_mask``, ``reset_pos`` and ``snap_load`` are this rank's slots;
+    ``tables``, the copy pairs and ``snap_save`` every slot's, since the KV
+    and snapshot pools are replicated over the batch's mesh dims."""
     _require_ported(cfg)
     tokens = batch["tokens"]
     dev = tokens.device
@@ -648,7 +774,8 @@ def lm_decode_block_paged(params, cfg: L.ModelConfig, cache, batch, *,
     if cfg.family in STATE_FAMILIES:
         plan = _snap_plan(
             reset, torch.as_tensor(page["snap_load"], device=dev).long(),
-            torch.as_tensor(page["snap_save"], device=dev).long())
+            torch.as_tensor(page["snap_save"], device=dev).long(),
+            tpar.current())
         # the conv histories are small: every layer's at once; the states
         # layer by layer, where one layer's stays in L2
         conv0 = _snap_io(cache["mamba"]["conv"], cache["snap"]["conv"], plan,

@@ -11,7 +11,13 @@ chunks, so ``Sq > 256`` must be a multiple of 256.
 
 :func:`decode_attention` attends query tokens against a KV cache with a
 valid length per call, slot or query; the reference runs it outside any
-Pallas kernel, so it stays plain torch here.
+Pallas kernel, so it stays plain torch here. :func:`decode_attention_part`
+attends one range of a cache's rows (at global positions ``[start, start +
+S)``, unnormalised, with each row's max and sum). A cache whose rows are
+split across ranks attends each rank's range and merges the parts across
+them by log-sum-exp
+(``parallel.tensor_parallel.TensorParallel.merge_attention``); one range
+merged alone is :func:`decode_attention` to f32 rounding.
 """
 from __future__ import annotations
 
@@ -113,6 +119,72 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.cat(outs, dim=1).reshape(b, sq, hq, d).to(q.dtype)
 
 
+def _visible(cur_len, b: int, tq: int, s: int, start: int, window,
+             device) -> torch.Tensor:
+    """(B, T, S): whether query token t of slot b sees the cache row at
+    global position ``start + j``: below ``cur_len`` (an int, ``(B,)`` or
+    ``(B, T)``) and, with a window, not below ``cur_len - window``."""
+    if isinstance(cur_len, int):   # a fill on the device: no host copy,
+        # which would wait for the stream at every layer of every step
+        cl = torch.full((), cur_len, dtype=torch.int64, device=device)
+    else:
+        cl = torch.as_tensor(cur_len, dtype=torch.int64, device=device)
+    if cl.ndim == 0:
+        cl = cl[None, None]
+    elif cl.ndim == 1:
+        cl = cl[:, None]
+    lens = cl.expand(b, tq)[..., None]                    # (B, T, 1)
+    kpos = torch.arange(start, start + s, device=device)[None, None, :]
+    valid = kpos < lens                                   # (B, T, S)
+    if window is not None:
+        valid = valid & (kpos >= lens - window)
+    return valid
+
+
+def _grouped_logits(q: torch.Tensor, k_cache: torch.Tensor, cur_len,
+                    start: int, window, scale):
+    """The logits of ``q (B, T, Hq, D)`` against the cache rows ``k_cache
+    (B, S, Hkv, D)`` at global positions ``[start, start + S)``, in f32 and
+    the grouped layout ``(B, Hkv, rep, T, S)``, the rows query token t of
+    slot b does not see (:func:`_visible`) at ``NEG_INF``; and that
+    visibility ``(B, 1, 1, T, S)``."""
+    b, s, hkv, d = k_cache.shape
+    tq, hq = q.shape[1], q.shape[2]
+    sc = scale if scale is not None else 1.0 / (d ** 0.5)
+    qg = q.reshape(b, tq, hkv, hq // hkv, d).float()
+    logits = torch.einsum("bqhrd,bkhd->bhrqk", qg, k_cache.float()) * sc
+    valid = _visible(cur_len, b, tq, s, start, window, q.device)[:, None,
+                                                                 None]
+    return logits.masked_fill(~valid, NEG_INF), valid
+
+
+def decode_attention_part(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, cur_len, *, start: int = 0,
+                          window: int | None = None,
+                          scale: float | None = None):
+    """:func:`decode_attention` over a range of the cache's rows: ``k_cache``
+    and ``v_cache`` ``(B, S, Hkv, D)`` hold the rows at global positions
+    ``[start, start + S)``, and query token t of slot b sees those below
+    ``cur_len[b, t]`` (with a window, not below ``cur_len - window``).
+    Returns the part's ``(o, m, l)`` in f32: the unnormalised output ``(B,
+    T, Hq, D)``, each row's max logit and sum of ``exp(logit - m)`` ``(B, T,
+    Hq)``; a row with no key in the range has ``m = NEG_INF`` and ``l = 0``.
+    ``TensorParallel.merge_attention`` combines the parts of the ranks'
+    ranges."""
+    b, tq, hq, d = q.shape
+    logits, valid = _grouped_logits(q, k_cache, cur_len, start, window,
+                                    scale)
+    m = logits.amax(dim=-1)                               # (B,Hkv,rep,T)
+    p = torch.where(valid, torch.exp(logits - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhrqk,bkhd->bqhrd", p, v_cache.float())
+
+    def rows(t):                                          # -> (B, T, Hq)
+        return t.permute(0, 3, 1, 2).reshape(b, tq, hq)
+
+    return o.reshape(b, tq, hq, d), rows(m), rows(l)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cur_len, *,
                      window: int | None = None,
@@ -120,28 +192,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """``q (B, T, Hq, D)`` against ``k_cache``/``v_cache`` ``(B, S, Hkv,
     D)``: query token t of slot b sees the cache rows below
     ``cur_len[b, t]`` (and, with a window, not below ``cur_len - window``).
-    ``cur_len`` is an int, a ``(B,)`` or a ``(B, T)`` tensor."""
-    b, s, hkv, d = k_cache.shape
-    tq, hq = q.shape[1], q.shape[2]
-    rep = hq // hkv
-    sc = scale if scale is not None else 1.0 / (d ** 0.5)
-    qg = q.reshape(b, tq, hkv, rep, d).float()
-    logits = torch.einsum("bqhrd,bkhd->bhrqk", qg, k_cache.float()) * sc
-    if isinstance(cur_len, int):   # a fill on the device: no host copy,
-        # which would wait for the stream at every layer of every step
-        cl = torch.full((), cur_len, dtype=torch.int64, device=q.device)
-    else:
-        cl = torch.as_tensor(cur_len, dtype=torch.int64, device=q.device)
-    if cl.ndim == 0:
-        cl = cl[None, None]
-    elif cl.ndim == 1:
-        cl = cl[:, None]
-    lens = cl.expand(b, tq)[..., None]                    # (B, T, 1)
-    kpos = torch.arange(s, device=q.device)[None, None, :]
-    valid = kpos < lens                                   # (B, T, S)
-    if window is not None:
-        valid = valid & (kpos >= lens - window)
-    logits = logits.masked_fill(~valid[:, None, None], NEG_INF)
+    ``cur_len`` is an int, a ``(B,)`` or a ``(B, T)`` tensor. The whole
+    cache as one range of :func:`decode_attention_part` merged alone, to
+    f32 rounding (a softmax: fewer launches in a step's graph)."""
+    b, tq, hq, d = q.shape
+    logits, _ = _grouped_logits(q, k_cache, cur_len, 0, window, scale)
     p = torch.softmax(logits, dim=-1)
     o = torch.einsum("bhrqk,bkhd->bqhrd", p, v_cache.float())
     return o.reshape(b, tq, hq, d).to(q.dtype)

@@ -6,7 +6,8 @@ rules and their DTensor placements (``sharding``), the sharded reduce, scan,
 weighted scan and SSD that ``repro_torch.ops`` routes ``DTensor``s to
 (``shard_ops``), the GPipe schedule (``pipeline``), the sharded train
 state (``sharded_state``), and the views its step computes on, gathered
-whole or split over ``model`` (``tensor_parallel``).
+whole or split over ``model``, and the serving steps' split of parameters,
+batch rows and KV-cache rows (``tensor_parallel``).
 The reference's ``compat`` shims jax versions and has no counterpart here.
 """
 from repro_torch.parallel.mesh_context import (

@@ -32,6 +32,19 @@ whole, the take cut from it, and its gradient summed over ``model``. The
 backward takes the gradient back onto the rank's shard, averaged over the
 batch's mesh dims (``sharded_state.scatter_grad``).
 
+Serving (:func:`for_serving`, ``inference=True``) takes the same split
+without autograd: :meth:`TensorParallel.take` cuts each parameter once, at
+engine or step construction, into the part the rank's compute uses (held
+resident: 1/``model`` of every split leaf); ``copy_in`` is the identity and
+``reduce_out`` and ``sum_split`` a plain all-reduce. A serving context also
+knows the rows of the step's batch a rank holds (``batch_axes``, the
+batch rule's mesh dims: :meth:`TensorParallel.row_start`,
+:meth:`TensorParallel.gather_rows`) and the rows of the KV cache's
+sequence it holds (``seq_axes``, the ``kv_seq`` rule's mesh dims, and
+``kv_rows``, the cache's global rows): a decode step attends the local
+rows and merges the ranks' partial outputs by log-sum-exp
+(:meth:`TensorParallel.merge_attention`), never gathering the cache.
+
 Every collective goes through ``repro_torch.core.distributed`` (a CUDA
 tensor through host memory on gloo) and works on the dry run's ``fake``
 process group: nothing here branches on a collective's values. A step
@@ -48,9 +61,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import dispatch
-from repro_torch.core.distributed import all_gather, all_reduce_sum
+from repro_torch.core.distributed import all_gather, all_reduce_sum, \
+    all_to_all
 from repro_torch.parallel.sharded_state import _axes, gather_full, \
     scatter_grad
+from repro_torch.parallel.sharding import spec_for
 
 # the mesh dim tensor parallelism splits the compute over
 MODEL_AXIS = "model"
@@ -146,13 +161,8 @@ class _View(torch.autograd.Function):
     def forward(ctx, local, spec, take, tp):
         ctx.tp, ctx.spec, ctx.take, ctx.dtype = tp, spec, take, local.dtype
         ctx.aligned = tp.aligned(spec, take, local.shape)
-        with tp.part("gather"):
-            t = local.to(tp.dtype)
-            if ctx.aligned:
-                return gather_full(t, _without(spec, tp.axis), tp.mesh)
-            t = gather_full(t, spec, tp.mesh)
-            ctx.shape = t.shape
-            return t if take is None else take.select(t)
+        out, ctx.shape = tp._gather_take(local, spec, take)
+        return out
 
     @staticmethod
     def backward(ctx, g):
@@ -224,6 +234,12 @@ class TensorParallel:
     vocab_split: bool = False
     batch_axes: tuple = ()
     clock: object = None
+    # a serving step (:func:`for_serving`): no autograd on the collectives;
+    # the mesh dims the KV cache's rows are split over (major first) and
+    # the cache's global rows (None: no KV cache)
+    inference: bool = False
+    seq_axes: tuple = ()
+    kv_rows: int | None = None
     axis = MODEL_AXIS
 
     @property
@@ -270,15 +286,129 @@ class TensorParallel:
             return all_reduce_sum(x, self.group)
 
     def copy_in(self, x: torch.Tensor) -> torch.Tensor:
-        return _CopyIn.apply(x, self)
+        return x if self.inference else _CopyIn.apply(x, self)
 
     def reduce_out(self, x: torch.Tensor) -> torch.Tensor:
+        if self.inference:
+            return x if self.size == 1 else self.all_reduce(x)
         return _ReduceOut.apply(x, self)
 
     def sum_split(self, x: torch.Tensor) -> torch.Tensor:
+        if self.inference:
+            return x if self.size == 1 else self.all_reduce(x)
         return _SumSplit.apply(x, self)
 
+    def all_model(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every ``model`` rank's ``x`` concatenated along ``dim`` in rank
+        order (a serving step's gather of split heads or vocab columns)."""
+        if self.size == 1:
+            return x
+        with self.part("tp_all_gather"):
+            return torch.cat(all_gather(x, self.group).unbind(0), dim)
+
+    def exchange(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` ``(model ranks, ...)``: piece i to ``model`` rank i; ->
+        the pieces the ranks sent this one, in rank order (one
+        all-to-all)."""
+        with self.part("tp_all_to_all"):
+            return all_to_all(x, self.group)
+
+    # -- serving: rows of the batch and of the KV cache ----------------------
+
+    def index_in(self, axes: tuple) -> tuple[int, int]:
+        """(this rank's index, the ranks) of the group over mesh dims
+        ``axes``, major first."""
+        names = tuple(self.mesh.mesh_dim_names)
+        coord = dict(zip(names, self.mesh.get_coordinate()))
+        idx, parts = 0, 1
+        for a in axes:
+            n = self.mesh.size(names.index(a))
+            idx, parts = idx * n + coord[a], parts * n
+        return idx, parts
+
+    def row_start(self, rows: int) -> int:
+        """The first global row of this rank's ``rows`` rows of the step's
+        batch (split over ``batch_axes``)."""
+        return self.index_in(self.batch_axes)[0] * rows
+
+    def row_parts(self) -> int:
+        """The ranks the step's batch rows are split over."""
+        return self.index_in(self.batch_axes)[1]
+
+    def rows_split(self) -> bool:
+        """Whether the step's batch rows are split across ranks."""
+        return self.row_parts() > 1
+
+    def gather_rows(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every rank's rows of the batch (dim ``dim`` of ``x``) in global
+        order: gathered over ``batch_axes``."""
+        if not self.rows_split():
+            return x
+        with self.part("tp_all_gather"):
+            spec = [None] * x.ndim
+            spec[dim] = self.batch_axes
+            return gather_full(x, tuple(spec), self.mesh)
+
+    def seq_parts(self) -> int:
+        """The ranks the KV cache's rows are split over."""
+        return self.index_in(self.seq_axes)[1]
+
+    def seq_start(self) -> int:
+        """The first global row of this rank's range of the KV cache."""
+        idx, parts = self.index_in(self.seq_axes)
+        return idx * (self.kv_rows // parts)
+
+    def merge_attention(self, o: torch.Tensor, m: torch.Tensor,
+                        l: torch.Tensor) -> torch.Tensor:
+        """The normalised attention output ``(B, T, H, D)`` in f32 from this
+        rank's part over its range of the cache's rows (``o`` unnormalised,
+        each row's max ``m`` and sum ``l``, f32; ``models.xla_attention.
+        decode_attention_part``): the row maxima gathered over
+        ``seq_axes``, the part rescaled to their max, its outputs and sums
+        summed over ``seq_axes`` (log-sum-exp); a row no rank has a key
+        for is zeros. With no ``seq_axes`` it is the part normalised."""
+        top = m
+        with self.part("tp_all_gather"):
+            for a in self.seq_axes:
+                top = all_gather(top, (self.mesh, a)).amax(0)
+        scale = torch.exp(m - top)
+        both = torch.cat([o * scale[..., None], (l * scale)[..., None]], -1)
+        with self.part("tp_all_reduce"):
+            for a in self.seq_axes:
+                both = all_reduce_sum(both, (self.mesh, a))
+        o, l = both[..., :-1], both[..., -1]
+        return o / torch.where(l > 0, l, 1.0)[..., None]
+
     # -- parameters ----------------------------------------------------------
+
+    def _gather_take(self, local: torch.Tensor, spec, take):
+        """(the compute's view of a shard, the whole leaf's shape or None):
+        the rank's ``model`` shard gathered over the other dims where it is
+        ``take``, else the leaf gathered whole and ``take`` cut from it."""
+        with self.part("gather"):
+            t = local.to(self.dtype) if local.is_floating_point() else local
+            if self.aligned(spec, take, local.shape):
+                return gather_full(t, _without(spec, self.axis),
+                                   self.mesh), None
+            t = gather_full(t, spec, self.mesh)
+            return (t if take is None else take.select(t)), t.shape
+
+    def take(self, shard: Shard, take: Take | None = None) -> torch.Tensor:
+        """:meth:`view` without autograd, for serving: the part ``take`` of
+        ``shard`` (None: the whole leaf) in the compute dtype, which the
+        rank keeps (a whole leaf already in that dtype is the caller's
+        tensor)."""
+        return self._gather_take(shard.local, shard.spec, take)[0]
+
+    def takes(self, params, takes=None):
+        """:meth:`take` over the :class:`Shard` leaves of ``params``, each
+        with its entry of ``takes`` (as :meth:`views`)."""
+        if isinstance(params, dict):
+            takes = takes or {}
+            return {k: self.takes(v, takes.get(k)) for k, v in params.items()}
+        if isinstance(params, Shard):
+            return self.take(params, takes)
+        return params
 
     def view(self, shard: Shard, take: Take | None = None) -> torch.Tensor:
         """The compute's view of ``shard`` in the compute dtype: gathered
@@ -306,18 +436,72 @@ class TensorParallel:
     def layers(self, stacked, takes, n: int) -> list:
         """A stacked tree of :class:`Shard` leaves ``(n, ...)`` -> ``n``
         per-layer trees: each leaf's layer as a :class:`Shard` that the
-        layer gathers (:meth:`views`); a leaf whose stack dim is itself
-        sharded is gathered once, here, with its take on every layer, and
-        its layers are the views."""
+        layer gathers (:meth:`views`, or :meth:`takes` when serving); a leaf
+        whose stack dim is itself sharded is gathered once, here, with its
+        take on every layer, and its layers are the views."""
+        view = self.take if self.inference else self.view
+
         def split(leaf, take):
             if leaf.spec and leaf.spec[0] is not None:
-                return torch.unbind(self.view(
+                return torch.unbind(view(
                     leaf, None if take is None else take.shifted(1)), 0)
             return [Shard(t, leaf.spec[1:])
                     for t in torch.unbind(leaf.local, 0)]
 
         per = _map_with(split, stacked, takes)
         return [_pick(per, i) for i in range(n)]
+
+
+def splits(mesh_ctx) -> bool:
+    """Whether ``mesh_ctx`` has a mesh with a dim of more than one rank: a
+    step under it takes the split path."""
+    return (mesh_ctx is not None and mesh_ctx.mesh is not None
+            and max(mesh_ctx.axis_sizes.values()) > 1)
+
+
+def batch_rows(mesh_ctx, batch: int, *, strict: bool = False,
+               what: str = "rows") -> tuple:
+    """The mesh dims the batch rule splits ``batch`` rows over:
+    ``spec_for``'s, none where their ranks do not divide the rows (a
+    dry-run cell's one row); ``strict`` raises ``ValueError`` there
+    instead (the engine's slots)."""
+    rules = mesh_ctx.rules
+    axes = _axes(spec_for((batch,), ("batch",), rules=rules)[0])
+    parts = rules.axis_size(rules.axes_for("batch"))
+    if strict and not axes and parts > 1:
+        raise ValueError(
+            f"sharded serving steps each rank's rows of the {what}, split "
+            f"over the batch's {parts} ranks of mesh {mesh_ctx.label()}; "
+            f"{batch} {what} do not divide")
+    return axes
+
+
+def for_serving(mesh_ctx, dtype: torch.dtype, *, vocab: int,
+                batch: int | None = None, kv=None,
+                clock=None) -> TensorParallel:
+    """The serving step's context on ``mesh_ctx``'s mesh: the vocab split
+    where it divides the ``model`` dim (as the train step decides); the
+    ``batch`` rows split as :func:`batch_rows` says (None: no rows, a
+    context that only takes parameters); and, given ``kv`` (the KV cache's
+    declaration: its global ``shape`` and ``logical`` names), the mesh dims
+    its ``kv_seq`` rows are split over and their number. A ``kv_seq`` split
+    that takes the ``model`` dim must take it last (minor), as the rules'
+    ``("data", "model")`` does."""
+    mesh, rules = mesh_ctx.mesh, mesh_ctx.rules
+    m = model_size(mesh)
+    rows = () if batch is None else batch_rows(mesh_ctx, batch)
+    seq, kv_rows = (), None
+    if kv is not None:
+        dim = kv.logical.index("kv_seq")
+        seq = _axes(spec_for(kv.shape, kv.logical, rules=rules)[dim])
+        kv_rows = kv.shape[dim]
+        if MODEL_AXIS in seq and seq[-1] != MODEL_AXIS:
+            raise ValueError(f"a KV cache whose rows split over {seq} needs "
+                             f"{MODEL_AXIS!r} as the minor mesh dim")
+    return TensorParallel(mesh=mesh, dtype=dtype,
+                          vocab_split=m > 1 and vocab % m == 0,
+                          batch_axes=rows, clock=clock, inference=True,
+                          seq_axes=seq, kv_rows=kv_rows)
 
 
 def _map_with(fn, params, takes):

@@ -64,26 +64,48 @@ paged pool's gauges. Every site guards on ``runtime.ACTIVE is not None``
 (the span on the profiler's own flag, as in the reference).
 
 Sharded serving (``mesh_ctx=``, a :class:`~repro_torch.parallel.
-MeshContext`; the dense-attention family on a mesh whose only dim of more
-than one rank is ``model``): the caches are allocated sharded under the
-context's rules, ``kv_heads`` -> ``model``, so each rank holds only its KV
-heads (ring or paged). The parameters, given whole or as ``DTensor``s (e.g.
-restored from a sharded checkpoint), are gathered once into the compute
-dtype, and each rank keeps its heads' columns of the q, k and v
-projections: a block step attends the rank's KV heads with their query
-heads, all-gathers the heads' outputs before ``wo`` and never gathers the
-cache; the rest of the step runs whole on every rank. The logits are
-replicated (broadcast from rank 0) before sampling, so every rank draws the
-same token. Under a process group of more than one rank the engine admits
-in **lockstep**, as the reference's multi-host engine does: every rank is
-fed the same requests and admits them in queue order, arrival clocks
-ignored, so every rank enters every step with the same shapes; the wave
-scheduler raises. The collectives go through host memory (gloo), which a
-CUDA graph cannot capture: under a multi-rank mesh every tick runs the
-eager step, and ``compile_stats()`` counts no graph and says why. Sharded
-serving of the SSM state (mamba2, zamba2) and of MoE experts is not
-ported: those engines raise ``NotImplementedError`` (ROADMAP queue 1, item
-4b).
+MeshContext`; the dense, vlm, ssm and hybrid families on any mesh of
+``data`` x ``model`` ranks, ``pod`` too where the rules name it), as the
+reference's rules lay it out:
+
+  * rows over the batch's mesh dims (``data``): every rank runs the same
+    scheduler over the global slots and steps its own rows of them, the
+    batch rule's split ``[d B / D, (d + 1) B / D)``; slots that the batch's
+    mesh dims do not divide raise ``ValueError``. Each tick's logits are
+    gathered into the whole ``(slots, vocab)`` and broadcast from rank 0,
+    so every rank samples the same tokens;
+  * heads, ``ff`` columns, SSM heads and vocab over ``model``
+    (``parallel.tensor_parallel``): :func:`serving_params` takes each
+    rank's part of every parameter once, here (1/``model`` of every split
+    leaf stays resident), and every block step runs the rank's share, with
+    ``wo``, ``w_out`` and ``out_proj`` row-parallel (one all-reduce each)
+    and the logits' vocab columns gathered;
+  * the caches are allocated as this rank's part
+    (``models.lm.local_cache_pspec``): the ring's rows split over
+    ``kv_seq``'s mesh dims where the rules shard it (the production rules'
+    ``seq_shard=True``), each rank attending its range and the parts merged
+    by log-sum-exp, the cache never gathered; the KV heads the rank
+    computes, or every head where its rows are split over ``model``; the
+    KV heads of a GQA group that does not divide ``model`` are each rank's
+    own copy of its group's head, and the conv history holds the channels
+    of the rank's SSM heads, two layouts the specs do not express. The
+    paged KV pool and the SSM snapshot pool keep every page on every rank
+    (their logical axes name no batch dim): each tick's new K and V rows,
+    and the saved states, are gathered over the batch's mesh dims before
+    the pool write, and the host's page plan stays global and the same on
+    every rank.
+
+Under a process group of more than one rank the engine admits in
+**lockstep**, as the reference's multi-host engine does: every rank is fed
+the same requests and admits them in queue order, arrival clocks ignored,
+so every rank enters every step with the same shapes, idle ticks and empty
+rows included; the wave scheduler raises (its steps run sharded through
+``training.make_serve_step(bundle, mesh_ctx=)``). The collectives go
+through host memory (gloo), which a CUDA graph cannot capture: under a
+multi-rank mesh every tick runs the eager step, and ``compile_stats()``
+counts no graph and says why. The MoE and the encoder-decoder raise
+``NotImplementedError`` under a mesh that splits a dim: their expert and
+encoder splits are slice 21 of ROADMAP item 4c.
 """
 from __future__ import annotations
 
@@ -102,13 +124,19 @@ from repro_torch.core.policy import KernelPolicy
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import init_params, unstack_blocks
 from repro_torch.models import build
-from repro_torch.models.lm import Bundle, pad_cache_seq
+from repro_torch.models.lm import TP_FAMILIES, Bundle, local_cache_pspec, \
+    pad_cache_seq, param_takes, serves_split
 from repro_torch.obs import profiling as _prof
 from repro_torch.obs import runtime as _obs
+from repro_torch.parallel import tensor_parallel as tpar
 from repro_torch.parallel.mesh_context import activate
 from repro_torch.parallel.sharded_state import gather_full
-from repro_torch.parallel.sharding import is_dtensor, spec_for, spec_of
+from repro_torch.parallel.sharding import is_dtensor, spec_of
 from repro_torch.serving import kvpool
+
+# the block step's inputs that hold one row a slot: a rank steps its own
+# rows of them (the page tables, copy pairs and snapshot saves stay whole)
+ROW_INPUTS = ("tokens", "n_valid", "reset", "reset_pos", "snap_load")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,56 +222,31 @@ class _Slot:
     result: Result | None = None
 
 
-def _sharded(mesh_ctx) -> bool:
-    """Whether ``mesh_ctx`` has a mesh with a dim of more than one rank."""
-    return (mesh_ctx is not None and mesh_ctx.mesh is not None
-            and max(mesh_ctx.axis_sizes.values()) > 1)
-
-
-def _check_shardable(cfg, mesh_ctx) -> None:
-    """Sharded serving covers the dense-attention family on a mesh whose
-    only split dim is the ``kv_heads`` one; anything else raises."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"sharded serving of {cfg.name} ({cfg.family}) is not ported: "
-            "the SSM state (ssm_heads/inner -> model, a gated RMSNorm over a "
-            "sharded inner) and MoE experts are ROADMAP queue 1, item 4b "
-            "leftovers; serve it unsharded")
-    axis = mesh_ctx.rules.axes_for("kv_heads")
-    other = {a: n for a, n in mesh_ctx.axis_sizes.items()
-             if a != axis and n > 1}
-    if not isinstance(axis, str) or other:
-        raise NotImplementedError(
-            f"sharded serving splits the KV heads over one mesh dim; mesh "
-            f"{mesh_ctx.label()} also splits {sorted(other)} (batch-sharded "
-            "serving is a ROADMAP queue 1, item 4b leftover)")
-
-
-def head_split(cfg, mesh_ctx) -> tuple[int, int] | None:
-    """This rank's KV heads ``[k0, k1)`` under the context's ``kv_heads``
-    rule, or None when the cache's KV heads are not split (the rule does
-    not divide them, or no mesh)."""
-    if not _sharded(mesh_ctx):
-        return None
-    axis = mesh_ctx.rules.axes_for("kv_heads")
-    names = tuple(mesh_ctx.mesh.mesh_dim_names)
-    if axis not in names:
-        return None
-    m = mesh_ctx.axis_sizes[axis]
-    if m <= 1 or cfg.n_kv_heads % m:
-        return None
-    c = mesh_ctx.mesh.get_coordinate()[names.index(axis)]
-    n = cfg.n_kv_heads // m
-    return c * n, (c + 1) * n
-
-
 def serving_params(params, bundle: Bundle, mesh_ctx=None):
-    """The engine's compute parameters: every floating leaf in the model's
-    compute dtype (a ``DTensor`` leaf cast on its shard, then gathered
-    whole), stacked ``(layers, ...)`` leaves split into the forward's
-    per-layer list, and under a head split (:func:`head_split`) each
-    layer's q, k and v projections cut to this rank's heads' columns."""
+    """The engine's compute parameters, in the model's compute dtype, the
+    stacked ``(layers, ...)`` leaves split into the forward's per-layer
+    list. Unsharded (or the MoE and the encoder-decoder), every leaf whole
+    (a ``DTensor`` leaf cast on its shard, then gathered). Under a mesh that
+    splits a dim, each rank's part of every leaf
+    (``models.lm.param_takes``, ``TensorParallel.take``): its heads' q, k
+    and v columns and ``wo`` rows, its ``ff`` columns, its SSM heads' part
+    of the Mamba leaves, its vocab rows of the embedding and head where the
+    vocab divides ``model``, and the rest whole; a leaf already split over
+    ``model`` as the rank takes it is gathered over the other mesh dims
+    only, any other is gathered whole and cut, so 1/``model`` of every
+    split leaf stays resident."""
     cfg = bundle.cfg
+    if tpar.splits(mesh_ctx) and cfg.family in TP_FAMILIES:
+        tp = tpar.for_serving(mesh_ctx, cfg.dtype, vocab=cfg.vocab)
+        top, block = param_takes(cfg, tp)
+        shards = tree.map_tree(_shard_of, params)
+        out = {k: tp.takes(v, top.get(k)) for k, v in shards.items()
+               if k != "blocks"}
+        blocks = shards["blocks"]
+        if isinstance(blocks, dict):            # the stacked layout
+            blocks = tp.layers(blocks, block, cfg.n_layers)
+        out["blocks"] = [tp.takes(lp, block) for lp in blocks]
+        return out
 
     def whole(t):
         if is_dtensor(t):
@@ -256,20 +259,15 @@ def serving_params(params, bundle: Bundle, mesh_ctx=None):
     params = tree.map_tree(whole, params)
     if isinstance(params.get("blocks"), dict):
         params = unstack_blocks(params, cfg)
-    heads = head_split(cfg, mesh_ctx)
-    if heads is None:
-        return params
-    k0, k1 = heads
-    g, dh = cfg.n_heads // cfg.n_kv_heads, cfg.dh
-    cols = {"wq": slice(k0 * g * dh, k1 * g * dh),
-            "wk": slice(k0 * dh, k1 * dh), "wv": slice(k0 * dh, k1 * dh)}
-    blocks = []
-    for lp in params["blocks"]:
-        attn = dict(lp["attn"])
-        for name, sl in cols.items():
-            attn[name] = attn[name][:, sl].contiguous()
-        blocks.append(dict(lp, attn=attn))
-    return dict(params, blocks=blocks)
+    return params
+
+
+def _shard_of(t) -> tpar.Shard:
+    """A leaf as a :class:`~repro_torch.parallel.tensor_parallel.Shard`: a
+    ``DTensor``'s local shard and spec, a plain tensor whole."""
+    if is_dtensor(t):
+        return tpar.Shard(t.to_local(), spec_of(t))
+    return tpar.Shard(t, (None,) * t.ndim)
 
 
 def _bucket(n: int) -> int:
@@ -344,8 +342,8 @@ class ServingEngine:
             bundle = build(dataclasses.replace(bundle.cfg,
                                                policy=cfg.policy))
         self.mesh_ctx = mesh_ctx
-        if _sharded(mesh_ctx):
-            _check_shardable(bundle.cfg, mesh_ctx)
+        if serves_split(bundle.cfg, mesh_ctx):
+            tpar.batch_rows(mesh_ctx, cfg.slots, strict=True, what="slots")
         # every rank of a multi-process world runs the same ticks (each
         # step's collectives need them all): admission in queue order,
         # arrival clocks ignored, as the reference's multi-host lockstep
@@ -385,6 +383,7 @@ class ServingEngine:
         self.ticks = 0                  # block steps issued (continuous)
         self._cache = None              # continuous ring cache (reused)
         self._capacity = None
+        self._tp = None                 # the block step's serving context
         self._overflow_warned = False   # max_context degrade: warn once
         self._kv = None                 # PagedKVManager (cache_kind=paged)
         self._graphs: dict[int, _BlockGraph] = {}   # by T, for this cache
@@ -519,31 +518,17 @@ class ServingEngine:
             self._pool = None
             pspec = self.bundle.cache_pspec(self.cfg.slots, cap,
                                             per_slot_pos=True, **kind)
-            if _sharded(self.mesh_ctx):
-                pspec = self._local_cache_pspec(pspec)
+            if tpar.splits(self.mesh_ctx):
+                cfg = self.bundle.cfg
+                ring = pspec.get("attn", {}).get("k") \
+                    if self.cfg.cache_kind == "ring" else None
+                self._tp = tpar.for_serving(self.mesh_ctx, cfg.dtype,
+                                            vocab=cfg.vocab,
+                                            batch=self.cfg.slots, kv=ring)
+                pspec = local_cache_pspec(cfg, pspec, self._tp)
             gen = torch.Generator(device=self.device)    # zeros draw nothing
             self._cache = init_params(pspec, gen, self.bundle.cfg.dtype)
             self._capacity = cap
-
-    def _local_cache_pspec(self, pspec):
-        """The cache's declaration cut to this rank's shard under the
-        context's rules (``kv_heads`` -> ``model``): a sharded dim's size
-        divided by its mesh dims'."""
-        sizes = self.mesh_ctx.axis_sizes
-
-        def cut(ps):
-            spec = spec_for(ps.shape, ps.logical, rules=self.mesh_ctx.rules,
-                            fsdp_ok=False)
-            shape = []
-            for n, entry in zip(ps.shape, spec):
-                axes = () if entry is None else (
-                    (entry,) if isinstance(entry, str) else entry)
-                for a in axes:
-                    n //= sizes[a]
-                shape.append(n)
-            return dataclasses.replace(ps, shape=tuple(shape))
-
-        return tree.map_tree(cut, pspec)
 
     def _step_inputs(self, tokens: np.ndarray, n_valid: np.ndarray,
                      reset: np.ndarray, plan: dict | None) -> dict:
@@ -584,6 +569,12 @@ class ServingEngine:
                                  zeros, plan)
 
     def _eager_step(self, inputs: dict) -> torch.Tensor:
+        tp = self._tp
+        if tp is not None:              # this rank's rows of the slots
+            rows = self.cfg.slots // tp.row_parts()
+            r0 = tp.row_start(rows)
+            inputs = {k: v.narrow(0, r0, rows) if k in ROW_INPUTS else v
+                      for k, v in inputs.items()}
         kw = {"n_valid": inputs["n_valid"],
               "reset_mask": inputs["reset"].bool()}
         step = self.bundle.decode_block
@@ -591,9 +582,12 @@ class ServingEngine:
             step = self.bundle.decode_block_paged
             kw["page"] = {k: v for k, v in inputs.items()
                           if k not in ("tokens", "n_valid", "reset")}
-        with kpolicy.using_policy(self.policy), activate(self.mesh_ctx):
+        with kpolicy.using_policy(self.policy), activate(self.mesh_ctx), \
+                tpar.active(tp):
             logits, _ = step(self.params, self._cache,
                              {"tokens": inputs["tokens"]}, **kw)
+            if tp is not None:
+                logits = tp.gather_rows(logits)
         return logits
 
     def _capture(self, t_len: int) -> _BlockGraph:
@@ -676,12 +670,14 @@ class ServingEngine:
         rows = (None if attn is None or self._kv is not None
                 else attn["k"].shape[2])
         if rows is not None and chunk > rows:
+            held = ("a rank holds (the ring's rows split across ranks)"
+                    if self._tp is not None and self._tp.seq_axes else
+                    f"that swa_window={self.bundle.cfg.swa_window} leaves")
             raise ValueError(
-                f"prefill_chunk {chunk} exceeds the ring of {rows} rows that "
-                f"swa_window={self.bundle.cfg.swa_window} leaves: a block "
-                "step writes each of its tokens to its own row (the "
-                "reference fails the same step's assertion); set "
-                "prefill_chunk <= swa_window")
+                f"prefill_chunk {chunk} exceeds the ring of {rows} rows "
+                f"{held}: a block step writes each of its tokens to its own "
+                "row (the reference fails the same step's assertion); set "
+                "prefill_chunk <= those rows")
         slots = [_Slot() for _ in range(nb)]
         out: list[Result] = []
 

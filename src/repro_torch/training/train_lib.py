@@ -81,7 +81,7 @@ from repro_torch.models.common import (
     partition_specs,
     stack_pspec,
 )
-from repro_torch.models.lm import Bundle
+from repro_torch.models.lm import Bundle, pad_cache_seq, serves_split
 from repro_torch.obs import runtime as _obs
 from repro_torch.optim import OptConfig, adamw_update, init_opt_state
 from repro_torch.optim.adafactor import adafactor_update, init_adafactor_state
@@ -489,18 +489,84 @@ def make_train_step(bundle: Bundle, opt_cfg: OptConfig,
     return step
 
 
-def make_serve_step(bundle: Bundle) -> tuple[Callable, Callable]:
+def make_serve_step(bundle: Bundle, mesh_ctx=None) -> tuple[Callable,
+                                                             Callable]:
     """-> (prefill_step, decode_step), the reference's: the parameters (the
     forward's layout, ``init_params(bundle.params_pspec)``'s) cast to the
     compute dtype inside (serving params are stored in it, so the cast
     makes no copy). The prefill is ``bundle.prefill_last``: serving takes
-    only the last position's logits, so no (B, S, vocab) buffer is made."""
-    dtype = bundle.cfg.dtype
+    only the last position's logits, so no (B, S, vocab) buffer is made.
+    ``prefill_step(params, batch, cache_len=None)`` lays its cache out for
+    ``cache_len`` rows (None: the prompt's, as the reference's).
 
-    def prefill_step(params, batch):
-        return bundle.prefill_last(cast_tree(params, dtype), batch)
+    ``mesh_ctx`` (a :class:`~repro_torch.parallel.MeshContext` whose mesh
+    splits a dim) runs both steps under it, as ``make_train_step(...,
+    mesh_ctx=)`` does, for the dense, vlm, ssm and hybrid families (the
+    others raise ``NotImplementedError``, ``models.lm.serves_split``): the
+    parameters are :func:`~repro_torch.serving.engine.serving_params`'
+    part of this rank; ``batch`` is the whole batch, the same on every
+    rank, of which each takes its rows by the batch rule (split over
+    ``data`` where the rows divide it) and returns their logits, the whole
+    vocab; the cache is this rank's part in the rules' layout
+    (``models.lm.local_cache_pspec``), the KV cache's rows split over the
+    ``kv_seq`` rule's mesh dims (the production rules' ``seq_shard=True``),
+    written straight into ``cache_len`` rows by the prefill, and its
+    global rows kept as ``cache["rows"]`` for the decode steps. Each
+    sharded step's ``split`` holds the seconds of its last call: ``step``
+    whole and, inside it, ``tp_all_reduce``, ``tp_all_gather`` and
+    ``tp_all_to_all`` (each waits for the device at its ends)."""
+    dtype = bundle.cfg.dtype
+    if serves_split(bundle.cfg, mesh_ctx):
+        return _sharded_serve_steps(bundle, mesh_ctx)
+
+    def prefill_step(params, batch, cache_len=None):
+        logits, cache = bundle.prefill_last(cast_tree(params, dtype), batch)
+        if cache_len is not None and "attn" in cache:
+            pad_cache_seq(cache, cache_len - cache["attn"]["k"].shape[2])
+        return logits, cache
 
     def decode_step(params, cache, batch):
         return bundle.decode(cast_tree(params, dtype), cache, batch)
 
+    return prefill_step, decode_step
+
+
+def _sharded_serve_steps(bundle: Bundle, mesh_ctx):
+    """:func:`make_serve_step`'s steps on a mesh that splits a dim."""
+    cfg = bundle.cfg
+
+    def context(batch: int, rows: int | None, device):
+        kv = None if rows is None else \
+            bundle.cache_pspec(batch, rows).get("attn", {}).get("k")
+        return tpar.for_serving(mesh_ctx, cfg.dtype, vocab=cfg.vocab,
+                                batch=batch, kv=kv,
+                                clock=shst.StepClock(device))
+
+    def mine(batch: dict, tp) -> dict:
+        rows = next(iter(batch.values())).shape[0] // tp.row_parts()
+        r0 = tp.row_start(rows)
+        return {k: v.narrow(0, r0, rows) for k, v in batch.items()}
+
+    def prefill_step(params, batch, cache_len=None):
+        b, s = batch["tokens"].shape
+        s += batch["stub"].shape[1] if "stub" in batch else 0
+        tp = context(b, cache_len or s, batch["tokens"].device)
+        with tp.clock("step"), activate(mesh_ctx), tpar.active(tp):
+            logits, cache = bundle.prefill_last(
+                cast_tree(params, cfg.dtype), mine(batch, tp))
+        if tp.kv_rows is not None:
+            cache["rows"] = tp.kv_rows
+        prefill_step.split = dict(tp.clock.seconds)
+        return logits, cache
+
+    def decode_step(params, cache, batch):
+        tp = context(batch["tokens"].shape[0], cache.get("rows"),
+                     batch["tokens"].device)
+        with tp.clock("step"), activate(mesh_ctx), tpar.active(tp):
+            out = bundle.decode(cast_tree(params, cfg.dtype), cache,
+                                mine(batch, tp))
+        decode_step.split = dict(tp.clock.seconds)
+        return out
+
+    prefill_step.split = decode_step.split = {}
     return prefill_step, decode_step

@@ -291,14 +291,24 @@ def _smoke_record(arch, shape, dims=(("data", 2), ("model", 2))):
 
 @pytest.mark.parametrize("arch,shape", SMOKE_CELLS)
 def test_dryrun_smoke_cells_on_a_2x2_world(arch, shape):
-    """Train runs; serving raises where the port's sharded engine does:
-    MoE/SSM families and a mesh that also splits the batch."""
+    """Every cell runs. The serve cells run the sharded steps: the prefill
+    sums its split compute over model (all-reduce) and, with a KV cache,
+    re-lays the cache out to the rank's rows of every KV head
+    (all-to-all); the decode sums over model and merges the attention of
+    its rows across ranks (all-reduce, all-gather of the row maxima)."""
     rec = _smoke_record(arch, shape)
     if shape != "train_4k":
-        assert rec["status"] == "unsupported"
-        want = ("sharded serving of mamba2-smoke (ssm) is not ported"
-                if arch == "mamba2-1.3b" else "batch-sharded serving")
-        assert want in rec["reason"]
+        assert rec["status"] == "ok", rec.get("reason")
+        kinds = set(rec["op_analysis"]["collective_bytes"])
+        if shape == "prefill_32k":
+            want = {"all-reduce", "all-to-all"} if arch == "llama3.2-1b" \
+                else {"all-reduce"}
+            assert want <= kinds
+            assert ("all-to-all" in kinds) == (arch == "llama3.2-1b")
+        else:
+            assert {"all-reduce", "all-gather"} <= kinds
+            assert "all-to-all" not in kinds
+        assert rec["n_chips"] == 4 and rec["fits"]
         return
     assert rec["status"] == "ok"
     assert rec["n_chips"] == 4 and rec["fits"]
@@ -382,6 +392,25 @@ def test_dryrun_serving_cell_on_one_rank(shape):
         assert rec["memory"]["argument_bytes"] > kv
 
 
+def test_dryrun_sharded_decode_never_gathers_the_cache():
+    """llama3.2-1b decode_32k at SMOKE on a fake 2x2 world under the
+    production rules (``seq_shard``): the rank's cache argument holds its
+    data coordinate's 64 of the 128 rows and 1/model of the 32768 cache
+    rows, every KV head; the step's collective bytes stay under 5% of
+    those cache bytes, so the cache's sequence is never gathered."""
+    cfg = tconfigs.get("llama3.2-1b").SMOKE
+    rec = _smoke_record("llama3.2-1b", "decode_32k")
+    assert rec["status"] == "ok", rec.get("reason")
+    cache = 2 * cfg.n_layers * (128 // 2) * (32768 // 2) * cfg.n_kv_heads \
+        * cfg.dh * 4
+    params = sum(math.prod(ps.shape) for ps in tree.leaves(
+        tbuild(cfg).params_pspec)) * 4
+    args = rec["memory"]["argument_bytes"]
+    # the rank's cache, its part of the params and the 128 tokens
+    assert cache < args < cache + params
+    assert rec["op_analysis"]["collective_total"] < 0.05 * cache
+
+
 def test_dryrun_cli_writes_records(tmp_path):
     """The CLI on one cell of the single mesh: the record lands in
     ``<out>/single/<arch>__<shape>.json``; a skipped cell is reported."""
@@ -391,8 +420,8 @@ def test_dryrun_cli_writes_records(tmp_path):
                           str(tmp_path))
     assert rec["status"] == "skip" and "skipped per the brief" in \
         rec["reason"]
-    rec = dryrun.run_cell("mamba2-1.3b", "long_500k", "single",
+    rec = dryrun.run_cell("grok-1-314b", "decode_32k", "single",
                           str(tmp_path))
-    assert rec["status"] == "unsupported"
-    path = tmp_path / "single" / "mamba2-1.3b__long_500k.json"
+    assert rec["status"] == "unsupported" and "slice 21" in rec["reason"]
+    path = tmp_path / "single" / "grok-1-314b__decode_32k.json"
     assert json.loads(path.read_text()) == rec

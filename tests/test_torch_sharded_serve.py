@@ -1,5 +1,5 @@
 """Sharded lockstep serving of the port (``ServingEngine(mesh_ctx=...)``,
-the head-sharded block steps of ``models/layers.py``) and the two
+the head-split block steps of ``models/layers.py``) and the two
 launchers under ``torch.distributed.run``, against the JAX package's
 engine on the CPU.
 
@@ -9,8 +9,9 @@ processes (a ``file://`` init in a temporary directory) that serves the
 reference multi-host e2e's requests (tests/test_multihost.py: 2 slots,
 ``max_new=4``, ``prefill_chunk=4``, 3 prompts of 6 tokens, seed 0) on a
 ``model=2`` mesh, on the ring and on the paged cache, beside the port's
-unsharded engine in the same process; the reference's unsharded engine
-serves them here. Each test then reads one result.
+unsharded engine in the same process, and mamba2's SMOKE engine on the
+mesh beside its unsharded one; the reference's unsharded engine serves
+them here. Each test then reads one result.
 """
 from __future__ import annotations
 
@@ -115,12 +116,22 @@ try:
                   mesh_ctx=ctx)
 except ValueError as e:
     info["wave_raises"] = str(e)
-for arch in ("mamba2-1.3b", "qwen3-moe-235b-a22b"):
-    b = build(configs.get(arch).SMOKE)
-    try:
-        ServingEngine(b, None, ServeConfig(**serve), mesh_ctx=ctx)
-    except NotImplementedError as e:
-        info[arch + "_raises"] = str(e)
+b = build(configs.get("qwen3-moe-235b-a22b").SMOKE)
+try:
+    ServingEngine(b, None, ServeConfig(**serve), mesh_ctx=ctx)
+except NotImplementedError as e:
+    info["qwen3-moe-235b-a22b_raises"] = str(e)
+# mamba2 serves on the mesh: its SSM heads split over model
+from repro_torch.models.common import init_params
+mcfg = configs.get("mamba2-1.3b").SMOKE
+mb = build(mcfg)
+mp = init_params(mb.params_pspec, torch.Generator().manual_seed(0),
+                 mcfg.dtype)
+info["mamba2-1.3b_tokens"] = [
+    {r.uid: [int(t) for t in r.tokens] for r in ServingEngine(
+        mb, mp, ServeConfig(**serve), mesh_ctx=c).run(
+            [Request(uid=i, prompt=p) for i, p in enumerate(prompts)])}
+    for c in (ctx, None)]
 
 np.savez(os.path.join(d, f"r{rank}.npz"), **out)
 with open(os.path.join(d, f"r{rank}.json"), "w") as f:
@@ -220,10 +231,14 @@ def test_each_rank_holds_its_kv_heads_and_runs_eager(world, kind):
 
 
 def test_wave_and_unported_families_raise_under_mesh(world):
+    """The wave scheduler raises under the mesh; the MoE family raises,
+    naming slice 21; mamba2 serves (its SSM heads split over ``model``)
+    the tokens of the unsharded engine."""
     for _, info in world["ranks"]:
         assert "continuous scheduler" in info["wave_raises"]
-        for arch in ("mamba2-1.3b", "qwen3-moe-235b-a22b"):
-            assert "item 4b" in info[arch + "_raises"]
+        assert "slice 21" in info["qwen3-moe-235b-a22b_raises"]
+        sharded, unsharded = info["mamba2-1.3b_tokens"]
+        assert sharded == unsharded and len(sharded) == 3
 
 
 def _torchrun(args: list, tmp: Path) -> str:
