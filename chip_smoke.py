@@ -226,9 +226,11 @@ Phases:
    ``kernels`` line.
    Then sharded training and lockstep serving (``sharded_pass``; each rank
    a process of this script, ``--sharded-worker train|serve RANK WORLD
-   DIR``, gloo through host memory): 4 ranks train llama3.2-1b FULL and
-   then mamba2-1.3b FULL at 8 of 48 layers (``SHARD_TRAIN_LAYERS``) on
-   ``data=2,model=2`` through the tensor-parallel step
+   DIR``, gloo through host memory): 4 ranks train llama3.2-1b FULL,
+   then mamba2-1.3b FULL at 8 of 48 layers and seamless-m4t at 4 + 4 of
+   12 + 12 (``SHARD_TRAIN_LAYERS``; zero frames; its encoder, decoder and
+   cross-attention heads split) on ``data=2,model=2`` through the
+   tensor-parallel step
    (``init_sharded_train_state``: each rank's quarter of the f32 masters
    and AdamW moments; bf16 compute; a rank's half of the heads, ``ff``
    columns, SSM heads and vocab, each layer's weights gathered over
@@ -243,8 +245,8 @@ Phases:
    train llama3.2-1b FULL at 2 of 16 layers (``SHARD_GATHER_LAYERS``)
    again on ``data=4`` through the gather-whole step
    (each leaf's bf16 cast gathered whole before the forward: the step of
-   every family on a data-only mesh and of the MoE and the encoder-decoder
-   on any mesh), 1 x 512 rows a rank, with the same timing, f32 parity and
+   every family on a data-only mesh), 1 x 512 rows a rank, with the same
+   timing, f32 parity and
    gates (launches ``train_launches``, its own parts). A world of 4 ranks
    then serves on ``data=2,model=2`` in lockstep (``sharded_serve_worker``:
    4 slots, 2 a data rank; a rank's half of the heads, ``ff`` columns, SSM
@@ -258,7 +260,14 @@ Phases:
    tokens into 2048 cache rows (1024 a rank) and of one row of 8176 into
    8192 (2048 a rank, over ``data`` x ``model``), mamba2's of 4 x 2032 at
    8 layers, each with 16 decode steps (ms a rank split into collectives
-   and the rest, peak GB). Then f32 at 2 layers (zamba2 6): the ``model=2``
+   and the rest, peak GB); then qwen3-moe at 4 of 94 layers (ring and
+   paged) and grok-1 at 2 of 64 (ring) on the same 8 requests, each
+   rank's shards drawn leaf by leaf (``SHARD_MOE_SERVE``), and seamless's
+   wave steps whole (4 rows of 512 frames and 468 tokens into 484
+   self-cache rows, 16 decode steps) under the default rules and under
+   ``seq_shard`` (``SHARD_ENCDEC_WAVES``). Then f32 at 2 layers (zamba2 6;
+   qwen3-moe 2, grok-1 1, their unsharded run on rank 0 alone once the
+   ranks have freed their shares): the ``model=2``
    path of PRs 27-29 (two replicas of ``model=2`` in the world) on the
    served runs' 8 x 512-token requests with 16 new tokens, each served run
    (8 prompts of up to 64 tokens, 4 new) and each wave against the
@@ -276,7 +285,9 @@ Phases:
    layer's gated norm on ``tcu_reduce``), the waves' likewise plus flash
    and the SSD a layer, no graph, the cache a rank holds (half the KV or
    SSM heads of its 2 slots; under ``seq_shard`` its range of the rows
-   with every KV head); every f32 run's logits within 1e-4 of the
+   with every KV head), the MoE's ``tcu_scan`` once a layer a tick and
+   its expert leaves half the whole's bytes a rank, seamless's self and
+   cross caches a rank's part; every f32 run's logits within 1e-4 of the
    unsharded one's and its tokens equal.
    Then the dry run and the roofline (``dryrun and roofline``): a CPU
    subprocess, started before the training phases and run beside them,
@@ -565,10 +576,15 @@ def reduce_scan_cases(torch, kops, ref, gen):
 
 # the MoE router's exclusive scans of (groups, experts) counts, as served:
 # (rows, experts, where)
-MOE_SCANS = ((16, 128, "qwen3-moe wave prefill"),
+MOE_SCANS = ((16, 128, "qwen3-moe wave prefill; a data=2,model=2 rank's "
+                        "T=16 tick"),
              (32, 128, "qwen3-moe T=16 tick"),
              (4, 128, "qwen3-moe decode step, T=1 tick"),
-             (16, 8, "grok-1 wave prefill"), (4, 8, "grok-1 decode step"))
+             (2, 128, "qwen3-moe T=1 tick, a data=2,model=2 rank"),
+             (16, 8, "grok-1 wave prefill; a data=2,model=2 rank's T=16 "
+                     "tick"),
+             (4, 8, "grok-1 decode step"),
+             (2, 8, "grok-1 T=1 tick, a data=2,model=2 rank"))
 
 
 def moe_scan_cases(torch, kops, ref, gen):
@@ -756,7 +772,13 @@ def rmsnorm_cases(torch, kops, ref, gen):
                     # T = 1 ticks (llama, mamba2, zamba2), the wave
                     # prefills' 2 x 2032 and 8176 rows
                     (32, 2048), (2, 2048), (32, 2560), (2, 2560),
-                    (32, 5120), (2, 5120), (4064, 2048), (8176, 2048)):
+                    (32, 5120), (2, 5120), (4064, 2048), (8176, 2048),
+                    # ... and of the MoE (qwen3-moe d 4096, grok-1 d 6144:
+                    # 2 slots' T = 16 and T = 1 ticks) and of seamless (its
+                    # wave: 2 x 512 encoder rows, 2 x 468 decoder rows, 2
+                    # rows a decode step; its train step, 2 x 512)
+                    (32, 4096), (2, 4096), (32, 6144), (2, 6144),
+                    (1024, 1024), (936, 1024), (2, 1024)):
         x = torch.randn(rows, d, generator=gen, device="cuda").to(
             torch.bfloat16)
         w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(
@@ -851,7 +873,15 @@ def attention_cases(torch, kops, gen):
             # its sharded wave prefills on data=2,model=2: 2 of 4 rows x
             # 2032, and the one row of 8176 (the long_500k layout)
             (2, 2032, 2032, 16, 4, 64, True, None, torch.bfloat16, False),
-            (1, 8176, 8176, 16, 4, 64, True, None, torch.bfloat16, False)):
+            (1, 8176, 8176, 16, 4, 64, True, None, torch.bfloat16, False),
+            # seamless on a data=2,model=2 rank, 8 of its 16 heads of 2
+            # rows: the encoder over 512 frames (and in its train step),
+            # the cross-attention from 468 tokens, the decoder at 468 and
+            # in its train step at 512
+            (2, 512, 512, 8, 8, 64, False, None, torch.bfloat16, False),
+            (2, 468, 512, 8, 8, 64, False, None, torch.bfloat16, False),
+            (2, 468, 468, 8, 8, 64, True, None, torch.bfloat16, False),
+            (2, 512, 512, 8, 8, 64, True, None, torch.bfloat16, False)):
         def rn(*shape):
             return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
@@ -956,7 +986,7 @@ def check_kernels(smoke: Smoke, kops, ref) -> dict:
               f"{' HOST-BOUND' if plain_spread['host_bound'] else ''} "
               f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'}"
               f"{' HOST-BOUND' if lib_bound else ''} "
-              f"bound_ms={bound_ms:.4f} ({bound_by})"
+              f"bound_ms={bound_ms:.4g} ({bound_by})"
               f"{'' if ok else '  <-- OUT OF TOLERANCE'}", flush=True)
         if not ok:
             smoke.fail(f"{name} [{case['label']}] disagrees with its plain "
@@ -4410,15 +4440,19 @@ def distributed_pass(smoke: Smoke, kops) -> dict:
 
 SHARD_ARCH = "llama3.2-1b"
 # trained on the mesh, each through the tensor-parallel step; the first's
-# state is checkpointed for the serving world
-SHARD_TRAIN_ARCHS = (SHARD_ARCH, "mamba2-1.3b")
+# state is checkpointed for the serving world. The MoE is not: qwen3-moe at
+# one layer (3.7 B parameters at its published widths) took 18.2 GiB a
+# rank at the optimizer's update with AdamW and 17.4 with Adafactor, over
+# the card for four ranks (PERF.md §4); the CPU tests hold its split step
+SHARD_TRAIN_ARCHS = (SHARD_ARCH, "mamba2-1.3b", "seamless-m4t-medium")
 SHARD_TRAIN_MESH = "data=2,model=2"
 # depths cut to keep the script inside its time limit (llama whole: its
-# peak is gated against the gather-whole step's at the same depth)
-SHARD_TRAIN_LAYERS = {"mamba2-1.3b": 8}
+# peak is gated against the gather-whole step's at the same depth;
+# seamless: encoder and decoder alike)
+SHARD_TRAIN_LAYERS = {"mamba2-1.3b": 8, "seamless-m4t-medium": 4}
 # llama trained again through the gather-whole step (every family's step on
-# a mesh without a split model dim, the MoE's and the encoder-decoder's on
-# any mesh) on a data-only mesh of the same world, at this depth
+# a mesh without a split model dim) on a data-only mesh of the same world,
+# at this depth
 SHARD_GATHER_MESH = "data=4"
 SHARD_GATHER_LAYERS = 2
 # llama's peak GB a training rank under the gather-whole step, which
@@ -4442,6 +4476,20 @@ SHARD_WAVES = ((SHARD_ARCH, None, 4, 2032, 2048),
                (SHARD_ARCH, None, 1, 8176, 8192),
                ("mamba2-1.3b", 8, 4, 2032, None))
 SHARD_DECODES = 16
+# the MoE served on SHARD_SERVE_MESH like SHARD_SERVE, its experts over
+# model: (arch, depth, caches); each rank draws its shards leaf by leaf
+SHARD_MOE_SERVE = (("qwen3-moe-235b-a22b", 4, ("ring", "paged")),
+                   ("grok-1-314b", 2, ("ring",)))
+# their f32 gates' depths: four ranks' shares, then one whole f32 copy on
+# rank 0 alone, fit the card
+SHARD_MOE_PARITY = {"qwen3-moe-235b-a22b": 2, "grok-1-314b": 1}
+# the encoder-decoder's wave steps on SHARD_SERVE_MESH through
+# make_serve_step, whole: (rules, rows, frames, prompt tokens, self-cache
+# rows), rules "mesh" the default table (the KV heads over model) or "seq"
+# the production rules' seq_shard (the self and cross caches' rows over
+# model), then SHARD_DECODES decode steps
+SHARD_ENCDEC = "seamless-m4t-medium"
+SHARD_ENCDEC_WAVES = (("mesh", 4, 512, 468, 484), ("seq", 4, 512, 468, 484))
 # the f32 gates' requests of the data=2,model=2 engines: 8 prompts of up
 # to this many tokens (the served runs' 512 cut, to keep the phase inside
 # the script's time limit), 4 new tokens each; the model=2 path is held on
@@ -4450,7 +4498,7 @@ SHARD_PARITY_PROMPT, SHARD_PARITY_NEW = 64, 4
 SHARD_BATCH, SHARD_SEQ = 4, 512     # global batch, 2 x 512 rows a data rank
 SHARD_TIMED = 2                     # timed steps after one warm step
 SHARD_LR = 3e-4
-SHARD_TIMEOUT_S = 600               # each world, start to exit
+SHARD_TIMEOUT_S = 900               # each world, start to exit
 SHARD_CKPT = OBS_DIR.parent / "sharded_ckpt"
 DIGEST_P = (1 << 31) - 1
 
@@ -4533,11 +4581,14 @@ def sharded_train_worker(rank: int, world: int, out_dir: str) -> dict:
 
 
 def shard_cfg(arch: str, layers: int | None):
-    """``arch``'s FULL config at ``layers`` layers (None: all of them)."""
+    """``arch``'s FULL config at ``layers`` layers (None: all of them; an
+    encoder-decoder's encoder cut alike)."""
     from repro_torch import configs
 
     full = configs.get(arch).FULL
-    return dataclasses.replace(full, n_layers=layers or full.n_layers)
+    return dataclasses.replace(
+        full, n_layers=layers or full.n_layers,
+        enc_layers=min(full.enc_layers, layers or full.enc_layers))
 
 
 def sharded_train_run(ctx, arch: str, checkpoint: bool,
@@ -4545,11 +4596,11 @@ def sharded_train_run(ctx, arch: str, checkpoint: bool,
     """``arch`` FULL (bf16 compute, f32 masters, AdamW) at ``layers`` layers
     (None: all) on ``ctx``'s mesh:
     a warm step and ``SHARD_TIMED`` timed steps of the pipeline's rows of
-    this rank's data coordinate, with every launch count set to 0 before
-    the timed steps; the digests of its params and, with ``checkpoint``, an
-    async checkpoint under ``SHARD_CKPT``; then the f32 step at
-    ``PARITY_LAYERS`` layers against the unsharded ``make_train_step`` from
-    the same state."""
+    this rank's data coordinate (an encoder-decoder's with zero frames),
+    with every launch count set to 0 before the timed steps; the digests of
+    its params and, with ``checkpoint``, an async checkpoint under
+    ``SHARD_CKPT``; then the f32 step at ``PARITY_LAYERS`` layers against
+    the unsharded ``make_train_step`` from the same state."""
     import torch
     import torch.distributed as dist
 
@@ -4560,8 +4611,7 @@ def sharded_train_run(ctx, arch: str, checkpoint: bool,
     from repro_torch.kernels import ops as kops
     from repro_torch.models import build as build_model
     from repro_torch.optim import OptConfig
-    from repro_torch.parallel.sharded_state import local, local_index
-    from repro_torch.parallel.sharding import spec_of
+    from repro_torch.parallel.sharded_state import local
     from repro_torch.training import (
         init_sharded_train_state,
         init_train_state,
@@ -4591,16 +4641,20 @@ def sharded_train_run(ctx, arch: str, checkpoint: bool,
         if isinstance(t, torch.Tensor)) / 1e9
     report["n_leaves"] = len(tree.leaves(state["params"]))
     step = make_train_step(bundle, opt_cfg, mesh_ctx=ctx)
+
+    def batch_of(s: int) -> dict:
+        return with_frames(torch, cfg, data.device_batch(s))
+
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    state, m = step(state, data.device_batch(0))
+    state, m = step(state, batch_of(0))
     report["warm_loss"] = float(m["loss"])
     report["warm_s"] = time.perf_counter() - t0
     # the main path: every count from 0, the timed steps
     kops.reset_launches()
     walls, splits, losses = [], [], []
     for s in range(1, 1 + SHARD_TIMED):
-        batch = data.device_batch(s)
+        batch = batch_of(s)
         torch.cuda.synchronize()
         dist.barrier()
         t0 = time.perf_counter()
@@ -4632,22 +4686,51 @@ def sharded_train_run(ctx, arch: str, checkpoint: bool,
         report["ckpt_write_wait_s"] = time.perf_counter() - t0
 
     # f32 at PARITY_LAYERS layers: the sharded step against the unsharded
-    # one from the same state, this rank's shard of each
+    # one from the same state, this rank's shard of each; the ranks take the
+    # unsharded step in turn (four whole f32 states and seamless's logits
+    # over its 256206-token vocab do not fit the card together)
     pcfg = parity_cfg(cfg)
     pb = build_model(pcfg)
     sh = init_sharded_train_state(
         torch.Generator(device="cuda").manual_seed(0), pb, opt_cfg, ctx)
-    un = init_train_state(torch.Generator(device="cuda").manual_seed(0), pb,
-                          opt_cfg)
     tok = torch.from_numpy(_philox_tokens(data_cfg, 0, 0, SHARD_BATCH)
                            .astype(np.int64)).cuda()
-    whole = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    whole = with_frames(torch, pcfg, {"tokens": tok[:, :-1],
+                                      "labels": tok[:, 1:]},
+                        torch.Generator(device="cuda").manual_seed(3))
     lo, hi = report["rows"]
     mine = {k: v[lo:hi] for k, v in whole.items()}
     pstep = make_train_step(pb, opt_cfg, mesh_ctx=ctx)
     sh, ms = pstep(sh, mine)
     report["parity_split"] = sorted(pstep.split)
-    un, mu = make_train_step(pb, opt_cfg)(un, whole)
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            un = init_train_state(
+                torch.Generator(device="cuda").manual_seed(0), pb, opt_cfg)
+            un, mu = make_train_step(pb, opt_cfg)(un, whole)
+            report["parity"] = train_parity_errors(torch, sh, un, mu,
+                                                   opt_cfg)
+            report["parity"].update(loss=float(ms["loss"]),
+                                    grad_norm=float(ms["grad_norm"]))
+            del un
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    del sh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def train_parity_errors(torch, sh, un, mu, opt_cfg) -> dict:
+    """The f32 sharded state ``sh`` after one step against the unsharded
+    ``un`` (its metrics ``mu``): this rank's shard of each parameter, its
+    largest error, its largest error past AdamW's first-step slack, and the
+    elements past 1e-5."""
+    from repro_torch import tree
+    from repro_torch.parallel.sharded_state import local_index
+    from repro_torch.parallel.sharding import spec_of
+
     lr, eps, b1 = float(mu["lr"]), opt_cfg.eps, opt_cfg.b1
     worst, raw, beyond, total = 0.0, 0.0, 0, 0
     for p_sh, p_un, m_un in zip(tree.leaves(sh["params"]),
@@ -4667,16 +4750,10 @@ def sharded_train_run(ctx, arch: str, checkpoint: bool,
         raw = max(raw, float(err.max()))
         beyond += int((err > 1e-5).sum())
         total += err.numel()
-    report["parity"] = {
-        "loss": float(ms["loss"]), "loss_unsharded": float(mu["loss"]),
-        "grad_norm": float(ms["grad_norm"]),
-        "grad_norm_unsharded": float(mu["grad_norm"]),
-        "param_err_over_slack": worst, "param_err": raw,
-        "beyond_1e-5": beyond, "elements": total}
-    del sh, un
-    gc.collect()
-    torch.cuda.empty_cache()
-    return report
+    return {"loss_unsharded": float(mu["loss"]),
+            "grad_norm_unsharded": float(mu["grad_norm"]),
+            "param_err_over_slack": worst, "param_err": raw,
+            "beyond_1e-5": beyond, "elements": total}
 
 
 def shard_serve_run(torch, kops, bundle, params, ctx, reqs, kind: str,
@@ -4705,7 +4782,11 @@ def shard_serve_run(torch, kops, bundle, params, ctx, reqs, kind: str,
     results = engine.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    experts = [t for lp in engine.params["blocks"]
+               for n, t in lp.get("moe", {}).items() if n != "router"]
     run = {"tokens": {r.uid: r.tokens for r in results},
+           "expert_bytes": sum(t.numel() * t.element_size()
+                               for t in experts),
            "launches": kops.launch_counts(), "wall_s": wall,
            "n_tok": sum(len(r.tokens) for r in results),
            "n_ticks": engine.ticks - first,
@@ -4750,13 +4831,25 @@ def shard_wave_tokens(vocab: int, rows: int, seq: int) -> np.ndarray:
                         dtype=np.int64)
 
 
+def shard_wave_frames(torch, cfg, rows: int, frames: int | None) -> dict:
+    """An encoder-decoder's wave frames (``rows`` x ``frames`` x d_model,
+    from seed ``rows``, in the compute dtype) as a batch entry; none
+    without ``frames``."""
+    if frames is None:
+        return {}
+    gen = torch.Generator(device="cuda").manual_seed(rows)
+    return {"frames": torch.randn(rows, frames, cfg.d_model, generator=gen,
+                                  device="cuda").to(cfg.dtype)}
+
+
 def shard_wave_run(torch, kops, bundle, params, seq, rows: int, prompt: int,
-                   cap) -> dict:
+                   cap, frames: int | None = None) -> dict:
     """``make_serve_step(bundle, mesh_ctx=seq)``: a prefill of ``rows`` x
-    ``prompt`` tokens into a cache of ``cap`` rows (None: the prompt's),
-    then ``SHARD_DECODES`` decode steps, each timed on every rank together
-    and split by the step's ``split`` (collectives and the rest); this
-    rank's logits (its rows, f32) after each, and the cache it holds."""
+    ``prompt`` tokens (an encoder-decoder's after ``frames`` frames) into a
+    cache of ``cap`` rows (None: the prompt's), then ``SHARD_DECODES``
+    decode steps, each timed on every rank together and split by the
+    step's ``split`` (collectives and the rest); this rank's logits (its
+    rows, f32) after each, and the cache it holds."""
     import torch.distributed as dist
 
     from repro_torch import tree
@@ -4767,6 +4860,7 @@ def shard_wave_run(torch, kops, bundle, params, seq, rows: int, prompt: int,
     prefill, decode = make_serve_step(bundle, mesh_ctx=seq)
     tok = torch.from_numpy(shard_wave_tokens(bundle.cfg.vocab, rows,
                                              prompt)).cuda()
+    extra = shard_wave_frames(torch, bundle.cfg, rows, frames)
     out = {"steps": [], "logits": []}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4777,7 +4871,8 @@ def shard_wave_run(torch, kops, bundle, params, seq, rows: int, prompt: int,
         dist.barrier()
         t0 = time.perf_counter()
         if i == 0:
-            lg, cache = prefill(mine, {"tokens": tok[:, :prompt]}, cap)
+            lg, cache = prefill(mine, {"tokens": tok[:, :prompt], **extra},
+                                cap)
             split = prefill.split
         else:
             lg, cache = decode(mine, cache, {
@@ -4801,9 +4896,10 @@ def shard_wave_run(torch, kops, bundle, params, seq, rows: int, prompt: int,
 
 
 def unsharded_wave_logits(torch, bundle, params, rows: int, prompt: int,
-                          cap) -> list:
+                          cap, frames: int | None = None) -> list:
     """The unsharded ``make_serve_step``'s logits after its prefill and
-    each decode step, on the same tokens as :func:`shard_wave_run`."""
+    each decode step, on the same tokens (and frames) as
+    :func:`shard_wave_run`."""
     from repro_torch.serving.engine import serving_params
     from repro_torch.training import make_serve_step
 
@@ -4811,7 +4907,9 @@ def unsharded_wave_logits(torch, bundle, params, rows: int, prompt: int,
     whole = serving_params(params, bundle)
     tok = torch.from_numpy(shard_wave_tokens(bundle.cfg.vocab, rows,
                                              prompt)).cuda()
-    lg, cache = prefill(whole, {"tokens": tok[:, :prompt]}, cap)
+    lg, cache = prefill(whole, {"tokens": tok[:, :prompt],
+                                **shard_wave_frames(torch, bundle.cfg, rows,
+                                                    frames)}, cap)
     out = [lg[:, -1].float()]
     for i in range(SHARD_DECODES):
         lg, cache = decode(whole, cache,
@@ -4820,36 +4918,101 @@ def unsharded_wave_logits(torch, bundle, params, rows: int, prompt: int,
     return out
 
 
+def engine_ticks(bundle, params, mctx, reqs, kind: str) -> tuple:
+    """(tokens by uid, each tick's (n_valid, logits on the host)) of an f32
+    engine run on ``params`` (sharded on ``mctx``, or unsharded)."""
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    engine = ServingEngine(bundle, params, ServeConfig(
+        slots=4, prefill_chunk=16, cache_kind=kind), mesh_ctx=mctx)
+    ticks = record_ticks(engine, keep_logits=True)
+    res = engine.run(reqs)
+    return ({r.uid: r.tokens for r in res},
+            [(ins["n_valid"], lg.cpu()) for _, _, ins, lg in ticks])
+
+
+def ticks_parity(torch, sharded: tuple, unsharded: tuple) -> dict:
+    """Two :func:`engine_ticks` runs: whether the tokens are equal, the
+    largest logit difference over every tick's live slots, the largest
+    logit."""
+    errs = []
+    for (nv, a), (_, b) in zip(sharded[1], unsharded[1]):
+        live = torch.from_numpy(np.asarray(nv) > 0)
+        errs.append(float((a[live] - b[live]).abs().max()))
+    return {"ticks": [len(sharded[1]), len(unsharded[1])],
+            "tokens_equal": sharded[0] == unsharded[0],
+            "logit_err": max(errs) if errs else None,
+            "scale": max(float(lg.abs().max()) for _, lg in unsharded[1])}
+
+
 def shard_engine_parity(torch, bundle, params, ctx, reqs, kind: str) -> dict:
     """f32: the sharded engine on ``ctx`` (``params`` placed under its
-    rules) against the unsharded engine on the same params and requests:
-    tokens, and the largest logit difference over every tick's live
-    slots."""
+    rules) against the unsharded engine on the same params and requests
+    (:func:`ticks_parity`)."""
     from repro_torch.launch import serve
     from repro_torch.parallel.sharded_state import place_tree
-    from repro_torch.serving import ServeConfig, ServingEngine
 
     placed = place_tree(params, serve._param_shardings(bundle.params_pspec,
                                                        ctx))
-    out = {}
-    for name, p, mctx in (("sharded", placed, ctx),
-                          ("unsharded", params, None)):
-        engine = ServingEngine(bundle, p, ServeConfig(
-            slots=4, prefill_chunk=16, cache_kind=kind), mesh_ctx=mctx)
-        ticks = record_ticks(engine, keep_logits=True)
-        res = engine.run(reqs)
-        out[name] = ({r.uid: r.tokens for r in res},
-                     [(ins["n_valid"], lg) for _, _, ins, lg in ticks])
-        del engine
-    errs = []
-    for (nv, a), (_, b) in zip(out["sharded"][1], out["unsharded"][1]):
-        live = torch.from_numpy(np.asarray(nv) > 0).cuda()
-        errs.append(float((a[live] - b[live]).abs().max()))
-    return {"ticks": [len(out["sharded"][1]), len(out["unsharded"][1])],
-            "tokens_equal": out["sharded"][0] == out["unsharded"][0],
-            "logit_err": max(errs) if errs else None,
-            "scale": max(float(lg.abs().max())
-                         for _, lg in out["unsharded"][1])}
+    return ticks_parity(torch, engine_ticks(bundle, placed, ctx, reqs, kind),
+                        engine_ticks(bundle, params, None, reqs, kind))
+
+
+def placed_params(torch, bundle, ctx):
+    """``bundle``'s parameters from seed 0 (``init_params``' values), each
+    leaf drawn whole and placed at once under ``ctx``'s serving specs
+    (``partition_specs(fsdp_ok=False)``), the ranks in turn: a rank holds
+    its shards and the card one whole leaf at a time (four whole MoE models,
+    or four of grok-1's 6 GB f32 draws at once, do not fit it)."""
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.launch import serve
+    from repro_torch.models.common import _init_leaf
+    from repro_torch.parallel.sharded_state import place
+
+    shardings = serve._param_shardings(bundle.params_pspec, ctx)
+    out = None
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            out = tree.map_tree(
+                lambda ps, sh: place(_init_leaf(ps, gen, bundle.cfg.dtype,
+                                                "cuda"), sh),
+                bundle.params_pspec, shardings)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def moe_engine_parity(torch, bundle, ctx, reqs, kinds) -> dict:
+    """f32: the sharded engine on ``ctx`` (:func:`placed_params`) on each
+    cache of ``kinds``, then, once every rank has freed its share, the
+    unsharded engine on the same params and requests on rank 0 alone (a
+    whole f32 copy a rank does not fit the card): :func:`ticks_parity` by
+    kind, rank 0's on every rank."""
+    import torch.distributed as dist
+
+    from repro_torch.models.common import init_params
+
+    placed = placed_params(torch, bundle, ctx)
+    sharded = {kind: engine_ticks(bundle, placed, ctx, reqs, kind)
+               for kind in kinds}
+    del placed
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    box = [None]
+    if dist.get_rank() == 0:
+        whole = init_params(bundle.params_pspec, torch.Generator(
+            device="cuda").manual_seed(0), bundle.cfg.dtype)
+        box[0] = {kind: ticks_parity(torch, sharded[kind], engine_ticks(
+            bundle, whole, None, reqs, kind)) for kind in kinds}
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def sharded_serve_worker(rank: int, world: int, out_dir: str) -> dict:
@@ -4949,6 +5112,36 @@ def sharded_serve_worker(rank: int, world: int, out_dir: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # the MoE, its experts over model, each rank's shards drawn leaf by
+    # leaf; the encoder-decoder's wave steps, whole
+    moe = {}
+    for arch, depth, kinds in SHARD_MOE_SERVE:
+        b = build_model(shard_cfg(arch, depth))
+        params = placed_params(torch, b, ctx)
+        reqs = requests(b.cfg.vocab)
+        warm = [Request(uid=-1, prompt=reqs[0].prompt[:20], max_new=2)]
+        moe[arch] = {"n_layers": depth}
+        for kind in kinds:
+            moe[arch][kind] = shard_serve_run(torch, kops, b, params, ctx,
+                                              reqs, kind, warm)
+            progress(f"{arch} {kind} served")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["moe"] = moe
+    contexts = {"mesh": ctx, "seq": seq}
+    encdec = []
+    for rules, rows, frames, prompt, cap in SHARD_ENCDEC_WAVES:
+        b, params = params_of(SHARD_ENCDEC, None)
+        w = shard_wave_run(torch, kops, b, params, contexts[rules], rows,
+                           prompt, cap, frames)
+        del w["logits"], params
+        encdec.append(w)
+        progress(f"wave {SHARD_ENCDEC} {rules} {rows}x{frames}+{prompt}")
+    report["encdec_waves"] = encdec
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # f32 at PARITY_LAYERS layers: each sharded run against the unsharded
     # engine or steps on the same params and inputs
     replicas = init_device_mesh("cuda", tuple(n for _, n in SHARD_REPLICAS),
@@ -4984,6 +5177,30 @@ def sharded_serve_worker(rank: int, world: int, out_dir: str) -> dict:
                 torch.equal(g.argmax(-1), w[r0:r0 + g.shape[0]].argmax(-1))
                 for g, w in zip(got, want))}
         progress(f"f32 wave {arch} {rows}x{prompt}")
+    for arch, depth, kinds in SHARD_MOE_SERVE:
+        b = build_model(dataclasses.replace(
+            shard_cfg(arch, SHARD_MOE_PARITY[arch]), dtype=torch.float32))
+        got = moe_engine_parity(torch, b, ctx, requests(
+            b.cfg.vocab, SHARD_PARITY_PROMPT, SHARD_PARITY_NEW), kinds)
+        for kind in kinds:
+            parity[f"{arch} {kind}"] = got[kind]
+        progress(f"f32 {arch}")
+    for rules, rows, frames, prompt, cap in SHARD_ENCDEC_WAVES:
+        b, params = params_of(SHARD_ENCDEC, None, torch.float32)
+        got = shard_wave_run(torch, kops, b, params, contexts[rules], rows,
+                             prompt, cap, frames)["logits"]
+        want = unsharded_wave_logits(torch, b, params, rows, prompt, cap,
+                                     frames)
+        r0 = report["coordinate"][0] * got[0].shape[0]
+        parity[f"wave {SHARD_ENCDEC} {rules} {rows}x{frames}+{prompt}"] = {
+            "logit_err": max(float((g - w[r0:r0 + g.shape[0]]).abs().max())
+                             for g, w in zip(got, want)),
+            "scale": max(float(w.abs().max()) for w in want),
+            "tokens_equal": all(
+                torch.equal(g.argmax(-1), w[r0:r0 + g.shape[0]].argmax(-1))
+                for g, w in zip(got, want))}
+        del params
+        progress(f"f32 wave {SHARD_ENCDEC} {rules}")
     report["parity"] = parity
     return report
 
@@ -5025,6 +5242,9 @@ def run_world(role: str, ranks: int, out_dir: Path) -> list:
     ``SHARD_TIMEOUT_S`` (each failed or killed rank's log tail printed)."""
     t0 = time.perf_counter()
     logs = [out_dir / f"{role}{r}.log" for r in range(ranks)]
+    # four ranks share the card: grown segments, not fixed blocks, so that
+    # the MoE's multi-GB leaves of one step reuse what the last one freed
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
     procs = []
     try:
         for r in range(ranks):
@@ -5032,13 +5252,18 @@ def run_world(role: str, ranks: int, out_dir: Path) -> list:
                 procs.append(subprocess.Popen(
                     [sys.executable, str(Path(__file__).resolve()),
                      "--sharded-worker", role, str(r), str(ranks),
-                     str(out_dir)], stdout=log, stderr=subprocess.STDOUT))
-        for p in procs:
-            p.wait(timeout=max(1.0, SHARD_TIMEOUT_S
-                               - (time.perf_counter() - t0)))
-    except subprocess.TimeoutExpired:
-        print(f"sharded {role}: the world outlasts {SHARD_TIMEOUT_S} s",
-              flush=True)
+                     str(out_dir)], stdout=log, stderr=subprocess.STDOUT,
+                    env=env))
+        # a rank that fails leaves the others waiting in a collective:
+        # stop the world at the first failure
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            if time.perf_counter() - t0 > SHARD_TIMEOUT_S:
+                print(f"sharded {role}: the world outlasts "
+                      f"{SHARD_TIMEOUT_S} s", flush=True)
+                break
+            time.sleep(1.0)
     finally:
         for p in procs:
             if p.poll() is None:
@@ -5153,17 +5378,20 @@ def sharded_train_gates(smoke: Smoke, kops, arch: str, reps: list,
 
 def sharded_pass(smoke: Smoke, kops) -> dict:
     """Sharded training and lockstep serving on this one card: a gloo world
-    of 4 ranks trains llama3.2-1b and mamba2-1.3b FULL (mamba2 at
-    ``SHARD_TRAIN_LAYERS``) on ``data=2,model=2`` through the
-    tensor-parallel step and checkpoints llama's state, and trains llama
-    again at ``SHARD_GATHER_LAYERS`` on ``data=4`` through the gather-whole
-    step; then a world of 4 ranks restores llama's params on
-    ``data=2,model=2`` and serves (:func:`sharded_serve_worker`). Gated
-    here on the ranks' reports: the training gates of
-    :func:`sharded_train_gates` for each run, the restored params' digests
-    equal the saved ones, the serving gates of :func:`sharded_serve_gates`
-    and :func:`sharded_wave_gates`, and every f32 run within 1e-4 of the
-    unsharded engine's or steps' logits with its tokens equal."""
+    of 4 ranks trains ``SHARD_TRAIN_ARCHS`` FULL (llama3.2-1b, mamba2-1.3b,
+    seamless-m4t; depths of ``SHARD_TRAIN_LAYERS``) on
+    ``data=2,model=2`` through the tensor-parallel step and checkpoints
+    llama's state, and trains llama again at ``SHARD_GATHER_LAYERS`` on
+    ``data=4`` through the gather-whole step; then a world of 4 ranks
+    restores llama's params on ``data=2,model=2`` and serves
+    (:func:`sharded_serve_worker`: the dense, SSM and hybrid runs, the MoE
+    of ``SHARD_MOE_SERVE``, the encoder-decoder's wave steps). Gated here
+    on the ranks' reports: the training gates of :func:`sharded_train_gates`
+    for each run, the restored params' digests equal the saved ones, the
+    serving gates of :func:`sharded_serve_gates`,
+    :func:`sharded_wave_gates` and :func:`sharded_encdec_gates`, and every
+    f32 run within 1e-4 of the unsharded engine's or steps' logits with its
+    tokens equal."""
     from repro_torch import configs
     from repro_torch.models import build as build_model
 
@@ -5242,6 +5470,16 @@ def sharded_pass(smoke: Smoke, kops) -> dict:
     waves = sharded_wave_gates(smoke, kops, serve_r, smi)
     for k in launches:
         launches[k] += waves["launches"][k]
+    for arch, depth, kinds in SHARD_MOE_SERVE:
+        served[arch] = sharded_serve_gates(
+            smoke, kops, arch, [dict(r["moe"][arch], rank=r["rank"],
+                                     coordinate=r["coordinate"])
+                                for r in serve_r], smi, kinds)
+        for k in launches:
+            launches[k] += served[arch]["launches"][k]
+    encdec = sharded_encdec_gates(smoke, kops, serve_r, smi)
+    for k in launches:
+        launches[k] += encdec["launches"][k]
     worst = {}
     for name in serve_r[0]["parity"]:
         ps = [r["parity"][name] for r in serve_r]
@@ -5259,7 +5497,8 @@ def sharded_pass(smoke: Smoke, kops) -> dict:
           f"{[round(r['restore_s'], 1) for r in serve_r]} s, digests of "
           f"{len(saved)} leaves {'equal' if restored == saved else 'DIFFER'}"
           f"; f32 parity at {PARITY_LAYERS} layers (zamba2 "
-          f"{parity_depth(shard_cfg('zamba2-2.7b', 12))}), max |logit - "
+          f"{parity_depth(shard_cfg('zamba2-2.7b', 12))}; the MoE "
+          f"{SHARD_MOE_PARITY}), max |logit - "
           f"unsharded| and the largest logit: " + "; ".join(
               f"{name} {worst[name]:.3e} ({serve_r[0]['parity'][name]['scale']:.2f}"
               f", ticks {serve_r[0]['parity'][name].get('ticks', '-')})"
@@ -5270,7 +5509,8 @@ def sharded_pass(smoke: Smoke, kops) -> dict:
           f"{t_all:.1f} s", flush=True)
     return {"launches": launches, "train": trained, "reckoned_gb": need,
             "serve": {arch: served[arch]["stats"] for arch in served},
-            "waves": waves["stats"], "parity": worst}
+            "waves": waves["stats"], "encdec_waves": encdec["stats"],
+            "parity": worst}
 
 
 def tp_serve_launches(cfg, prefill: bool = False) -> dict:
@@ -5306,19 +5546,28 @@ def cache_text(cache: dict) -> str:
 
 
 def sharded_serve_gates(smoke: Smoke, kops, arch: str, reps: list,
-                        smi: str) -> dict:
-    """The serving world's gates on ``arch``'s ring and paged runs, one
-    report a rank: every rank the same tokens and 8 results with tokens,
-    the launches a tick of a rank's share (``tp_serve_launches``), no
-    graph, the cache a rank holds (its 2 of the 4 slots; half the KV heads
-    or SSM heads, the conv channels of its heads). Prints and returns its
+                        smi: str, kinds=("ring", "paged")) -> dict:
+    """The serving world's gates on ``arch``'s runs on the caches of
+    ``kinds``, one report a rank: every rank the same tokens and 8 results
+    with tokens, the launches a tick of a rank's share
+    (``tp_serve_launches``: the MoE's ``tcu_scan`` once a layer), no graph,
+    the cache a rank holds (its 2 of the 4 slots; half the KV heads or SSM
+    heads, the conv channels of its heads), and the MoE's expert leaves a
+    rank holds half of the whole's bytes. Prints and returns its
     numbers."""
     cfg = shard_cfg(arch, reps[0]["n_layers"])
     launches = {k: 0 for k in kops.KERNELS}
     per_tick = tp_serve_launches(cfg)
+    experts = (cfg.n_layers * 3 * cfg.n_experts * cfg.d_model
+               * cfg.moe_d_ff * smoke.torch.empty(0, dtype=cfg.dtype)
+               .element_size())              # every rank's together
     texts, stats = [], {}
-    for kind in ("ring", "paged"):
+    for kind in kinds:
         r0 = reps[0][kind]
+        if experts and not 0.45 <= r0["expert_bytes"] / experts <= 0.55:
+            smoke.fail(f"sharded serve {arch} {kind}: a rank holds "
+                       f"{r0['expert_bytes']} of the experts' {experts} "
+                       "bytes, want about half (model=2)")
         for rep in reps:
             run = rep[kind]
             if run["tokens"] != r0["tokens"]:
@@ -5363,8 +5612,10 @@ def sharded_serve_gates(smoke: Smoke, kops, arch: str, reps: list,
             + ", T=1 " + ("not measured" if dev["1"] is None
                           else f"{dev['1']['total']:.3f} {dev['1']}")
             + f"; peak GB a rank {[round(r[kind]['peak_gb'], 2) for r in reps]}"
-            f"; a rank holds {cache_text(r0['cache'])}; launches "
-            f"{r0['launches']}")
+            f"; a rank holds {cache_text(r0['cache'])}"
+            + (f", expert leaves {r0['expert_bytes'] / 1e9:.2f} of "
+               f"{experts / 1e9:.2f} GB" if experts else "")
+            + f"; launches {r0['launches']}")
         stats[kind] = {"tok_s": r0["n_tok"] / r0["wall_s"],
                        "device_ms": dev,
                        "peak_gb": max(r[kind]["peak_gb"] for r in reps)}
@@ -5432,13 +5683,77 @@ def sharded_wave_gates(smoke: Smoke, kops, serve_r: list, smi: str) -> dict:
     return {"launches": launches, "stats": stats}
 
 
+def sharded_encdec_gates(smoke: Smoke, kops, serve_r: list,
+                         smi: str) -> dict:
+    """The encoder-decoder's wave steps' gates, one report a rank: the
+    launches of a prefill and ``SHARD_DECODES`` decode steps of a rank's
+    share, and the caches a rank holds: its 2 of the 4 rows; under the
+    default rules half the KV heads of every row, under ``seq_shard`` half
+    the self and cross caches' rows with every KV head. Prints each step's
+    ms a rank split into local compute and collectives."""
+    cfg = shard_cfg(SHARD_ENCDEC, None)
+    pre, dec = tp_serve_launches(cfg, prefill=True), tp_serve_launches(cfg)
+    want = {k: pre.get(k, 0) + SHARD_DECODES * dec.get(k, 0)
+            for k in set(pre) | set(dec)}
+    launches = {k: 0 for k in kops.KERNELS}
+    stats = []
+    for i, (rules, rows, frames, prompt, cap) in enumerate(
+            SHARD_ENCDEC_WAVES):
+        reps = [r["encdec_waves"][i] for r in serve_r]
+        tag = f"sharded wave {SHARD_ENCDEC} {rules} {rows}x{frames}+{prompt}"
+        split = rules == "seq"
+        heads = cfg.n_kv_heads if split else cfg.n_kv_heads // 2
+        shapes = {
+            "self_k": [cfg.n_layers, rows // 2, cap // 2 if split else cap,
+                       heads, cfg.dh],
+            "cross_k": [cfg.n_layers, rows // 2,
+                        frames // 2 if split else frames, heads, cfg.dh]}
+        for rep in reps:
+            for k in launches:
+                launches[k] += rep["launches"][k]
+            got = {k: rep["launches"].get(k, 0) for k in want}
+            if got != want:
+                smoke.fail(f"{tag}: launches {got}, want {want}")
+            for name, shape in shapes.items():
+                if rep["cache"].get(name) != shape or rep["rows"] != cap:
+                    smoke.fail(f"{tag}: a rank's {name} "
+                               f"{rep['cache'].get(name)} of {rep['rows']} "
+                               f"rows, want {shape} of {cap}")
+        steps = [[s["ms"] for s in r["steps"][1:]] for r in reps]
+        coll = [[s["collective_ms"] for s in r["steps"][1:]] for r in reps]
+        pre_ms = [r["steps"][0] for r in reps]
+        stat = {"rules": rules, "rows": rows, "frames": frames,
+                "prompt": prompt, "cap": cap,
+                "prefill_ms": [p["ms"] for p in pre_ms],
+                "prefill_collective_ms": [p["collective_ms"]
+                                          for p in pre_ms],
+                "decode_ms": [statistics.median(v) for v in steps],
+                "decode_collective_ms": [statistics.median(v) for v in coll],
+                "peak_gb": [r["peak_gb"] for r in reps]}
+        stats.append(stat)
+        print(f"{tag}: {SHARD_ENCDEC} FULL, {rows} x ({frames} frames, "
+              f"{prompt} tokens) into {cap} self-cache rows on "
+              f"{SHARD_SERVE_MESH} under the "
+              + ("production rules' seq_shard" if split else "default rules")
+              + f" ({smi}); a rank holds self {shapes['self_k']}, cross "
+              f"{shapes['cross_k']}; prefill ms a rank "
+              f"{[round(v, 1) for v in stat['prefill_ms']]} (collectives "
+              f"{[round(v, 1) for v in stat['prefill_collective_ms']]}); "
+              f"decode ms a rank, median of {SHARD_DECODES} "
+              f"{[round(v, 2) for v in stat['decode_ms']]} (collectives "
+              f"{[round(v, 2) for v in stat['decode_collective_ms']]}); "
+              f"peak GB a rank {[round(v, 2) for v in stat['peak_gb']]}; "
+              f"launches a rank {reps[0]['launches']}", flush=True)
+    return {"launches": launches, "stats": stats}
+
+
 # ---------------------------------------------------------------------------
 # the dry run and the roofline
 
-# the train cells of the three step routes (llama and mamba2 split over
-# model, grok-1's MoE gathered whole), both serve kinds of the dense family,
-# the hybrid's decode, the SSM's 500k-position decode and a cell the port
-# refuses (the MoE's serving)
+# the train cells of the split families (llama and mamba2, grok-1's MoE:
+# every train step splits over model), both serve kinds of the dense
+# family, the hybrid's decode, the SSM's 500k-position decode and the MoE's
+# decode (its experts' e_ff columns over model=16)
 DRYRUN_CELLS = (("llama3.2-1b", "train_4k"), ("llama3.2-1b", "prefill_32k"),
                 ("llama3.2-1b", "decode_32k"), ("mamba2-1.3b", "train_4k"),
                 ("mamba2-1.3b", "long_500k"), ("zamba2-2.7b", "decode_32k"),
@@ -5509,8 +5824,9 @@ def dryrun_records(smoke: Smoke, proc, log: str) -> dict:
             smoke.fail(f"dry run: no record of {arch} {shape}")
             continue
         rec = json.loads(path.read_text())
-        if rec["status"] not in ("ok", "unsupported", "skip"):
-            smoke.fail(f"dry run {arch} {shape}: {rec['status']}")
+        if rec["status"] not in ("ok", "skip"):
+            smoke.fail(f"dry run {arch} {shape}: {rec['status']}: "
+                       f"{rec.get('reason', '')}")
         if rec["status"] == "ok":
             r = rec["roofline"]
             line = (f"peak {rec['memory']['peak_bytes'] / 2**30:.2f} GiB a "

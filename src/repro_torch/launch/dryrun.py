@@ -14,26 +14,27 @@ production rules, and runs the port's own step on rank 0's shards under
     and whether the peak fits the card;
   * ``skip``: the config's ``SKIPS`` reason;
   * ``unsupported``: the port raised ``NotImplementedError`` (the message
-    is kept): sharded serving of the MoE or the encoder-decoder (slice 21
-    of ROADMAP item 4c);
+    is kept): a family without split steps (none is left);
   * anything else fails the cell, and the CLI exits 1.
 
 Train cells take ``make_rules(..., fsdp=True)``, rank 0's shards of
 ``state_shape_structs`` under ``train_state_pspecs``, and one
-``make_train_step(..., mesh_ctx=)`` step: the tensor-parallel step for the
-dense, vlm, ssm and hybrid families (a rank's share of the heads, ``ff``
-columns, SSM heads and vocab, each layer's weights gathered over ``data``
-inside the layer, the activations' all-reduces over ``model`` charged as
-collective bytes), the gather-whole step for the MoE and the
-encoder-decoder. Prefill and decode cells add
+``make_train_step(..., mesh_ctx=)`` step: the tensor-parallel step of
+every family (a rank's share of the heads, ``ff`` columns, the MoE's
+experts or ``e_ff`` columns, SSM heads and vocab, each layer's weights
+gathered over ``data`` inside the layer, the activations' all-reduces over
+``model`` charged as collective bytes; the MoE's routing groups over the
+whole batch). Prefill and decode cells add
 ``seq_shard`` (the reference's: prefill writes the cache decode reads) and
 run ``make_serve_step(bundle, mesh_ctx=)`` on rank 0's part: the
 parameters as the sharded engine prepares them (``serving_params``: the
-rank's heads, ``ff`` columns, SSM heads and vocab rows, gathered over
-``data``), the whole batch (the step takes its rows), and for decode the
+rank's heads, ``ff`` columns, experts or ``e_ff`` columns, SSM heads and
+vocab rows, gathered over ``data``), the whole batch (the step takes its
+rows; an encoder-decoder's frames too), and for decode the
 cache as the rules lay it (``models.lm.local_cache_pspec``: the KV rows
 split over ``kv_seq``'s mesh dims, ``model`` for decode_32k, ``data`` x
-``model`` for long_500k's one row). The prefill writes that layout itself
+``model`` for long_500k's one row; an encoder-decoder's self and cross
+caches alike). The prefill writes that layout itself
 (an all-to-all over ``model``); the decode attends the rank's rows and
 merges the partial outputs across ranks, never gathering the cache.
 
@@ -63,7 +64,7 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.op_analysis import OpAnalyser, roofline_terms
 from repro_torch.models import build
 from repro_torch.models.common import partition_specs, stack_pspec
-from repro_torch.models.lm import local_cache_pspec
+from repro_torch.models.lm import kv_leaf, local_cache_pspec
 from repro_torch.optim import OptConfig
 from repro_torch.parallel import sharded_state as shst
 from repro_torch.parallel import tensor_parallel as tpar
@@ -157,9 +158,7 @@ def _train_args(bundle, mod, ctx: MeshContext, cell):
 
 
 def _serve_args(bundle, ctx: MeshContext, cell):
-    """(step, args) of a prefill or decode cell on rank 0, or
-    ``NotImplementedError`` where the port's sharded serving does not go
-    (the MoE, the encoder-decoder)."""
+    """(step, args) of a prefill or decode cell on rank 0."""
     cfg = bundle.cfg
     sharded = tpar.splits(ctx)
     prefill_step, decode_step = make_serve_step(bundle, mesh_ctx=ctx)
@@ -175,17 +174,21 @@ def _serve_args(bundle, ctx: MeshContext, cell):
     if cell.kind == "prefill":
         return prefill_step, (params, batch)
     cache_pspec = bundle.cache_pspec(cell.cache_batch, cell.cache_len)
-    kv = cache_pspec.get("attn", {}).get("k")
+    kv = kv_leaf(cache_pspec)
     if sharded:
         tp = tpar.for_serving(ctx, cfg.dtype, vocab=cfg.vocab,
                               batch=cell.cache_batch, kv=kv)
         cache_pspec = local_cache_pspec(cfg, cache_pspec, tp)
     cache = tree.map_tree(lambda ps: _fake(ps.shape, ps.dtype or cfg.dtype),
                           cache_pspec)
-    # the new token's position, the cache's last row
-    cache["pos"] = cell.cache_len - 1
+    # the new token's position, the cache's last row (an encoder-decoder's
+    # self cache holds half the cell's rows)
+    cache["pos"] = (cell.cache_len if kv is None or "attn" in cache_pspec
+                    else kv.shape[2]) - 1
     if sharded and kv is not None:
         cache["rows"] = kv.shape[2]
+    if sharded and "cross_k" in cache_pspec:
+        cache["cross_rows"] = cache_pspec["cross_k"].shape[2]
     return decode_step, (params, cache, batch)
 
 

@@ -22,33 +22,22 @@ import os
 
 from repro_torch.launch import mesh as mesh_lib
 
-# the next lever on each dominant term: (a step that gathers its weights
-# whole, a train or serve step split over model by tensor parallelism)
+# the next lever on each dominant term of a step split over model by
+# tensor parallelism (every family's train and serve steps)
 LEVERS = {
-    "compute_s": ("split the forward over model (expert parallelism for "
-                  "the MoE; the encoder-decoder's heads); fewer recomputed "
-                  "matmuls",
-                  "fewer recomputed matmuls (remat 'dots'); the model dim "
-                  "inside an NVLink node"),
-    "memory_s": ("fold the f32 casts and elementwise glue into the Hopper "
-                 "kernels",) * 2,
-    "collective_s": ("gather layer by layer behind the compute; reduce-"
-                     "scatter in bf16",
-                     "sequence-parallel activations (a reduce-scatter and "
-                     "an all-gather for each all-reduce); the model dim "
-                     "inside an NVLink node"),
+    "compute_s": "fewer recomputed matmuls (remat 'dots'); the model dim "
+                 "inside an NVLink node",
+    "memory_s": "fold the f32 casts and elementwise glue into the Hopper "
+                "kernels",
+    "collective_s": "sequence-parallel activations (a reduce-scatter and an "
+                    "all-gather for each all-reduce); the model dim inside "
+                    "an NVLink node",
 }
 
 
 def lever(rec: dict) -> str:
-    """The next lever on a record's dominant term: a cell of a family whose
-    train and serve steps split over model (``models.lm.TP_FAMILIES``) has
-    the split done."""
-    from repro_torch import configs
-    from repro_torch.models.lm import TP_FAMILIES
-
-    split = configs.get(rec["arch"]).FULL.family in TP_FAMILIES
-    return LEVERS[rec["roofline"]["dominant"]][split]
+    """The next lever on a record's dominant term."""
+    return LEVERS[rec["roofline"]["dominant"]]
 
 
 def bound(nbytes: float, ops: float, dtype) -> tuple[float, str]:

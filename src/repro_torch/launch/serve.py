@@ -60,17 +60,20 @@ uninstrumented.
 
 ``--ckpt-dir`` serves the parameters of the latest committed step of a
 checkpoint that ``launch.train`` wrote (any mesh, any world size). Under
-``torchrun`` with ``--mesh data=a,model=b`` (the dense, vlm, ssm and
-hybrid families) the engine serves sharded in lockstep
-(``serving/engine.py``): the parameters are placed under
+``torchrun`` with ``--mesh data=a,model=b`` the engine serves sharded in
+lockstep (``serving/engine.py``): the parameters are placed under
 ``partition_specs(..., fsdp_ok=False)`` of the context's rules (a
 checkpoint is restored straight into those shards, as the reference's
 ``launch/serve.py`` places them) and each rank keeps its ``model`` share
 of them; each rank steps its ``data`` rows of the slots (``--slots`` must
-divide by ``a``) on its heads, ``ff`` columns, SSM heads and vocab, and
-holds that part of the cache; only rank 0 prints. The MoE and the
-encoder-decoder raise under a mesh that splits a dim (slice 21 of ROADMAP
-item 4c).
+divide by ``a``) on its heads, ``ff`` columns, the MoE's experts (or
+every expert's ``e_ff`` columns where ``b`` does not divide the experts),
+SSM heads and vocab, and holds that part of the cache; only rank 0
+prints. The MoE routes the groups of the whole slot grid, as the
+reference's one program does. The encoder-decoder has no block step, and
+the wave scheduler it falls back to raises under lockstep (as the
+reference's engine); its sharded wave steps run through
+``training.make_serve_step(bundle, mesh_ctx=)``.
 """
 from __future__ import annotations
 
@@ -216,7 +219,8 @@ def main(argv=None) -> ServingEngine:
                     help="mesh axes as 'data=2,model=2' or 'model=2' "
                          "(multiplies to the world size, under torchrun): "
                          "serve sharded in lockstep, the slots over data, "
-                         "heads, ff, SSM heads and vocab over model")
+                         "heads, ff, experts (or e_ff), SSM heads and "
+                         "vocab over model")
     obs_cli.add_obs_args(ap)
     args = ap.parse_args(argv)
 

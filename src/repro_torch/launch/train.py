@@ -50,12 +50,16 @@ the world into ``data = world // N`` by ``model = N``
 and moments under ``train_state_pspecs``, trains on its ``data``
 coordinate's rows, and writes its shards into the checkpoint; ``--resume
 auto`` restores under the *current* mesh's specs, whatever mesh wrote the
-checkpoint. Where ``model`` has more than one rank, the dense, vlm, ssm and
-hybrid models train tensor-parallel: a rank computes its share of the
-heads, ``ff`` columns, SSM heads and vocab, and gathers each layer's
-weights over ``data`` inside the layer (``training.train_lib``); the MoE
-and the encoder-decoder gather every weight whole. Only rank 0 prints. On
-the card every rank takes ``cuda:<LOCAL_RANK mod cards>``.
+checkpoint. Where ``model`` has more than one rank, every model trains
+tensor-parallel: a rank computes its share of the heads (the
+encoder-decoder's encoder, decoder and cross attention alike), ``ff``
+columns, the MoE's experts (or every expert's ``e_ff`` columns where
+``model`` does not divide the experts), SSM heads and vocab, and gathers
+each layer's weights over ``data`` inside the layer
+(``training.train_lib``); on a mesh without a split ``model`` dim every
+weight is gathered whole. The MoE routes the groups of the whole batch on
+either. Only rank 0 prints. On the card every rank takes ``cuda:<LOCAL_RANK
+mod cards>``.
 """
 from __future__ import annotations
 
@@ -120,10 +124,9 @@ def main(argv=None) -> dict[int, float]:
     ap.add_argument("--tp", type=int, default=1,
                     help="model-axis size of the training mesh: the world "
                          "splits into data = world // tp by model = tp; "
-                         "the dense, vlm, ssm and hybrid models then split "
-                         "their heads, ff columns, SSM heads and vocab over "
-                         "model (tensor parallelism), the MoE and the "
-                         "encoder-decoder gather their weights whole")
+                         "the models then split their heads, ff columns, "
+                         "experts (or e_ff), SSM heads and vocab over model "
+                         "(tensor parallelism)")
     ap.add_argument("--mesh", default=None,
                     help="mesh axes as 'data=2,model=2' (multiplies to the "
                          "world size); overrides --tp")

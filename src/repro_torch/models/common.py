@@ -91,7 +91,7 @@ def count_params(tree) -> int:
 STACKS = ("blocks", "enc", "dec")
 
 
-def _stack_lens(cfg) -> dict:
+def stack_lens(cfg) -> dict:
     return {"blocks": cfg.n_layers, "enc": cfg.enc_layers,
             "dec": cfg.n_layers}
 
@@ -148,7 +148,7 @@ def unstack_blocks(params, cfg):
     The views are ``torch.unbind``'s, whose backward stacks the layers'
     gradients in one tensor, so gradients reach the stacked leaf."""
     out = dict(params)
-    for key, n in _stack_lens(cfg).items():
+    for key, n in stack_lens(cfg).items():
         if key not in params:
             continue
         views = []

@@ -19,8 +19,28 @@ with :func:`~repro_torch.models.lm.pad_cache_seq`, and a decode step at a
 position past it raises (the reference clamps the write onto the last row
 and attends a wrong cache). There is no block step: the continuous
 scheduler falls back to the wave, as in the reference.
+
+Tensor parallelism (:func:`encdec_tp_loss`, ``Bundle.tp_loss``) splits the
+encoder's and the decoder's layers as the decoder-only families' (the
+reference's rules: ``heads``, ``kv_heads``, ``ff`` and ``vocab`` over
+``model``): each rank attends its heads in the encoder's self-attention,
+the decoder's self-attention and its cross-attention (``xattn``, whose K and
+V the rank projects from the whole memory), runs its ``ff`` columns, and
+holds the embedding and head's vocab rows where ``model`` divides the
+vocab; each layer gathers its weights over the mesh's other dims inside
+itself (``models.lm.split_layer``). A serving step under a mesh
+(``training.make_serve_step(bundle, mesh_ctx=)``) runs the same split on
+its rows of the batch (``frames`` and ``tokens``); its prefill computes each
+rank's heads' ``cross_k`` and ``cross_v`` from the memory, and under the
+rules' ``seq_shard`` the self and cross caches' rows go over the ``kv_seq``
+rule's mesh dims, every KV head a rank (``models.lm._kv_layout``), which
+the decode attends range by range and merges by log-sum-exp
+(:func:`~repro_torch.models.layers.cross_decode`), never gathering a
+cache.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -31,11 +51,11 @@ from repro_torch.models.common import (
     cross_entropy,
     embed_tokens,
     rmsnorm,
-    unembed,
     unstack_blocks,
 )
-from repro_torch.models.lm import Bundle, _remat
-from repro_torch.models.xla_attention import decode_attention
+from repro_torch.models.lm import Bundle, _kv_layout, _logits, _remat, \
+    param_takes, split_layer, tp_params
+from repro_torch.parallel import tensor_parallel as tpar
 
 
 def encdec_pspec(cfg: L.ModelConfig):
@@ -73,8 +93,14 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device).expand(b, s)
 
 
-def _layers(cfg: L.ModelConfig, layer):
-    """``layer`` under ``cfg.remat_policy`` when gradients are on."""
+def _layers(cfg: L.ModelConfig, layer, stack: str):
+    """``layer`` of the stack ``stack`` (``enc`` or ``dec``): split over the
+    active tensor-parallel context's ``model`` dim, each layer gathering its
+    weights (``models.lm.split_layer``), and under ``cfg.remat_policy``
+    when gradients are on."""
+    tp = tpar.current()
+    if tp is not None:
+        layer = split_layer(layer, tp, param_takes(cfg, tp)[1][stack])
     return _remat(layer, cfg.remat_policy) if torch.is_grad_enabled() \
         else layer
 
@@ -92,7 +118,7 @@ def encode(params, cfg: L.ModelConfig, frames) -> torch.Tensor:
         m_in = rmsnorm(h, lp["ln2"], cfg.norm_eps, cfg.policy)
         return h + L.mlp_apply(lp["mlp"], cfg, m_in)
 
-    layer = _layers(cfg, layer)
+    layer = _layers(cfg, layer, "enc")
     for lp in params["enc"]:
         h = layer(h, lp)
     return rmsnorm(h, params["enc_norm"], cfg.norm_eps, cfg.policy)
@@ -117,7 +143,7 @@ def decode_train(params, cfg: L.ModelConfig, tokens, memory, *,
         return h + L.mlp_apply(lp["mlp"], cfg, m_in), \
             (kv, xkv) if collect_cache else None
 
-    layer = _layers(cfg, layer)
+    layer = _layers(cfg, layer, "dec")
     caches = []
     for lp in params["dec"]:
         h, c = layer(h, lp)
@@ -125,7 +151,7 @@ def decode_train(params, cfg: L.ModelConfig, tokens, memory, *,
     if last_only:
         h = h[:, -1:]
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps, cfg.policy)
-    return unembed(h, params["head"]), caches if collect_cache else None
+    return _logits(params, cfg, h), caches if collect_cache else None
 
 
 def encdec_loss(params, cfg: L.ModelConfig, batch) -> torch.Tensor:
@@ -136,10 +162,30 @@ def encdec_loss(params, cfg: L.ModelConfig, batch) -> torch.Tensor:
     return cross_entropy(logits, batch["labels"])
 
 
-def encdec_cache_pspec(cfg: L.ModelConfig, batch: int, smax: int):
+def encdec_tp_loss(shards, cfg: L.ModelConfig, batch) -> torch.Tensor:
+    """:func:`encdec_loss` split over the model dim of the active
+    :class:`~repro_torch.parallel.tensor_parallel.TensorParallel`:
+    ``shards`` is the train state's stacked parameter tree as this rank's
+    :class:`~repro_torch.parallel.tensor_parallel.Shard` leaves; each
+    encoder and decoder layer gathers its own weights inside the layer and
+    computes its share of the heads and ``ff`` columns, the loss its share
+    of the vocab (``models.lm.param_takes``)."""
+    tp = tpar.current()
+    if tp is None:
+        raise ValueError("encdec_tp_loss runs under an active "
+                         "TensorParallel (tensor_parallel.active)")
+    return encdec_loss(tp_params(shards, cfg, tp), cfg, batch)
+
+
+def encdec_cache_pspec(cfg: L.ModelConfig, batch: int, smax: int,
+                       cross_rows: int | None = None):
     """The decode cache, ``smax`` split evenly between the encoder's memory
-    (the cross K/V) and the decoder's self cache, as in the reference."""
+    (the cross K/V) and the decoder's self cache, as in the reference; or,
+    given ``cross_rows`` (a sharded prefill's layout), ``smax`` self rows
+    and ``cross_rows`` cross rows."""
     s_enc = s_dec = smax // 2
+    if cross_rows is not None:
+        s_dec, s_enc = smax, cross_rows
     nd, hkv, dh = cfg.n_layers, cfg.n_kv_heads, cfg.dh
     log = ("layers", "batch", "kv_seq", "kv_heads", None)
     return {
@@ -162,8 +208,32 @@ def encdec_prefill(params, cfg: L.ModelConfig, batch, *, last_only=False):
     cache = {name: torch.stack([c[i][j] for c in caches])
              for name, i, j in (("self_k", 0, 0), ("self_v", 0, 1),
                                 ("cross_k", 1, 0), ("cross_v", 1, 1))}
+    tp = tpar.current()
+    if tp is not None and tp.inference:
+        cache = _serving_layout(cache, cfg, tp)
     cache["pos"] = batch["tokens"].shape[1]
     return logits, cache
+
+
+def _serving_layout(cache, cfg: L.ModelConfig, tp) -> dict:
+    """A sharded prefill's self and cross caches (this rank's heads, every
+    row) -> this rank's part in the serving layout
+    (``models.lm._kv_layout``): the self cache padded to the step's
+    ``tp.kv_rows``, and where the rows are split over ``seq_axes`` the
+    rank's range of them; the cross cache alike at the memory's rows, which
+    must divide as the self cache's do."""
+    s_enc = cache["cross_k"].shape[2]
+    if tp.seq_axes and s_enc % tp.seq_parts():
+        raise ValueError(f"the cross cache's {s_enc} rows (the frames) do "
+                         f"not divide over the {tp.seq_parts()} ranks that "
+                         "split the self cache's rows")
+    out = {}
+    for names, rows in ((("self_k", "self_v"), tp.kv_rows),
+                        (("cross_k", "cross_v"), s_enc)):
+        both = _kv_layout(torch.stack([cache[n] for n in names]), cfg,
+                          dataclasses.replace(tp, kv_rows=rows))
+        out.update(zip(names, both.unbind(0)))
+    return out
 
 
 def encdec_decode(params, cfg: L.ModelConfig, cache, batch):
@@ -172,28 +242,26 @@ def encdec_decode(params, cfg: L.ModelConfig, cache, batch):
     place, then cross-attention over every row of the memory's K/V."""
     h = embed_tokens(params["embed"], batch["tokens"])       # (B, 1, d)
     pos = cache["pos"]
-    rows = cache["self_k"].shape[2]
+    tp = tpar.current()
+    # the self cache's global rows (a serving step may hold a range)
+    rows = tp.kv_rows if tp is not None and tp.seq_axes \
+        else cache["self_k"].shape[2]
     if pos >= rows:
         raise ValueError(f"self-attention cache of {rows} positions is full "
                          f"at position {pos}; grow it with pad_cache_seq")
-    b = h.shape[0]
-    dh, hq = cfg.dh, cfg.n_heads
-    s_enc = cache["cross_k"].shape[2]
     for i, lp in enumerate(params["dec"]):
         a_in = rmsnorm(h, lp["ln1"], cfg.norm_eps, cfg.policy)
         h = h + L.attn_decode(lp["attn"], cfg, a_in,
                               {"k": cache["self_k"][i],
                                "v": cache["self_v"][i]}, pos=pos)
         x_in = rmsnorm(h, lp["lnx"], cfg.norm_eps, cfg.policy)
-        q = (x_in @ lp["xattn"]["wq"]).reshape(b, 1, hq, dh)
-        o = decode_attention(q, cache["cross_k"][i], cache["cross_v"][i],
-                             s_enc)
-        h = h + o.reshape(b, 1, hq * dh) @ lp["xattn"]["wo"]
+        h = h + L.cross_decode(lp["xattn"], cfg, x_in, cache["cross_k"][i],
+                               cache["cross_v"][i])
         m_in = rmsnorm(h, lp["ln2"], cfg.norm_eps, cfg.policy)
         h = h + L.mlp_apply(lp["mlp"], cfg, m_in)
     cache["pos"] = pos + 1
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps, cfg.policy)
-    return unembed(h, params["head"]), cache
+    return _logits(params, cfg, h), cache
 
 
 def build_encdec(cfg: L.ModelConfig) -> Bundle:
@@ -213,16 +281,20 @@ def build_encdec(cfg: L.ModelConfig) -> Bundle:
         return encdec_decode(params, cfg, cache, batch)
 
     def cache_pspec(batch: int, smax: int, per_slot_pos: bool = False, *,
-                    kind: str = "ring", **_):
+                    kind: str = "ring", cross_rows: int | None = None, **_):
         if kind == "paged":
             raise ValueError(f"no paged cache for family {cfg.family!r}")
         if per_slot_pos:
             raise ValueError("the encoder-decoder has no continuous-batching "
                              "cache (no block step; the engine falls back "
                              "to the wave scheduler)")
-        return encdec_cache_pspec(cfg, batch, smax)
+        return encdec_cache_pspec(cfg, batch, smax, cross_rows)
+
+    def tp_loss(shards, batch):
+        return encdec_tp_loss(shards, cfg, batch)
 
     n = count_params(pspec)
     return Bundle(cfg=cfg, params_pspec=pspec, loss=loss,
                   prefill_last=prefill_last, decode=decode, n_params=n,
-                  n_active_params=n, cache_pspec=cache_pspec)
+                  n_active_params=n, cache_pspec=cache_pspec,
+                  tp_loss=tp_loss)

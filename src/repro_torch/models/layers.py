@@ -152,11 +152,13 @@ def attn_apply(p, cfg: ModelConfig, x, *, positions=None, causal=True,
 
     Under tensor parallelism (``tensor_parallel.current()``) ``p`` holds
     this rank's heads (:func:`attn_takes`): the rank attends them, and its
-    part of ``wo``'s product is summed across ranks."""
+    part of ``wo``'s product is summed across ranks; a cross-attention's
+    ``kv`` gradient, partial on each rank too, is summed as x's is."""
     b, s, _ = x.shape
     tp = tpar.current()
     if tp is not None:
         x = tp.copy_in(x)
+        kv = None if kv is None else tp.copy_in(kv)
     dh = cfg.dh
     hq, hkv = p["wq"].shape[-1] // dh, p["wk"].shape[-1] // dh
     src = x if kv is None else kv
@@ -266,6 +268,35 @@ def attn_decode(p, cfg: ModelConfig, x, cache, *, pos: int, window=None):
         kc[:, row] = k[:, 0].to(kc.dtype)
         vc[:, row] = v[:, 0].to(vc.dtype)
     o = _attend(q, kc, vc, min(pos + 1, cap), s0, tp)
+    return _attn_out(o, p, tp, heads)
+
+
+def cross_decode(p, cfg: ModelConfig, x, kc, vc):
+    """Cross-attention of x (B,1,d) over the memory's K and V ``kc``/``vc``
+    (B,S_enc,Hkv,Dh), computed once at the prefill: every row valid, no
+    rope, no mask -> out (B,1,d).
+
+    Under a serving ``TensorParallel`` ``p`` holds this rank's heads
+    (:func:`attn_takes`) and ``wo`` is row-parallel. The cache holds the KV
+    heads the rank computes, or, where its rows are split across ranks
+    (``seq_axes``), the rank's range of the memory's rows with every KV
+    head: then the token's queries are gathered over ``model``, each rank
+    attends its range and the parts are merged by log-sum-exp; the cache is
+    never gathered."""
+    b = x.shape[0]
+    tp = tpar.current()
+    dh = cfg.dh
+    hq = p["wq"].shape[-1] // dh
+    q = (x @ p["wq"]).reshape(b, 1, hq, dh)
+    heads = None
+    if kc.shape[2] != p["wk"].shape[-1] // dh:   # every KV head, rows split
+        q = tp.all_model(q, 2)
+        heads = (tp.index * hq, (tp.index + 1) * hq)
+    start, rows = 0, kc.shape[1]
+    if tp is not None and tp.seq_axes:
+        idx, parts = tp.index_in(tp.seq_axes)
+        start, rows = idx * rows, rows * parts
+    o = _attend(q, kc, vc, rows, start, tp)
     return _attn_out(o, p, tp, heads)
 
 
@@ -442,6 +473,24 @@ def moe_pspec(cfg: ModelConfig):
                            logical=("experts", "e_ff", "embed"))}
 
 
+def moe_takes(cfg: ModelConfig, tp) -> dict:
+    """What a tensor-parallel rank takes of one MoE layer, as the reference's
+    rules shard it (``experts`` and then ``e_ff`` over ``model``): its
+    ``n_experts / model`` experts where ``model`` divides them, else every
+    expert's ``moe_d_ff / model`` columns (rows of ``w_out``). The router
+    is taken whole, as a take of every column, so that its gradient is
+    summed over ``model``: the combine's part of it is partial on each
+    rank."""
+    e, f = cfg.n_experts, cfg.moe_d_ff
+    router = Take(1, ((0, e),))
+    if e % tp.size == 0:
+        ex = Take(0, (tp.span(e, "experts"),))
+        return {"router": router, "w_in": ex, "w_gate": ex, "w_out": ex}
+    cols = (tp.span(f, "e_ff"),)
+    return {"router": router, "w_in": Take(2, cols),
+            "w_gate": Take(2, cols), "w_out": Take(1, cols)}
+
+
 def moe_apply(p, cfg: ModelConfig, x):
     """Token-choice top-k with capacity; the counts and offsets are the
     paper's ragged reduce and exclusive scan. Returns (y, aux_loss)."""
@@ -452,20 +501,55 @@ def moe_apply(p, cfg: ModelConfig, x):
 
 def moe_apply_grouped(p, cfg: ModelConfig, x):
     """Group-local token-choice top-k MoE (the reference's default): the
-    ``b * s`` tokens, row-major, split into ``gcd(b * s, moe_groups)``
-    contiguous groups, each routed, sorted and given its own capacity;
-    silu in the native dtype."""
-    groups = math.gcd(x.shape[0] * x.shape[1], cfg.moe_groups)
-    return _moe(p, cfg, x, groups, native_silu=True)
+    ``B * S`` tokens of the whole batch, row-major, split into ``gcd(B * S,
+    moe_groups)`` contiguous groups, each routed, sorted and given its own
+    capacity; silu in the native dtype. ``B`` counts every rank's rows
+    where the step's batch is split (:func:`_moe_split`)."""
+    return _moe_split(p, cfg, x, cfg.moe_groups, native_silu=True)
 
 
 def moe_apply_global(p, cfg: ModelConfig, x):
     """Whole-batch sort dispatch (the reference's measured baseline): one
-    group of every token; silu in f32."""
-    return _moe(p, cfg, x, 1, native_silu=False)
+    group of every token of the whole batch; silu in f32."""
+    return _moe_split(p, cfg, x, 1, native_silu=False)
 
 
-def _moe(p, cfg: ModelConfig, x, g: int, *, native_silu: bool):
+def _moe_split(p, cfg: ModelConfig, x, groups: int, *, native_silu: bool):
+    """:func:`_moe` over ``gcd(tokens, groups)`` groups of the whole batch's
+    tokens, as the reference's one program over the whole batch lays them
+    out (``moe_groups`` over the batch's mesh dims).
+
+    Where the step's rows lie across ranks (``tensor_parallel.
+    batch_layout``: a data-parallel, tensor-parallel or sharded serving
+    step), a rank holding ``1/parts`` of the rows runs its ``g / parts``
+    contiguous groups; where ``parts`` does not divide ``g`` it gathers the
+    rows (their gradients summed back over the ranks), routes every group
+    and keeps its rows' outputs, as GSPMD does where a constraint does not
+    divide. Under tensor parallelism (``tensor_parallel.current()``) ``p``
+    holds the rank's experts or ``e_ff`` columns (:func:`moe_takes`): the
+    rank routes every token over every expert (the same on every ``model``
+    rank), runs its part of the expert products, and the partial outputs
+    are summed over ``model``; the aux loss, alike on every ``model`` rank,
+    takes its gradient once (``TensorParallel.once``)."""
+    tp, lay = tpar.current(), tpar.batch_layout()
+    b, s, _ = x.shape
+    parts = 1 if lay is None else lay.row_parts()
+    g = math.gcd(b * s * parts, groups)
+    if tp is not None:
+        x = tp.copy_in(x)
+    if g % parts == 0:
+        out, aux = _moe(p, cfg, x, g // parts, native_silu=native_silu,
+                        tp=tp)
+    else:
+        out, aux = _moe(p, cfg, lay.gather_rows(x), g,
+                        native_silu=native_silu, tp=tp)
+        out = out.narrow(0, lay.row_start(b), b)
+    if tp is None:
+        return out, aux
+    return tp.reduce_out(out), tp.once(aux)
+
+
+def _moe(p, cfg: ModelConfig, x, g: int, *, native_silu: bool, tp=None):
     """The reference's sort-based dispatch over ``g`` groups of ``tg``
     tokens, ``n = tg * k`` routed slots a group. Each group's slots are
     sorted by expert (stable, as ``jnp.argsort``); an expert takes its first
@@ -473,7 +557,13 @@ def _moe(p, cfg: ModelConfig, x, g: int, *, native_silu: bool):
     expert-major, ``(e, g * cap, d)``, so that every expert's rows are one
     matrix of a batched product without a copy; the k weighted outputs of
     each token are summed over k in a fixed order (the reference's
-    scatter-add, without atomics). Returns ((b, s, d), aux)."""
+    scatter-add, without atomics). Returns ((b, s, d), aux).
+
+    Where ``p`` holds a tensor-parallel rank's ``el`` of the ``e`` experts
+    (:func:`moe_takes`), the buffer holds their slots only, and a slot of
+    another rank's expert adds nothing to the combine; where it holds every
+    expert's ``e_ff`` columns, every slot runs on them. Either way the
+    output is the rank's partial sum."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_tok
     t = b * s
@@ -498,6 +588,12 @@ def _moe(p, cfg: ModelConfig, x, g: int, *, native_silu: bool):
     rank = inv - start.gather(1, e_flat)          # rank within its expert
     cap = max(8, int(cfg.capacity_factor * n / e + 127) // 128 * 128)
     keep = rank < cap
+    # this rank's experts [e0, e0 + el): every one, or a tensor-parallel
+    # rank's share
+    el = p["w_in"].shape[0]
+    e0 = 0 if el == e else tp.index * el
+    if el != e:
+        keep = keep & (e_flat >= e0) & (e_flat < e0 + el)
 
     # dispatch as a slot -> token gather: slot (expert, group, c) holds the
     # group's sorted position start + c while c < min(count, cap); an empty
@@ -507,19 +603,21 @@ def _moe(p, cfg: ModelConfig, x, g: int, *, native_silu: bool):
     valid = slots < counts.clamp(max=cap)[..., None]
     tok = order.gather(1, pos.reshape(g, e * cap)) // k
     rows = tok + group * tg
-    rows = torch.where(valid.reshape(g, e * cap), rows, t)
-    rows = rows.view(g, e, cap).transpose(0, 1).reshape(-1)   # expert-major
+    rows = torch.where(valid.reshape(g, e * cap), rows, t).view(g, e, cap)
+    if el != e:
+        rows = rows[:, e0:e0 + el]
+    rows = rows.transpose(0, 1).reshape(-1)                   # expert-major
     h = torch.cat([x.reshape(t, d), x.new_zeros(1, d)]).index_select(0, rows)
-    h = h.view(e, g * cap, d)
+    h = h.view(el, g * cap, d)
     up = torch.bmm(h, p["w_in"])
     gate = torch.bmm(h, p["w_gate"])
     act = (F.silu(gate) if native_silu
            else F.silu(gate.float()).to(up.dtype)) * up
-    y = torch.bmm(act, p["w_out"]).view(e * g * cap, d)
+    y = torch.bmm(act, p["w_out"]).view(el * g * cap, d)
 
     # combine: each routed slot reads its output row, weighted, or nothing
-    # when its expert was full
-    at = (e_flat * g + group) * cap + rank
+    # when its expert was full (or is another rank's)
+    at = ((e_flat - e0) * g + group) * cap + rank
     y_tok = y.index_select(0, torch.where(keep, at, 0).reshape(-1))
     w = (top_w.reshape(g, n) * keep).reshape(-1, 1).to(y.dtype)
     out = (y_tok * w).view(t, k, d).sum(1).to(x.dtype)

@@ -64,6 +64,7 @@ from repro_torch.models.common import (
     cross_entropy,
     embed_tokens,
     rmsnorm,
+    stack_lens,
     unembed,
     unstack_blocks,
 )
@@ -75,9 +76,9 @@ FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 ATTN_FAMILIES = ("dense", "vlm", "moe")   # an attention layer in every block
 STATE_FAMILIES = ("ssm", "hybrid")        # Mamba layers: conv and state
 KV_FAMILIES = ATTN_FAMILIES + ("hybrid",)   # a KV cache
-# the families whose train step splits over the mesh's model dim
-# (:func:`lm_tp_loss`); the MoE family gathers its parameters whole
-TP_FAMILIES = ("dense", "vlm", "ssm", "hybrid")
+# the families whose train and serve steps split over the mesh's model dim
+# (:func:`lm_tp_loss`, ``encdec.encdec_tp_loss``): every family
+TP_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 MOE_AUX_WEIGHT = 0.01
 # the reference's dots_with_no_batch_dims_saveable: a matmul without batch
 # dims is an mm (``x @ W`` folds its leading dims into rows) or an addmm
@@ -108,17 +109,16 @@ def _remat(fn, policy: str):
 
 def serves_split(cfg: L.ModelConfig, mesh_ctx) -> bool:
     """Whether serving ``cfg`` on ``mesh_ctx`` takes the split steps: a mesh
-    that splits a dim (``tensor_parallel.splits``), where the families
-    whose steps split over ``model`` (``TP_FAMILIES``) are served and the
-    MoE and the encoder-decoder raise ``NotImplementedError``."""
+    that splits a dim (``tensor_parallel.splits``). Every family of
+    ``TP_FAMILIES`` is served so; another raises
+    ``NotImplementedError``."""
     if not tpar.splits(mesh_ctx):
         return False
     if cfg.family not in TP_FAMILIES:
         raise NotImplementedError(
-            f"sharded serving of {cfg.name} ({cfg.family}) is not ported "
-            f"to mesh {mesh_ctx.label()}: the MoE's experts (experts, e_ff "
-            "-> model) and the encoder-decoder under a mesh are slice 21 of "
-            "ROADMAP item 4c; serve it unsharded")
+            f"sharded serving of {cfg.name} ({cfg.family}) on mesh "
+            f"{mesh_ctx.label()}: the family has no split steps "
+            f"({', '.join(TP_FAMILIES)} do); serve it unsharded")
     return True
 
 
@@ -158,8 +158,7 @@ class Bundle:
     # its paged twin: the same and page= (the manager's plan of the tick)
     decode_block_paged: Callable = None
     # the tensor-parallel loss: (stacked tree of tensor_parallel.Shard,
-    # batch) -> the loss under an active TensorParallel; None where the
-    # family's train step gathers its parameters whole
+    # batch) -> the loss under an active TensorParallel
     tp_loss: Callable = None
 
 
@@ -244,41 +243,64 @@ def _block_takes(cfg: L.ModelConfig, tp) -> dict:
     """What a tensor-parallel rank takes of one layer (the norms whole)."""
     if cfg.family in STATE_FAMILIES:
         return {"mamba": L.mamba_takes(cfg, tp)}
+    if cfg.family == "moe":
+        return {"attn": L.attn_takes(cfg, tp), "moe": L.moe_takes(cfg, tp)}
     return {"attn": L.attn_takes(cfg, tp), "mlp": L.mlp_takes(cfg, tp)}
 
 
 def param_takes(cfg: L.ModelConfig, tp) -> tuple[dict, dict]:
     """(what a tensor-parallel rank takes of the parameters outside the
-    blocks, of one block): the embedding and head as this rank's vocab rows
-    where ``tp`` splits the vocab (else whole, the logits replicated, as the
-    reference's spec leaves them), the hybrid's shared block as its heads
-    and ``ff`` columns, each block by :func:`_block_takes`."""
+    layer stacks, of one layer of each stack by its name): the embedding
+    and head as this rank's vocab rows where ``tp`` splits the vocab (else
+    whole, the logits replicated, as the reference's spec leaves them), the
+    hybrid's shared block as its heads and ``ff`` columns; each block by
+    :func:`_block_takes`, or the encoder-decoder's encoder layers' and
+    decoder layers' attention (self and cross) by their heads and MLPs by
+    their ``ff`` columns."""
     vocab = Take(0, (tp.span(cfg.vocab),)) if tp.vocab_split else None
     top = {"embed": vocab, "head": vocab}
     if cfg.family == "hybrid":
         top["shared"] = {"attn": L.attn_takes(cfg, tp),
                          "mlp": L.mlp_takes(cfg, tp)}
-    return top, _block_takes(cfg, tp)
+    if cfg.family == "encdec":
+        attn, mlp = L.attn_takes(cfg, tp), L.mlp_takes(cfg, tp)
+        return top, {"enc": {"attn": attn, "mlp": mlp},
+                     "dec": {"attn": attn, "xattn": attn, "mlp": mlp}}
+    return top, {"blocks": _block_takes(cfg, tp)}
 
 
-def _tp_params(shards, cfg: L.ModelConfig, tp):
+def tp_params(shards, cfg: L.ModelConfig, tp):
     """The stacked tree of :class:`~repro_torch.parallel.tensor_parallel.
-    Shard` -> the forward's: the blocks a list of per-layer trees of shards,
-    which each layer gathers itself (:func:`lm_apply`), the rest gathered
+    Shard` -> the forward's: each layer stack a list of per-layer trees of
+    shards, which each layer gathers itself (:func:`lm_apply`, the
+    encoder-decoder's ``encode`` and ``decode_train``), the rest gathered
     here (:func:`param_takes`)."""
-    top, block = param_takes(cfg, tp)
+    top, stacks = param_takes(cfg, tp)
     out = {k: tp.views(v, top.get(k)) for k, v in shards.items()
-           if k != "blocks"}
-    out["blocks"] = tp.layers(shards["blocks"], block, cfg.n_layers)
+           if k not in stacks}
+    lens = stack_lens(cfg)
+    for key, takes in stacks.items():
+        out[key] = tp.layers(shards[key], takes, lens[key])
     return out
 
 
-def _split_layer(layer, tp, takes):
+def split_layer(layer, tp, takes, rows=None):
     """``layer`` under tensor parallelism ``tp``: it gathers its weights
     (each a :class:`~repro_torch.parallel.tensor_parallel.Shard`, ``takes``
     its part) and runs with ``tp`` active, in the forward and again where
     the remat policy recomputes it (in the backward, on autograd's device
-    thread, which the step's context does not reach)."""
+    thread, which the step's context does not reach). With ``tp`` None and
+    a batch layout ``rows`` (the gather-whole step's), the layer runs with
+    that layout active, likewise."""
+    if tp is None:
+        if rows is None:
+            return layer
+
+        def laid_out(h, lp):
+            with tpar.rows_active(rows):
+                return layer(h, lp)
+        return laid_out
+
     def split(h, lp):
         with tpar.active(tp):
             return layer(h, tp.views(lp, takes))
@@ -339,8 +361,8 @@ def lm_apply(params, cfg: L.ModelConfig, batch, *, collect_cache=False,
             out, cache = L.mamba_apply(lp["mamba"], cfg, m_in,
                                        collect_cache=collect_cache)
             return h + out, None, cache
-    if tp is not None:
-        layer = _split_layer(layer, tp, _block_takes(cfg, tp))
+    layer = split_layer(layer, tp, None if tp is None
+                        else _block_takes(cfg, tp), tpar.batch_layout())
     if torch.is_grad_enabled():
         # the layers only: the hybrid's shared block is not recomputed, as
         # in the reference
@@ -455,7 +477,7 @@ def lm_tp_loss(shards, cfg: L.ModelConfig, batch) -> torch.Tensor:
     if tp is None:
         raise ValueError("lm_tp_loss runs under an active TensorParallel "
                          "(tensor_parallel.active)")
-    return lm_loss(_tp_params(shards, cfg, tp), cfg, batch)
+    return lm_loss(tp_params(shards, cfg, tp), cfg, batch)
 
 
 def pad_cache_seq(cache, extra: int):
@@ -598,10 +620,11 @@ def local_cache_pspec(cfg: L.ModelConfig, pspec, tp):
     split over ``model``; the SSM heads and conv channels those of
     :func:`~repro_torch.models.layers.mamba_takes` (its heads' x channels
     and the B and C groups they read, another layout the specs do not
-    express). The paged pools' pages are whole on every rank."""
+    express). The paged pools' pages are whole on every rank. An
+    encoder-decoder's self and cross caches are cut alike."""
     cut = {"batch": lambda n: n // tp.row_parts(),
            "kv_seq": lambda n: n // tp.seq_parts()}
-    if cfg.family in KV_FAMILIES:
+    if cfg.family in KV_FAMILIES or cfg.family == "encdec":
         heads = (cfg.n_kv_heads if tpar.MODEL_AXIS in tp.seq_axes else
                  _width(L.attn_takes(cfg, tp)["wk"]) // cfg.dh)
         cut["kv_heads"] = lambda n: heads
@@ -616,6 +639,14 @@ def local_cache_pspec(cfg: L.ModelConfig, pspec, tp):
         return dataclasses.replace(ps, shape=shape)
 
     return tree.map_tree(local, pspec)
+
+
+def kv_leaf(cache):
+    """The KV cache's K in a cache or a cache declaration (an
+    encoder-decoder's: its decoder's self cache), None without one."""
+    if "attn" in cache:
+        return cache["attn"]["k"]
+    return cache.get("self_k")
 
 
 def _width(take: Take) -> int:
@@ -844,5 +875,4 @@ def build_lm(cfg: L.ModelConfig) -> Bundle:
                   prefill_last=prefill_last,
                   decode=decode, n_params=n, n_active_params=n_active,
                   cache_pspec=cache_pspec, decode_block=decode_block,
-                  decode_block_paged=decode_block_paged,
-                  tp_loss=tp_loss if cfg.family in TP_FAMILIES else None)
+                  decode_block_paged=decode_block_paged, tp_loss=tp_loss)

@@ -21,6 +21,15 @@ rank's share of each split dim. Here that is spelled out, Megatron-style:
   each rank's outputs reach the sum's gradient only through its own
   columns).
 
+The MoE's experts (or every expert's ``e_ff`` columns) are split like an
+MLP's ``ff`` columns, its partial combines summed by :meth:`TensorParallel.
+reduce_out`; every ``model`` rank routes alike, so its aux loss takes its
+gradient once (:meth:`TensorParallel.once`). Its routing groups span the
+whole batch: :func:`batch_layout` says how the step's rows lie across
+ranks, on a split step, a serving step or the gather-whole step
+(:func:`rows_active`), and :meth:`TensorParallel.gather_rows` gathers them
+where the groups do not divide over the ranks.
+
 A layer takes each parameter as a :class:`Shard` (the rank's local piece and
 its spec) and asks for the part its compute uses as a :class:`Take` (ranges
 of one dim). :meth:`TensorParallel.view` gathers the piece over the mesh's
@@ -72,6 +81,10 @@ MODEL_AXIS = "model"
 
 _ACTIVE: contextvars.ContextVar["TensorParallel | None"] = \
     contextvars.ContextVar("repro_torch_tensor_parallel", default=None)
+# the gather-whole step's batch layout: its rows over the batch's mesh dims,
+# no split compute
+_ROWS: contextvars.ContextVar["TensorParallel | None"] = \
+    contextvars.ContextVar("repro_torch_batch_rows", default=None)
 
 
 def current() -> "TensorParallel | None":
@@ -86,6 +99,26 @@ def active(tp: "TensorParallel | None"):
         yield tp
     finally:
         _ACTIVE.reset(token)
+
+
+def batch_layout() -> "TensorParallel | None":
+    """How the step's batch rows lie across ranks: the active split step's
+    or serving step's context, else the gather-whole step's
+    (:func:`rows_active`), else None (every row here). The MoE lays its
+    routing groups out over the whole batch by it."""
+    tp = _ACTIVE.get()
+    return tp if tp is not None else _ROWS.get()
+
+
+@contextlib.contextmanager
+def rows_active(tp: "TensorParallel | None"):
+    """``tp`` as the batch layout of a step that splits no compute (the
+    gather-whole step): :func:`current` stays None."""
+    token = _ROWS.set(tp)
+    try:
+        yield tp
+    finally:
+        _ROWS.reset(token)
 
 
 def model_size(mesh) -> int:
@@ -206,6 +239,25 @@ class _ReduceOut(torch.autograd.Function):
         return g, None
 
 
+class _GatherRows(torch.autograd.Function):
+    """Every rank's rows of the batch (forward); each row's gradient summed
+    over the ranks that used it, this rank's rows kept (backward)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.tp, ctx.dim, ctx.rows = tp, dim, x.shape[dim]
+        return tp._all_rows(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        tp = ctx.tp
+        with tp.part("tp_all_reduce"):
+            for a in tp.batch_axes:
+                g = all_reduce_sum(g, (tp.mesh, a))
+        return g.narrow(ctx.dim, tp.row_start(ctx.rows), ctx.rows), None, \
+            None
+
+
 class _SumSplit(torch.autograd.Function):
     """Partial sums summed over ``model`` both ways: the sum feeds each
     rank's split compute, whose gradients are partial too."""
@@ -288,6 +340,15 @@ class TensorParallel:
     def copy_in(self, x: torch.Tensor) -> torch.Tensor:
         return x if self.inference else _CopyIn.apply(x, self)
 
+    def once(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, a value every ``model`` rank computes alike from inputs
+        whose gradients are summed over ``model`` (a split step's
+        :meth:`copy_in` and a take's), with its gradient divided by the
+        ranks: so counted once in the sum."""
+        if self.inference or self.size == 1:
+            return x
+        return x.detach() + (x - x.detach()) / self.size
+
     def reduce_out(self, x: torch.Tensor) -> torch.Tensor:
         if self.inference:
             return x if self.size == 1 else self.all_reduce(x)
@@ -341,9 +402,15 @@ class TensorParallel:
 
     def gather_rows(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """Every rank's rows of the batch (dim ``dim`` of ``x``) in global
-        order: gathered over ``batch_axes``."""
+        order: gathered over ``batch_axes``; in a train step
+        differentiable, each row's gradient summed over the ranks."""
         if not self.rows_split():
             return x
+        if not self.inference:
+            return _GatherRows.apply(x, dim, self)
+        return self._all_rows(x, dim)
+
+    def _all_rows(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         with self.part("tp_all_gather"):
             spec = [None] * x.ndim
             spec[dim] = self.batch_axes

@@ -64,9 +64,9 @@ paged pool's gauges. Every site guards on ``runtime.ACTIVE is not None``
 (the span on the profiler's own flag, as in the reference).
 
 Sharded serving (``mesh_ctx=``, a :class:`~repro_torch.parallel.
-MeshContext`; the dense, vlm, ssm and hybrid families on any mesh of
-``data`` x ``model`` ranks, ``pod`` too where the rules name it), as the
-reference's rules lay it out:
+MeshContext`; every family with a block step on any mesh of ``data`` x
+``model`` ranks, ``pod`` too where the rules name it), as the reference's
+rules lay it out:
 
   * rows over the batch's mesh dims (``data``): every rank runs the same
     scheduler over the global slots and steps its own rows of them, the
@@ -74,12 +74,17 @@ reference's rules lay it out:
     mesh dims do not divide raise ``ValueError``. Each tick's logits are
     gathered into the whole ``(slots, vocab)`` and broadcast from rank 0,
     so every rank samples the same tokens;
-  * heads, ``ff`` columns, SSM heads and vocab over ``model``
-    (``parallel.tensor_parallel``): :func:`serving_params` takes each
-    rank's part of every parameter once, here (1/``model`` of every split
-    leaf stays resident), and every block step runs the rank's share, with
-    ``wo``, ``w_out`` and ``out_proj`` row-parallel (one all-reduce each)
-    and the logits' vocab columns gathered;
+  * heads, ``ff`` columns, the MoE's experts (``experts``, or every
+    expert's ``e_ff`` columns where ``model`` does not divide the experts),
+    SSM heads and vocab over ``model`` (``parallel.tensor_parallel``):
+    :func:`serving_params` takes each rank's part of every parameter once,
+    here (1/``model`` of every split leaf stays resident), and every block
+    step runs the rank's share, with ``wo``, ``w_out``, the experts'
+    combine and ``out_proj`` row-parallel (one all-reduce each) and the
+    logits' vocab columns gathered; an MoE layer routes every token over
+    every expert on each rank, in the groups of the whole slot grid (each
+    rank its rows' groups, or where they do not divide, every rank's rows
+    gathered), as the reference's one program does;
   * the caches are allocated as this rank's part
     (``models.lm.local_cache_pspec``): the ring's rows split over
     ``kv_seq``'s mesh dims where the rules shard it (the production rules'
@@ -103,9 +108,11 @@ rows included; the wave scheduler raises (its steps run sharded through
 ``training.make_serve_step(bundle, mesh_ctx=)``). The collectives go
 through host memory (gloo), which a CUDA graph cannot capture: under a
 multi-rank mesh every tick runs the eager step, and ``compile_stats()``
-counts no graph and says why. The MoE and the encoder-decoder raise
-``NotImplementedError`` under a mesh that splits a dim: their expert and
-encoder splits are slice 21 of ROADMAP item 4c.
+counts no graph and says why. The encoder-decoder has no block step, and
+the wave it falls back to raises under lockstep, as the reference's
+engine does; its sharded wave steps run through ``training.
+make_serve_step(bundle, mesh_ctx=)``, which also takes a rank's rows of
+the ``frames``.
 """
 from __future__ import annotations
 
@@ -122,9 +129,10 @@ from repro_torch import tree
 from repro_torch.core import policy as kpolicy
 from repro_torch.core.policy import KernelPolicy
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import init_params, unstack_blocks
+from repro_torch.models.common import init_params, stack_lens, \
+    unstack_blocks
 from repro_torch.models import build
-from repro_torch.models.lm import TP_FAMILIES, Bundle, local_cache_pspec, \
+from repro_torch.models.lm import Bundle, local_cache_pspec, \
     pad_cache_seq, param_takes, serves_split
 from repro_torch.obs import profiling as _prof
 from repro_torch.obs import runtime as _obs
@@ -225,27 +233,30 @@ class _Slot:
 def serving_params(params, bundle: Bundle, mesh_ctx=None):
     """The engine's compute parameters, in the model's compute dtype, the
     stacked ``(layers, ...)`` leaves split into the forward's per-layer
-    list. Unsharded (or the MoE and the encoder-decoder), every leaf whole
-    (a ``DTensor`` leaf cast on its shard, then gathered). Under a mesh that
-    splits a dim, each rank's part of every leaf
-    (``models.lm.param_takes``, ``TensorParallel.take``): its heads' q, k
-    and v columns and ``wo`` rows, its ``ff`` columns, its SSM heads' part
-    of the Mamba leaves, its vocab rows of the embedding and head where the
-    vocab divides ``model``, and the rest whole; a leaf already split over
-    ``model`` as the rank takes it is gathered over the other mesh dims
-    only, any other is gathered whole and cut, so 1/``model`` of every
-    split leaf stays resident."""
+    list. Unsharded, every leaf whole (a ``DTensor`` leaf cast on its
+    shard, then gathered). Under a mesh that splits a dim, each rank's part
+    of every leaf (``models.lm.param_takes``, ``TensorParallel.take``): its
+    heads' q, k and v columns and ``wo`` rows (an encoder-decoder's self
+    and cross attention alike), its ``ff`` columns, its experts (or every
+    expert's ``e_ff`` columns), its SSM heads' part of the Mamba leaves,
+    its vocab rows of the embedding and head where the vocab divides
+    ``model``, and the rest whole; a leaf already split over ``model`` as
+    the rank takes it is gathered over the other mesh dims only, any other
+    is gathered whole and cut, so 1/``model`` of every split leaf stays
+    resident."""
     cfg = bundle.cfg
-    if tpar.splits(mesh_ctx) and cfg.family in TP_FAMILIES:
+    if serves_split(cfg, mesh_ctx):
         tp = tpar.for_serving(mesh_ctx, cfg.dtype, vocab=cfg.vocab)
-        top, block = param_takes(cfg, tp)
+        top, stacks = param_takes(cfg, tp)
         shards = tree.map_tree(_shard_of, params)
         out = {k: tp.takes(v, top.get(k)) for k, v in shards.items()
-               if k != "blocks"}
-        blocks = shards["blocks"]
-        if isinstance(blocks, dict):            # the stacked layout
-            blocks = tp.layers(blocks, block, cfg.n_layers)
-        out["blocks"] = [tp.takes(lp, block) for lp in blocks]
+               if k not in stacks}
+        lens = stack_lens(cfg)
+        for key, takes in stacks.items():
+            layers = shards[key]
+            if isinstance(layers, dict):        # the stacked layout
+                layers = tp.layers(layers, takes, lens[key])
+            out[key] = [tp.takes(lp, takes) for lp in layers]
         return out
 
     def whole(t):
@@ -257,7 +268,7 @@ def serving_params(params, bundle: Bundle, mesh_ctx=None):
         return t.to(cfg.dtype) if t.is_floating_point() else t
 
     params = tree.map_tree(whole, params)
-    if isinstance(params.get("blocks"), dict):
+    if any(isinstance(params.get(k), dict) for k in stack_lens(cfg)):
         params = unstack_blocks(params, cfg)
     return params
 
@@ -349,10 +360,6 @@ class ServingEngine:
         # arrival clocks ignored, as the reference's multi-host lockstep
         self._lockstep = mesh_ctx is not None and dist.is_initialized() \
             and dist.get_world_size() > 1
-        if self._lockstep and cfg.scheduler == "wave":
-            raise ValueError(
-                "multi-host serving requires the continuous scheduler "
-                "(wave admission depends on per-host wall clocks)")
         if cfg.scheduler == "continuous" and bundle.decode_block is None:
             warnings.warn(
                 "bundle has no block-decode step (encoder-decoder); "
@@ -363,6 +370,11 @@ class ServingEngine:
                     "ignoring cache_kind='paged'", stacklevel=2)
             cfg = dataclasses.replace(cfg, scheduler="wave",
                                       cache_kind="ring")
+        # the encoder-decoder's fallback too: it has no lockstep scheduler
+        if self._lockstep and cfg.scheduler == "wave":
+            raise ValueError(
+                "multi-host serving requires the continuous scheduler "
+                "(wave admission depends on per-host wall clocks)")
         self.bundle = bundle
         self.cfg = cfg
         # the policy every eager step, prefill and capture runs under: a

@@ -39,21 +39,26 @@ mesh_ctx=ctx)`` activates the context at every call (kernel resolution sees
 shard shapes), and on a sharded state takes one of two routes, chosen by
 the family and the mesh:
 
-* **tensor parallelism** (the dense, vlm, ssm and hybrid families,
-  ``Bundle.tp_loss``, where the mesh's ``model`` dim has more than one
-  rank; :func:`tp_value_and_grad`): each rank computes its share of the
-  query and KV heads, the SwiGLU ``ff`` columns, the SSM heads and the
-  vocab (where it divides), one all-reduce over ``model`` completing each
+* **tensor parallelism** (every family, ``Bundle.tp_loss``, where the
+  mesh's ``model`` dim has more than one rank; :func:`tp_value_and_grad`):
+  each rank computes its share of the query and KV heads (the
+  encoder-decoder's self and cross attention too), the SwiGLU ``ff``
+  columns, the MoE's experts (or every expert's ``e_ff`` columns where
+  ``model`` does not divide the experts), the SSM heads and the vocab
+  (where it divides), one all-reduce over ``model`` completing each
   row-parallel product, as GSPMD splits the reference's step from its
   ``logical_constraint`` annotations (``parallel.tensor_parallel``). Each
   layer gathers its own weights over ``data`` (FSDP) inside the layer, so
   the remat policy gathers them again in backward rather than keep every
   layer's, and a leaf's ``model`` shard stays on its rank where it is the
   rank's part of the compute;
-* **gather whole** (the MoE and the encoder-decoder, or a mesh without a
-  split ``model`` dim; :func:`sharded_value_and_grad`): each parameter's
-  bf16 cast is all-gathered whole before the forward, and every rank of a
-  ``data`` coordinate computes its rows whole.
+* **gather whole** (a mesh without a split ``model`` dim;
+  :func:`sharded_value_and_grad`): each parameter's bf16 cast is
+  all-gathered whole before the forward, and every rank of a ``data``
+  coordinate computes its rows whole.
+
+On both, an MoE layer routes the groups of the whole batch, as the
+reference's one program over it does (``models.layers._moe_split``).
 
 On both, each rank runs on its ``data`` coordinate's rows, and each
 gradient is reduce-scattered, averaged over ``data``, onto the rank's f32
@@ -81,7 +86,8 @@ from repro_torch.models.common import (
     partition_specs,
     stack_pspec,
 )
-from repro_torch.models.lm import Bundle, pad_cache_seq, serves_split
+from repro_torch.models.lm import Bundle, kv_leaf, pad_cache_seq, \
+    serves_split
 from repro_torch.obs import runtime as _obs
 from repro_torch.optim import OptConfig, adamw_update, init_opt_state
 from repro_torch.optim.adafactor import adafactor_update, init_adafactor_state
@@ -94,7 +100,7 @@ from repro_torch.parallel.sharding import is_dtensor, spec_for, spec_of
 # the reference's initial key, jax.random.PRNGKey(17)
 RNG_WORDS = (0, 17)
 # the parts of a sharded step's clock timed inside its forward_backward
-NESTED_PARTS = ("gather", "reduce_scatter", "tp_all_reduce")
+NESTED_PARTS = ("gather", "reduce_scatter", "tp_all_reduce", "tp_all_gather")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -303,15 +309,19 @@ def sharded_value_and_grad(bundle: Bundle, params, batch, *,
     Each leaf's compute-dtype cast is gathered whole (the whole view of
     ``tensor_parallel.TensorParallel.view``, no context active); its
     backward takes the whole gradient back onto the rank's shard, averaged
-    over the batch's mesh dims. ``clock`` records ``forward_backward`` and,
-    inside it, ``gather`` and ``reduce_scatter``."""
+    over the batch's mesh dims. The batch's layout is active
+    (``tensor_parallel.rows_active``): an MoE layer routes the groups of
+    the whole batch. ``clock`` records ``forward_backward`` and, inside
+    it, ``gather`` and ``reduce_scatter`` (and ``tp_all_gather`` and
+    ``tp_all_reduce`` where an MoE layer gathers the rows)."""
     flat = tree.leaves(params)
     mesh = flat[0].device_mesh
     shards = [p.to_local().detach().requires_grad_(p.is_floating_point())
               for p in flat]
     whole = tpar.TensorParallel(mesh=mesh, dtype=bundle.cfg.dtype,
                                 batch_axes=batch_axes, clock=clock)
-    with clock("forward_backward"):
+    # the batch's layout, which the MoE lays its routing groups out over
+    with clock("forward_backward"), tpar.rows_active(whole):
         views = []
         for s, p in zip(shards, flat):
             if s.requires_grad:
@@ -501,28 +511,31 @@ def make_serve_step(bundle: Bundle, mesh_ctx=None) -> tuple[Callable,
 
     ``mesh_ctx`` (a :class:`~repro_torch.parallel.MeshContext` whose mesh
     splits a dim) runs both steps under it, as ``make_train_step(...,
-    mesh_ctx=)`` does, for the dense, vlm, ssm and hybrid families (the
-    others raise ``NotImplementedError``, ``models.lm.serves_split``): the
+    mesh_ctx=)`` does, for every family (``models.lm.serves_split``): the
     parameters are :func:`~repro_torch.serving.engine.serving_params`'
     part of this rank; ``batch`` is the whole batch, the same on every
     rank, of which each takes its rows by the batch rule (split over
-    ``data`` where the rows divide it) and returns their logits, the whole
-    vocab; the cache is this rank's part in the rules' layout
-    (``models.lm.local_cache_pspec``), the KV cache's rows split over the
-    ``kv_seq`` rule's mesh dims (the production rules' ``seq_shard=True``),
-    written straight into ``cache_len`` rows by the prefill, and its
-    global rows kept as ``cache["rows"]`` for the decode steps. Each
-    sharded step's ``split`` holds the seconds of its last call: ``step``
-    whole and, inside it, ``tp_all_reduce``, ``tp_all_gather`` and
-    ``tp_all_to_all`` (each waits for the device at its ends)."""
+    ``data`` where the rows divide it; an encoder-decoder's ``frames``
+    too) and returns their logits, the whole vocab; the cache is this
+    rank's part in the rules' layout (``models.lm.local_cache_pspec``), the
+    KV cache's rows split over the ``kv_seq`` rule's mesh dims (the
+    production rules' ``seq_shard=True``), written straight into
+    ``cache_len`` rows by the prefill, and its global rows kept as
+    ``cache["rows"]`` for the decode steps (an encoder-decoder's cross
+    cache holds the frames' rows, split alike). Each sharded step's
+    ``split`` holds the seconds of its last call: ``step`` whole and,
+    inside it, ``tp_all_reduce``, ``tp_all_gather`` and ``tp_all_to_all``
+    (each waits for the device at its ends). ``cache_len`` of an
+    encoder-decoder is its self cache's rows."""
     dtype = bundle.cfg.dtype
     if serves_split(bundle.cfg, mesh_ctx):
         return _sharded_serve_steps(bundle, mesh_ctx)
 
     def prefill_step(params, batch, cache_len=None):
         logits, cache = bundle.prefill_last(cast_tree(params, dtype), batch)
-        if cache_len is not None and "attn" in cache:
-            pad_cache_seq(cache, cache_len - cache["attn"]["k"].shape[2])
+        kv = kv_leaf(cache)
+        if cache_len is not None and kv is not None:
+            pad_cache_seq(cache, cache_len - kv.shape[2])
         return logits, cache
 
     def decode_step(params, cache, batch):
@@ -535,9 +548,11 @@ def _sharded_serve_steps(bundle: Bundle, mesh_ctx):
     """:func:`make_serve_step`'s steps on a mesh that splits a dim."""
     cfg = bundle.cfg
 
-    def context(batch: int, rows: int | None, device):
+    def context(batch: int, rows: int | None, device, cross=None):
+        # an encoder-decoder's cache: ``rows`` self rows, ``cross`` rows
+        kind = {} if cross is None else {"cross_rows": cross}
         kv = None if rows is None else \
-            bundle.cache_pspec(batch, rows).get("attn", {}).get("k")
+            kv_leaf(bundle.cache_pspec(batch, rows, **kind))
         return tpar.for_serving(mesh_ctx, cfg.dtype, vocab=cfg.vocab,
                                 batch=batch, kv=kv,
                                 clock=shst.StepClock(device))
@@ -550,18 +565,21 @@ def _sharded_serve_steps(bundle: Bundle, mesh_ctx):
     def prefill_step(params, batch, cache_len=None):
         b, s = batch["tokens"].shape
         s += batch["stub"].shape[1] if "stub" in batch else 0
-        tp = context(b, cache_len or s, batch["tokens"].device)
+        cross = batch["frames"].shape[1] if "frames" in batch else None
+        tp = context(b, cache_len or s, batch["tokens"].device, cross)
         with tp.clock("step"), activate(mesh_ctx), tpar.active(tp):
             logits, cache = bundle.prefill_last(
                 cast_tree(params, cfg.dtype), mine(batch, tp))
         if tp.kv_rows is not None:
             cache["rows"] = tp.kv_rows
+        if cross is not None:
+            cache["cross_rows"] = cross
         prefill_step.split = dict(tp.clock.seconds)
         return logits, cache
 
     def decode_step(params, cache, batch):
         tp = context(batch["tokens"].shape[0], cache.get("rows"),
-                     batch["tokens"].device)
+                     batch["tokens"].device, cache.get("cross_rows"))
         with tp.clock("step"), activate(mesh_ctx), tpar.active(tp):
             out = bundle.decode(cast_tree(params, cfg.dtype), cache,
                                 mine(batch, tp))

@@ -326,6 +326,25 @@ def test_dryrun_smoke_cells_on_a_2x2_world(arch, shape):
     assert ("ssd" if arch == "mamba2-1.3b" else "attention") in ops
 
 
+SPLIT_CELLS = [(a, s) for a in ("qwen3-moe-235b-a22b", "seamless-m4t-medium")
+               for s in ("train_4k", "prefill_32k", "decode_32k")]
+
+
+@pytest.mark.parametrize("arch,shape", SPLIT_CELLS)
+def test_dryrun_moe_and_encdec_cells_split_on_a_2x2_world(arch, shape):
+    """The MoE's and the encoder-decoder's SMOKE cells on the 2x2 world
+    trace their split steps: each sums its split compute over model
+    (all-reduce; the train cell besides FSDP's all-gather and
+    reduce-scatter), and fits."""
+    rec = _smoke_record(arch, shape)
+    assert rec["status"] == "ok", rec.get("reason")
+    kinds = set(rec["op_analysis"]["collective_bytes"])
+    assert "all-reduce" in kinds
+    if shape == "train_4k":
+        assert {"all-gather", "reduce-scatter"} <= kinds
+    assert rec["n_chips"] == 4 and rec["fits"]
+
+
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-1.3b"])
 def test_dryrun_charges_the_tensor_parallel_all_reduces(arch):
     """The 2x2 train cell takes the tensor-parallel step (the model dim
@@ -413,15 +432,20 @@ def test_dryrun_sharded_decode_never_gathers_the_cache():
 
 def test_dryrun_cli_writes_records(tmp_path):
     """The CLI on one cell of the single mesh: the record lands in
-    ``<out>/single/<arch>__<shape>.json``; a skipped cell is reported."""
+    ``<out>/single/<arch>__<shape>.json``; a skipped cell is reported; the
+    encoder-decoder's decode cell (a family whose serving once raised
+    under the mesh) traces sharded, its self and cross caches' rows split
+    over ``model``, and fits the card."""
     dryrun.main(["--arch", "llama3.2-1b", "--shape", "long_500k",
                  "--mesh", "single", "--out", str(tmp_path)])
     rec = dryrun.run_cell("llama3.2-1b", "long_500k", "single",
                           str(tmp_path))
     assert rec["status"] == "skip" and "skipped per the brief" in \
         rec["reason"]
-    rec = dryrun.run_cell("grok-1-314b", "decode_32k", "single",
+    rec = dryrun.run_cell("seamless-m4t-medium", "decode_32k", "single",
                           str(tmp_path))
-    assert rec["status"] == "unsupported" and "slice 21" in rec["reason"]
-    path = tmp_path / "single" / "grok-1-314b__decode_32k.json"
+    assert rec["status"] == "ok" and rec["fits"], rec.get("reason")
+    assert {"all-reduce", "all-gather"} <= set(
+        rec["op_analysis"]["collective_bytes"])
+    path = tmp_path / "single" / "seamless-m4t-medium__decode_32k.json"
     assert json.loads(path.read_text()) == rec

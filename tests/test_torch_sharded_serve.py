@@ -116,22 +116,19 @@ try:
                   mesh_ctx=ctx)
 except ValueError as e:
     info["wave_raises"] = str(e)
-b = build(configs.get("qwen3-moe-235b-a22b").SMOKE)
-try:
-    ServingEngine(b, None, ServeConfig(**serve), mesh_ctx=ctx)
-except NotImplementedError as e:
-    info["qwen3-moe-235b-a22b_raises"] = str(e)
-# mamba2 serves on the mesh: its SSM heads split over model
+# mamba2 and qwen3-moe serve on the mesh: the SSM heads, the experts split
+# over model
 from repro_torch.models.common import init_params
-mcfg = configs.get("mamba2-1.3b").SMOKE
-mb = build(mcfg)
-mp = init_params(mb.params_pspec, torch.Generator().manual_seed(0),
-                 mcfg.dtype)
-info["mamba2-1.3b_tokens"] = [
-    {r.uid: [int(t) for t in r.tokens] for r in ServingEngine(
-        mb, mp, ServeConfig(**serve), mesh_ctx=c).run(
-            [Request(uid=i, prompt=p) for i, p in enumerate(prompts)])}
-    for c in (ctx, None)]
+for arch in ("mamba2-1.3b", "qwen3-moe-235b-a22b"):
+    mcfg = configs.get(arch).SMOKE
+    mb = build(mcfg)
+    mp = init_params(mb.params_pspec, torch.Generator().manual_seed(0),
+                     mcfg.dtype)
+    info[arch + "_tokens"] = [
+        {r.uid: [int(t) for t in r.tokens] for r in ServingEngine(
+            mb, mp, ServeConfig(**serve), mesh_ctx=c).run(
+                [Request(uid=i, prompt=p) for i, p in enumerate(prompts)])}
+        for c in (ctx, None)]
 
 np.savez(os.path.join(d, f"r{rank}.npz"), **out)
 with open(os.path.join(d, f"r{rank}.json"), "w") as f:
@@ -231,14 +228,14 @@ def test_each_rank_holds_its_kv_heads_and_runs_eager(world, kind):
 
 
 def test_wave_and_unported_families_raise_under_mesh(world):
-    """The wave scheduler raises under the mesh; the MoE family raises,
-    naming slice 21; mamba2 serves (its SSM heads split over ``model``)
-    the tokens of the unsharded engine."""
+    """The wave scheduler raises under the mesh; mamba2 (its SSM heads
+    split over ``model``) and qwen3-moe (its experts split over ``model``)
+    serve the tokens of the unsharded engine."""
     for _, info in world["ranks"]:
         assert "continuous scheduler" in info["wave_raises"]
-        assert "slice 21" in info["qwen3-moe-235b-a22b_raises"]
-        sharded, unsharded = info["mamba2-1.3b_tokens"]
-        assert sharded == unsharded and len(sharded) == 3
+        for arch in ("mamba2-1.3b", "qwen3-moe-235b-a22b"):
+            sharded, unsharded = info[arch + "_tokens"]
+            assert sharded == unsharded and len(sharded) == 3, arch
 
 
 def _torchrun(args: list, tmp: Path) -> str:

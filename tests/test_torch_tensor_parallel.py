@@ -4,8 +4,8 @@ the CPU.
 
 The reference runs here: its layer functions on whole weights (jitted
 ``jax.vjp``) and its unsharded ``make_train_step`` for seven SMOKE configs
-(f32, ``policy="fused"``; a microbatch a data coordinate for the MoE and the
-encoder-decoder), from its own initial states, carried into numpy.
+(f32, ``policy="fused"``, the whole batch), from its own initial states,
+carried into numpy.
 One module-scoped gloo world of 4 processes (a ``file://`` init in a
 temporary directory, as ``tests/test_torch_sharded_train.py``) then runs
 
@@ -17,11 +17,20 @@ temporary directory, as ``tests/test_torch_sharded_train.py``) then runs
   internvl2 SMOKE on ``data=2,model=2`` from the reference's state, each
   rank on its data coordinate's rows, recording the shapes of the weights
   each layer function receives;
+* the MoE layer on ``data=2,model=2``, each data rank its rows of the
+  whole batch, the routing groups laid out over the whole batch:
+  ``experts`` over ``model`` (qwen3-moe SMOKE, 8 experts), ``e_ff`` over
+  ``model`` (grok-1 SMOKE with 3 experts), experts dropping tokens (a
+  capacity of 8, one group a data rank) and one group over both data ranks
+  (the rows gathered), against the reference's ``moe_apply_grouped`` on the
+  whole batch;
+* 3 AdamW steps of qwen3-moe, grok-1 and seamless SMOKE through the same
+  tensor-parallel route;
 * llama3.2 on ``model=4`` (2 KV heads, one a rank pair), with the KV
   projections stored split (half a head a rank) and replicated;
-* qwen3-moe and seamless SMOKE on ``data=2,model=2`` from the reference's
-  state, which keep the gather-whole step, beside the reference's
-  unsharded step of a microbatch a data coordinate.
+* qwen3-moe and seamless SMOKE on ``data=4`` from the reference's state,
+  the gather-whole step of a mesh without a ``model`` dim, beside the
+  reference's unsharded step on the whole batch.
 
 Each test reads one result.
 """
@@ -52,8 +61,21 @@ from repro.training import make_train_step as jmake_train_step
 ROOT = Path(__file__).resolve().parents[1]
 TIMEOUT = 300          # seconds, the world
 ARCHS = ("llama3.2-1b", "mamba2-1.3b", "zamba2-2.7b", "h2o-danube-3-4b",
-         "internvl2-76b")
+         "internvl2-76b", "qwen3-moe-235b-a22b", "seamless-m4t-medium",
+         "grok-1-314b")
+# also trained through the gather-whole step on data=4
 OTHERS = ("qwen3-moe-235b-a22b", "seamless-m4t-medium")
+# the MoE layer cases: (arch, changes to its SMOKE config); each runs on
+# the whole batch of MOE_B x MOE_S tokens, MOE_AUX times its aux loss added
+# to the objective
+MOE_CASES = {
+    "experts": ("qwen3-moe-235b-a22b", {}),
+    "e_ff": ("grok-1-314b", {"n_experts": 3}),
+    "drop": ("qwen3-moe-235b-a22b", {"capacity_factor": 0.05,
+                                     "moe_groups": 2}),
+    "gather": ("qwen3-moe-235b-a22b", {"moe_groups": 1}),
+}
+MOE_B, MOE_S, MOE_AUX = 4, 16, 3.0
 BATCH, SEQ, STEPS = 4, 16, 3
 # danube's window (32) inside the sequence: a longer one for it
 SEQS = {"h2o-danube-3-4b": 40}
@@ -154,6 +176,51 @@ def _module_refs(d: Path) -> None:
     z.update({"ce.logits": logits, "ce.labels": labels,
               "ce.loss": np.asarray(loss),
               "ce.g": np.asarray(vjp(jnp.float32(1.0))[0])})
+    for name, (arch, changes) in MOE_CASES.items():
+        cfg = dataclasses.replace(_jcfg(arch), **changes)
+        dm, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+        # fan-in scaled, as the model's own init (shape[-2])
+        p = {k: (rng.standard_normal(shp) / np.sqrt(shp[-2]))
+             .astype(np.float32) for k, shp in (
+                 ("router", (dm, e)), ("w_in", (e, dm, f)),
+                 ("w_gate", (e, dm, f)), ("w_out", (e, f, dm)))}
+        x = rng.standard_normal((MOE_B, MOE_S, dm)).astype(np.float32)
+        ct = rng.standard_normal(x.shape).astype(np.float32)
+
+        @jax.jit
+        def value_and_vjp(p, x, ct, cfg=cfg):
+            def obj(p, x):
+                out, aux = jlayers.moe_apply_grouped(p, cfg, x)
+                return jnp.sum(out * ct) + MOE_AUX * aux, (out, aux)
+            (_, (out, aux)), grads = jax.value_and_grad(
+                obj, argnums=(0, 1), has_aux=True)(p, x)
+            return out, aux, grads
+
+        out, aux, (gp, gx) = value_and_vjp(p, x, ct)
+        # the same layer on each data coordinate's half of the rows, as the
+        # port's data-parallel step once routed: its mean aux
+        halves = [jlayers.moe_apply_grouped(p, cfg, x[i:i + MOE_B // 2])[1]
+                  for i in (0, MOE_B // 2)]
+        # the routed slots past capacity of the whole batch's groups
+        g = np.gcd(MOE_B * MOE_S, cfg.moe_groups)
+        logits = x.reshape(g, -1, dm) @ p["router"]
+        top = np.argsort(-logits, axis=-1,
+                         kind="stable")[..., :cfg.experts_per_tok]
+        counts = np.stack([np.bincount(t.reshape(-1), minlength=e)
+                           for t in top])
+        n = top[0].size
+        cap = max(8, int(cfg.capacity_factor * n / e + 127) // 128 * 128)
+        z.update({f"moe_{name}.x": x, f"moe_{name}.ct": ct,
+                  f"moe_{name}.out": np.asarray(out),
+                  f"moe_{name}.aux": np.asarray(aux),
+                  f"moe_{name}.aux_halves": np.float32(
+                      np.mean([float(a) for a in halves])),
+                  f"moe_{name}.dropped": np.int64(
+                      np.maximum(counts - cap, 0).sum()),
+                  f"moe_{name}.gx": np.asarray(gx)})
+        for k in p:
+            z[f"moe_{name}.p.{k}"] = p[k]
+            z[f"moe_{name}.g.{k}"] = np.asarray(gp[k])
     np.savez(d / "modules.npz", **z)
 
 
@@ -253,6 +320,37 @@ dist.all_gather(parts, g.contiguous(), group=ctx.mesh.get_group("model"))
 out["ce.loss"] = loss.detach().numpy()
 out["ce.g"] = torch.cat(parts, dim=-1).numpy()
 
+# the MoE layer: each data rank its rows, the groups of the whole batch;
+# the objective P x (out . ct) + MOE_AUX x aux a rank, whose mean over the
+# P data ranks (the views' gradients) is the reference's on the whole batch
+from repro_torch.core.distributed import all_reduce_sum
+P = ctx.axis_sizes["data"]
+rows = ("data", None, None)
+for name, (arch, changes) in MOE_CASES.items():
+    cfg = dataclasses.replace(configs.get(arch).SMOKE, **changes)
+    specs = partition_specs(L.moe_pspec(cfg), rules=ctx.rules, fsdp_ok=False)
+    locs = {k: place(T(f"moe_{name}.p.{k}"), ctx.named_sharding(specs[k]))
+            .to_local().requires_grad_() for k in specs}
+    n = MOE_B // P
+    lo = coord["data"] * n
+    x = T(f"moe_{name}.x")[lo:lo + n].clone().requires_grad_()
+    tp = tpar.TensorParallel(mesh=ctx.mesh, dtype=torch.float32,
+                             batch_axes=("data",))
+    with tpar.active(tp):
+        p = tp.views({k: tpar.Shard(locs[k], specs[k]) for k in specs},
+                     L.moe_takes(cfg, tp))
+        y, aux = L.moe_apply(p, cfg, x)
+        obj = P * (y * T(f"moe_{name}.ct")[lo:lo + n]).sum() + MOE_AUX * aux
+        got = torch.autograd.grad(obj, [x] + list(locs.values()))
+    out[f"moe_{name}.out"] = gather_full(y.detach(), rows, ctx.mesh).numpy()
+    out[f"moe_{name}.aux"] = (all_reduce_sum(aux.detach(), (ctx.mesh, "data"))
+                              / P).numpy()
+    out[f"moe_{name}.gx"] = gather_full(got[0], rows, ctx.mesh).numpy() / P
+    for k, g in zip(specs, got[1:]):
+        out[f"moe_{name}.g.{k}"] = gather_full(g, specs[k], ctx.mesh).numpy()
+    info[f"moe_{name}.specs"] = {k: str(v) for k, v in specs.items()}
+    info[f"moe_{name}.local"] = {k: list(v.shape) for k, v in p.items()}
+
 
 def whole_state(arch, bundle):
     zs = np.load(os.path.join(d, f"state0_{arch}.npz"))
@@ -278,7 +376,8 @@ def seen_shapes():
         setattr(mod, name, rec)
         return (mod, name, fn)
     undo = [wrap(L, "attn_apply"), wrap(L, "mlp_apply"),
-            wrap(L, "mamba_apply"), wrap(lm, "embed_tokens")]
+            wrap(L, "mamba_apply"), wrap(L, "moe_apply"),
+            wrap(lm, "embed_tokens")]
     return seen, undo
 
 
@@ -307,13 +406,17 @@ def run(arch, mctx, batch, tag, state, record=False):
     info[tag + ".split"] = sorted(step.split)
 
 
-for arch in ARCHS + OTHERS:
+ctx_data = make_context("data=4", device="cpu")
+for arch in ARCHS:
     zb = np.load(os.path.join(d, f"batch_{arch}.npz"))
     batch = {k: torch.from_numpy(zb[k]).long() if k in ("tokens", "labels")
              else torch.from_numpy(zb[k]) for k in zb.files}
     bundle = build(configs.get(arch).SMOKE)
     run(arch, ctx, batch, arch, state=whole_state(arch, bundle),
-        record=arch in ("llama3.2-1b", "mamba2-1.3b"))
+        record=arch in ("llama3.2-1b", "mamba2-1.3b", "qwen3-moe-235b-a22b"))
+    if arch in OTHERS:      # the gather-whole step, a row a rank
+        run(arch, ctx_data, batch, "whole/" + arch,
+            state=whole_state(arch, bundle))
 
 # remat's recompute on another thread (where autograd runs a CUDA
 # backward), which the step's context does not reach: the same gradients
@@ -382,7 +485,8 @@ def _env() -> dict:
 
 def _start_world(size: int, d: Path) -> list:
     script = (f"ARCHS = {ARCHS!r}\nOTHERS = {OTHERS!r}\n"
-              + textwrap.dedent(WORKER))
+              f"MOE_CASES = {MOE_CASES!r}\nMOE_B = {MOE_B!r}\n"
+              f"MOE_AUX = {MOE_AUX!r}\n" + textwrap.dedent(WORKER))
     return [subprocess.Popen(
         [sys.executable, "-c", script, str(r), str(size), str(d),
          json.dumps(OPT)], cwd=ROOT, env=_env(),
@@ -419,7 +523,7 @@ def world(tmp_path_factory):
     rng = np.random.default_rng(0)
     jopt = JOptConfig(policy="fused", **OPT)
     start = {}
-    for arch in ARCHS + OTHERS:
+    for arch in ARCHS:
         batch = _batch(arch, rng)
         np.savez(d / f"batch_{arch}.npz", **batch)
         jbundle = jbuild(_jcfg(arch))
@@ -427,13 +531,11 @@ def world(tmp_path_factory):
         np.savez(d / f"state0_{arch}.npz", **_np_tree(state))
         start[arch] = (jbundle, state, batch)
     procs = _start_world(4, d)
-    # the reference's steps while the world runs: unsharded, and for the
-    # gather-whole families a microbatch a data coordinate (the MoE routes
-    # and takes capacity within each)
+    # the reference's steps while the world runs: unsharded, on the whole
+    # batch (the MoE routes the groups of every row)
     ref = {}
     for arch, (jbundle, state, batch) in start.items():
-        jstep = jax.jit(jmake_train_step(jbundle, jopt, JTrainConfig(
-            microbatches=2 if arch in OTHERS else 1)))
+        jstep = jax.jit(jmake_train_step(jbundle, jopt, JTrainConfig()))
         jb = {k: jnp.asarray(v) for k, v in batch.items()}
         losses = []
         for i in range(STEPS):
@@ -529,10 +631,12 @@ def _first_step_bound(got: dict, tag: str, after1: dict) -> None:
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_split_step_matches_reference(world, arch):
-    """3 AdamW steps on data=2,model=2 through the tensor-parallel route:
-    the same losses on every rank, within 1e-5 of the reference's unsharded
-    step from the same state, the params after the first step within the
-    first-step bound, and the step's parts timed."""
+    """3 AdamW steps on data=2,model=2 through the tensor-parallel route
+    (the MoE's experts and seamless's encoder, decoder and cross-attention
+    heads split too): the same losses on every rank, within 1e-5 of the
+    reference's unsharded step on the whole batch from the same state, the
+    params after the first step within the first-step bound, and the
+    step's parts timed."""
     infos = [info for _, info in world["ranks"]]
     losses = infos[0][arch + ".losses"]
     for info in infos[1:]:
@@ -562,16 +666,25 @@ def test_shared_kv_heads_over_model_4(world, tag):
         _first_step_bound(arrs, tag, world["ref"]["llama3.2-1b"]["after1"])
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-1.3b",
+                                  "qwen3-moe-235b-a22b"])
 def test_forward_holds_no_split_leaf_whole(world, arch):
     """The weights each layer function receives on model=2: the rank's
     heads' columns (``wq``, ``wo``), its KV head, its ``ff`` columns, its
-    SSM heads' ``in_proj``/conv columns with B and C whole, its vocab
-    rows; never a model-split leaf whole."""
+    experts (the router whole), its SSM heads' ``in_proj``/conv columns
+    with B and C whole, its vocab rows; never a model-split leaf whole."""
     cfg = jconfigs.get(arch).SMOKE
     d, m = cfg.d_model, 2
     seen = world["ranks"][0][1][arch + ".seen"]
     assert seen["embed_tokens"] == [cfg.vocab // m, d]
+    if cfg.family == "moe":
+        e, f = cfg.n_experts, cfg.moe_d_ff
+        assert seen["moe_apply"] == {
+            "router": [d, e], "w_in": [e // m, d, f],
+            "w_gate": [e // m, d, f], "w_out": [e // m, f, d]}
+        assert seen["attn_apply"]["wq"] == [d, cfg.n_heads // m
+                                            * cfg.head_dim]
+        return
     if arch == "llama3.2-1b":
         dh = cfg.head_dim
         hq, hkv = cfg.n_heads // m, cfg.n_kv_heads // m
@@ -605,19 +718,70 @@ def test_recomputed_layer_gathers_and_splits_off_the_step_thread(world):
 
 @pytest.mark.parametrize("arch", OTHERS)
 def test_moe_and_encdec_keep_the_gather_whole_step(world, arch):
-    """qwen3-moe and seamless on data=2,model=2 take the gather-whole step
-    (no activation all-reduce part), with the same losses on every rank,
-    within 1e-5 of the reference's unsharded step's over a microbatch a
-    data coordinate (the MoE routes and takes capacity within each) from
-    the same state, and the params after the first step within the
-    first-step bound."""
+    """qwen3-moe and seamless on data=4 (a mesh without a ``model`` dim, a
+    row a rank) take the gather-whole step (no activation all-reduce part),
+    with the same losses on every rank, within 1e-5 of the reference's
+    unsharded step over the whole batch (the MoE routes the whole batch's
+    groups: a rank its 8 of the 32) from the same state, and the params
+    after the first step within the first-step bound."""
+    tag = "whole/" + arch
     infos = [info for _, info in world["ranks"]]
-    losses = infos[0][arch + ".losses"]
+    losses = infos[0][tag + ".losses"]
     for info in infos[1:]:
-        assert info[arch + ".losses"] == losses
-    assert infos[0][arch + ".split"] == ["forward_backward", "gather",
-                                         "reduce_scatter", "update"]
+        assert info[tag + ".losses"] == losses
+    assert infos[0][tag + ".split"] == ["forward_backward", "gather",
+                                        "reduce_scatter", "update"]
     np.testing.assert_allclose(losses, world["ref"][arch]["losses"], rtol=0,
                                atol=1e-5)
     for arrs, _ in world["ranks"]:
-        _first_step_bound(arrs, arch, world["ref"][arch]["after1"])
+        _first_step_bound(arrs, tag, world["ref"][arch]["after1"])
+
+
+@pytest.mark.parametrize("name", list(MOE_CASES))
+def test_moe_layer_split_matches_reference(world, name):
+    """The MoE layer on data=2,model=2, each data rank its half of the 4 x
+    16 tokens, against the reference's ``moe_apply_grouped`` on the whole
+    batch: output within 1e-5, the aux loss (the data ranks' mean) within
+    1e-5, the input's and every weight's gradient, the router's included,
+    within the SSD gradient tolerance of tests/test_torch_training.py
+    (objective: the outputs against a cotangent plus 3 aux). ``experts``:
+    qwen3-moe's 8 experts, 4 a rank; ``e_ff``: 3 experts, which 2 does not
+    divide, each rank every expert's half of the 128 ``e_ff`` columns;
+    ``drop``: one group a data rank whose experts drop tokens; ``gather``:
+    one group over both data ranks' rows."""
+    want = world["modules"]
+    arch, changes = MOE_CASES[name]
+    cfg = dataclasses.replace(jconfigs.get(arch).SMOKE, **changes)
+    key = f"moe_{name}"
+    for arrs, info in world["ranks"]:
+        np.testing.assert_allclose(arrs[key + ".out"], want[key + ".out"],
+                                   rtol=0, atol=1e-5)
+        np.testing.assert_allclose(arrs[key + ".aux"], want[key + ".aux"],
+                                   rtol=0, atol=1e-5)
+        for k in [k for k in want if k.startswith(key + ".g")]:
+            _grad_close(arrs[k], want[k], k)
+        e, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+        local = info[key + ".local"]
+        assert local["router"] == [d, e]
+        if e % 2 == 0:
+            assert local["w_in"] == [e // 2, d, f]
+            assert local["w_out"] == [e // 2, f, d]
+        else:
+            assert local["w_in"] == [e, d, f // 2]
+            assert local["w_out"] == [e, f // 2, d]
+
+
+def test_moe_cases_hold_the_faults_they_guard(world):
+    """The cases are ones where a wrong layout shows: on the ``experts``
+    case a data rank's own groups (32 of one token each, where the whole
+    batch has 32 of two) give another aux (the mean over the two halves of
+    the batch, routed apart) than the whole batch's, and the port's aux is
+    the whole batch's; on the ``drop`` case the whole batch's experts drop
+    routed slots past their capacity of 8."""
+    want = world["modules"]
+    aux, halves = float(want["moe_experts.aux"]), \
+        float(want["moe_experts.aux_halves"])
+    assert abs(aux - halves) > 1e-2, (aux, halves)
+    for arrs, _ in world["ranks"]:
+        assert abs(float(arrs["moe_experts.aux"]) - aux) <= 1e-5
+    assert int(want["moe_drop.dropped"]) > 0

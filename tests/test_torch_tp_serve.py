@@ -51,16 +51,24 @@ from repro.training import make_serve_step as jmake_serve_step
 
 ROOT = Path(__file__).resolve().parents[1]
 TIMEOUT = 300          # seconds, the world
-ARCHS = ("llama3.2-1b", "mamba2-1.3b", "zamba2-2.7b", "internvl2-76b")
+ENCDEC = "seamless-m4t-medium"
+ARCHS = ("llama3.2-1b", "mamba2-1.3b", "zamba2-2.7b", "internvl2-76b",
+         "qwen3-moe-235b-a22b", "grok-1-314b", ENCDEC)
+MOE_ARCHS = ("qwen3-moe-235b-a22b", "grok-1-314b")
 # (arch, cache kind, rules): "mesh" the default table, "seq" the production
 # rules with seq_shard=True
-RUNS = [(a, k, "mesh") for a in ARCHS[:3] for k in ("ring", "paged")] + [
+RUNS = [(a, k, "mesh") for a in ARCHS[:3] + MOE_ARCHS
+        for k in ("ring", "paged")] + [
     ("internvl2-76b", "ring", "mesh"), ("llama3.2-1b", "ring", "seq")]
 SERVE = dict(slots=2, max_new=4, eos_token=-1, prefill_chunk=4)
 WAVE_ARCHS = ("llama3.2-1b", "mamba2-1.3b")
 # (rows, prompt tokens, cache rows), 3 decode steps after the prefill
 WAVES = ((4, 12, 16), (1, 12, 16))
 DECODES = 3
+# the encoder-decoder's sharded wave steps: (rules, rows), each with
+# ENCDEC_FRAMES frames and the prompt tokens and cache rows of WAVES
+ENCDEC_WAVES = (("seq", 4), ("seq", 1), ("mesh", 4))
+ENCDEC_FRAMES = 16
 TOL = 1e-5
 # the merge's groups of ranges: the mesh dims a cache's rows split over
 MERGE_AXES = ("", "model", "data", "data,model")
@@ -78,6 +86,11 @@ def _wave_tokens(vocab: int, rows: int, seq: int) -> np.ndarray:
     rng = np.random.default_rng(rows)
     return rng.integers(3, vocab, size=(rows, seq + DECODES),
                         dtype=np.int64)
+
+
+def _frames(d: int, rows: int) -> np.ndarray:
+    rng = np.random.default_rng(100 + rows)
+    return rng.standard_normal((rows, ENCDEC_FRAMES, d)).astype(np.float32)
 
 
 WORKER = """
@@ -167,6 +180,8 @@ for arch, kind, rules in spec["runs"]:
     out[key + "/unsharded"] = np.stack(ulogits)
 
 for arch in spec["archs"]:
+    if arch not in loaded:
+        loaded[arch] = load(arch)
     cfg, bundle, params, placed = loaded[arch]
     mine = serving_params(placed, bundle, ctx)
     whole = serving_params(params, bundle, None)
@@ -196,16 +211,34 @@ for arch in spec["wave_archs"]:
         info[key] = {"rows": cache.get("rows"), "cache": {
             k: list(v.shape) for k, v in named(cache).items()}}
 
-for arch in ("qwen3-moe-235b-a22b", "seamless-m4t-medium"):
-    b = build(configs.get(arch).SMOKE)
-    for name, fn in (("engine", lambda: ServingEngine(
-                         b, None, ServeConfig(**spec["serve"]),
-                         mesh_ctx=ctx)),
-                     ("steps", lambda: make_serve_step(b, mesh_ctx=ctx))):
-        try:
-            fn()
-        except NotImplementedError as e:
-            info[f"raises/{arch}/{name}"] = str(e)
+# the encoder-decoder's wave steps, its rows of the frames and tokens
+cfg, bundle, params, placed = loaded[spec["encdec"]]
+_, s, cap = spec["waves"][0]
+for rules, rows in spec["encdec_waves"]:
+    mctx = contexts[rules]
+    mine = serving_params(placed, bundle, mctx)
+    prefill, decode = make_serve_step(bundle, mesh_ctx=mctx)
+    tok = torch.tensor(spec["encdec_tokens"][str(rows)])
+    frames = torch.tensor(spec["encdec_frames"][str(rows)])
+    with torch.inference_mode():
+        lg, cache = prefill(mine, {"frames": frames, "tokens": tok[:, :s]},
+                            cap)
+        got = [lg[:, -1].numpy().copy()]
+        for i in range(spec["decodes"]):
+            lg, cache = decode(mine, cache,
+                               {"tokens": tok[:, s + i:s + i + 1]})
+            got.append(lg[:, -1].numpy().copy())
+    key = f"encdec/{rules}/{rows}"
+    out[key] = np.stack(got)
+    info[key] = {"rows": cache.get("rows"), "cache": {
+        k: list(v.shape) for k, v in named(cache).items()}}
+
+# what still raises: the encoder-decoder's engine (no block step; the wave
+# raises under lockstep), slots that data does not divide
+try:
+    ServingEngine(bundle, placed, ServeConfig(**spec["serve"]), mesh_ctx=ctx)
+except ValueError as e:
+    info["raises/encdec/engine"] = str(e)
 try:
     ServingEngine(loaded["llama3.2-1b"][1], loaded["llama3.2-1b"][2],
                   ServeConfig(**dict(spec["serve"], slots=3)), mesh_ctx=ctx)
@@ -268,6 +301,22 @@ def _reference(jb, params, arch: str) -> dict:
     """The reference's unsharded engines (tokens) and wave steps (the
     logits after the prefill and each decode step)."""
     out = {}
+    if arch == ENCDEC:
+        prefill, decode = jmake_serve_step(jb)
+        _, s, cap = WAVES[0]
+        for _, rows in ENCDEC_WAVES:
+            tok = _wave_tokens(jb.cfg.vocab, rows, s).astype(np.int32)
+            lg, cache = prefill(params, {
+                "frames": _frames(jb.cfg.d_model, rows),
+                "tokens": tok[:, :s]})
+            cache = jpad_cache_seq(cache, cap - s)
+            got = [np.asarray(lg[:, -1])]
+            for i in range(DECODES):
+                lg, cache = decode(params, cache,
+                                   {"tokens": tok[:, s + i:s + i + 1]})
+                got.append(np.asarray(lg[:, -1]))
+            out[("encdec", rows)] = np.stack(got)
+        return out
     for run_arch, kind, _ in RUNS:
         if run_arch != arch or (arch, kind) in out:
             continue
@@ -305,9 +354,16 @@ def world(tmp_path_factory):
         np.savez(d / f"{arch}.npz", **{
             "/".join(str(getattr(p, "key", p)) for p in path): np.asarray(v)
             for path, v in jax.tree_util.tree_leaves_with_path(params)})
+    ecfg = jparams[ENCDEC][0].cfg
     spec = {"runs": RUNS, "serve": SERVE, "archs": ARCHS,
             "wave_archs": WAVE_ARCHS, "waves": WAVES, "decodes": DECODES,
             "merge_axes": MERGE_AXES, "merge_windows": MERGE_WINDOWS,
+            "encdec": ENCDEC, "encdec_waves": ENCDEC_WAVES,
+            "encdec_tokens": {str(r): _wave_tokens(
+                ecfg.vocab, r, WAVES[0][1]).tolist()
+                for _, r in ENCDEC_WAVES},
+            "encdec_frames": {str(r): _frames(ecfg.d_model, r).tolist()
+                              for _, r in ENCDEC_WAVES},
             "prompts": {a: [p.tolist() for p in _prompts(
                 jparams[a][0].cfg.vocab)] for a in ARCHS},
             "wave_tokens": {a: {str(r): _wave_tokens(
@@ -444,9 +500,10 @@ def test_sharded_wave_steps_match_reference(world, arch, rows):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_serving_params_keep_a_model_share(world, arch):
     """``serving_params`` on ``model=2``: every leaf split over ``model``
-    (q, k, v, wo, the MLP, the Mamba projections and conv, the vocab rows)
-    holds half its elements on a rank, the norms whole; the rank's bytes
-    are about half the whole model's."""
+    (q, k, v, wo, the MLP, the MoE's experts, the encoder-decoder's self
+    and cross attention, the Mamba projections and conv, the vocab rows)
+    holds half its elements on a rank, the norms and the MoE's router
+    whole; the rank's bytes are about half the whole model's."""
     for _, info in world["ranks"]:
         got = info["bytes/" + arch]
         split = {k: v for k, v in got["leaves"].items() if v[0] != v[1]}
@@ -457,19 +514,66 @@ def test_serving_params_keep_a_model_share(world, arch):
                 assert mine * 2 == whole, k
         whole_leaves = set(got["leaves"]) - set(split)
         assert all("ln" in k or "norm" in k or "stub_proj" in k
-                   for k in whole_leaves), whole_leaves
+                   or "router" in k for k in whole_leaves), whole_leaves
+        experts = [k for k in got["leaves"] if "moe/w_" in k]
+        assert all(k in split for k in experts)
+        assert len(experts) == (3 * 2 if arch in MOE_ARCHS else 0)
         assert got["rank"] < 0.6 * got["whole"]
 
 
 def test_moe_encdec_and_uneven_slots_raise(world):
-    """The MoE and the encoder-decoder still raise under a mesh that splits
-    a dim, naming slice 21; slots that ``data`` does not divide raise
-    ``ValueError`` before any step."""
+    """The MoE serves under a mesh that splits a dim (its engine runs, the
+    tests above), and so do the encoder-decoder's wave steps; what still
+    raises: the encoder-decoder's engine, which has no block step and
+    whose wave fallback raises ``ValueError`` under lockstep, as the
+    reference's engine does, and slots that ``data`` does not divide
+    (``ValueError`` before any step)."""
     for _, info in world["ranks"]:
-        for arch in ("qwen3-moe-235b-a22b", "seamless-m4t-medium"):
-            for name in ("engine", "steps"):
-                assert "slice 21" in info[f"raises/{arch}/{name}"]
+        for arch in MOE_ARCHS:
+            assert len(info[f"{arch}/ring/mesh"]["tokens"]) == 4
+        assert "continuous scheduler" in info["raises/encdec/engine"]
+        assert "encdec/seq/4" in info
         assert "3 slots do not divide" in info["raises/slots"]
+
+
+@pytest.mark.parametrize("rules,rows", ENCDEC_WAVES)
+def test_sharded_encdec_steps_match_reference(world, rules, rows):
+    """seamless SMOKE through ``make_serve_step(bundle, mesh_ctx=)``: a
+    prefill of 16 frames and 12 tokens into 16 self-cache rows and 3 decode
+    steps, each rank its rows (2 of 4 by data coordinate, or the one row),
+    within 1e-5 of the reference's unsharded ``make_serve_step``. Under
+    ``seq_shard`` the self and cross caches' rows are split over ``model``
+    (over ``data`` x ``model`` for the one row), every KV head; under the
+    default rules the KV heads are split, the rows whole."""
+    from repro_torch import configs
+
+    cfg = configs.get(ENCDEC).SMOKE
+    want = world["ref"][("encdec", rows)]
+    key = f"encdec/{rules}/{rows}"
+    cap = WAVES[0][2]
+    for arrays, info in world["ranks"]:
+        got = arrays[key]
+        if rows > 1:
+            d = info["coordinate"][0]
+            want_rows = want[:, 2 * d:2 * d + 2]
+        else:
+            want_rows = want
+        assert got.shape == want_rows.shape
+        np.testing.assert_allclose(got, want_rows, rtol=0, atol=TOL)
+        shapes = info[key]["cache"]
+        assert info[key]["rows"] == cap
+        b = max(rows // 2, 1)
+        if rules == "seq":
+            parts = 2 if rows > 1 else 4
+            heads, self_rows, cross_rows = (cfg.n_kv_heads, cap // parts,
+                                            ENCDEC_FRAMES // parts)
+        else:
+            heads, self_rows, cross_rows = cfg.n_kv_heads // 2, cap, \
+                ENCDEC_FRAMES
+        assert shapes["self_k"] == [cfg.n_layers, b, self_rows, heads,
+                                    cfg.dh]
+        assert shapes["cross_v"] == [cfg.n_layers, b, cross_rows, heads,
+                                     cfg.dh]
 
 
 @pytest.mark.parametrize("window", MERGE_WINDOWS)
