@@ -81,7 +81,6 @@ from repro_torch.core import policy as kpolicy
 from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
 from repro_torch.models import build
 from repro_torch.obs import cli as obs_cli
-from repro_torch.obs import profiling as _prof
 from repro_torch.optim import OptConfig
 from repro_torch.parallel.mesh_context import MeshContext, init_from_env, \
     make_context
@@ -236,9 +235,8 @@ def run(args, obs_sess=None) -> dict[int, float]:
                 (rows, args.seq, cfg.d_model), dtype=cfg.dtype,
                 device=device)
         t0 = time.perf_counter()
-        with _prof.span("train/step"):
-            state, metrics = step_fn(state, batch)
-            loss = metrics["loss"].item()     # waits for the step
+        state, metrics = step_fn(state, batch)
+        loss = metrics["loss"].item()     # waits for the step
         dt = time.perf_counter() - t0
         times.append(dt)
         losses[step] = loss

@@ -19,8 +19,9 @@ Submodules:
   resolution-event schema (:data:`RESOLUTION_FIELDS`).
 * :mod:`repro_torch.obs.runtime` — the active-session machinery
   (``enable``/``disable``/``using_obs``/``active``).
-* :mod:`repro_torch.obs.profiling` — ``torch.profiler`` trace hooks behind
-  ``--profile-dir``.
+* :mod:`repro_torch.obs.profiling` — spans (a bounded process-wide ring,
+  live while a session or a profiler records) and the ``torch.profiler``
+  trace behind ``--profile-dir``.
 """
 from repro_torch.obs.events import (DEFAULT_RING, RESOLUTION_FIELDS,
                                     EventSink, format_resolution, load_jsonl)

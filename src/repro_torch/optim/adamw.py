@@ -14,7 +14,10 @@ shards: each leaf's local Σg² goes through the same kernel, and is then
 summed over the mesh dims that leaf is sharded on, and only those.
 Everything here runs under ``torch.no_grad()`` and reads no device value on
 the host: ``step``, the learning rate and the norm stay tensors on the
-params' device.
+params' device. The update records two spans (``obs.profiling``), each
+waiting for the device at its ends while a profiler records:
+``train/clip`` (the global norm and the clip factor) and ``train/update``
+(the per-leaf pass).
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from repro_torch import tree
 from repro_torch.core import dispatch
 from repro_torch.core import policy as kpolicy
 from repro_torch.core.policy import KernelPolicy
+from repro_torch.obs import profiling as _prof
 from repro_torch.parallel.sharded_state import like, local, sharded_sums
 
 
@@ -109,13 +113,11 @@ def split_leaves(params, out, n: int) -> list:
 @torch.no_grad()
 def adamw_update(grads, opt_state, params, cfg: OptConfig):
     """-> (new_params, new_opt_state, metrics). params/grads f32."""
-    step = opt_state["step"] + 1
-    gnorm = global_norm(grads, policy=cfg.policy)
-    scale = clip_scale(gnorm, cfg)
-    lr = lr_at(cfg, step)
+    device = local(tree.leaves(params)[0]).device
+    with _prof.span("train/clip", wait=device):
+        gnorm = global_norm(grads, policy=cfg.policy)
+        scale = clip_scale(gnorm, cfg)
     b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1 - b1 ** step.float()
-    bc2 = 1 - b2 ** step.float()
 
     def upd(p_in, g, m, v):
         p, g, m, v = local(p_in), local(g), local(m), local(v)
@@ -127,7 +129,13 @@ def adamw_update(grads, opt_state, params, cfg: OptConfig):
         return (like(p_new, p_in), like(m_new.to(cfg.state_dtype), p_in),
                 like(v_new.to(cfg.state_dtype), p_in))
 
-    out = tree.map_tree(upd, params, grads, opt_state["m"], opt_state["v"])
-    new_p, new_m, new_v = split_leaves(params, out, 3)
+    with _prof.span("train/update", wait=device):
+        step = opt_state["step"] + 1
+        lr = lr_at(cfg, step)
+        bc1 = 1 - b1 ** step.float()
+        bc2 = 1 - b2 ** step.float()
+        out = tree.map_tree(upd, params, grads, opt_state["m"],
+                            opt_state["v"])
+        new_p, new_m, new_v = split_leaves(params, out, 3)
     metrics = {"grad_norm": gnorm, "lr": lr}
     return new_p, {"m": new_m, "v": new_v, "step": step}, metrics

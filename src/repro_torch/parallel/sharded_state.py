@@ -38,6 +38,7 @@ import torch
 from repro_torch import tree
 from repro_torch.core.distributed import all_gather, all_reduce_sum, \
     reduce_scatter
+from repro_torch.obs import profiling as _prof
 from repro_torch.parallel.sharding import NamedSharding, is_dtensor, spec_of
 
 
@@ -181,25 +182,24 @@ def scatter_grad(g: torch.Tensor, spec, mesh, batch_axes: tuple,
 class StepClock:
     """Seconds by part of a step, summed over its calls: each part waits
     for the device before it starts and before it ends (a CUDA device), so
-    a part holds its own kernels only."""
+    a part holds its own kernels only. Each part is also a span named
+    ``<prefix>/<part>`` (``obs.profiling``), recorded while spans record."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, prefix: str):
         self.device = device
+        self.prefix = prefix
         self.seconds: dict[str, float] = defaultdict(float)
-
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
     @contextlib.contextmanager
     def __call__(self, part: str):
-        self._sync()
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self._sync()
-            self.seconds[part] += time.perf_counter() - t0
+        _prof.wait_for(self.device)
+        with _prof.span(f"{self.prefix}/{part}"):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                _prof.wait_for(self.device)
+                self.seconds[part] += time.perf_counter() - t0
 
 
 def sharded_sums(leaves: list, values: list) -> list:

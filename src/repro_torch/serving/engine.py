@@ -59,9 +59,16 @@ reference's engine records, under the same names: ``serving`` events and
 step-cache lookup per engine, a ``serve_block_trace`` event per new step
 shape, and per tick the queue-depth and slot-occupancy gauges, the
 TTFT and token-latency histograms, ``repro_serving_tokens_total``, the four
-tick phases and the tick's wall time, a ``serving/block_step`` span, and the
-paged pool's gauges. Every site guards on ``runtime.ACTIVE is not None``
-(the span on the profiler's own flag, as in the reference).
+tick phases and the tick's wall time, and the paged pool's gauges. Every
+site guards on ``runtime.ACTIVE is not None``.
+
+Spans (``obs.profiling``; recorded while a session is active or a profiler
+records, read once a tick at its start): ``serving/tick``, from the end of
+admission to the end of the tick, holding ``serving/block_step``, which in
+a graph replay holds ``serving/stage`` (the inputs staged and copied) and
+``serving/launch`` (``graph.replay()``); and for each request at its
+admission ``serving/request/queue``, from its scheduled arrival to the
+start of the tick that admitted it (``Result.admitted_s``).
 
 Sharded serving (``mesh_ctx=``, a :class:`~repro_torch.parallel.
 MeshContext`; every family with a block step on any mesh of ``data`` x
@@ -212,6 +219,7 @@ class Result:
     tokens: list                    # generated ids (up to EOS)
     prompt_len: int
     arrival_s: float = 0.0
+    admitted_s: float | None = None      # start of the admitting tick
     first_token_s: float | None = None   # emission time of first token
     finish_s: float | None = None        # emission time of last token
     token_s: list = dataclasses.field(default_factory=list)
@@ -309,12 +317,14 @@ class _BlockGraph:
         # every tick ends with a fetch that waits for the replay, so the
         # previous copy out of ``host`` is done before it is written again,
         # and the replay has read the page plan before the next is staged
-        staged = self.host.numpy()
-        for name, (off, shape) in self.fields.items():
-            staged[off:off + int(np.prod(shape))] = \
-                np.asarray(step_inputs[name]).reshape(-1)
-        self.inputs.copy_(self.host, non_blocking=True)
-        self.graph.replay()
+        with _prof.span("serving/stage"):
+            staged = self.host.numpy()
+            for name, (off, shape) in self.fields.items():
+                staged[off:off + int(np.prod(shape))] = \
+                    np.asarray(step_inputs[name]).reshape(-1)
+            self.inputs.copy_(self.host, non_blocking=True)
+        with _prof.span("serving/launch"):
+            self.graph.replay()
         kops.add_launches(self.launches)
         return self.logits
 
@@ -695,6 +705,7 @@ class ServingEngine:
 
         while True:
             sess = _obs.ACTIVE       # per tick: sessions can open mid-run
+            spans = _prof.recording()
             now = time.perf_counter() - t0
             tick_start = t0 + now    # same clock read; no cost when off
             cur = self.ticks
@@ -736,12 +747,15 @@ class ServingEngine:
                     self._trace_event(cur, "swa_degrade", req.uid, i,
                                       need=need, capacity=self._capacity)
                 self.queue.popleft()
+                if spans:
+                    _prof.add("serving/request/queue", t0 + req.arrival_s,
+                              tick_start)
                 slots[i] = _Slot(
                     free=False, req=req, budget=budget,
                     result=Result(uid=req.uid, tokens=[],
                                   prompt_len=len(req.prompt),
                                   arrival_s=req.arrival_s,
-                                  admitted_tick=cur))
+                                  admitted_s=now, admitted_tick=cur))
                 slots[i].ppos = start   # trie-shared prefix tokens skipped
                 reset[i] = True
                 self._trace_event(cur, "admit", req.uid, i, start=start)
@@ -767,91 +781,93 @@ class ServingEngine:
             t_len = chunk if any_prefill else 1
             if sess is not None:
                 t_adm = time.perf_counter()
-                sess.gauge("repro_serving_queue_depth",
-                           "requests waiting for a slot").set(
-                    len(self.queue))
-                sess.gauge("repro_serving_slot_occupancy",
-                           "fraction of decode slots busy").set(
-                    len(active) / nb)
-            tokens = np.zeros((nb, t_len), np.int64)
-            n_valid = np.zeros(nb, np.int64)
-            for i in active:
-                s = slots[i]
-                plen = len(s.req.prompt)
-                if s.ppos < plen:
-                    take = min(t_len, plen - s.ppos)
-                    tokens[i, :take] = s.req.prompt[s.ppos:s.ppos + take]
-                    n_valid[i] = take
-                else:
-                    tokens[i, 0] = s.last
-                    n_valid[i] = 1
-            plan = None
-            if self._kv is not None:
-                plan = self._kv.plan_tick({i: int(n_valid[i])
-                                           for i in active})
-            step_in = self._step_inputs(tokens, n_valid, reset, plan)
-            if _prof._TRACING:
+            with _prof.span("serving/tick"):
+                if sess is not None:
+                    sess.gauge("repro_serving_queue_depth",
+                               "requests waiting for a slot").set(
+                        len(self.queue))
+                    sess.gauge("repro_serving_slot_occupancy",
+                               "fraction of decode slots busy").set(
+                        len(active) / nb)
+                tokens = np.zeros((nb, t_len), np.int64)
+                n_valid = np.zeros(nb, np.int64)
+                for i in active:
+                    s = slots[i]
+                    plen = len(s.req.prompt)
+                    if s.ppos < plen:
+                        take = min(t_len, plen - s.ppos)
+                        tokens[i, :take] = s.req.prompt[s.ppos:s.ppos + take]
+                        n_valid[i] = take
+                    else:
+                        tokens[i, 0] = s.last
+                        n_valid[i] = 1
+                plan = None
+                if self._kv is not None:
+                    plan = self._kv.plan_tick({i: int(n_valid[i])
+                                               for i in active})
+                step_in = self._step_inputs(tokens, n_valid, reset, plan)
                 with _prof.span("serving/block_step"):
                     logits = self._block_step(step_in)
-            else:
-                logits = self._block_step(step_in)
-            if sess is not None:
-                t_step = time.perf_counter()
-            nxt = self._sample(logits)
-            now = time.perf_counter() - t0
-            self.ticks = cur + 1
-
-            for i in active:
-                s = slots[i]
-                if self._kv is not None:
-                    self._kv.advance(i, int(n_valid[i]))
-                plen = len(s.req.prompt)
-                if s.ppos < plen:
-                    s.ppos += int(n_valid[i])
-                    if self._kv is not None and s.ppos >= plen:
-                        self._kv.mark_prefilled(i)
-                    if s.ppos < plen:
-                        continue        # mid-prefill: logits are interim
-                # this tick produced a real token for slot i
-                tok = int(nxt[i])
-                s.last = tok
-                res = s.result
-                if res.first_token_s is None:
-                    res.first_token_s = now
-                    if sess is not None:
-                        sess.histogram(
-                            "repro_serving_ttft_seconds",
-                            "request arrival to first token").observe(
-                            max(0.0, now - res.arrival_s))
-                finished = tok == self.cfg.eos_token
-                if not finished:
-                    if sess is not None and res.token_s:
-                        sess.histogram(
-                            "repro_serving_token_latency_seconds",
-                            "gap between consecutive emitted tokens"
-                        ).observe(max(0.0, now - res.token_s[-1]))
-                    res.tokens.append(tok)
-                    res.token_s.append(now)
-                    if sess is not None:
-                        sess.counter("repro_serving_tokens_total",
-                                     "decode tokens emitted").inc()
-                    finished = len(res.tokens) >= s.budget
-                if finished:
-                    res.finish_s = now
-                    res.finish_tick = cur
-                    self._trace_event(cur, "finish", res.uid, i)
-                    out.append(res)
-                    if self._kv is not None:
-                        self._kv.release(i)   # pages back to the pool
-                    slots[i] = _Slot()  # freed; refilled next tick
-            if self._kv is not None:
-                self._kv.end_tick()
                 if sess is not None:
-                    self._kv.emit_gauges()
+                    t_step = time.perf_counter()
+                nxt = self._sample(logits)
+                now = time.perf_counter() - t0
+                self.ticks = cur + 1
+
+                for i in active:
+                    s = slots[i]
+                    if self._kv is not None:
+                        self._kv.advance(i, int(n_valid[i]))
+                    plen = len(s.req.prompt)
+                    if s.ppos < plen:
+                        s.ppos += int(n_valid[i])
+                        if self._kv is not None and s.ppos >= plen:
+                            self._kv.mark_prefilled(i)
+                        if s.ppos < plen:
+                            continue        # mid-prefill: logits are interim
+                    # this tick produced a real token for slot i
+                    tok = int(nxt[i])
+                    s.last = tok
+                    res = s.result
+                    if res.first_token_s is None:
+                        res.first_token_s = now
+                        if sess is not None:
+                            sess.histogram(
+                                "repro_serving_ttft_seconds",
+                                "request arrival to first token").observe(
+                                max(0.0, now - res.arrival_s))
+                    finished = tok == self.cfg.eos_token
+                    if not finished:
+                        if sess is not None and res.token_s:
+                            sess.histogram(
+                                "repro_serving_token_latency_seconds",
+                                "gap between consecutive emitted tokens"
+                            ).observe(max(0.0, now - res.token_s[-1]))
+                        res.tokens.append(tok)
+                        res.token_s.append(now)
+                        if sess is not None:
+                            sess.counter("repro_serving_tokens_total",
+                                         "decode tokens emitted").inc()
+                        finished = len(res.tokens) >= s.budget
+                    if finished:
+                        res.finish_s = now
+                        res.finish_tick = cur
+                        self._trace_event(cur, "finish", res.uid, i)
+                        out.append(res)
+                        if self._kv is not None:
+                            self._kv.release(i)   # pages back to the pool
+                        slots[i] = _Slot()  # freed; refilled next tick
+                if self._kv is not None:
+                    self._kv.end_tick()
+                    if sess is not None:
+                        self._kv.emit_gauges()
+                if sess is not None:
+                    # taken before the tick's span records, so its cost
+                    # falls outside the phases
+                    t_end = time.perf_counter()
             if sess is not None:
                 # contiguous boundaries: the four phase durations sum to
                 # the tick wall time (to float addition error)
-                t_end = time.perf_counter()
                 ph = sess.histogram(
                     "repro_serving_tick_phase_seconds",
                     "per-tick phase wall time (phases sum to the tick)")
@@ -890,6 +906,11 @@ class ServingEngine:
                     t0: float | None) -> list[Result]:
         if t0 is None:
             t0 = time.perf_counter()
+        admitted = time.perf_counter() - t0
+        if _prof.recording():
+            for r in wave:
+                _prof.add("serving/request/queue", t0 + r.arrival_s,
+                          t0 + admitted)
         nb, live = self.cfg.slots, len(wave)
         budgets = [self._budget(r) for r in wave]
         wave_budget = max(budgets)
@@ -941,8 +962,9 @@ class ServingEngine:
                 toks, ts = toks[:cut], ts[:cut]
             results.append(Result(
                 uid=r.uid, tokens=toks, prompt_len=len(r.prompt),
-                arrival_s=r.arrival_s, first_token_s=times[i][0],
-                finish_s=times[i][-1], token_s=ts))
+                arrival_s=r.arrival_s, admitted_s=admitted,
+                first_token_s=times[i][0], finish_s=times[i][-1],
+                token_s=ts))
         return results
 
 

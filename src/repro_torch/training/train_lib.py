@@ -66,7 +66,15 @@ shard (``repro_torch.parallel.sharded_state``); the global norm and the
 update run on the shards. The step records the seconds of its parts
 (``step.split``: gather, forward and backward, reduce-scatter, the
 activations' all-reduces over ``model`` (``tp_all_reduce``, tensor
-parallelism only), update).
+parallelism only), update), each also a ``train/sharded/<part>`` span.
+
+Spans (``obs.profiling``; recorded while a session is active or a profiler
+records): ``train/step`` holds ``train/forward`` (``bundle.loss``, the
+casts included) and ``train/backward`` (``autograd.grad``, the layers'
+recompute included), one pair a microbatch, then the optimizer's
+``train/clip`` and ``train/update`` (``optim.adamw``). While a profiler
+records, the four wait for the device at their start and end, so each
+holds its own kernels.
 """
 from __future__ import annotations
 
@@ -88,6 +96,7 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.lm import Bundle, kv_leaf, pad_cache_seq, \
     serves_split
+from repro_torch.obs import profiling as _prof
 from repro_torch.obs import runtime as _obs
 from repro_torch.optim import OptConfig, adamw_update, init_opt_state
 from repro_torch.optim.adafactor import adafactor_update, init_adafactor_state
@@ -289,15 +298,10 @@ def value_and_grad(bundle: Bundle, params, batch):
     (zeros for a leaf the loss does not use)."""
     leaves = [p.detach().requires_grad_(p.is_floating_point())
               for p in tree.leaves(params)]
-    loss = bundle.loss(cast_tree(tree.unflatten(params, leaves),
-                                 bundle.cfg.dtype), batch)
-    wrt = [p for p in leaves if p.requires_grad]
-    got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
-    grads = []
-    for p in leaves:
-        g = next(got) if p.requires_grad else None
-        grads.append(torch.zeros_like(p) if g is None else g)
-    return loss.detach(), tree.unflatten(params, grads)
+    with _prof.span("train/forward", wait=leaves[0].device):
+        loss = bundle.loss(cast_tree(tree.unflatten(params, leaves),
+                                     bundle.cfg.dtype), batch)
+    return loss.detach(), tree.unflatten(params, _grads(loss, leaves))
 
 
 def sharded_value_and_grad(bundle: Bundle, params, batch, *,
@@ -329,7 +333,8 @@ def sharded_value_and_grad(bundle: Bundle, params, batch, *,
             else:
                 with clock("gather"):
                     views.append(shst.gather_full(s, spec_of(p), mesh))
-        loss = bundle.loss(tree.unflatten(params, views), batch)
+        with _prof.span("train/forward", wait=shards[0].device):
+            loss = bundle.loss(tree.unflatten(params, views), batch)
         grads = _grads(loss, shards)
     return _batch_mean(loss, mesh, batch_axes), tree.unflatten(params, grads)
 
@@ -352,20 +357,24 @@ def tp_value_and_grad(bundle: Bundle, params, batch, *, batch_axes: tuple,
         vocab_split=bundle.cfg.vocab % tpar.model_size(mesh) == 0,
         batch_axes=batch_axes, clock=clock)
     with clock("forward_backward"), tpar.active(tp):
-        loss = bundle.tp_loss(tree.unflatten(params, [
-            tpar.Shard(s, spec_of(p)) for s, p in zip(shards, flat)]), batch)
+        with _prof.span("train/forward", wait=shards[0].device):
+            loss = bundle.tp_loss(tree.unflatten(params, [
+                tpar.Shard(s, spec_of(p)) for s, p in zip(shards, flat)]),
+                batch)
         grads = _grads(loss, shards)
     return _batch_mean(loss, mesh, batch_axes), tree.unflatten(params, grads)
 
 
 def _grads(loss, shards: list) -> list:
-    """The gradient of ``loss`` for each shard (zeros where unused)."""
+    """The gradient of ``loss`` for each shard (zeros where unused), in a
+    ``train/backward`` span."""
     wrt = [s for s in shards if s.requires_grad]
-    got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
-    grads = []
-    for s in shards:
-        g = next(got) if s.requires_grad else None
-        grads.append(torch.zeros_like(s) if g is None else g)
+    with _prof.span("train/backward", wait=shards[0].device):
+        got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
+        grads = []
+        for s in shards:
+            g = next(got) if s.requires_grad else None
+            grads.append(torch.zeros_like(s) if g is None else g)
     return grads
 
 
@@ -455,14 +464,14 @@ def make_train_step(bundle: Bundle, opt_cfg: OptConfig,
 
     def step(state, batch):
         trace(batch)
-        with activate(mesh_ctx):
+        with activate(mesh_ctx), _prof.span("train/step"):
             return _step(state, batch)
 
     def _step(state, batch):
         params = state["params"]
         sharded = is_dtensor(tree.leaves(params)[0])
-        clock = (shst.StepClock(shst.local(tree.leaves(params)[0]).device)
-                 if sharded else None)
+        clock = (shst.StepClock(shst.local(tree.leaves(params)[0]).device,
+                                "train/sharded") if sharded else None)
         loss, grads = grads_of(params, batch, clock)
         new_state = dict(state)
         with torch.no_grad():
@@ -555,7 +564,8 @@ def _sharded_serve_steps(bundle: Bundle, mesh_ctx):
             kv_leaf(bundle.cache_pspec(batch, rows, **kind))
         return tpar.for_serving(mesh_ctx, cfg.dtype, vocab=cfg.vocab,
                                 batch=batch, kv=kv,
-                                clock=shst.StepClock(device))
+                                clock=shst.StepClock(device,
+                                                     "serving/sharded"))
 
     def mine(batch: dict, tp) -> dict:
         rows = next(iter(batch.values())).shape[0] // tp.row_parts()

@@ -12,7 +12,11 @@ reference's weights carried over by ``params_from_numpy``: the ``serving``
 and ``kv_*`` event sequences, the request, token and deferral counters, the
 histogram counts per label, the final gauges, and the resolution and
 ``kernel_invoke`` events as sets (the reference records them once per jit
-trace, the port on the CPU at every eager tick).
+trace, the port on the CPU at every eager tick). Then the port's own spans
+(``obs.profiling``), which the reference has no counterpart of: off unless
+a session or a profiler records, waiting for the device only under a
+profiler, the ring's bound, the tick and queue spans, and the train
+step's.
 """
 from __future__ import annotations
 
@@ -21,6 +25,9 @@ import dataclasses
 import glob
 import json
 import os
+import sys
+import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -51,8 +58,10 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import build_lm
 from repro_torch.models.common import params_from_numpy
 from repro_torch.obs import cli as obs_cli
+from repro_torch.obs import profiling
 from repro_torch.obs.events import RESOLUTION_FIELDS, EventSink
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.parallel.sharded_state import StepClock
 from repro_torch.serving import Request, ServeConfig, ServingEngine
 
 ARCHS = {"llama": (jllama, tllama), "mamba": (jmamba, tmamba)}
@@ -687,12 +696,234 @@ def test_obs_flags_match_the_reference():
 
 
 def test_span_is_free_unless_tracing(tmp_path, monkeypatch):
+    profiling.reset()
     monkeypatch.setattr(torch.profiler, "record_function", None)
     with obs.span("serving/block_step"):      # no trace: never looked up
         pass
     with obs.tracing(None):
         with obs.span("serving/block_step"):
             pass
+    assert obs.span("serving/launch") is profiling.OFF
+    assert not profiling.recording()
+    assert profiling.recorded() == [] and profiling.dropped() == 0
+
+
+def test_span_records_under_a_session_without_the_profiler(monkeypatch):
+    """A session alone turns spans on: they nest by the thread's open
+    span and go into the ring, and no ``record_function`` is opened."""
+    profiling.reset()
+    monkeypatch.setattr(torch.profiler, "record_function", None)
+    with obs.using_obs():
+        with obs.span("outer") as outer:
+            with obs.span("inner"):
+                pass
+            profiling.add("late", outer.start - 1.0, outer.start)
+    inner, late, outer_rec = profiling.recorded()
+    assert [r.name for r in (inner, late, outer_rec)] == \
+        ["inner", "late", "outer"]
+    assert inner.parent == outer_rec.id == late.parent
+    assert outer_rec.parent == 0 and late.id not in (inner.id, outer_rec.id)
+    assert late.end == outer_rec.start
+    assert outer_rec.start <= inner.start <= inner.end <= outer_rec.end
+
+
+def test_spans_wait_for_the_device_only_under_a_profiler(monkeypatch):
+    """``wait=`` waits for the device at a span's two ends while a
+    profiler records, and never under a session alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    waits = []
+    monkeypatch.setattr(torch.cuda, "synchronize", waits.append)
+    card = torch.device("cuda", 0)
+    profiling.reset()
+    with obs.using_obs():
+        with obs.span("train/update", wait=card):
+            pass
+    assert waits == [] and len(profiling.recorded()) == 1
+    with profile(activities=[ProfilerActivity.CPU]):
+        with obs.span("train/update", wait=card):
+            pass
+        with obs.span("train/step"):
+            pass
+    assert waits == [card, card] and len(profiling.recorded()) == 3
+
+
+def test_span_ring_drops_the_oldest_and_counts_them(monkeypatch):
+    monkeypatch.setattr(profiling, "RING", 4)
+    profiling.reset()
+    try:
+        with obs.using_obs():
+            for i in range(6):
+                with obs.span(f"s{i}"):
+                    pass
+        assert [r.name for r in profiling.recorded()] == \
+            ["s2", "s3", "s4", "s5"]
+        assert profiling.dropped() == 2
+    finally:
+        monkeypatch.undo()
+        profiling.reset()
+    assert profiling.recorded() == [] and profiling.dropped() == 0
+
+
+def test_span_ring_loses_no_count_under_threads(monkeypatch):
+    """Threads that record at once: the ring keeps its newest spans, each
+    with its own id, and counts every other one as dropped."""
+    monkeypatch.setattr(profiling, "RING", 100)
+    profiling.reset()
+    n_threads, each = (os.cpu_count() or 1) + 2, 200
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work():
+            for _ in range(each):
+                profiling.add("x", 0.0, 1.0)
+
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        recs = profiling.recorded()
+        assert len(recs) == len({r.id for r in recs}) == 100
+        assert profiling.dropped() == n_threads * each - 100
+    finally:
+        sys.setswitchinterval(interval)
+        monkeypatch.undo()
+        profiling.reset()
+
+
+def test_step_clock_parts_are_spans():
+    """The sharded step's clock records each part as a
+    ``<prefix>/<part>`` span and keeps its seconds as before."""
+    profiling.reset()
+    clock = StepClock(torch.device("cpu"), "train/sharded")
+    with clock("update"):                     # nothing records
+        pass
+    assert profiling.recorded() == []
+    with obs.using_obs():
+        with clock("forward_backward"):
+            with clock("gather"):
+                pass
+    gather, fb = profiling.recorded()
+    assert (gather.name, fb.name) == ("train/sharded/gather",
+                                      "train/sharded/forward_backward")
+    assert gather.parent == fb.id
+    assert set(clock.seconds) == {"update", "forward_backward", "gather"}
+    assert clock.seconds["forward_backward"] >= clock.seconds["gather"]
+
+
+def test_tick_spans_hold_the_block_step(llama_port):
+    """Under a session every tick records one ``serving/tick`` span, after
+    the tick's admission and before the next tick, holding that tick's
+    ``serving/block_step``; the phase histograms are fed as before."""
+    profiling.reset()
+    eng = port_engine(llama_port, tllama, slots=2, max_new=4, eos_token=-1,
+                      prefill_chunk=4)
+    with obs.using_obs() as sess:
+        eng.run(requests(3))
+        ph = sess.metrics.get("repro_serving_tick_phase_seconds")
+        tick_h = sess.metrics.get("repro_serving_tick_seconds")
+    recs = profiling.recorded()
+    ticks = [r for r in recs if r.name == "serving/tick"]
+    steps = [r for r in recs if r.name == "serving/block_step"]
+    assert len(ticks) == len(steps) == eng.ticks
+    for t, step in zip(ticks, steps):
+        assert t.parent == 0 and step.parent == t.id
+        assert t.start <= step.start <= step.end <= t.end
+    assert all(a.end <= b.start for a, b in zip(ticks, ticks[1:]))
+    hist = {dict(k)["phase"]: v for k, v in ph.series().items()}
+    assert sum(h["count"] for h in hist.values()) == 4 * eng.ticks
+    assert tick_h.stats()["count"] == eng.ticks
+
+
+def test_a_failed_tick_leaves_no_span_open(llama_port, monkeypatch):
+    """A block step that raises closes the tick's span on the way out: the
+    next span nests under nothing."""
+    profiling.reset()
+    eng = port_engine(llama_port, tllama, slots=2, max_new=2, eos_token=-1)
+
+    def fail(step_in):
+        raise RuntimeError("device lost")
+
+    monkeypatch.setattr(eng, "_block_step", fail)
+    with obs.using_obs():
+        with pytest.raises(RuntimeError, match="device lost"):
+            eng.run(requests(1))
+        with obs.span("after"):
+            pass
+    recs = {r.name: r for r in profiling.recorded()}
+    assert recs["serving/block_step"].parent == recs["serving/tick"].id
+    assert recs["after"].parent == 0
+
+
+def test_request_queue_spans_match_the_results(llama_port):
+    """Every request records ``serving/request/queue`` from its arrival to
+    its admission, and its ``Result`` carries the admission time."""
+    profiling.reset()
+    eng = port_engine(llama_port, tllama, slots=2, max_new=3, eos_token=-1)
+    reqs = requests(4)
+    for i, r in enumerate(reqs):
+        r.arrival_s = 0.01 * i
+    with obs.using_obs():
+        t_run = time.perf_counter()
+        res = eng.run(reqs)
+    queue = [s for s in profiling.recorded()
+             if s.name == "serving/request/queue"]
+    assert {r.uid for r in res} == {0, 1, 2, 3} and len(queue) == 4
+    for r in res:
+        assert r.arrival_s <= r.admitted_s <= r.first_token_s <= r.finish_s
+    assert all(s.parent == 0 and s.start >= t_run for s in queue)
+    assert sorted(s.end - s.start for s in queue) == pytest.approx(
+        sorted(r.admitted_s - r.arrival_s for r in res), abs=1e-9)
+    # two slots for four requests: the last two wait in the queue
+    assert max(s.end - s.start for s in queue) > 0
+
+
+def test_wave_results_carry_admission_and_queue_spans(llama_port):
+    profiling.reset()
+    eng = port_engine(llama_port, tllama, slots=2, max_new=3, eos_token=-1,
+                      scheduler="wave")
+    with obs.using_obs():
+        res = eng.run(requests(3))
+    queue = [s for s in profiling.recorded()
+             if s.name == "serving/request/queue"]
+    assert len(queue) == 3
+    for r in res:
+        assert r.arrival_s <= r.admitted_s <= r.first_token_s
+
+
+def test_train_step_phases_nest_under_a_cpu_profiler():
+    """A SMOKE train step under a CPU profiler (no session) records
+    ``train/step`` holding forward, backward, clip and update, in that
+    order, and the profiler sees them as ranges."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.optim import OptConfig
+    from repro_torch.training import init_train_state, make_train_step
+
+    profiling.reset()
+    bundle = build_lm(tmamba.SMOKE)
+    opt = OptConfig(peak_lr=1e-3, warmup_steps=0, decay_steps=10)
+    state = init_train_state(torch.Generator().manual_seed(0), bundle, opt)
+    step = make_train_step(bundle, opt)
+    tok = torch.randint(3, tmamba.SMOKE.vocab, (2, 17))
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    step(state, batch)                  # nothing records
+    assert profiling.recorded() == []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(state, batch)
+    recs = profiling.recorded()
+    (top,) = [r for r in recs if r.name == "train/step"]
+    kids = sorted((r for r in recs if r.parent == top.id),
+                  key=lambda r: r.start)
+    assert [k.name for k in kids] == ["train/forward", "train/backward",
+                                      "train/clip", "train/update"]
+    assert all(a.end <= b.start for a, b in zip(kids, kids[1:]))
+    assert top.start <= kids[0].start and kids[-1].end <= top.end
+    ranges = {e.name for e in prof.events()}
+    assert {"train/step", "train/forward", "train/backward", "train/clip",
+            "train/update"} <= ranges
 
 
 def test_serve_cli_writes_all_three_artifacts(tmp_path, capsys):
